@@ -1,0 +1,102 @@
+"""Carry key and context tables across from the JAX package.
+
+The JAX package's tables, given as numpy arrays (``np.asarray`` of its
+attributes), become this package's tables, so both packages can
+compute on the same constants:
+
+- RNS context constants: ``dA``/``dB`` (dicts of ``m``, ``m_f``,
+  ``inv_f``, ``inv_Mi``), ``W_AB``/``W_BA`` ((hi, lo) 7-bit halves, any
+  numeric dtype — the JAX package keeps them in bf16), ``Amod_B``,
+  ``Bmod_A``, ``invA_B``; for field contexts also ``sig_c``, ``p_B``,
+  ``cp_A``, ``cp_B``;
+- ``RNSKeyTable``: ``sig_c``, ``n_B``, ``a2_A``, ``a2_B``;
+- ``ECRNSKeyTable``: ``tab``.
+
+Every array must have the shape of the table it replaces and hold
+integers (floats only where the port keeps floats).
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Dict, Sequence
+
+import numpy as np
+
+from .gpu.ec import ECKeyTable
+from .gpu.ec_rns import ECRNSKeyTable
+from .gpu.rns import RNSKeyTable
+from .gpu.rsa import RSAKeyTable
+
+_CTX_SCALARS = ("Amod_B", "Bmod_A", "invA_B")
+_FIELD_ARRAYS = ("sig_c", "p_B", "cp_A", "cp_B")
+_BASE_KEYS = ("m", "m_f", "inv_f", "inv_Mi")
+
+
+def _like(ref: np.ndarray, a, name: str) -> np.ndarray:
+    a = np.asarray(a)
+    if a.shape != ref.shape:
+        raise ValueError(f"{name}: shape {a.shape}, expected {ref.shape}")
+    if ref.dtype.kind == "f":
+        return a.astype(ref.dtype)
+    as_f = a.astype(np.float64)
+    if not np.array_equal(as_f, np.round(as_f)):
+        raise ValueError(f"{name}: non-integer entries")
+    return as_f.astype(ref.dtype)
+
+
+def load_context(ctx, arrays: Dict):
+    """A copy of ``ctx`` (an ``RNSContext`` or ``FieldRNSContext``) whose
+    constants come from ``arrays``."""
+    new = copy.copy(ctx)
+    for base in ("dA", "dB"):
+        ref = getattr(ctx, base)
+        setattr(new, base, {k: _like(ref[k], arrays[base][k],
+                                     f"{base}.{k}") for k in _BASE_KEYS})
+    for name in ("W_AB", "W_BA"):
+        ref = getattr(ctx, name)
+        setattr(new, name, tuple(_like(r, a, f"{name}[{i}]") for i, (r, a)
+                                 in enumerate(zip(ref, arrays[name]))))
+    names = _CTX_SCALARS + (_FIELD_ARRAYS if hasattr(ctx, "cp_A") else ())
+    for name in names:
+        setattr(new, name, _like(getattr(ctx, name), arrays[name], name))
+    new._dev = {}
+    new.__dict__.pop("_kernel_consts", None)
+    return new
+
+
+def rns_key_table(ctx, arrays: Dict) -> RNSKeyTable:
+    """An ``RNSKeyTable`` on ``ctx`` from the JAX table's arrays."""
+    nk = np.asarray(arrays["sig_c"]).shape[0]
+    out = RNSKeyTable.__new__(RNSKeyTable)
+    out.ctx = ctx
+    shapes = {"sig_c": (nk, ctx.A.count), "n_B": (nk, ctx.B.count),
+              "a2_A": (nk, ctx.A.count), "a2_B": (nk, ctx.B.count)}
+    out.set_arrays(*(_like(np.zeros(shapes[k], np.int32), arrays[k], k)
+                     for k in ("sig_c", "n_B", "a2_A", "a2_B")))
+    return out
+
+
+def rsa_key_table(public_numbers: Sequence, ctx_arrays: Dict,
+                  table_arrays: Dict, device="cuda") -> RSAKeyTable:
+    """An ``RSAKeyTable`` computing on the JAX package's constants."""
+    table = RSAKeyTable(public_numbers, device)
+    table.ctx = load_context(table.ctx, ctx_arrays)
+    table.rtab = rns_key_table(table.ctx, table_arrays)
+    return table
+
+
+def ec_key_table(crv: str, keys: Sequence, ctx_arrays: Dict, tab,
+                 device="cuda") -> ECKeyTable:
+    """An ``ECKeyTable`` whose RNS context and window table are the JAX
+    package's."""
+    from .gpu.ec_rns import ctx_for, packed_cols
+
+    ctx = load_context(ctx_for(crv), ctx_arrays)
+    per = (1 << ctx.w_bits) - 1
+    rows = ctx.n_windows * (len(keys) + 1) * per
+    tab = _like(np.zeros((rows, 2 * packed_cols(ctx)), np.int32), tab,
+                "tab")
+    table = ECKeyTable(crv, keys, device)
+    table._rns = ECRNSKeyTable(crv, keys, tab=tab, ctx=ctx)
+    return table

@@ -1,0 +1,135 @@
+"""RNS Montgomery reduction (REDC): the hand-written CUDA kernel and
+its plain PyTorch version.
+
+``redc(ctx, xA, xB)`` computes t = x·A⁻¹ mod p for per-channel (EC)
+contexts: σ = x_A·sig_c, the A→B extension, t_B = (x_B + q·p)·A⁻¹,
+the B→A extension — what the JAX package's ``pallas_redc._redc_kernel``
+computes. On a CUDA tensor it launches ``csrc/redc.cu`` (or raises);
+on a CPU tensor it runs :func:`redc_ref`. ``launches`` counts kernel
+launches.
+
+The kernel reads every per-context constant from ONE int32 buffer
+(:func:`kernel_consts`), laid out as ``Layout<IA, IB>`` in
+``csrc/rns_ops.cuh``; the mixed-add kernel shares it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .rns import _redc
+
+launches = 0
+
+# The kernels are instantiated for these (I_A, I_B) channel counts:
+# P-256 (the north-star curve). Other curves raise on the card.
+KERNEL_SHAPES = ((23, 23),)
+MAX_C = 32            # c·p rows per context (FieldRNSContext maxc)
+
+
+def redc_ref(ctx, xA: torch.Tensor, xB: torch.Tensor):
+    """Plain PyTorch REDC (``rns._redc`` with the context's constants)."""
+    cc = ctx.device_consts(xA.device)
+    return _redc(xA, xB, cc.sig_c, cc.p_B, cc)
+
+
+def kernel_consts(ctx, device) -> torch.Tensor:
+    """The context's constants as the kernels' int32 buffer on ``device``
+    (order and sizes: ``Layout`` in csrc/rns_ops.cuh)."""
+    device = torch.device(device)
+    cache = ctx.__dict__.setdefault("_kernel_consts", {})
+    hit = cache.get(device)
+    if hit is not None:
+        return hit
+    if ctx.cp_A.shape[0] != MAX_C:
+        raise ValueError(f"kernels expect {MAX_C} c·p rows")
+
+    def f32(a):
+        return np.asarray(a, np.float32).view(np.int32)
+
+    mA = np.asarray(ctx.dA["m"], np.int64)
+    mB = np.asarray(ctx.dB["m"], np.int64)
+    one = ctx.a_mod_p
+    parts = [
+        mA, mB, f32(ctx.dA["inv_f"]), f32(ctx.dB["inv_f"]),
+        ctx.sig_c, ctx.p_B, ctx.Amod_B, ctx.Bmod_A, ctx.invA_B,
+        ctx.dB["inv_Mi"], (1 << 14) % mA, (1 << 14) % mB,
+        [one % int(m) for m in mA], [one % int(m) for m in mB],
+        ctx.W_AB[0], ctx.W_AB[1], ctx.W_BA[0], ctx.W_BA[1],
+        ctx.cp_A, ctx.cp_B,
+    ]
+    buf = np.concatenate([np.asarray(p).astype(np.int32).ravel()
+                          for p in parts])
+    out = torch.as_tensor(buf, device=device)
+    cache[device] = out
+    return out
+
+
+def check_shape(ctx) -> None:
+    shape = (ctx.A.count, ctx.B.count)
+    if shape not in KERNEL_SHAPES:
+        raise NotImplementedError(
+            f"no CUDA kernel instantiated for {shape[0]}+{shape[1]} RNS "
+            f"channels (built: {KERNEL_SHAPES})")
+
+
+def check_planes(planes, rows, device, n: int) -> None:
+    """Raise unless every plane is a contiguous int32 [rows, n] tensor
+    on ``device``."""
+    for t, r in zip(planes, rows):
+        if t.device != device or t.dtype != torch.int32:
+            raise ValueError(f"expected int32 planes on {device}, got "
+                             f"{t.dtype} on {t.device}")
+        if tuple(t.shape) != (r, n):
+            raise ValueError(f"expected shape {(r, n)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("planes must be contiguous")
+
+
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        from .. import _build
+
+        lib = _build.load("redc")
+        vp = ctypes.c_void_p
+        lib.cap_redc.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 vp]
+        lib.cap_redc.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def redc(ctx, xA: torch.Tensor, xB: torch.Tensor):
+    """REDC of residue planes xA [I_A, N], xB [I_B, N] (int32, digit
+    canonical products) → (tA, tB), value < 3p."""
+    global launches
+    if xA.device.type == "cpu":
+        return redc_ref(ctx, xA, xB)
+    if xA.device.type != "cuda":
+        raise ValueError(f"unsupported device {xA.device}")
+    check_shape(ctx)
+    ia, ib = ctx.A.count, ctx.B.count
+    n = xA.shape[1] if xA.dim() == 2 else -1
+    check_planes((xA, xB), (ia, ib), xA.device, n)
+    consts = kernel_consts(ctx, xA.device)
+    tA = torch.empty_like(xA)
+    tB = torch.empty_like(xB)
+    if n == 0:
+        return tA, tB
+    rc = _kernel().cap_redc(
+        xA.data_ptr(), xB.data_ptr(), tA.data_ptr(), tB.data_ptr(),
+        consts.data_ptr(), consts.numel(), n, ia, ib,
+        torch.cuda.current_stream(xA.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"redc kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return tA, tB

@@ -1,0 +1,376 @@
+"""Batched ECDSA verification (P-256/P-384/P-521) in PyTorch.
+
+The port of the JAX package's ES* engine, RNS branch only: the scalar
+work (range checks, s⁻¹ by a batched product tree, u1/u2) runs in
+16-bit limbs (``bignum``), the point work — a two-chain ladder of 8-bit
+windows over precomputed tables, mixed Jacobian + affine adds — in RNS
+(``ec_rns``), and the final check is projective: accept iff
+X ≡ r·Z² or, when r + n < p, X ≡ (r+n)·Z² (mod p).
+
+Same-x exceptional cases in the ladder are flagged ``deg`` per token;
+the caller re-verifies those on the pure-integer oracle
+(:func:`py_ecdsa_verify`), the JAX package's own contract.
+
+Host pieces that need no device — curve constants, affine arithmetic,
+window-table precompute, the pure-integer key and oracle — keep no
+``cryptography`` dependency, so the whole module runs where OpenSSL is
+absent.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import limbs as L
+
+# NIST curve domain parameters (FIPS 186-4 / SEC 2).
+_CURVE_INTS = {
+    "P-256": dict(
+        p=0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFF,
+        n=0xFFFFFFFF00000000FFFFFFFFFFFFFFFFBCE6FAADA7179E84F3B9CAC2FC632551,
+        gx=0x6B17D1F2E12C4247F8BCE6E563A440F277037D812DEB33A0F4A13945D898C296,
+        gy=0x4FE342E2FE1A7F9B8EE7EB4A7C0F9E162BCE33576B315ECECBB6406837BF51F5,
+        coord_bytes=32,
+    ),
+    "P-384": dict(
+        p=(1 << 384) - (1 << 128) - (1 << 96) + (1 << 32) - 1,
+        n=0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFC7634D81F4372DDF581A0DB248B0A77AECEC196ACCC52973,  # noqa: E501
+        gx=0xAA87CA22BE8B05378EB1C71EF320AD746E1D3B628BA79B9859F741E082542A385502F25DBF55296C3A545E3872760AB7,  # noqa: E501
+        gy=0x3617DE4A96262C6F5D9E98BF9292DC29F8F41DBD289A147CE9DA3113B5F0B8C00A60B1CE1D7E819D7A431D7C90EA0E5F,  # noqa: E501
+        coord_bytes=48,
+    ),
+    "P-521": dict(
+        p=(1 << 521) - 1,
+        n=int("01fffffffffffffffffffffffffffffffffffffffffffffffffffffff"
+              "ffffffffffa51868783bf2f966b7fcc0148f709a5d03bb5c9b8899c47"
+              "aebb6fb71e91386409", 16),
+        gx=0x00C6858E06B70404E9CD9E3ECB662395B4429C648139053FB521F828AF606B4D3DBAA14B5E77EFE75928FE1DC127A2FFA8DE3348B3C1856A429BF97E7E31C2E5BD66,  # noqa: E501
+        gy=0x011839296A789A3BC0045C8A5FB42C7D1BD998F54449579B446817AFBD17273E662C97EE72995EF42640C550B9013FAD0761353C7086A272C24088BE94769FD16650,  # noqa: E501
+        coord_bytes=66,
+    ),
+}
+
+
+class CurveParams:
+    """Host-side per-curve constants (ints + packed limb arrays)."""
+
+    def __init__(self, name: str):
+        from .bignum import mont_params
+
+        c = _CURVE_INTS[name]
+        self.name = name
+        self.p: int = c["p"]
+        self.n: int = c["n"]
+        self.gx: int = c["gx"]
+        self.gy: int = c["gy"]
+        self.coord_bytes: int = c["coord_bytes"]
+        self.nbits: int = self.n.bit_length()
+        self.k: int = L.nlimbs_for_bits(self.p.bit_length())
+
+        k = self.k
+        self.p_limbs = L.int_to_limbs(self.p, k)
+        self.n_limbs = L.int_to_limbs(self.n, k)
+        nprime, nr2, _ = mont_params(self.n, k)
+        self.nprime_limbs = L.int_to_limbs(nprime, k)
+        self.nr2_limbs = L.int_to_limbs(nr2, k)
+        self._dev: Dict[torch.device, tuple] = {}
+
+    def device_consts(self, device) -> tuple:
+        """[K, 1] int64 columns of the scalar-field constants on
+        ``device``: (n, N', R² mod n, p)."""
+        device = torch.device(device)
+        if device not in self._dev:
+            self._dev[device] = tuple(
+                torch.as_tensor(v.astype(np.int64)[:, None], device=device)
+                for v in (self.n_limbs, self.nprime_limbs, self.nr2_limbs,
+                          self.p_limbs))
+        return self._dev[device]
+
+    # -- host affine arithmetic (table precompute, oracle) ---------------
+
+    def affine_add(self, P: Optional[Tuple[int, int]],
+                   Q: Optional[Tuple[int, int]]) -> Optional[Tuple[int, int]]:
+        p = self.p
+        if P is None:
+            return Q
+        if Q is None:
+            return P
+        x1, y1 = P
+        x2, y2 = Q
+        if x1 == x2:
+            if (y1 + y2) % p == 0:
+                return None
+            lam = (3 * x1 * x1 - 3) * pow(2 * y1, -1, p) % p
+        else:
+            lam = (y2 - y1) * pow(x2 - x1, -1, p) % p
+        x3 = (lam * lam - x1 - x2) % p
+        y3 = (lam * (x1 - x3) - y1) % p
+        return x3, y3
+
+    def window_multiples(self, point: Tuple[int, int], w_bits: int,
+                         n_windows: int) -> Tuple[list, list]:
+        """All d·2^{w·i}·point (d ∈ [1, 2^w−1], i ∈ [0, n_windows)) as
+        affine int lists, row order i·(2^w−1) + (d−1).
+
+        The chain runs in Jacobian coordinates and ONE batched
+        Montgomery-trick inversion converts every row to affine. Never
+        hits infinity: d·2^{w·i} < 2^{w·n_windows + w} is never ≡ 0
+        mod n for the prime-order points used here.
+        """
+        p = self.p
+        per = (1 << w_bits) - 1
+        rows = n_windows * per
+        JX = [0] * rows
+        JY = [0] * rows
+        JZ = [0] * rows
+        bx, by = point
+
+        def jdouble(X1, Y1, Z1):
+            # dbl-2001-b (a = -3)
+            delta = Z1 * Z1 % p
+            gamma = Y1 * Y1 % p
+            beta = X1 * gamma % p
+            alpha = 3 * (X1 - delta) * (X1 + delta) % p
+            X3 = (alpha * alpha - 8 * beta) % p
+            Z3 = ((Y1 + Z1) ** 2 - gamma - delta) % p
+            Y3 = (alpha * (4 * beta - X3) - 8 * gamma * gamma) % p
+            return X3, Y3, Z3
+
+        def jmadd(X1, Y1, Z1, x2, y2):
+            # madd-2004-hmv (Z2 = 1); the points are distinct and
+            # nonzero here, so h ≠ 0.
+            z1z1 = Z1 * Z1 % p
+            u2 = x2 * z1z1 % p
+            s2 = y2 * Z1 % p * z1z1 % p
+            h = (u2 - X1) % p
+            hh = h * h % p
+            i4 = 4 * hh % p
+            j = h * i4 % p
+            r = 2 * (s2 - Y1) % p
+            v = X1 * i4 % p
+            X3 = (r * r - j - 2 * v) % p
+            Y3 = (r * (v - X3) - 2 * Y1 * j) % p
+            Z3 = ((Z1 + h) ** 2 - z1z1 - hh) % p
+            return X3, Y3, Z3
+
+        for i in range(n_windows):
+            base_row = i * per
+            JX[base_row], JY[base_row], JZ[base_row] = bx, by, 1
+            if per > 1:
+                X, Y, Z = jdouble(bx, by, 1)         # d = 2
+                JX[base_row + 1], JY[base_row + 1], JZ[base_row + 1] = \
+                    X, Y, Z
+                for d in range(3, per + 1):
+                    X, Y, Z = jmadd(X, Y, Z, bx, by)
+                    r = base_row + d - 1
+                    JX[r], JY[r], JZ[r] = X, Y, Z
+            # advance base by 2^w for the next window
+            BX, BY, BZ = bx, by, 1
+            for _ in range(w_bits):
+                BX, BY, BZ = jdouble(BX, BY, BZ)
+            zi = pow(BZ, -1, p)
+            zi2 = zi * zi % p
+            bx, by = BX * zi2 % p, BY * zi2 % p * zi % p
+
+        pref = [1] * (rows + 1)
+        for r in range(rows):
+            pref[r + 1] = pref[r] * JZ[r] % p
+        inv = pow(pref[rows], -1, p)
+        X_out = [0] * rows
+        Y_out = [0] * rows
+        for r in range(rows - 1, -1, -1):
+            zi = pref[r] * inv % p       # = JZ[r]^-1
+            inv = inv * JZ[r] % p
+            zi2 = zi * zi % p
+            X_out[r] = JX[r] * zi2 % p
+            Y_out[r] = JY[r] * zi2 % p * zi % p
+        return X_out, Y_out
+
+
+_CURVES_CACHE: Dict[str, CurveParams] = {}
+
+
+def curve(name: str) -> CurveParams:
+    if name not in _CURVES_CACHE:
+        _CURVES_CACHE[name] = CurveParams(name)
+    return _CURVES_CACHE[name]
+
+
+class ECKeyTable:
+    """The keys of one curve and their RNS window table on a device.
+
+    ``keys``: :class:`HostECPublicKey` (or anything with
+    ``public_numbers().x/.y``). The RNS table (``ec_rns.ECRNSKeyTable``)
+    is built at first use, or installed from the JAX package's arrays
+    by ``convert``.
+    """
+
+    def __init__(self, crv: str, keys: Sequence, device="cuda"):
+        self.curve = curve(crv)
+        self.keys = list(keys)
+        self.coord_bytes = self.curve.coord_bytes
+        self.device = torch.device(device)
+        self._rns = None
+
+    def rns(self):
+        if self._rns is None:
+            from . import ec_rns
+
+            self._rns = ec_rns.ECRNSKeyTable(self.curve.name, self.keys)
+        return self._rns
+
+
+def scalar_mult(cp: CurveParams, k: int,
+                P: Optional[Tuple[int, int]]) -> Optional[Tuple[int, int]]:
+    """Host double-and-add k·P over the curve's affine arithmetic."""
+    acc = None
+    add = P
+    while k:
+        if k & 1:
+            acc = cp.affine_add(acc, add)
+        add = cp.affine_add(add, add)
+        k >>= 1
+    return acc
+
+
+class HostECPublicKey:
+    """Dependency-free EC public key: ``public_numbers().x/.y`` from
+    host integers, the surface the tables and the oracle read."""
+
+    class _Numbers:
+        def __init__(self, x: int, y: int):
+            self.x, self.y = x, y
+
+    def __init__(self, crv: str, x: int, y: int):
+        self.curve_name = crv
+        self._nums = self._Numbers(x, y)
+
+    def public_numbers(self):
+        return self._nums
+
+    @classmethod
+    def from_private(cls, crv: str, d: int) -> "HostECPublicKey":
+        cp = curve(crv)
+        qx, qy = scalar_mult(cp, d, (cp.gx, cp.gy))
+        return cls(crv, qx, qy)
+
+
+def host_ecdsa_sign(crv: str, d: int, e: int, k: int) -> Tuple[int, int]:
+    """Textbook ECDSA signing over host ints (fixtures only — k must be
+    unique per signature; nothing here is constant-time). Returns
+    (r, s); raises if the chosen k yields r == 0 or s == 0."""
+    cp = curve(crv)
+    R = scalar_mult(cp, k, (cp.gx, cp.gy))
+    r = R[0] % cp.n
+    s = pow(k, -1, cp.n) * (e + r * d) % cp.n
+    if r == 0 or s == 0:
+        raise ValueError("degenerate nonce; pick another k")
+    return r, s
+
+
+def py_ecdsa_verify(cp: CurveParams, qx: int, qy: int, sig_raw: bytes,
+                    digest: bytes) -> bool:
+    """Pure-integer ECDSA verify (SEC1 §4.1.4), dependency-free.
+
+    Same acceptance rule as Go crypto/ecdsa and OpenSSL: range checks
+    1 <= r, s < n, left-bits hash truncation, accept iff
+    (u1·G + u2·Q).x ≡ r (mod n).
+    """
+    cb = cp.coord_bytes
+    r = int.from_bytes(sig_raw[:cb], "big")
+    s = int.from_bytes(sig_raw[cb:], "big")
+    if not (1 <= r < cp.n and 1 <= s < cp.n):
+        return False
+    e = int.from_bytes(digest, "big")
+    excess = 8 * len(digest) - cp.nbits
+    if excess > 0:
+        e >>= excess
+    w = pow(s, -1, cp.n)
+    u1 = (e * w) % cp.n
+    u2 = (r * w) % cp.n
+    R = cp.affine_add(scalar_mult(cp, u1, (cp.gx, cp.gy)),
+                      scalar_mult(cp, u2, (qx, qy)))
+    if R is None:
+        return False
+    return R[0] % cp.n == r
+
+
+def _py_verify_one(table: ECKeyTable, row: int, sig_raw: bytes,
+                   digest: bytes) -> bool:
+    """Table-row wrapper over :func:`py_ecdsa_verify` (the oracle for
+    lanes the device flags degenerate)."""
+    nums = table.keys[row].public_numbers()
+    return py_ecdsa_verify(table.curve, nums.x, nums.y, sig_raw, digest)
+
+
+# ---------------------------------------------------------------------------
+# Packed single-transfer dispatch: one u8 record matrix per chunk
+# ---------------------------------------------------------------------------
+
+ES_REC_EXTRA = 2          # trailing bytes per record: flags, key row
+
+
+def es_packed_records(table: ECKeyTable, sig_mat: np.ndarray,
+                      sig_lens: np.ndarray, hash_mat: np.ndarray,
+                      hash_len: int, key_idx: np.ndarray) -> np.ndarray:
+    """Host: packed [N, 2·cb + hash_len + 2] u8 records for one ES* chunk.
+
+    Row layout: signature r‖s bytes (2·cb) ‖ digest (hash_len) ‖
+    validity flag u8 ‖ key row u8.
+    """
+    cb = table.curve.coord_bytes
+    len_ok = (sig_lens == 2 * cb).astype(np.uint8)
+    safe = np.where(len_ok[:, None] != 0, sig_mat[:, :2 * cb], 0)
+    rec = np.empty((sig_mat.shape[0], 2 * cb + hash_len + ES_REC_EXTRA),
+                   np.uint8)
+    rec[:, :2 * cb] = safe
+    rec[:, 2 * cb:2 * cb + hash_len] = hash_mat[:, :hash_len]
+    rec[:, 2 * cb + hash_len] = len_ok
+    rec[:, 2 * cb + hash_len + 1] = key_idx.astype(np.uint8)
+    return rec
+
+
+def _ec_prep(sig_bytes: torch.Tensor, dig: torch.Tensor, k: int):
+    """Raw signature/digest bytes → (r, s, e) [K, N] int64 limbs.
+
+    sig_bytes: [N, 2·cb] u8 (r ‖ s, each cb = 2k bytes wide); dig:
+    [N, hlen] u8. e is the hash as an integer, left-zero-padded.
+    """
+    cb = sig_bytes.shape[1] // 2
+    r = L.bytes_to_limbs_device(sig_bytes[:, :cb])
+    s = L.bytes_to_limbs_device(sig_bytes[:, cb:])
+    hlen = dig.shape[1]
+    e_mat = torch.zeros((dig.shape[0], 2 * k), dtype=torch.uint8,
+                        device=dig.device)
+    e_mat[:, 2 * k - hlen:] = dig
+    return r, s, L.bytes_to_limbs_device(e_mat)
+
+
+def _es_packed_rns_impl(packed: torch.Tensor, table: ECKeyTable,
+                        hlen: int):
+    from . import ec_rns
+
+    cp = table.curve
+    cb = cp.coord_bytes
+    sig = packed[:, :2 * cb]
+    dig = packed[:, 2 * cb:2 * cb + hlen]
+    flags = packed[:, 2 * cb + hlen] != 0
+    idx = packed[:, 2 * cb + hlen + 1].to(torch.int64)
+    r, s, e = _ec_prep(sig, dig, k=cp.k)
+    ok, deg = ec_rns._ecdsa_rns_core(r, s, e, idx, table.rns(), cp)
+    return ok & flags, deg & flags
+
+
+def verify_es_packed_pending(table: ECKeyTable, rec: np.ndarray,
+                             hash_len: int):
+    """Queue one packed ES* chunk on the table's device; returns the
+    device ([N] ok, [N] deg) bool tensors.
+
+    Degenerate-flagged tokens (deg True) must be re-verified on the
+    pure-integer oracle by the caller after the sync.
+    """
+    dev = torch.from_numpy(np.ascontiguousarray(rec)).to(table.device)
+    return _es_packed_rns_impl(dev, table, hash_len)

@@ -1,0 +1,402 @@
+"""GPUBatchKeySet — the keyset whose batch path runs on the card.
+
+The port of the JAX package's ``TPUBatchKeySet`` packed path for the
+north-star workload (RS256 + ES256 over a multi-key JWKS). Per batch:
+
+1. host prep in Python: JSON-form normalization, the strict compact
+   parse (with the native prep's status ladder and messages, so
+   rejections read the same), SHA-2 of the signing input, kid → key
+   row;
+2. RS* tokens with a unique key go to the packed RS path
+   (``gpu.rsa``), ES256 tokens to the packed ES path (``gpu.ec``), in
+   chunks sized and padded as the JAX keyset does; every chunk is
+   queued on the device before any result is read, but each ES chunk
+   waits once on the device inside its scalar stage (the batch
+   inverse's root is inverted by a host ``pow``, see
+   ``gpu.bignum.batch_mont_inverse``);
+3. lanes the ES ladder flags degenerate are re-verified on the
+   pure-integer oracle (and counted in ``deg_reverified``);
+4. tokens without a unique key candidate take the trial path on the
+   host oracle (``jwt.verify``), as the JAX keyset's CPU fallback does.
+
+Results are one claims dict or one exception per token, with the JAX
+keyset's exception classes and messages.
+
+Not ported yet (ROADMAP): PS*, ES384/ES512 (P-384/P-521 keys are
+accepted, and their tokens get a per-token ``UnsupportedAlgError``, as
+PS* tokens do), EdDSA and post-quantum verification, key classes of
+more than 255 keys, hot key swaps, async/stream entry points,
+telemetry.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..errors import (
+    InvalidSignatureError,
+    MalformedTokenError,
+    NilParameterError,
+    TokenNotSignedError,
+    UnsupportedAlgError,
+)
+from ..gpu import ec as gpuec
+from ..gpu import rsa as gpursa
+from ..gpu.limbs import nlimbs_for_bits
+from . import algs
+from .jose import ParsedJWS, b64url_decode, normalize_batch, parse_jws
+from .jwk import JWK, RSAPublicKey
+from .keyset import KeySet
+from .verify import key_matches_alg, verify_parsed
+
+_RS = {algs.RS256: "sha256", algs.RS384: "sha384", algs.RS512: "sha512"}
+_PS = (algs.PS256, algs.PS384, algs.PS512)
+_ES = {algs.ES256: "P-256"}           # the curves the kernels are built for
+_ES_UNPORTED = (algs.ES384, algs.ES512)
+
+_MIN_BUCKET = 128
+# RSA key-table rows encode as class * _RSA_CLS_STRIDE + row.
+_RSA_CLS_STRIDE = 1 << 16
+_MAX_CLASS_KEYS = 255          # the packed record's key row is one byte
+_CHUNK_BYTES = 5 << 20         # record bytes per chunk
+_MAX_CHUNK = 32768             # tokens per chunk at most
+_REJECT = "no known key successfully validated the token signature"
+
+
+def _pad_size(n: int, max_chunk: int) -> int:
+    """Next power of two ≥ n (≥ _MIN_BUCKET), capped at max_chunk."""
+    size = _MIN_BUCKET
+    while size < n:
+        size *= 2
+    return min(size, max_chunk)
+
+
+def _prep_one(token) -> Any:
+    """Strict compact parse → ParsedJWS, or the rejection.
+
+    The checks and their order are the native batch prep's (split,
+    header base64url, header JSON object, alg, crit, payload and
+    signature base64url, empty signature), and so are the messages.
+    """
+    if not isinstance(token, str) or not token or token.count(".") != 2:
+        return MalformedTokenError("compact JWS must have 3 segments")
+    raw_h, raw_p, raw_s = token.split(".")
+    try:
+        header_bytes = b64url_decode(raw_h)
+    except MalformedTokenError:
+        return MalformedTokenError("invalid base64url segment")
+    try:
+        header = json.loads(header_bytes)
+    except (ValueError, UnicodeDecodeError):
+        header = None
+    if not isinstance(header, dict):
+        return MalformedTokenError("protected header is not a JSON object")
+    alg = header.get("alg")
+    if not isinstance(alg, str) or not alg:
+        return MalformedTokenError("protected header missing alg parameter")
+    if "crit" in header:
+        return MalformedTokenError("unsupported crit header")
+    try:
+        payload = b64url_decode(raw_p)
+        sig = b64url_decode(raw_s)
+    except MalformedTokenError:
+        return MalformedTokenError("invalid base64url segment")
+    if not sig:
+        return TokenNotSignedError("token must be signed")
+    return ParsedJWS(header=header, payload=payload, signature=sig,
+                     signing_input=(raw_h + "." + raw_p).encode("ascii"))
+
+
+def _chunk_tokens(rec_width: int) -> int:
+    """Tokens per packed chunk: pow-2, about 5 MB of records (the JAX
+    keyset's static budget)."""
+    c = 1024
+    while c * 2 * rec_width <= _CHUNK_BYTES:
+        c *= 2
+    return min(_MAX_CHUNK, max(1024, c))
+
+
+def _byte_matrix(rows: List[bytes], width: int) -> np.ndarray:
+    """Left-aligned [len(rows), width] u8 matrix, zero-padded."""
+    out = np.zeros((len(rows), width), np.uint8)
+    for i, r in enumerate(rows):
+        b = r[:width]
+        out[i, :len(b)] = np.frombuffer(b, np.uint8)
+    return out
+
+
+class GPUBatchKeySet(KeySet):
+    """KeySet whose batch path runs on the GPU verify engine.
+
+    ``jwks``: JWKs of this package (RSA and EC keys). ``device``: where
+    the engine runs, ``"cuda"`` by default; raises when CUDA is absent.
+    ``device="cpu"`` runs the plain PyTorch versions of every kernel.
+    """
+
+    def __init__(self, jwks: Sequence[JWK], device=None):
+        if not jwks:
+            raise NilParameterError("at least one key is required")
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; GPUBatchKeySet runs on the card "
+                "unless device='cpu' is given")
+        self.device = device
+        self.deg_reverified = 0
+        self._jwks = list(jwks)
+
+        rsa_classes: List[list] = []
+        rsa_class_need: List[int] = []
+        self._rsa_rows: Dict[int, int] = {}
+        self._ec_keys: Dict[str, list] = {}
+        self._ec_rows: Dict[str, Dict[int, int]] = {}
+        for i, jwk in enumerate(self._jwks):
+            key = jwk.key
+            if isinstance(key, RSAPublicKey):
+                need = nlimbs_for_bits(key.n.bit_length())
+                if need in rsa_class_need:
+                    cls = rsa_class_need.index(need)
+                else:
+                    cls = len(rsa_classes)
+                    rsa_classes.append([])
+                    rsa_class_need.append(need)
+                self._rsa_rows[i] = cls * _RSA_CLS_STRIDE + \
+                    len(rsa_classes[cls])
+                rsa_classes[cls].append((key.n, key.e))
+            elif isinstance(key, gpuec.HostECPublicKey):
+                crv = key.curve_name
+                if crv not in _ES.values():
+                    continue
+                rows = self._ec_rows.setdefault(crv, {})
+                rows[i] = len(self._ec_keys.setdefault(crv, []))
+                self._ec_keys[crv].append(key)
+            else:
+                raise UnsupportedAlgError(
+                    f"key type {type(key).__name__} is not supported by "
+                    f"GPUBatchKeySet")
+        for keys in rsa_classes + list(self._ec_keys.values()):
+            if len(keys) > _MAX_CLASS_KEYS:
+                raise NotImplementedError(
+                    f"a key class of {len(keys)} keys: classes of more "
+                    f"than {_MAX_CLASS_KEYS} keys are not ported yet")
+        self._rsa_tables = [gpursa.RSAKeyTable(nums, device)
+                            for nums in rsa_classes]
+        self._n_rsa_keys = sum(len(c) for c in rsa_classes)
+        self._ec_tables = {crv: gpuec.ECKeyTable(crv, keys, device)
+                           for crv, keys in self._ec_keys.items()}
+
+        self._by_kid: Dict[str, List[int]] = {}
+        for i, jwk in enumerate(self._jwks):
+            if jwk.kid:
+                self._by_kid.setdefault(jwk.kid, []).append(i)
+        # kid → family table row, for kids naming exactly one key
+        self._kid_rsa_row: Dict[str, int] = {}
+        self._kid_ec_row: Dict[str, Dict[str, int]] = {
+            c: {} for c in self._ec_rows}
+        for kid, idxs in self._by_kid.items():
+            if len(idxs) != 1:
+                continue
+            i = idxs[0]
+            if i in self._rsa_rows:
+                self._kid_rsa_row[kid] = self._rsa_rows[i]
+            for crv, rows in self._ec_rows.items():
+                if i in rows:
+                    self._kid_ec_row[crv][kid] = rows[i]
+
+    # -- single-token path (host oracle) -----------------------------------
+
+    def _candidate_indices(self, parsed) -> List[int]:
+        if parsed.kid is not None and parsed.kid in self._by_kid:
+            pool = self._by_kid[parsed.kid]
+        else:
+            pool = range(len(self._jwks))
+        return [i for i in pool
+                if key_matches_alg(self._jwks[i].key, parsed.alg)]
+
+    def _verify_parsed_trial(self, parsed):
+        last: Optional[Exception] = None
+        for i in self._candidate_indices(parsed):
+            try:
+                verify_parsed(parsed, self._jwks[i].key)
+                return parsed.claims()
+            except InvalidSignatureError as e:
+                last = e
+        raise InvalidSignatureError(_REJECT) from last
+
+    def verify_signature(self, token: str) -> Dict[str, Any]:
+        return self._verify_parsed_trial(parse_jws(token))
+
+    def _verify_one_parsed(self, p) -> Any:
+        """Trial verification of one parsed token (the slow path)."""
+        try:
+            return self._verify_parsed_trial(p)
+        except (InvalidSignatureError, MalformedTokenError) as e:
+            return e
+
+    # -- batch path --------------------------------------------------------
+
+    def verify_batch(self, tokens: Sequence[str]) -> List[Any]:
+        tokens, specials = normalize_batch(tokens)
+        n = len(tokens)
+        results: List[Any] = [None] * n
+        parsed: List[Optional[ParsedJWS]] = [None] * n
+        for i, t in enumerate(tokens):
+            out = _prep_one(t)
+            if isinstance(out, Exception):
+                results[i] = out
+            else:
+                parsed[i] = out
+        for i, sp in specials.items():
+            # normalization verdicts outrank the ""-sentinel's prep error
+            if isinstance(sp, Exception):
+                results[i] = sp
+            else:
+                try:
+                    results[i] = self._verify_parsed_trial(sp)
+                except Exception as e:  # noqa: BLE001 - per-token
+                    results[i] = e
+
+        pending: List[tuple] = []       # (chunk, m, device outs, finish)
+        by_alg: Dict[str, List[int]] = {}
+        for i, p in enumerate(parsed):
+            if p is not None:
+                by_alg.setdefault(p.alg, []).append(i)
+        for alg, crv in _ES.items():
+            if crv in self._ec_tables and alg in by_alg:
+                self._run_ec_packed(alg, np.asarray(by_alg[alg]), parsed,
+                                    pending)
+        if self._rsa_tables:
+            for alg, hash_name in _RS.items():
+                if alg in by_alg:
+                    self._run_rsa_packed(hash_name,
+                                         np.asarray(by_alg[alg]), parsed,
+                                         pending)
+            for alg in _PS:
+                for j in by_alg.get(alg, ()):
+                    results[j] = UnsupportedAlgError(
+                        f"{alg} is not ported to GPUBatchKeySet yet")
+        for alg in _ES_UNPORTED:
+            for j in by_alg.get(alg, ()):
+                results[j] = UnsupportedAlgError(
+                    f"{alg} is not ported to GPUBatchKeySet yet")
+
+        for chunk, m, outs, finish in pending:
+            finish(chunk, [o.cpu().numpy()[:m] for o in outs], parsed,
+                   results)
+
+        # no unique key candidate, or no table for the family: the trial
+        # path on the host oracle
+        for j in range(n):
+            if parsed[j] is not None and results[j] is None:
+                results[j] = self._verify_one_parsed(parsed[j])
+        return results
+
+    @staticmethod
+    def _finish(chunk, okv, parsed, results) -> None:
+        for j, good in zip(chunk.tolist(), np.asarray(okv).tolist()):
+            if good:
+                try:
+                    results[j] = parsed[j].claims()
+                except MalformedTokenError as e:
+                    results[j] = e
+            else:
+                results[j] = InvalidSignatureError(_REJECT)
+
+    def _rows(self, idx, parsed, kid_to_row: Dict[str, int],
+              n_keys: int) -> np.ndarray:
+        """Key row per token: -1 no kid, -2 unknown kid; a family of one
+        key takes kid-less tokens (their only candidate)."""
+        rows = np.empty(len(idx), np.int64)
+        for k, j in enumerate(idx.tolist()):
+            kid = parsed[j].kid
+            rows[k] = -1 if kid is None else kid_to_row.get(kid, -2)
+        if n_keys == 1:
+            rows = np.where(rows == -1, 0, rows)
+        return rows
+
+    def _records(self, chunk, parsed, width: int, pad: int, hash_name):
+        m = len(chunk)
+        sigs = [parsed[j].signature for j in chunk.tolist()]
+        sig_mat = np.zeros((pad, width), np.uint8)
+        sig_mat[:m] = _byte_matrix(sigs, width)
+        sig_lens = np.zeros(pad, np.int64)
+        sig_lens[:m] = [len(s) for s in sigs]
+        hash_mat = np.zeros((pad, 64), np.uint8)
+        hash_mat[:m] = _byte_matrix(
+            [hashlib.new(hash_name, parsed[j].signing_input).digest()
+             for j in chunk.tolist()], 64)
+        return sig_mat, sig_lens, hash_mat
+
+    def _run_rsa_packed(self, hash_name: str, idx: np.ndarray, parsed,
+                        pending: list) -> None:
+        rows = self._rows(idx, parsed, self._kid_rsa_row, self._n_rsa_keys)
+        fast = rows >= 0
+        idx, rows = idx[fast], rows[fast]
+        h_len = gpursa.HASH_LEN[hash_name]
+        for cls, table in enumerate(self._rsa_tables):
+            sel = (rows // _RSA_CLS_STRIDE) == cls
+            if not sel.any():
+                continue
+            cls_idx = idx[sel]
+            cls_rows = rows[sel] % _RSA_CLS_STRIDE
+            width = 2 * table.k
+            chunk_n = _chunk_tokens(width + h_len + gpursa.RS_REC_EXTRA)
+            for lo in range(0, len(cls_idx), chunk_n):
+                chunk = cls_idx[lo: lo + chunk_n]
+                m = len(chunk)
+                pad = _pad_size(m, chunk_n)
+                sig_mat, sig_lens, hash_mat = self._records(
+                    chunk, parsed, width, pad, hash_name)
+                key_idx = np.zeros(pad, np.int64)
+                key_idx[:m] = cls_rows[lo: lo + chunk_n]
+                rec = gpursa.rs_packed_records(table, sig_mat, sig_lens,
+                                               hash_mat, hash_name, key_idx)
+                ok = gpursa.verify_rs_packed_pending(table, rec, hash_name)
+
+                def finish(chunk, arrs, parsed, results):
+                    self._finish(chunk, arrs[0], parsed, results)
+
+                pending.append((chunk, m, [ok], finish))
+
+    def _run_ec_packed(self, alg: str, idx: np.ndarray, parsed,
+                       pending: list) -> None:
+        crv = _ES[alg]
+        table = self._ec_tables[crv]
+        hash_name = algs.HASH_FOR_ALG[alg]
+        hash_len = gpursa.HASH_LEN[hash_name]
+        rows = self._rows(idx, parsed, self._kid_ec_row[crv],
+                          len(table.keys))
+        fast = rows >= 0
+        idx, rows = idx[fast], rows[fast]
+        cb = table.coord_bytes
+        width = 2 * cb
+        chunk_n = _chunk_tokens(width + hash_len + gpuec.ES_REC_EXTRA)
+        for lo in range(0, len(idx), chunk_n):
+            chunk = idx[lo: lo + chunk_n]
+            crows = rows[lo: lo + chunk_n]
+            m = len(chunk)
+            pad = _pad_size(m, chunk_n)
+            sig_mat, sig_lens, hash_mat = self._records(
+                chunk, parsed, width, pad, hash_name)
+            key_idx = np.zeros(pad, np.int64)
+            key_idx[:m] = crows
+            rec = gpuec.es_packed_records(table, sig_mat, sig_lens,
+                                          hash_mat, hash_len, key_idx)
+            ok, deg = gpuec.verify_es_packed_pending(table, rec, hash_len)
+
+            def finish(chunk, arrs, parsed, results, rec=rec, crows=crows,
+                       table=table):
+                okv = np.array(arrs[0])
+                for j in np.nonzero(arrs[1])[0]:
+                    self.deg_reverified += 1
+                    okv[j] = gpuec._py_verify_one(
+                        table, int(crows[j]), rec[j, :2 * cb].tobytes(),
+                        rec[j, 2 * cb:2 * cb + hash_len].tobytes())
+                self._finish(chunk, okv, parsed, results)
+
+            pending.append((chunk, m, [ok, deg], finish))

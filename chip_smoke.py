@@ -1,0 +1,539 @@
+#!/usr/bin/env python3
+"""Drive cap_tpu_torch on one NVIDIA card and hold it to its plain path.
+
+Run from the root of a checkout on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; none is caught):
+
+1. the card's name and power limit (nvidia-smi), then the build of
+   every kernel from ``cap_tpu_torch/gpu/csrc`` with nvcc for sm_90a;
+2. kernels: each kernel against its plain PyTorch version on the card
+   at the main path's shapes (P-256, 23+23 RNS channels, 65,536 lanes:
+   one 32,768-token ES chunk with both ladder chains), outputs equal by
+   value mod p, ``deg`` equal on true degeneracies; kernel and plain
+   times by CUDA events;
+3. main path: the north-star configuration — a JWKS of 8 RSA-2048 and
+   8 P-256 keys and a batch of 65,536 RS256/ES256 tokens tiled from
+   1,024 unique signed tokens, a seeded 1/8 share tampered, and a few
+   tokens of each rejection class — through
+   ``GPUBatchKeySet(jwks).verify_batch``; every verdict checked, the
+   unique tokens cross-checked on the pure-integer oracle, the kernels'
+   launch counters read around one run, verifies/s timed after a
+   warm-up.
+
+The line before the last is the per-kernel JSON record; the last line
+is ``{"ok": true, "device": {...}}``.
+"""
+
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+
+SEED = 20261016
+N_TOKENS = 65536
+N_UNIQUE = 1024
+KERNEL_LANES = 65536
+# H100 SXM peaks at 700 W. HBM: 3.35 TB/s (NVIDIA data sheet). INT32:
+# Hopper issues 64 int32 multiply-adds per SM per clock (CUDA C++
+# Programming Guide, arithmetic throughput table, compute capability
+# 9.0), half its 128 float32 FMAs; the data sheet's 67 TFLOP/s float32
+# rate (132 SMs at 1.98 GHz) halved, counting a multiply-add as 2 ops.
+HBM_BPS = 3.35e12
+INT32_OPS = 33.5e12
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+# -- operation counts (per lane) for the bounds ----------------------------
+# The least work the function needs, every op at the int32 rate: one
+# multiply-add (2 ops) per extension weight (13-bit × 13-bit products
+# summed over 23 terms stay below 2^31), one fix per digit the sums
+# leave.
+
+FIX_OPS = 8       # cvt, mul, floor, cvt, mul, sub, two selects
+
+
+def extend_ops(i_src: int, i_dst: int) -> int:
+    # one multiply-add per weight, the α sum (2 ops) per source digit,
+    # and per destination digit the α correction (2 ops) and one fix
+    return i_src * i_dst * 2 + i_src * 2 + i_dst * (FIX_OPS + 2)
+
+
+def redc_ops(ia: int, ib: int) -> int:
+    # σ = x_A·sig_c (a product and a fix per A digit); t_B = (x_B + q·p)
+    # ·A⁻¹ (a multiply-add, a product and two fixes per B digit)
+    return (ia * (FIX_OPS + 1) + extend_ops(ia, ib)
+            + ib * (2 * FIX_OPS + 3) + extend_ops(ib, ia))
+
+
+def madd_ops(ia: int, ib: int) -> int:
+    i = ia + ib
+    mults = 11 * (redc_ops(ia, ib) + i * (FIX_OPS + 1))
+    lazy = 18 * 4 * i                       # lazy add/sub/guard terms
+    fixes = 4 * i * FIX_OPS                 # rr, X3, Y3, Z3
+    probe = 2 * FIX_OPS + 20 * 3
+    select = 6 * i * 2 + 2 * i               # unpack + picks
+    return mults + lazy + fixes + probe + select
+
+
+def bound(nbytes: float, ops: float):
+    t_b = nbytes / HBM_BPS * 1e3
+    t_o = ops / INT32_OPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+# -- inputs -----------------------------------------------------------------
+
+def residues_of_bytes(c, raw):
+    """[N, L] big-endian value bytes → (A [I_A, N], B [I_B, N]) int32
+    residues, exact (float64 sums of byte × (256^j mod m) < 2^53)."""
+    import numpy as np
+
+    n, width = raw.shape
+    ms = [int(m) for m in c.A.m] + [int(m) for m in c.B.m]
+    powm = np.array([[pow(256, width - 1 - j, m) for m in ms]
+                     for j in range(width)], np.float64)
+    res = (raw.astype(np.float64) @ powm).astype(np.int64) % \
+        np.asarray(ms, np.int64)[None, :]
+    ia = c.A.count
+    return (np.ascontiguousarray(res[:, :ia].T).astype(np.int32),
+            np.ascontiguousarray(res[:, ia:].T).astype(np.int32))
+
+
+def crt(base, col) -> int:
+    """CRT value of one residue column over an RNS base."""
+    return sum(int(r) * int(inv) % int(m) * mi for r, inv, m, mi in
+               zip(col, base.inv_Mi, base.m, base.Mi)) % base.prod
+
+
+def max_err(c, kernel, plain):
+    """Compare two (A [I_A, N], B [I_B, N]) residue pairs lane by lane.
+
+    Bit-equal lanes contribute 0. On a lane where either plane differs,
+    each plane's CRT value (base A, base B) is compared with the plain
+    one's mod p, folded to the nearer representative, and the kernel's
+    two planes must hold one integer. Returns (max err, lanes that
+    differ, lanes whose A and B planes disagree)."""
+    import numpy as np
+
+    (ka, kb), (pa, pb) = kernel, plain
+    diff = np.nonzero((ka != pa).any(axis=0) | (kb != pb).any(axis=0))[0]
+    p = c.p_int
+    err = split = 0
+    for j in diff:
+        va, vb = crt(c.A, ka[:, j]), crt(c.B, kb[:, j])
+        split += va != vb
+        for d in ((va - crt(c.A, pa[:, j])) % p,
+                  (vb - crt(c.B, pb[:, j])) % p):
+            err = max(err, min(d, p - d))
+    return err, len(diff), split
+
+
+def kernel_phase(records):
+    import numpy as np
+    import torch
+
+    from cap_tpu_torch.gpu import cuda_madd, cuda_redc, ec_rns
+
+    c = ec_rns.ctx_for("P-256")
+    ia, ib = c.A.count, c.B.count
+    p = c.p_int
+    a_dom = c.A.prod % p
+    n = KERNEL_LANES
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+
+    # REDC: products x < 2^512 < A·p (what an rmul feeds its REDC)
+    raw = rng.integers(0, 256, (n, 64), dtype=np.uint8)
+    xa, xb = residues_of_bytes(c, raw)
+    xA, xB = T(xa), T(xb)
+    tA, tB = cuda_redc.redc(c, xA, xB)
+    rA, rB = cuda_redc.redc_ref(c, xA, xB)
+    torch.cuda.synchronize()
+    ka = tA.cpu().numpy()
+    err, ndiff, split = max_err(c, (ka, tB.cpu().numpy()),
+                                (rA.cpu().numpy(), rB.cpu().numpy()))
+    a_inv = pow(c.A.prod, -1, p)
+    for j in rng.choice(n, 64, replace=False):
+        x = int.from_bytes(raw[j].tobytes(), "big")
+        assert (c.value_of(ka[:, j]) - x * a_inv) % p == 0, "redc value"
+    assert err == 0 and split == 0, \
+        f"redc disagrees by {err} on {ndiff} lanes ({split} split)"
+    ms_k = cuda_ms(lambda: cuda_redc.redc(c, xA, xB), 50)
+    ms_p = cuda_ms(lambda: cuda_redc.redc_ref(c, xA, xB), 10)
+    nbytes = n * (2 * ia + 2 * ib) * 4
+    b_ms, b_by = bound(nbytes, n * redc_ops(ia, ib))
+    log(f"kernel redc: {n} lanes, {ndiff} lanes not bit-equal in A or B,"
+        f" max value err {err} over both planes; kernel {ms_k:.4f} ms, "
+        f"plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    records["redc"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
+                           bound_ms=b_ms, bound_by=b_by)
+
+    # madd: states < 2^256 (< 11p), table points < p, random has/inf,
+    # every 97th lane a true same-x degeneracy (X = x2·Z², has, ¬inf)
+    def rand_vals(top):
+        raw = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+        raw[:, 0] = np.minimum(raw[:, 0], top)
+        return raw
+
+    xs, ys, zs = rand_vals(255), rand_vals(255), rand_vals(255)
+    x2s, y2s = rand_vals(254), rand_vals(254)
+    has = rng.integers(0, 2, n).astype(bool)
+    inf = rng.integers(0, 2, n).astype(bool)
+    true_deg = np.zeros(n, bool)
+    a_inv_dom = pow(a_dom, -1, p)
+    for j in range(0, n, 97):
+        z = int.from_bytes(zs[j].tobytes(), "big") * a_inv_dom % p
+        x2 = int.from_bytes(x2s[j].tobytes(), "big") * a_inv_dom % p
+        xs[j] = np.frombuffer(((x2 * z * z % p) * a_dom % p)
+                              .to_bytes(32, "big"), np.uint8)
+        has[j], inf[j], true_deg[j] = True, False, True
+    planes = [tuple(T(a) for a in residues_of_bytes(c, v))
+              for v in (xs, ys, zs)]
+
+    def packed(v):
+        a, b = residues_of_bytes(c, v)
+        return T(a | (b << 16))
+
+    x2p, y2p = packed(x2s), packed(y2s)
+    t_has, t_inf = T(has), T(inf)
+    out_k = cuda_madd.madd(c, *planes, t_inf, t_has, x2p, y2p)
+    out_p = cuda_madd.madd_ref(c, *planes, t_inf, t_has, x2p, y2p)
+    torch.cuda.synchronize()
+    err = ndiff = split = 0
+    for kk, pp in zip(out_k[:3], out_p[:3]):
+        e, d, sp = max_err(c, [t.cpu().numpy() for t in kk],
+                           [t.cpu().numpy() for t in pp])
+        err, ndiff, split = max(err, e), ndiff + d, split + sp
+    deg_k = out_k[3].cpu().numpy()
+    deg_p = out_p[3].cpu().numpy()
+    assert err == 0 and split == 0, \
+        f"madd disagrees by {err} on {ndiff} lane planes ({split} split)"
+    assert deg_k[true_deg].all() and deg_p[true_deg].all(), "deg missed"
+    assert not deg_k[~has | inf].any(), "deg on a masked lane"
+    deg_only = int((deg_k != deg_p).sum())
+    ms_k = cuda_ms(lambda: cuda_madd.madd(c, *planes, t_inf, t_has,
+                                          x2p, y2p), 20)
+    ms_p = cuda_ms(lambda: cuda_madd.madd_ref(c, *planes, t_inf, t_has,
+                                              x2p, y2p), 5)
+    iap = max(ia, ib)
+    nbytes = n * (4 * (3 * (ia + ib) + 2 * iap) + 2
+                  + 4 * 3 * (ia + ib) + 1)
+    b_ms, b_by = bound(nbytes, n * madd_ops(ia, ib))
+    log(f"kernel madd: {n} lanes, {ndiff} lane planes not bit-equal in A "
+        f"or B, max value err {err} over both planes, {int(true_deg.sum())} true degeneracies "
+        f"flagged by both, {deg_only} probe flags differ; kernel "
+        f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    records["madd"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
+                           bound_ms=b_ms, bound_by=b_by)
+
+
+# -- main path --------------------------------------------------------------
+
+def b64(b: bytes) -> str:
+    import base64
+
+    return base64.urlsafe_b64encode(b).rstrip(b"=").decode()
+
+
+def unb64(s: str) -> bytes:
+    import base64
+
+    return base64.urlsafe_b64decode(s + "=" * (-len(s) % 4))
+
+
+def with_sig(token: str, sig: bytes) -> str:
+    h, p, _ = token.split(".")
+    return f"{h}.{p}.{b64(sig)}"
+
+
+def build_batch(rng):
+    """(jwks, tokens, expected) for the north-star batch. expected[i]
+    is the sub claim of an accepted token, or the exception class name
+    (with its message where it is fixed)."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu.ec import curve
+    from cap_tpu_torch.jwt import algs
+
+    t0 = time.perf_counter()
+    jwks, uniq, signers = tt.headline_fixtures(N_UNIQUE, seed=SEED)
+    log(f"fixtures: 8 RSA-2048 + 8 P-256 keys, {N_UNIQUE} signed tokens "
+        f"in {time.perf_counter() - t0:.1f} s")
+    reject = ("InvalidSignatureError",
+              "no known key successfully validated the token signature")
+    tampered = []
+    for tok in uniq:
+        sig = bytearray(unb64(tok.split(".")[2]))
+        sig[rng.randrange(len(sig))] ^= 1 << rng.randrange(8)
+        tampered.append(with_sig(tok, bytes(sig)))
+    subs = [json.loads(unb64(t.split(".")[1]))["sub"] for t in uniq]
+    tokens, expected = [], []
+    for i in range(N_TOKENS):
+        u = i % N_UNIQUE
+        if rng.random() < 0.125:
+            tokens.append(tampered[u])
+            expected.append(reject)
+        else:
+            tokens.append(uniq[u])
+            expected.append(subs[u])
+
+    n_p256 = curve("P-256").n
+    outsider = tt.generate_ec_key(rng)
+    claims = tt.default_claims(sub="special")
+    es_tok = next(t for t, s in zip(uniq, signers * N_UNIQUE)
+                  if s[1] == algs.ES256)
+    es_sig = unb64(es_tok.split(".")[2])
+    rs_tok = uniq[0]
+    specials = [
+        (tt.sign_jwt(outsider, algs.ES256, claims, kid="nobody", rng=rng),
+         reject),
+        (b64(b'{"alg":"none"}') + "." + b64(b'{"sub":"x"}') + ".",
+         ("TokenNotSignedError", "token must be signed")),
+        (with_sig(es_tok, b"\0" * 32 + es_sig[32:]), reject),
+        (with_sig(es_tok, es_sig[:32] + n_p256.to_bytes(32, "big")),
+         reject),
+        (with_sig(es_tok, es_sig[:-1]), reject),
+        (with_sig(rs_tok, unb64(rs_tok.split(".")[2])[:-1]), reject),
+        ("a.b", ("MalformedTokenError",
+                 "compact JWS must have 3 segments")),
+        ("!!!." + rs_tok.split(".", 1)[1],
+         ("MalformedTokenError", "invalid base64url segment")),
+    ]
+    for k, (tok, exp) in enumerate(specials):
+        for rep in range(3):
+            pos = (k * 3 + rep) * 2741 + 17
+            tokens[pos] = tok
+            expected[pos] = exp
+    return jwks, uniq, tampered, tokens, expected
+
+
+def oracle_check(jwks, uniq, tampered):
+    """Unique tokens accept and a sample of tampered ones reject on the
+    pure-integer oracle (pow for RS256, py_ecdsa_verify for ES256)."""
+    from cap_tpu_torch.errors import InvalidSignatureError
+    from cap_tpu_torch.jwt.jose import parse_jws
+    from cap_tpu_torch.jwt.verify import verify_parsed
+
+    by_kid = {j.kid: j.key for j in jwks}
+    t0 = time.perf_counter()
+    for tok in uniq:
+        p = parse_jws(tok)
+        verify_parsed(p, by_kid[p.kid])
+    for tok in tampered[:128]:
+        p = parse_jws(tok)
+        try:
+            verify_parsed(p, by_kid[p.kid])
+        except InvalidSignatureError:
+            continue
+        raise AssertionError("oracle accepted a tampered token")
+    log(f"oracle: {len(uniq)} unique tokens accept, 128 tampered reject "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def check_verdicts(results, expected):
+    bad = []
+    for i, (got, exp) in enumerate(zip(results, expected)):
+        if isinstance(exp, tuple):
+            ok = (type(got).__name__ == exp[0]
+                  and str(got) == exp[1])
+        else:
+            ok = isinstance(got, dict) and got.get("sub") == exp
+        if not ok:
+            bad.append((i, exp, got))
+    assert not bad, f"{len(bad)} wrong verdicts, first: {bad[:3]}"
+
+
+def main_path(records):
+    import torch
+
+    from cap_tpu_torch.gpu import cuda_madd, cuda_redc
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet, _prep_one
+
+    rng = random.Random(SEED)
+    jwks, uniq, tampered, tokens, expected = build_batch(rng)
+    oracle_check(jwks, uniq, tampered)
+    ks = GPUBatchKeySet(jwks)
+    es_kids = {j.kid for j in jwks if j.kid.startswith("es-")}
+    n_es = 0
+    for t in tokens:
+        p = _prep_one(t)
+        n_es += (not isinstance(p, Exception) and p.alg == "ES256"
+                 and p.kid in es_kids)
+
+    cuda_redc.launches = 0
+    cuda_madd.launches = 0
+    t0 = time.perf_counter()
+    results = ks.verify_batch(tokens)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {"redc": cuda_redc.launches, "madd": cuda_madd.launches}
+    check_verdicts(results, expected)
+    n_chunks = (n_es + 32767) // 32768
+    log(f"main path: {len(tokens)} tokens ({n_es} ES256 on the packed "
+        f"path, {n_chunks} ES chunk(s)), every verdict as expected; "
+        f"launches {launches}; degenerate lanes re-verified on the "
+        f"oracle: {ks.deg_reverified}; first run {first_s:.2f} s")
+    assert launches["madd"] == 32 * n_chunks > 0, launches
+    assert launches["redc"] == 11 * n_chunks > 0, launches
+    for name, count in launches.items():
+        records[name]["launches"] = count
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        results = ks.verify_batch(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    check_verdicts(results, expected)
+    best = min(times)
+    log(f"main path warm: {len(tokens)} tokens in "
+        f"{', '.join(f'{t:.3f}' for t in times)} s; best "
+        f"{len(tokens) / best:.0f} verifies/s")
+    engine_times(ks, tokens)
+    profile_batch(ks, tokens, best)
+
+
+def profile_batch(ks, tokens, wall_s: float):
+    """Device time of one warm batch by kernel (torch.profiler over
+    CUPTI) and its share of the best unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ks.verify_batch(tokens)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    events = [e for e in prof.key_averages() if dev_us(e) > 0
+              and "CPU" not in str(getattr(e, "device_type", ""))]
+    total_ms = sum(dev_us(e) for e in events) / 1e3
+    if total_ms == 0:
+        log("profile: no device time recorded (not measured)")
+        return
+    log(f"profile: {total_ms:.1f} ms of device time in one batch, "
+        f"{100 * total_ms / 1e3 / wall_s:.1f}% of the best wall time "
+        f"(device idle {100 - 100 * total_ms / 1e3 / wall_s:.1f}%)")
+    for e in sorted(events, key=dev_us, reverse=True)[:10]:
+        log(f"  {dev_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:70]}")
+
+
+def engine_times(ks, tokens):
+    """Record packing and device time of the packed RS and ES paths
+    (host prep excluded), with the count of tokens each one packed: the
+    engines' share of the batch."""
+    import numpy as np
+    import torch
+
+    from cap_tpu_torch.jwt.gpu_keyset import _prep_one
+
+    t0 = time.perf_counter()
+    parsed = [_prep_one(t) for t in tokens]
+    dt = time.perf_counter() - t0
+    log(f"host prep: {len(tokens)} tokens parsed in {dt * 1e3:.1f} ms "
+        f"({dt / len(tokens) * 1e6:.2f} µs/token)")
+    for alg in ("RS256", "ES256"):
+        idx = np.asarray([i for i, p in enumerate(parsed)
+                          if not isinstance(p, Exception) and p.alg == alg
+                          and p.kid is not None])
+        pending = []
+        run = (ks._run_ec_packed if alg == "ES256" else
+               (lambda a, *r: ks._run_rsa_packed("sha256", *r)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(alg, idx, parsed, pending)
+        outs = [o.cpu() for _, _, o_list, _ in pending for o in o_list]
+        dt = time.perf_counter() - t0
+        packed = sum(m for _, m, _, _ in pending)
+        log(f"engine {alg}: {packed} tokens packed in {len(pending)} "
+            f"chunk(s) ({len(idx) - packed} without a key row left out), "
+            f"{dt * 1e3:.1f} ms record packing + device, "
+            f"{packed / dt:.0f} verifies/s ({len(outs)} outputs)")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "cap_tpu_torch")):
+        print("chip_smoke: run from a checkout that holds cap_tpu_torch",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, here)
+    from cap_tpu_torch import _build
+
+    card = card_line()
+    log(f"card: {card}")
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s for "
+        f"{', '.join(_build.KERNELS)} (parallel nvcc)")
+    for name, info in sorted(_build.BUILD_LOG.items()):
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    records = {}
+    kernel_phase(records)
+    main_path(records)
+
+    kernels = [
+        dict(name="redc", route="cuda",
+             source="cap_tpu_torch/gpu/csrc/redc.cu",
+             replaces="cap_tpu/tpu/pallas_redc.py:177",
+             library_ms=None, **records["redc"]),
+        dict(name="madd", route="cuda",
+             source="cap_tpu_torch/gpu/csrc/madd.cu",
+             replaces="cap_tpu/tpu/pallas_madd.py:125",
+             library_ms=None, **records["madd"]),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

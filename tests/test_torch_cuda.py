@@ -1,0 +1,168 @@
+"""The CUDA kernels on the card: ragged lane counts against the plain
+versions, the launch counters, the wrappers' refusals, and the keyset
+on the card against the keyset on the CPU.
+
+Marked ``cuda``: without a card each test skips. On the card's machine
+(no jax there, so without the suite's conftest):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cap_tpu_torch.gpu import cuda_madd, cuda_redc, ec_rns
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (and nvcc for the kernels)")
+    return torch.device("cuda")
+
+
+def _residues(c, vals):
+    a = np.array([[v % int(m) for m in c.A.m] for v in vals], np.int32)
+    b = np.array([[v % int(m) for m in c.B.m] for v in vals], np.int32)
+    return np.ascontiguousarray(a.T), np.ascontiguousarray(b.T)
+
+
+def _rand(rng, bound, n):
+    nbytes = (bound.bit_length() + 71) // 8
+    return [int.from_bytes(rng.bytes(nbytes), "big") % bound
+            for _ in range(n)]
+
+
+def _crt(base, col):
+    return sum(int(r) * int(inv) % int(m) * mi for r, inv, m, mi in
+               zip(col, base.inv_Mi, base.m, base.Mi)) % base.prod
+
+
+def _same_values(c, kernel, plain):
+    """Both planes of a (A, B) residue pair equal the plain version's by
+    value mod p (CRT over base A and base B), and the kernel's A and B
+    planes hold one integer, on every lane that is not bit-equal."""
+    (ka, kb), (pa, pb) = [[t.cpu().numpy() for t in pair]
+                          for pair in (kernel, plain)]
+    p = c.p_int
+    diff = np.nonzero((ka != pa).any(axis=0) | (kb != pb).any(axis=0))[0]
+    for j in diff:
+        va, vb = _crt(c.A, ka[:, j]), _crt(c.B, kb[:, j])
+        if va != vb or (va - _crt(c.A, pa[:, j])) % p or \
+                (vb - _crt(c.B, pb[:, j])) % p:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1000])
+def test_redc_kernel_matches_plain(dev, n):
+    c = ec_rns.ctx_for("P-256")
+    rng = np.random.default_rng(n)
+    p = c.p_int
+    xa, xb = _residues(c, [u * v for u, v in zip(_rand(rng, 3 * p, n),
+                                                   _rand(rng, 3 * p, n))])
+    xA, xB = torch.from_numpy(xa).to(dev), torch.from_numpy(xb).to(dev)
+    before = cuda_redc.launches
+    tA, tB = cuda_redc.redc(c, xA, xB)
+    rA, rB = cuda_redc.redc_ref(c, xA, xB)
+    torch.cuda.synchronize()
+    assert cuda_redc.launches == before + 1
+    assert _same_values(c, (tA, tB), (rA, rB))
+    # the B residues carry the value of the A residues
+    ka = tA.cpu().numpy()
+    _, b_of_a = _residues(c, [c.value_of(ka[:, j]) for j in range(n)])
+    assert np.array_equal(tB.cpu().numpy(), b_of_a)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1000])
+def test_madd_kernel_matches_plain(dev, n):
+    c = ec_rns.ctx_for("P-256")
+    rng = np.random.default_rng(100 + n)
+    p = c.p_int
+    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    planes = [tuple(T(a) for a in _residues(c, _rand(rng, b * p, n)))
+              for b in (15, 11, 11)]
+
+    def packed():
+        a, b = _residues(c, _rand(rng, p, n))
+        return T(a | (b << 16))
+
+    x2p, y2p = packed(), packed()
+    has = T(rng.integers(0, 2, n).astype(bool))
+    inf = T(rng.integers(0, 2, n).astype(bool))
+    before = cuda_madd.launches
+    out_k = cuda_madd.madd(c, *planes, inf, has, x2p, y2p)
+    out_p = cuda_madd.madd_ref(c, *planes, inf, has, x2p, y2p)
+    torch.cuda.synchronize()
+    assert cuda_madd.launches == before + 1
+    for kk, pp in zip(out_k[:3], out_p[:3]):
+        assert _same_values(c, kk, pp)
+    assert not out_k[3][~has | inf].any()
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    c = ec_rns.ctx_for("P-256")
+    ia, ib = c.A.count, c.B.count
+    good = torch.zeros((ia, 256), dtype=torch.int32, device=dev)
+    goodb = torch.zeros((ib, 256), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        cuda_redc.redc(c, good.to(torch.int64), goodb)
+    with pytest.raises(ValueError):
+        cuda_redc.redc(c, good[:, ::2], goodb[:, ::2])
+    with pytest.raises(ValueError):
+        cuda_redc.redc(c, good[:5], goodb)
+    with pytest.raises(NotImplementedError):
+        cuda_redc.redc(ec_rns.ctx_for("P-384"), good, goodb)
+
+
+def _degenerate_token(kid: str, inverse: bool, rng):
+    """An ES256 token whose ladder chains meet at the merge (the key
+    is derived from the token: Q = (±e/r)·G), so the same-x flag sends
+    it to the oracle: the doubling case verifies, the inverse case
+    (sum at infinity) does not."""
+    import hashlib
+    import json
+
+    from cap_tpu_torch.gpu.ec import HostECPublicKey, curve, scalar_mult
+    from cap_tpu_torch.jwt.jose import b64url_encode
+    from cap_tpu_torch.jwt.jwk import JWK
+
+    cp = curve("P-256")
+    si = (b64url_encode(json.dumps({"alg": "ES256", "kid": kid}).encode())
+          + "." + b64url_encode(b'{"sub":"%s"}' % kid.encode()))
+    e = int.from_bytes(hashlib.sha256(si.encode()).digest(), "big")
+    k = rng.randrange(1, cp.n)
+    r = scalar_mult(cp, k, (cp.gx, cp.gy))[0] % cp.n
+    d = (-e if inverse else e) * pow(r, -1, cp.n) % cp.n
+    s = (rng.randrange(1, cp.n) if inverse
+         else pow(k, -1, cp.n) * (e + r * d) % cp.n)
+    sig = r.to_bytes(32, "big") + s.to_bytes(32, "big")
+    return (JWK(HostECPublicKey.from_private("P-256", d), kid=kid),
+            si + "." + b64url_encode(sig))
+
+
+def test_keyset_on_the_card_matches_the_plain_path(dev):
+    import random
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+
+    jwks, tokens, _ = tt.headline_fixtures(48, seed=5)
+    rng = random.Random(5)
+    bad = [t[:-4] + ("AAAA" if t[-4:] != "AAAA" else "BBBB")
+           for t in rng.sample(tokens, 6)]
+    dbl_key, dbl = _degenerate_token("deg-dbl", False, rng)
+    inv_key, inv = _degenerate_token("deg-inv", True, rng)
+    jwks = jwks + [dbl_key, inv_key]
+    batch = tokens + bad + ["a.b", dbl, inv]
+    card_ks = GPUBatchKeySet(jwks)
+    on_card = card_ks.verify_batch(batch)
+    on_cpu = GPUBatchKeySet(jwks, device="cpu").verify_batch(batch)
+    assert [repr(x) if isinstance(x, Exception) else x for x in on_card] \
+        == [repr(x) if isinstance(x, Exception) else x for x in on_cpu]
+    assert sum(isinstance(x, dict) for x in on_card) == len(tokens) + 1
+    assert on_card[-2] == {"sub": "deg-dbl"}
+    assert card_ks.deg_reverified == 2

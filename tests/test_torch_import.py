@@ -1,0 +1,92 @@
+"""cap_tpu_torch stands alone: no jax, nothing of cap_tpu, the card by
+default."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "cap_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts).replace(
+        ".__init__", "")
+    for p in PKG.rglob("*.py"))
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_cap_tpu_import(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "cap_tpu"}, (path, roots)
+
+
+def test_imports_with_jax_blocked():
+    """Every module imports in a fresh interpreter where ``import jax``
+    and ``import cap_tpu`` fail."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['cap_tpu'] = None\n"
+        "import importlib\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k in "
+        "sys.modules if sys.modules[k] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_keyset_defaults_to_the_card(monkeypatch):
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.jwt.jwk import JWK
+    from cap_tpu_torch.gpu.ec import HostECPublicKey, curve
+
+    cp = curve("P-256")
+    jwks = [JWK(HostECPublicKey("P-256", cp.gx, cp.gy), kid="g")]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GPUBatchKeySet(jwks)
+    ks = GPUBatchKeySet(jwks, device="cpu")
+    assert ks.device.type == "cpu"
+
+
+def test_wrappers_take_the_plain_path_only_on_cpu_tensors():
+    """On CPU tensors the wrappers run their plain versions and count
+    no launch; on a non-CPU, non-CUDA device they refuse."""
+    from cap_tpu_torch.gpu import cuda_madd, cuda_redc, ec_rns
+
+    c = ec_rns.ctx_for("P-256")
+    ia, ib = c.A.count, c.B.count
+    xA = torch.zeros((ia, 4), dtype=torch.int32)
+    xB = torch.zeros((ib, 4), dtype=torch.int32)
+    before = (cuda_redc.launches, cuda_madd.launches)
+    tA, tB = cuda_redc.redc(c, xA, xB)
+    rA, rB = cuda_redc.redc_ref(c, xA, xB)
+    assert torch.equal(tA, rA) and torch.equal(tB, rB)
+    g = torch.zeros((max(ia, ib), 4), dtype=torch.int32)
+    m = torch.zeros(4, dtype=torch.bool)
+    cuda_madd.madd(c, (xA, xB), (xA, xB), (xA, xB), m, m, g, g)
+    assert (cuda_redc.launches, cuda_madd.launches) == before
+    with pytest.raises(ValueError):
+        cuda_redc.redc(c, xA.to("meta"), xB.to("meta"))
