@@ -10,7 +10,10 @@ compute on the same constants:
   ``Bmod_A``, ``invA_B``; for field contexts also ``sig_c``, ``p_B``,
   ``cp_A``, ``cp_B``;
 - ``RNSKeyTable``: ``sig_c``, ``n_B``, ``a2_A``, ``a2_B``;
-- ``ECRNSKeyTable``: ``tab``.
+- ``ECRNSKeyTable``: ``tab``;
+- ``Ed25519RNSKeyTable``: ``tna`` and the basepoint's ``b_table_rns()``
+  (the JAX package's [rows, I_A + I_B] planes; the port keeps them
+  transposed).
 
 Every array must have the shape of the table it replaces and hold
 integers (floats only where the port keeps floats).
@@ -25,6 +28,7 @@ import numpy as np
 
 from .gpu.ec import ECKeyTable
 from .gpu.ec_rns import ECRNSKeyTable
+from .gpu.ed25519 import Ed25519KeyTable
 from .gpu.rns import RNSKeyTable
 from .gpu.rsa import RSAKeyTable
 
@@ -62,6 +66,7 @@ def load_context(ctx, arrays: Dict):
         setattr(new, name, _like(getattr(ctx, name), arrays[name], name))
     new._dev = {}
     new.__dict__.pop("_kernel_consts", None)
+    new.__dict__.pop("_to_limbs", None)
     return new
 
 
@@ -99,4 +104,27 @@ def ec_key_table(crv: str, keys: Sequence, ctx_arrays: Dict, tab,
                 "tab")
     table = ECKeyTable(crv, keys, device)
     table._rns = ECRNSKeyTable(crv, keys, tab=tab, ctx=ctx)
+    return table
+
+
+def ed25519_key_table(keys: Sequence, ctx_arrays: Dict, tna: Sequence,
+                      tb: Sequence, device="cuda") -> Ed25519KeyTable:
+    """An ``Ed25519KeyTable`` whose RNS context and window tables (the
+    keys' ``tna`` and the basepoint's ``tb``, three [rows, I_A + I_B]
+    planes each) are the JAX package's."""
+    from .gpu import ed25519_rns as er
+
+    ctx = load_context(er.ctx(), ctx_arrays)
+    rows = er.NW8 * er.PER
+    w = ctx.A.count + ctx.B.count
+
+    def planes(arrs, n_rows, name):
+        return tuple(np.ascontiguousarray(
+            _like(np.zeros((n_rows, w), np.int32), a, f"{name}[{t}]").T)
+            for t, a in enumerate(arrs))
+
+    table = Ed25519KeyTable(keys, device)
+    table._rns = er.Ed25519RNSKeyTable(
+        table.decoded, tna=planes(tna, len(keys) * rows, "tna"),
+        tb=planes(tb, rows, "tb"), ctx_=ctx)
     return table

@@ -404,6 +404,12 @@ class FieldRNSContext(_ContextBase):
                               np.int32)[:, None],
                    np.asarray([a2 % int(m) for m in self.B.m],
                               np.int32)[:, None])
+        self.to_limbs = RNSToLimbs(self.A, k_limbs + 1)
+
+    def residues_of(self, x: int) -> np.ndarray:
+        """Plain host int → concatenated [I_A + I_B] residue row."""
+        return np.asarray([x % int(m) for m in self.A.m]
+                          + [x % int(m) for m in self.B.m], np.int64)
 
     def _extra_device_consts(self, ns, col, device) -> None:
         ns.sig_c = col(self.sig_c)
@@ -422,12 +428,103 @@ class FieldRNSContext(_ContextBase):
                    zip(res_a, a.inv_Mi, a.m, a.Mi)) % a.prod
 
 
-def _rns_verify_core(ctx: RNSContext, s_limbs, expected_limbs,
-                     sig_c, n_B, a2_A, a2_B):
-    """Batched s^65537 mod n == expected (+c·n) check, all in RNS.
+class RNSToLimbs:
+    """CRT reconstruction: base-A residues → 16-bit limbs (``rns.RNSToLimbs``
+    of the JAX package).
 
-    s_limbs/expected_limbs: [K, N] int64 limbs; the rest: [I, N]
-    gathered per-token key constants. Returns ok [N] bool.
+    value = Σ_i σ_i·(A/a_i) − α·A with σ_i = x_i·(A/a_i)⁻¹ mod a_i and
+    α = ⌊Σ σ_i/a_i⌉ (exact through the +0.5 offset: values are ≪ A).
+    The Σ is a fixed float32 matmul against the limb rows of A/a_i,
+    split 8+8 bits (table) by 7+7 bits (σ < 2^14): every sum is below
+    I·255·127 < 2^24 for I ≤ 169 channels, so float32 (and TF32, whose
+    inputs here fit 8 bits) is exact. Each weighted part spreads over
+    two adjacent limbs, so the int64 sums stay below 2^32 for the carry
+    pass. Valid for values < max_c·p ≪ A (the engines' bounds).
+    """
+
+    def __init__(self, base: _Base, k_out: int):
+        self.base = base
+        self.k_out = k_out
+        bits = int(np.ceil(np.log2(float(base.count)))) + \
+            sum(int(m).bit_length() for m in base.m)
+        self.k2 = (bits + 15) // 16 + 1
+        t16 = np.empty((self.k2, base.count), np.int64)
+        for i, mi in enumerate(base.Mi):
+            v = mi
+            for ll in range(self.k2):
+                t16[ll, i] = v & 0xFFFF
+                v >>= 16
+        self.t_hi = (t16 >> 8).astype(np.float32)
+        self.t_lo = (t16 & 0xFF).astype(np.float32)
+        a_limbs = np.zeros(self.k2 + 1, np.int64)
+        v = base.prod
+        for ll in range(self.k2):
+            a_limbs[ll] = v & 0xFFFF
+            v >>= 16
+        self.a_limbs = a_limbs
+        self._dev: Dict[torch.device, SimpleNamespace] = {}
+
+    def _consts(self, device) -> SimpleNamespace:
+        device = torch.device(device)
+        hit = self._dev.get(device)
+        if hit is None:
+            b = self.base
+
+            def col(v, dtype):
+                return torch.as_tensor(np.asarray(v).reshape(-1, 1),
+                                       dtype=dtype, device=device)
+
+            hit = SimpleNamespace(
+                t_hi=torch.as_tensor(self.t_hi, device=device),
+                t_lo=torch.as_tensor(self.t_lo, device=device),
+                a_limbs=col(self.a_limbs, torch.int64),
+                m=col(b.m, I32), inv_f=col(1.0 / b.m, F32),
+                inv_Mi=col(b.inv_Mi, I32))
+            self._dev[device] = hit
+        return hit
+
+    def __call__(self, x_a: torch.Tensor) -> torch.Tensor:
+        """[I, N] int32 digit-canonical base-A residues → [k_out, N]
+        int64 limbs of the value."""
+        from .bignum import carry_normalize, sub_where
+
+        cc = self._consts(x_a.device)
+        sig = _mod_fix(x_a * cc.inv_Mi, cc.m, cc.inv_f)
+        alpha = torch.floor((sig.to(F32) * cc.inv_f).sum(dim=0)
+                            + 0.5).to(torch.int64)          # [N]
+        sh = (sig >> 7).to(F32)
+        sl = (sig & 127).to(F32)
+
+        def mm(a, b):
+            return torch.matmul(a, b).to(torch.int64)
+
+        def spread(v, shift):
+            # v·2^shift at limb l → low bits at l, high bits at l+1
+            lo = (v << shift) & 0xFFFF
+            hi = v >> (16 - shift)
+            return lo + torch.cat([torch.zeros_like(hi[:1]), hi[:-1]])
+
+        acc = (spread(mm(cc.t_hi, sh), 15) + spread(mm(cc.t_hi, sl), 8)
+               + spread(mm(cc.t_lo, sh), 7) + mm(cc.t_lo, sl))
+        acc = carry_normalize(torch.cat([acc, torch.zeros_like(acc[:1])]))
+        corr = carry_normalize(alpha[None, :] * cc.a_limbs)
+        ones = torch.ones(acc.shape[1], dtype=torch.bool, device=acc.device)
+        return sub_where(acc, corr, ones)[: self.k_out]
+
+
+def _to_limbs_for(ctx: RNSContext, k_out: int) -> RNSToLimbs:
+    """The context's cached base-A reconstructor to ``k_out`` limbs."""
+    cache = ctx.__dict__.setdefault("_to_limbs", {})
+    if k_out not in cache:
+        cache[k_out] = RNSToLimbs(ctx.A, k_out)
+    return cache[k_out]
+
+
+def _rns_pow65537(ctx: RNSContext, s_limbs, sig_c, n_B, a2_A, a2_B):
+    """s^65537 mod n as a plain residue pair (value < 3n), all in RNS.
+
+    s_limbs: [K, N] int64 limbs; the rest: [I, N] gathered per-token
+    key constants.
     """
     cc = ctx.device_consts(s_limbs.device)
     sA = _limbs_to_rns(s_limbs, cc.T_A, cc.mA, cc.invA_f)
@@ -438,7 +535,36 @@ def _rns_verify_core(ctx: RNSContext, s_limbs, expected_limbs,
         xA, xB = _mul_redc(xA, xB, xA, xB, sig_c, n_B, cc)
     xA, xB = _mul_redc(xA, xB, x0A, x0B, sig_c, n_B, cc)
     # exit the Montgomery domain: multiply by 1 and reduce
-    xA, xB = _redc(xA, xB, sig_c, n_B, cc)
+    return _redc(xA, xB, sig_c, n_B, cc)
+
+
+def _rns_modexp_em_core(ctx: RNSContext, k_out: int, s_limbs, sig_c, n_B,
+                        a2_A, a2_B, n_limbs):
+    """s^65537 mod n as canonical limbs [K, N] (the PSS path's EM).
+
+    The verify core's RNS chain, then CRT reconstruction to ``k_out``
+    limbs and two conditional subtracts of the per-token modulus
+    ``n_limbs`` [K, N].
+    """
+    from .bignum import compare_ge, sub_where
+
+    xA, _ = _rns_pow65537(ctx, s_limbs, sig_c, n_B, a2_A, a2_B)
+    v = _to_limbs_for(ctx, k_out)(xA)
+    n_pad = torch.cat([n_limbs, torch.zeros_like(n_limbs[:1])])
+    for _ in range(2):
+        v = sub_where(v, n_pad, compare_ge(v, n_pad))
+    return v[: n_limbs.shape[0]]
+
+
+def _rns_verify_core(ctx: RNSContext, s_limbs, expected_limbs,
+                     sig_c, n_B, a2_A, a2_B):
+    """Batched s^65537 mod n == expected (+c·n) check, all in RNS.
+
+    s_limbs/expected_limbs: [K, N] int64 limbs; the rest: [I, N]
+    gathered per-token key constants. Returns ok [N] bool.
+    """
+    cc = ctx.device_consts(s_limbs.device)
+    xA, xB = _rns_pow65537(ctx, s_limbs, sig_c, n_B, a2_A, a2_B)
 
     eB = _limbs_to_rns(expected_limbs, cc.T_B, cc.mB, cc.invB_f)
     ok = torch.zeros(s_limbs.shape[1], dtype=torch.bool,

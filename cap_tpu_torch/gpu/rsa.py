@@ -1,11 +1,13 @@
-"""Batched RS* (PKCS#1 v1.5) verification in PyTorch.
+"""Batched RS* (PKCS#1 v1.5) and PS256 (PSS) verification in PyTorch.
 
-The port of the JAX package's packed RS* path, RNS branch: per chunk
-one u8 record matrix [sig ‖ digest ‖ flag ‖ key row] goes to the
-device; the signature bytes become 16-bit limbs there, the expected
-encoded message EM is built there from the digest, and
-``rns._rns_verify_core`` checks s^65537 ≡ EM (mod n) entirely in
-RNS. Only an [N] bool returns.
+The port of the JAX package's packed RS*/PS* paths, RNS branch: per
+chunk one u8 record matrix [sig ‖ digest ‖ flag ‖ key row] goes to the
+device; the signature bytes become 16-bit limbs there. RS*: the
+expected encoded message EM is built there from the digest, and
+``rns._rns_verify_core`` checks s^65537 ≡ EM (mod n) entirely in RNS.
+PS256: ``rns._rns_modexp_em_core`` returns s^65537 mod n as limbs (CRT
+reconstruction), and the whole EMSA-PSS-VERIFY with its SHA-256
+(``gpu.sha256``) runs on the device. Only an [N] bool returns.
 
 The RS REDC runs on per-token key constants and stays plain torch
 ops (the JAX package computes it outside any Pallas kernel too), with
@@ -25,7 +27,13 @@ import torch
 
 from . import limbs as L
 from .bignum import compare_ge
-from .rns import RNSKeyTable, RNSUnsupportedKey, _rns_verify_core, context
+from .rns import (
+    RNSKeyTable,
+    RNSUnsupportedKey,
+    _rns_modexp_em_core,
+    _rns_verify_core,
+    context,
+)
 
 # ASN.1 DigestInfo prefixes (RFC 8017 §9.2 notes).
 DIGEST_INFO_PREFIX = {
@@ -80,6 +88,7 @@ class RSAKeyTable:
                 "RSA keys with e != 65537 need the limb engine, which "
                 "cap_tpu_torch does not have yet")
         self.sizes_bytes = [(n.bit_length() + 7) // 8 for n in self.n_ints]
+        self.mod_bits = [n.bit_length() for n in self.n_ints]
         need = L.nlimbs_for_bits(max(n.bit_length() for n in self.n_ints))
         self.k = max(need + 1, 8)
         self.device = torch.device(device)
@@ -98,22 +107,31 @@ class RSAKeyTable:
         self.sizes_dev = torch.as_tensor(self.sizes_bytes,
                                          dtype=torch.int64,
                                          device=self.device)
+        self.mod_bits_dev = torch.as_tensor(self.mod_bits,
+                                            dtype=torch.int64,
+                                            device=self.device)
 
 
 def rs_packed_records(table: RSAKeyTable, sig_mat: np.ndarray,
                       sig_lens: np.ndarray, hash_mat: np.ndarray,
-                      hash_name: str, key_idx: np.ndarray) -> np.ndarray:
+                      hash_name: str, key_idx: np.ndarray,
+                      kind: str = "rs") -> np.ndarray:
     """Host: the packed [N, 2k + hlen + 2] u8 record matrix.
 
     Row layout: right-aligned signature bytes (2k) ‖ digest (hlen) ‖
     validity flag u8 ‖ key row u8. Wrong-length signatures are zeroed
-    with flag 0 (the oracle's length rejections).
+    with flag 0 (the oracle's length rejections). ``kind`` "rs" also
+    clears the flag where PKCS#1 v1.5 needs emLen ≥ tLen + 11; "ps"
+    keeps plain length validity (the PSS length checks run on the
+    device), as the JAX keyset's record packer does.
     """
     sizes = np.asarray(table.sizes_bytes, np.int64)[key_idx]
     len_ok = sig_lens == sizes
-    em_len_ok = sizes >= len(DIGEST_INFO_PREFIX[hash_name]) + \
-        HASH_LEN[hash_name] + 11
-    flags = (len_ok & em_len_ok).astype(np.uint8)
+    flags = len_ok
+    if kind == "rs":
+        flags = flags & (sizes >= len(DIGEST_INFO_PREFIX[hash_name])
+                         + HASH_LEN[hash_name] + 11)
+    flags = flags.astype(np.uint8)
     safe_lens = np.where(len_ok, sig_lens, 0)
     width = 2 * table.k
     aligned = L.right_align_bytes(
@@ -157,3 +175,139 @@ def verify_rs_packed_pending(table: RSAKeyTable, rec: np.ndarray,
     device [N] bool (materialized by the caller's one sync)."""
     dev = torch.from_numpy(np.ascontiguousarray(rec)).to(table.device)
     return _rs_packed_rns_impl(dev, table, hash_name)
+
+
+# ---------------------------------------------------------------------------
+# PS256: device-side EMSA-PSS-VERIFY
+# ---------------------------------------------------------------------------
+
+def _limbs_to_bytes(limbs: torch.Tensor) -> torch.Tensor:
+    """[K, N] 16-bit limbs → [N, 2K] uint8 big-endian bytes."""
+    be = limbs.T.flip(1)
+    return torch.stack([be >> 8, be & 0xFF], dim=2).reshape(
+        be.shape[0], -1).to(torch.uint8)
+
+
+def _vshift_left(mat: torch.Tensor, sh: torch.Tensor,
+                 max_shift: int) -> torch.Tensor:
+    """out[i, j] = mat[i, j + sh[i]] (zero fill), sh ∈ [0, max_shift].
+
+    A binary-decomposed variable shift: log2(max_shift) masked static
+    slices instead of a per-token gather (the JAX package's layout).
+    """
+    n = mat.shape[0]
+    x = mat
+    step = 1
+    while step <= max_shift:
+        shifted = torch.cat([x[:, step:], x.new_zeros((n, step))], dim=1)
+        x = torch.where(((sh & step) != 0)[:, None], shifted, x)
+        step *= 2
+    return x
+
+
+def _pss_verify_device(em_bytes: torch.Tensor, mhash: torch.Tensor,
+                       mod_bits: torch.Tensor, width: int,
+                       hash_name: str) -> torch.Tensor:
+    """RFC 8017 §9.1.2 on the device, salt auto-recovered: [N] bool.
+
+    em_bytes: [N, width] big-endian EM integer bytes (width = 2k);
+    mhash: [N, h_len] u8; mod_bits: [N] per-token modulus bits. The
+    MGF1 blocks (all of them in one batched hash) and H' run through
+    ``gpu.sha256``; every per-token offset is a ``_vshift_left``. Every
+    structural rejection of the host check (``jwt.verify.pss_check_em``:
+    short emLen, missing 0xBC, nonzero leading bits or bytes, bad
+    PS/0x01 separator, H' mismatch) gives the same verdict.
+    """
+    if hash_name != "sha256":
+        raise NotImplementedError(
+            f"PSS with {hash_name} needs the SHA-512 engine, which "
+            f"cap_tpu_torch does not have yet")
+    from .sha256 import sha256_fixed, sha256_var
+
+    h_len = HASH_LEN[hash_name]
+    n = em_bytes.shape[0]
+    dev = em_bytes.device
+    em_bits = mod_bits.to(torch.int64) - 1
+    em_len = (em_bits + 7) // 8                      # [N]
+    start = width - em_len                           # first EM byte
+    cols = torch.arange(width, device=dev)[None, :]
+
+    # EM < 2^emBits: bytes before `start` must be zero
+    lead_ok = ~((cols < start[:, None]) & (em_bytes != 0)).any(dim=1)
+    db_len = em_len - h_len - 1
+    len_ok = em_len >= h_len + 2
+    trailer_ok = em_bytes[:, width - 1] == 0xBC
+
+    # H and maskedDB at per-token offsets
+    h_mat = em_bytes[:, width - 1 - h_len: width - 1]
+    db_max = width - h_len - 1
+    dbj = torch.arange(db_max, device=dev)[None, :]
+    masked_db = _vshift_left(em_bytes, start.clamp(0, width),
+                             width)[:, :db_max]
+    in_db = dbj < db_len[:, None]
+    masked_db = torch.where(in_db, masked_db, 0)
+
+    unused = 8 * em_len - em_bits                    # [N] ∈ [0, 7]
+    top_ok = (unused == 0) | \
+        ((masked_db[:, 0].to(torch.int64) >> (8 - unused)) == 0)
+
+    # MGF1(H, dbLen): byte j = SHA-256(H ‖ be32(j // h_len))[j % h_len];
+    # all counters hash as one batch of [n_ctr·N] single blocks
+    n_ctr = (db_max + h_len - 1) // h_len
+    seeds = torch.zeros((n_ctr, n, h_len + 4), dtype=torch.uint8,
+                        device=dev)
+    seeds[:, :, :h_len] = h_mat
+    ctr = torch.arange(n_ctr, device=dev)
+    seeds[:, :, h_len + 2] = (ctr >> 8).to(torch.uint8)[:, None]
+    seeds[:, :, h_len + 3] = (ctr & 0xFF).to(torch.uint8)[:, None]
+    mask = sha256_fixed(seeds.reshape(n_ctr * n, h_len + 4))
+    mask = mask.reshape(n_ctr, n, h_len).permute(1, 0, 2).reshape(
+        n, n_ctr * h_len)[:, :db_max]
+    db = masked_db ^ torch.where(in_db, mask, 0)
+    top_mask = (torch.full_like(unused, 0xFF) >> unused).to(torch.uint8)
+    db[:, 0] &= top_mask
+
+    # DB = 0x00.. ‖ 0x01 ‖ salt: the first nonzero byte must be 0x01
+    nz = (db != 0) & in_db
+    sep = torch.argmax(nz.to(torch.int8), dim=1)     # 0 when none
+    sep_ok = nz.any(dim=1) & (db.gather(1, sep[:, None])[:, 0] == 1)
+    salt_len = db_len - sep - 1
+
+    # M' = 0^8 ‖ mHash ‖ salt; the salt is DB shifted left by sep + 1
+    salt_max = db_max - 1
+    sj = torch.arange(salt_max, device=dev)[None, :]
+    salt = _vshift_left(db, sep + 1, db_max)[:, :salt_max]
+    salt = torch.where(sj < salt_len[:, None], salt, 0)
+    mp_max = 8 + h_len + salt_max
+    mprime = torch.zeros((n, mp_max), dtype=torch.uint8, device=dev)
+    mprime[:, 8:8 + h_len] = mhash[:, :h_len]
+    mprime[:, 8 + h_len:] = salt
+    hprime = sha256_var(mprime, 8 + h_len + salt_len, mp_max)
+
+    h_ok = (hprime == h_mat).all(dim=1)
+    return (lead_ok & len_ok & trailer_ok & top_ok & sep_ok & h_ok
+            & (db_len > 0))
+
+
+def _ps_packed_rns_impl(packed: torch.Tensor, table: RSAKeyTable,
+                        hash_name: str) -> torch.Tensor:
+    s_limbs, dig, flags, idx = _rs_packed_unpack(packed, table.k,
+                                                 HASH_LEN[hash_name])
+    n_g = table.n_tab[idx].T
+    in_range = ~compare_ge(s_limbs, n_g)
+    sig_c, n_B, a2_A, a2_B = table.rtab.device_tables(packed.device)
+    em = _rns_modexp_em_core(table.ctx, table.k + 1, s_limbs, sig_c[idx].T,
+                             n_B[idx].T, a2_A[idx].T, a2_B[idx].T, n_g)
+    ok = _pss_verify_device(_limbs_to_bytes(em), dig,
+                            table.mod_bits_dev[idx], 2 * table.k,
+                            hash_name)
+    return ok & in_range & flags
+
+
+def verify_ps_packed_pending(table: RSAKeyTable, rec: np.ndarray,
+                             hash_name: str) -> torch.Tensor:
+    """Queue one packed PS* chunk (records of ``rs_packed_records`` with
+    kind "ps") on the table's device; returns the device [N] bool. The
+    EM never leaves the device."""
+    dev = torch.from_numpy(np.ascontiguousarray(rec)).to(table.device)
+    return _ps_packed_rns_impl(dev, table, hash_name)

@@ -1,17 +1,19 @@
 """GPUBatchKeySet — the keyset whose batch path runs on the card.
 
 The port of the JAX package's ``TPUBatchKeySet`` packed path for the
-north-star workload (RS256 + ES256 over a multi-key JWKS). Per batch:
+north-star workload (RS256 + ES256 over a multi-key JWKS) and the
+PS256 + EdDSA workload. Per batch:
 
 1. host prep in Python: JSON-form normalization, the strict compact
    parse (with the native prep's status ladder and messages, so
    rejections read the same), SHA-2 of the signing input, kid → key
    row;
-2. RS* tokens with a unique key go to the packed RS path
-   (``gpu.rsa``), ES256 tokens to the packed ES path (``gpu.ec``), in
-   chunks sized and padded as the JAX keyset does; every chunk is
-   queued on the device before any result is read, but each ES chunk
-   waits once on the device inside its scalar stage (the batch
+2. tokens with a unique key go to the packed paths, in chunks sized
+   and padded as the JAX keyset does: RS* and PS256 to ``gpu.rsa``
+   (PS256 with the device EMSA-PSS check), ES256 to ``gpu.ec``, EdDSA
+   to ``gpu.ed25519`` (k = SHA-512(R‖A‖M) on the host). Every chunk is
+   queued on the device before any result is read, but each ES and
+   EdDSA chunk waits once on the device inside its finish (the batch
    inverse's root is inverted by a host ``pow``, see
    ``gpu.bignum.batch_mont_inverse``);
 3. lanes the ES ladder flags degenerate are re-verified on the
@@ -22,11 +24,11 @@ north-star workload (RS256 + ES256 over a multi-key JWKS). Per batch:
 Results are one claims dict or one exception per token, with the JAX
 keyset's exception classes and messages.
 
-Not ported yet (ROADMAP): PS*, ES384/ES512 (P-384/P-521 keys are
-accepted, and their tokens get a per-token ``UnsupportedAlgError``, as
-PS* tokens do), EdDSA and post-quantum verification, key classes of
-more than 255 keys, hot key swaps, async/stream entry points,
-telemetry.
+Not ported yet (ROADMAP): PS384/PS512 and ES384/ES512 (their tokens
+get a per-token ``UnsupportedAlgError``; P-384/P-521 keys are
+accepted), post-quantum verification, key classes of more than 255
+keys (RSA, EC and Ed25519 alike), hot key swaps, async/stream entry
+points, telemetry.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from ..errors import (
     UnsupportedAlgError,
 )
 from ..gpu import ec as gpuec
+from ..gpu import ed25519 as gpued
 from ..gpu import rsa as gpursa
 from ..gpu.limbs import nlimbs_for_bits
 from . import algs
@@ -55,7 +58,8 @@ from .keyset import KeySet
 from .verify import key_matches_alg, verify_parsed
 
 _RS = {algs.RS256: "sha256", algs.RS384: "sha384", algs.RS512: "sha512"}
-_PS = (algs.PS256, algs.PS384, algs.PS512)
+_PS = {algs.PS256: "sha256"}        # PSS with the device SHA-256
+_PS_UNPORTED = (algs.PS384, algs.PS512)
 _ES = {algs.ES256: "P-256"}           # the curves the kernels are built for
 _ES_UNPORTED = (algs.ES384, algs.ES512)
 
@@ -133,8 +137,9 @@ def _byte_matrix(rows: List[bytes], width: int) -> np.ndarray:
 class GPUBatchKeySet(KeySet):
     """KeySet whose batch path runs on the GPU verify engine.
 
-    ``jwks``: JWKs of this package (RSA and EC keys). ``device``: where
-    the engine runs, ``"cuda"`` by default; raises when CUDA is absent.
+    ``jwks``: JWKs of this package (RSA, EC and Ed25519 keys).
+    ``device``: where the engine runs, ``"cuda"`` by default; raises
+    when CUDA is absent.
     ``device="cpu"`` runs the plain PyTorch versions of every kernel.
     """
 
@@ -155,6 +160,8 @@ class GPUBatchKeySet(KeySet):
         self._rsa_rows: Dict[int, int] = {}
         self._ec_keys: Dict[str, list] = {}
         self._ec_rows: Dict[str, Dict[int, int]] = {}
+        ed_keys: list = []
+        self._ed_rows: Dict[int, int] = {}
         for i, jwk in enumerate(self._jwks):
             key = jwk.key
             if isinstance(key, RSAPublicKey):
@@ -175,11 +182,14 @@ class GPUBatchKeySet(KeySet):
                 rows = self._ec_rows.setdefault(crv, {})
                 rows[i] = len(self._ec_keys.setdefault(crv, []))
                 self._ec_keys[crv].append(key)
+            elif isinstance(key, gpued.HostEd25519PublicKey):
+                self._ed_rows[i] = len(ed_keys)
+                ed_keys.append(key)
             else:
                 raise UnsupportedAlgError(
                     f"key type {type(key).__name__} is not supported by "
                     f"GPUBatchKeySet")
-        for keys in rsa_classes + list(self._ec_keys.values()):
+        for keys in rsa_classes + list(self._ec_keys.values()) + [ed_keys]:
             if len(keys) > _MAX_CLASS_KEYS:
                 raise NotImplementedError(
                     f"a key class of {len(keys)} keys: classes of more "
@@ -189,6 +199,8 @@ class GPUBatchKeySet(KeySet):
         self._n_rsa_keys = sum(len(c) for c in rsa_classes)
         self._ec_tables = {crv: gpuec.ECKeyTable(crv, keys, device)
                            for crv, keys in self._ec_keys.items()}
+        self._ed_table = (gpued.Ed25519KeyTable(ed_keys, device)
+                          if ed_keys else None)
 
         self._by_kid: Dict[str, List[int]] = {}
         for i, jwk in enumerate(self._jwks):
@@ -198,6 +210,7 @@ class GPUBatchKeySet(KeySet):
         self._kid_rsa_row: Dict[str, int] = {}
         self._kid_ec_row: Dict[str, Dict[str, int]] = {
             c: {} for c in self._ec_rows}
+        self._kid_ed_row: Dict[str, int] = {}
         for kid, idxs in self._by_kid.items():
             if len(idxs) != 1:
                 continue
@@ -207,6 +220,8 @@ class GPUBatchKeySet(KeySet):
             for crv, rows in self._ec_rows.items():
                 if i in rows:
                     self._kid_ec_row[crv][kid] = rows[i]
+            if i in self._ed_rows:
+                self._kid_ed_row[kid] = self._ed_rows[i]
 
     # -- single-token path (host oracle) -----------------------------------
 
@@ -270,17 +285,20 @@ class GPUBatchKeySet(KeySet):
             if crv in self._ec_tables and alg in by_alg:
                 self._run_ec_packed(alg, np.asarray(by_alg[alg]), parsed,
                                     pending)
+        if self._ed_table is not None and algs.EdDSA in by_alg:
+            self._run_ed_packed(np.asarray(by_alg[algs.EdDSA]), parsed,
+                                pending)
         if self._rsa_tables:
-            for alg, hash_name in _RS.items():
-                if alg in by_alg:
-                    self._run_rsa_packed(hash_name,
-                                         np.asarray(by_alg[alg]), parsed,
-                                         pending)
-            for alg in _PS:
-                for j in by_alg.get(alg, ()):
-                    results[j] = UnsupportedAlgError(
-                        f"{alg} is not ported to GPUBatchKeySet yet")
-        for alg in _ES_UNPORTED:
+            for kind, family in (("rs", _RS), ("ps", _PS)):
+                for alg, hash_name in family.items():
+                    if alg in by_alg:
+                        self._run_rsa_packed(
+                            kind, hash_name, np.asarray(by_alg[alg]),
+                            parsed, pending)
+            unported = _ES_UNPORTED + _PS_UNPORTED
+        else:
+            unported = _ES_UNPORTED
+        for alg in unported:
             for j in by_alg.get(alg, ()):
                 results[j] = UnsupportedAlgError(
                     f"{alg} is not ported to GPUBatchKeySet yet")
@@ -307,6 +325,10 @@ class GPUBatchKeySet(KeySet):
             else:
                 results[j] = InvalidSignatureError(_REJECT)
 
+    def _finish_ok(self, chunk, arrs, parsed, results) -> None:
+        """The finish of a path whose one device output is the verdict."""
+        self._finish(chunk, arrs[0], parsed, results)
+
     def _rows(self, idx, parsed, kid_to_row: Dict[str, int],
               n_keys: int) -> np.ndarray:
         """Key row per token: -1 no kid, -2 unknown kid; a family of one
@@ -332,8 +354,10 @@ class GPUBatchKeySet(KeySet):
              for j in chunk.tolist()], 64)
         return sig_mat, sig_lens, hash_mat
 
-    def _run_rsa_packed(self, hash_name: str, idx: np.ndarray, parsed,
-                        pending: list) -> None:
+    def _run_rsa_packed(self, kind: str, hash_name: str, idx: np.ndarray,
+                        parsed, pending: list) -> None:
+        """RS* (``kind`` "rs") or PS* ("ps") tokens in packed chunks per
+        RSA class."""
         rows = self._rows(idx, parsed, self._kid_rsa_row, self._n_rsa_keys)
         fast = rows >= 0
         idx, rows = idx[fast], rows[fast]
@@ -355,13 +379,12 @@ class GPUBatchKeySet(KeySet):
                 key_idx = np.zeros(pad, np.int64)
                 key_idx[:m] = cls_rows[lo: lo + chunk_n]
                 rec = gpursa.rs_packed_records(table, sig_mat, sig_lens,
-                                               hash_mat, hash_name, key_idx)
-                ok = gpursa.verify_rs_packed_pending(table, rec, hash_name)
-
-                def finish(chunk, arrs, parsed, results):
-                    self._finish(chunk, arrs[0], parsed, results)
-
-                pending.append((chunk, m, [ok], finish))
+                                               hash_mat, hash_name, key_idx,
+                                               kind)
+                verify = (gpursa.verify_rs_packed_pending if kind == "rs"
+                          else gpursa.verify_ps_packed_pending)
+                ok = verify(table, rec, hash_name)
+                pending.append((chunk, m, [ok], self._finish_ok))
 
     def _run_ec_packed(self, alg: str, idx: np.ndarray, parsed,
                        pending: list) -> None:
@@ -400,3 +423,27 @@ class GPUBatchKeySet(KeySet):
                 self._finish(chunk, okv, parsed, results)
 
             pending.append((chunk, m, [ok, deg], finish))
+
+    def _run_ed_packed(self, idx: np.ndarray, parsed,
+                       pending: list) -> None:
+        """EdDSA tokens in packed chunks (``_chunk_tokens(64 + 32 + 2)``:
+        32,768 tokens), padded to a power of two ≥ 128 with empty
+        signatures on key row 0."""
+        table = self._ed_table
+        rows = self._rows(idx, parsed, self._kid_ed_row, len(table.keys))
+        fast = rows >= 0
+        idx, rows = idx[fast], rows[fast]
+        chunk_n = _chunk_tokens(64 + 32 + gpued.ED_REC_EXTRA)
+        for lo in range(0, len(idx), chunk_n):
+            chunk = idx[lo: lo + chunk_n]
+            m = len(chunk)
+            pad = _pad_size(m, chunk_n)
+            fill = pad - m
+            sigs = [parsed[j].signature for j in chunk.tolist()]
+            msgs = [parsed[j].signing_input for j in chunk.tolist()]
+            key_idx = np.zeros(pad, np.int64)
+            key_idx[:m] = rows[lo: lo + chunk_n]
+            rec = gpued.ed_packed_records(table, sigs + [b""] * fill,
+                                          msgs + [b""] * fill, key_idx)
+            ok = gpued.verify_ed_packed_pending(table, rec)
+            pending.append((chunk, m, [ok], self._finish_ok))

@@ -3,8 +3,10 @@
 The port needs no OpenSSL: RSA keys (kty=RSA: n, e) become
 :class:`RSAPublicKey`, EC keys (kty=EC: crv, x, y on P-256/P-384/
 P-521) become :class:`HostECPublicKey` after an explicit on-curve
-check. Every other key type (OKP, AKP, x5c-only keys) raises
-``UnsupportedAlgError``: those families are not ported yet.
+check, Ed25519 keys (kty=OKP, crv=Ed25519) become
+:class:`HostEd25519PublicKey` with the JAX parser's checks and
+messages. AKP and x5c-only keys raise ``UnsupportedAlgError``: those
+families are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Any, Dict, List, Optional
 
 from ..errors import InvalidJWKSError, UnsupportedAlgError
 from ..gpu.ec import _CURVE_INTS, HostECPublicKey
+from ..gpu.ed25519 import HostEd25519PublicKey
 from .jose import b64url_decode, b64url_encode
 
 _COORD_BYTES = {"P-256": 32, "P-384": 48, "P-521": 66}
@@ -67,6 +70,21 @@ def _parse_ec_host(data: Dict[str, Any], crv: str) -> HostECPublicKey:
     return HostECPublicKey(crv, x, y)
 
 
+def _parse_okp(data: Dict[str, Any]) -> HostEd25519PublicKey:
+    """Ed25519 key from its raw 32 bytes. Bytes that do not decode to a
+    curve point are accepted, as OpenSSL's raw import accepts them; the
+    key's tokens then never verify."""
+    if data.get("crv") != "Ed25519":
+        raise InvalidJWKSError(f"unsupported OKP curve {data.get('crv')!r}")
+    raw = data.get("x")
+    if not isinstance(raw, str):
+        raise InvalidJWKSError("jwk missing field 'x'")
+    try:
+        return HostEd25519PublicKey(b64url_decode(raw))
+    except ValueError as err:
+        raise InvalidJWKSError(f"invalid Ed25519 jwk: {err}") from err
+
+
 def _meta(data: Dict[str, Any], field: str) -> Optional[str]:
     v = data.get(field)
     return v if isinstance(v, str) else None
@@ -89,7 +107,9 @@ def parse_jwk(data: Dict[str, Any]) -> JWK:
         if crv not in _COORD_BYTES:
             raise InvalidJWKSError(f"unsupported EC curve {crv!r}")
         key = _parse_ec_host(data, crv)
-    elif kty in ("OKP", "AKP"):
+    elif kty == "OKP":
+        key = _parse_okp(data)
+    elif kty == "AKP":
         raise UnsupportedAlgError(
             f"jwk kty {kty!r} is not supported by cap_tpu_torch yet")
     else:
@@ -133,6 +153,9 @@ def serialize_public_key(key, kid: Optional[str] = None,
         out.update({"kty": "EC", "crv": key.curve_name,
                     "x": _uint_b64(nums.x, size),
                     "y": _uint_b64(nums.y, size)})
+    elif isinstance(key, HostEd25519PublicKey):
+        out.update({"kty": "OKP", "crv": "Ed25519",
+                    "x": b64url_encode(key.raw)})
     else:
         raise InvalidJWKSError(
             f"cannot serialize key type {type(key).__name__}")

@@ -1,25 +1,34 @@
-"""Single-token RS*/ES* signature verification over host integers.
+"""Single-token RS*/PS*/ES*/EdDSA signature verification over host
+integers.
 
 The oracle of the GPU keyset's trial path: tokens without a unique key
 candidate (no kid with several keys, an ambiguous or unknown kid) are
 verified here against each candidate key, as the JAX keyset sends them
 to its CPU oracle. RS* is ``pow(s, e, n)`` and the PKCS#1 v1.5 EM
-compare; ES* is :func:`~cap_tpu_torch.gpu.ec.py_ecdsa_verify`.
+compare; PS* is ``pow`` and EMSA-PSS-VERIFY with salt auto-recovery
+(:func:`pss_check_em`); ES* is
+:func:`~cap_tpu_torch.gpu.ec.py_ecdsa_verify`; EdDSA is
+:func:`~cap_tpu_torch.gpu.ed25519.py_ed25519_verify`, with the device
+ladder's semantics (the JAX keyset's trial path asks OpenSSL, which
+differs on two kinds of non-canonical key, ROADMAP §C).
 """
 
 from __future__ import annotations
 
 import hashlib
+from typing import Optional
 
 from ..errors import InvalidSignatureError, UnsupportedAlgError
 from ..gpu.ec import HostECPublicKey, curve, py_ecdsa_verify
-from ..gpu.rsa import DIGEST_INFO_PREFIX
+from ..gpu.ed25519 import HostEd25519PublicKey, py_ed25519_verify
+from ..gpu.rsa import DIGEST_INFO_PREFIX, HASH_LEN
 from . import algs
 from .jose import ParsedJWS
 from .jwk import RSAPublicKey
 
 _RS = (algs.RS256, algs.RS384, algs.RS512)
-_RSA_ALGS = _RS + (algs.PS256, algs.PS384, algs.PS512)
+_PS = (algs.PS256, algs.PS384, algs.PS512)
+_RSA_ALGS = _RS + _PS
 # ES* pins both the curve and the raw signature coordinate size
 # (RFC 7518 §3.4).
 _EC_FOR_ALG = {
@@ -36,6 +45,8 @@ def key_matches_alg(key, alg: str) -> bool:
     if alg in _EC_FOR_ALG:
         return (isinstance(key, HostECPublicKey)
                 and key.curve_name == _EC_FOR_ALG[alg][0])
+    if alg == algs.EdDSA:
+        return isinstance(key, HostEd25519PublicKey)
     return False
 
 
@@ -47,14 +58,68 @@ def pkcs1v15_em(digest: bytes, hash_name: str, em_len: int) -> bytes:
     return b"\x00\x01" + b"\xff" * (em_len - len(t) - 3) + b"\x00" + t
 
 
-def _verify_rs(parsed: ParsedJWS, key: RSAPublicKey) -> None:
-    k = (key.n.bit_length() + 7) // 8
+def _mgf1(seed: bytes, mask_len: int, hash_name: str) -> bytes:
+    h_len = HASH_LEN[hash_name]
+    out = bytearray()
+    for counter in range((mask_len + h_len - 1) // h_len):
+        out += hashlib.new(hash_name,
+                           seed + counter.to_bytes(4, "big")).digest()
+    return bytes(out[:mask_len])
+
+
+def pss_check_em(em: bytes, m_hash: bytes, em_bits: int,
+                 hash_name: str, salt_len: Optional[int] = None) -> bool:
+    """EMSA-PSS-VERIFY (RFC 8017 §9.1.2) for one token, on the host.
+
+    salt_len None → auto-recover (any salt length), as the JAX keyset's
+    oracle verifies with PSS.AUTO.
+    """
+    h_len = HASH_LEN[hash_name]
+    em_len = (em_bits + 7) // 8
+    if len(em) > em_len:
+        # EM must be < 2^emBits: any dropped high bytes must be zero.
+        if any(em[: len(em) - em_len]):
+            return False
+        em = em[-em_len:]
+    if em_len < h_len + 2:
+        return False
+    if em[-1] != 0xBC:
+        return False
+    masked_db = em[: em_len - h_len - 1]
+    h = em[em_len - h_len - 1: em_len - 1]
+    db_len = em_len - h_len - 1
+    unused_bits = 8 * em_len - em_bits
+    if unused_bits and masked_db[0] >> (8 - unused_bits):
+        return False
+    db_mask = _mgf1(h, db_len, hash_name)
+    db = bytes(a ^ b for a, b in zip(masked_db, db_mask))
+    if unused_bits:
+        db = bytes([db[0] & (0xFF >> unused_bits)]) + db[1:]
+    # DB = PS(0x00..) ‖ 0x01 ‖ salt
+    sep = db.find(b"\x01")
+    if sep == -1 or any(db[:sep]):
+        return False
+    salt = db[sep + 1:]
+    if salt_len is not None and len(salt) != salt_len:
+        return False
+    m_prime = b"\x00" * 8 + m_hash + salt
+    return hashlib.new(hash_name, m_prime).digest() == h
+
+
+def _rsa_message(parsed: ParsedJWS, key: RSAPublicKey) -> int:
+    """s^e mod n after the length and range checks."""
     sig = parsed.signature
-    if len(sig) != k:
+    if len(sig) != (key.n.bit_length() + 7) // 8:
         raise InvalidSignatureError("signature verification failed")
     s = int.from_bytes(sig, "big")
     if s >= key.n:
         raise InvalidSignatureError("signature verification failed")
+    return pow(s, key.e, key.n)
+
+
+def _verify_rs(parsed: ParsedJWS, key: RSAPublicKey) -> None:
+    k = (key.n.bit_length() + 7) // 8
+    m = _rsa_message(parsed, key)
     hash_name = algs.HASH_FOR_ALG[parsed.alg]
     digest = hashlib.new(hash_name, parsed.signing_input).digest()
     try:
@@ -62,7 +127,17 @@ def _verify_rs(parsed: ParsedJWS, key: RSAPublicKey) -> None:
     except ValueError as e:
         raise InvalidSignatureError(
             f"signature verification failed: {e}") from e
-    if pow(s, key.e, key.n).to_bytes(k, "big") != em:
+    if m.to_bytes(k, "big") != em:
+        raise InvalidSignatureError("signature verification failed")
+
+
+def _verify_ps(parsed: ParsedJWS, key: RSAPublicKey) -> None:
+    k = (key.n.bit_length() + 7) // 8
+    m = _rsa_message(parsed, key)
+    hash_name = algs.HASH_FOR_ALG[parsed.alg]
+    digest = hashlib.new(hash_name, parsed.signing_input).digest()
+    if not pss_check_em(m.to_bytes(k, "big"), digest,
+                        key.n.bit_length() - 1, hash_name):
         raise InvalidSignatureError("signature verification failed")
 
 
@@ -85,8 +160,8 @@ def verify_parsed(parsed: ParsedJWS, key) -> None:
 
     Raises InvalidSignatureError on any mismatch (wrong key, tampered
     content, malformed signature encoding, wrong curve/key type), and
-    UnsupportedAlgError for algs this port cannot verify (PS*, EdDSA,
-    the post-quantum families).
+    UnsupportedAlgError for algs this port cannot verify (the
+    post-quantum families).
     """
     alg = parsed.alg
     if alg not in algs.SUPPORTED_ALGORITHMS:
@@ -95,6 +170,13 @@ def verify_parsed(parsed: ParsedJWS, key) -> None:
         raise InvalidSignatureError(f"key type does not match alg {alg}")
     if alg in _RS:
         return _verify_rs(parsed, key)
+    if alg in _PS:
+        return _verify_ps(parsed, key)
     if alg in _EC_FOR_ALG:
         return _verify_es(parsed, key)
+    if alg == algs.EdDSA:
+        if not py_ed25519_verify(key.raw, parsed.signature,
+                                 parsed.signing_input):
+            raise InvalidSignatureError("signature verification failed")
+        return None
     raise UnsupportedAlgError(f"{alg} is not ported to cap_tpu_torch yet")

@@ -1,11 +1,13 @@
 """Fixtures without OpenSSL: seeded keys, JWT signing, the north-star
-workload.
+and PS256 + EdDSA workloads.
 
 Everything here is pure Python integers over ``random.Random(seed)``:
-RSA keys by Miller–Rabin, PKCS#1 v1.5 signatures by CRT ``pow``, P-256
-signatures by :func:`~cap_tpu_torch.gpu.ec.host_ecdsa_sign`. Signing
-exists ONLY to produce fixtures; nothing here is constant-time or fit
-for real keys.
+RSA keys by Miller–Rabin, PKCS#1 v1.5 and PSS signatures by CRT
+``pow``, P-256 signatures by :func:`~cap_tpu_torch.gpu.ec.host_ecdsa_sign`,
+Ed25519 keys and RFC 8032 signatures from 32-byte seeds
+(:func:`~cap_tpu_torch.gpu.ed25519.ed25519_sign`; deterministic, so
+byte-equal to any other RFC 8032 signer). Signing exists ONLY to
+produce fixtures; nothing here is constant-time or fit for real keys.
 """
 
 from __future__ import annotations
@@ -14,13 +16,15 @@ import hashlib
 import json
 import math
 import random
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 from .gpu.ec import HostECPublicKey, curve, host_ecdsa_sign
+from .gpu.ed25519 import HostEd25519PublicKey, ed25519_sign
+from .gpu.rsa import HASH_LEN
 from .jwt import algs
 from .jwt.jose import b64url_encode
 from .jwt.jwk import JWK, RSAPublicKey, serialize_public_key
-from .jwt.verify import pkcs1v15_em
+from .jwt.verify import _mgf1, pkcs1v15_em
 
 _SMALL_PRIMES = [p for p in range(3, 2000)
                  if all(p % q for q in range(2, int(p ** 0.5) + 1))]
@@ -87,6 +91,63 @@ class ECPrivateKey:
         return self._pub
 
 
+class Ed25519PrivateKey:
+    """An Ed25519 key pair from its RFC 8032 32-byte seed."""
+
+    def __init__(self, seed: bytes):
+        self.seed = bytes(seed)
+        self._pub = HostEd25519PublicKey.from_seed(self.seed)
+
+    def public_key(self) -> HostEd25519PublicKey:
+        return self._pub
+
+    def sign(self, msg: bytes) -> bytes:
+        return ed25519_sign(self.seed, msg)
+
+
+def generate_ed25519_key(rng: random.Random) -> Ed25519PrivateKey:
+    return Ed25519PrivateKey(rng.randbytes(32))
+
+
+def pss_em(digest: bytes, em_bits: int, hash_name: str,
+           salt: bytes) -> bytes:
+    """EMSA-PSS-ENCODE (RFC 8017 §9.1.1) of a message digest."""
+    h_len = HASH_LEN[hash_name]
+    em_len = (em_bits + 7) // 8
+    if em_len < h_len + len(salt) + 2:
+        raise ValueError("salt too long for the key")
+    h = hashlib.new(hash_name, b"\x00" * 8 + digest + salt).digest()
+    db = b"\x00" * (em_len - len(salt) - h_len - 2) + b"\x01" + salt
+    masked = bytearray(a ^ b for a, b in
+                       zip(db, _mgf1(h, em_len - h_len - 1, hash_name)))
+    masked[0] &= 0xFF >> (8 * em_len - em_bits)
+    return bytes(masked) + h + b"\xbc"
+
+
+def signing_input(alg: str, claims: Dict[str, Any],
+                  kid: Optional[str] = None,
+                  extra_headers: Optional[Dict[str, Any]] = None) -> bytes:
+    """The JWS signing input (header.payload) of a compact token."""
+    header: Dict[str, Any] = {"alg": alg, "typ": "JWT"}
+    if kid:
+        header["kid"] = kid
+    if extra_headers:
+        header.update(extra_headers)
+    return (
+        b64url_encode(json.dumps(header, separators=(",", ":")).encode())
+        + "."
+        + b64url_encode(json.dumps(claims, separators=(",", ":")).encode())
+    ).encode("ascii")
+
+
+def sign_em(priv: "RSAPrivateKey", si: bytes, em: bytes) -> str:
+    """A token over ``si`` whose signature is em^d mod n for an EM given
+    byte for byte (em < n): malformed PSS encodings on demand."""
+    k = (priv.n.bit_length() + 7) // 8
+    sig = priv.raw_sign(int.from_bytes(em, "big")).to_bytes(k, "big")
+    return si.decode("ascii") + "." + b64url_encode(sig)
+
+
 def generate_rsa_key(rng: random.Random, bits: int = 2048,
                      e: int = 65537) -> RSAPrivateKey:
     """An RSA key with an exactly ``bits``-bit modulus."""
@@ -104,44 +165,46 @@ def generate_ec_key(rng: random.Random, crv: str = "P-256") -> ECPrivateKey:
 def sign_jwt(priv, alg: str, claims: Dict[str, Any],
              kid: Optional[str] = None,
              extra_headers: Optional[Dict[str, Any]] = None,
-             rng: Optional[random.Random] = None) -> str:
-    """Sign ``claims`` into a compact JWS (RS* or ES*). ES* draws its
-    nonce from ``rng`` (seeded fixtures stay reproducible)."""
-    header: Dict[str, Any] = {"alg": alg, "typ": "JWT"}
-    if kid:
-        header["kid"] = kid
-    if extra_headers:
-        header.update(extra_headers)
-    signing_input = (
-        b64url_encode(json.dumps(header, separators=(",", ":")).encode())
-        + "."
-        + b64url_encode(json.dumps(claims, separators=(",", ":")).encode())
-    ).encode("ascii")
+             rng: Optional[random.Random] = None,
+             salt_len: Union[int, str, None] = None) -> str:
+    """Sign ``claims`` into a compact JWS (RS*, PS*, ES* or EdDSA). ES*
+    draws its nonce and PS* its salt from ``rng`` (seeded fixtures stay
+    reproducible); ``salt_len`` is the PSS salt's length: the hash's
+    length by default, any int, or "max"."""
+    si = signing_input(alg, claims, kid, extra_headers)
+    rng = rng if rng is not None else random.Random()
+    if alg == algs.EdDSA:
+        return si.decode("ascii") + "." + b64url_encode(priv.sign(si))
     hash_name = algs.HASH_FOR_ALG[alg]
-    digest = hashlib.new(hash_name, signing_input).digest()
+    digest = hashlib.new(hash_name, si).digest()
     if alg in (algs.RS256, algs.RS384, algs.RS512):
         k = (priv.n.bit_length() + 7) // 8
-        m = int.from_bytes(pkcs1v15_em(digest, hash_name, k), "big")
-        sig = priv.raw_sign(m).to_bytes(k, "big")
-    elif alg in _EC_FOR_ALG:
-        cp = curve(priv.crv)
-        rng = rng if rng is not None else random.Random()
-        e = int.from_bytes(digest, "big")
-        excess = 8 * len(digest) - cp.nbits
-        if excess > 0:
-            e >>= excess
-        while True:
-            try:
-                r, s = host_ecdsa_sign(priv.crv, priv.d, e,
-                                       rng.randrange(1, cp.n))
-                break
-            except ValueError:
-                continue
-        sig = r.to_bytes(cp.coord_bytes, "big") + \
-            s.to_bytes(cp.coord_bytes, "big")
-    else:
+        return sign_em(priv, si, pkcs1v15_em(digest, hash_name, k))
+    if alg in (algs.PS256, algs.PS384, algs.PS512):
+        em_bits = priv.n.bit_length() - 1
+        if salt_len is None:
+            salt_len = HASH_LEN[hash_name]
+        elif salt_len == "max":
+            salt_len = (em_bits + 7) // 8 - HASH_LEN[hash_name] - 2
+        em = pss_em(digest, em_bits, hash_name, rng.randbytes(salt_len))
+        return sign_em(priv, si, em)
+    if alg not in _EC_FOR_ALG:
         raise ValueError(f"unsupported alg {alg!r}")
-    return signing_input.decode("ascii") + "." + b64url_encode(sig)
+    cp = curve(priv.crv)
+    e = int.from_bytes(digest, "big")
+    excess = 8 * len(digest) - cp.nbits
+    if excess > 0:
+        e >>= excess
+    while True:
+        try:
+            r, s = host_ecdsa_sign(priv.crv, priv.d, e,
+                                   rng.randrange(1, cp.n))
+            break
+        except ValueError:
+            continue
+    sig = r.to_bytes(cp.coord_bytes, "big") + \
+        s.to_bytes(cp.coord_bytes, "big")
+    return si.decode("ascii") + "." + b64url_encode(sig)
 
 
 def default_claims(now: int = 1_700_000_000, ttl: int = 86400,
@@ -172,6 +235,32 @@ def headline_fixtures(n_unique: int, seed: int = 0
         priv = generate_ec_key(rng)
         jwks.append(JWK(priv.public_key(), kid=f"es-{i}"))
         signers.append((priv, algs.ES256, f"es-{i}"))
+    base = default_claims()
+    tokens = []
+    for j in range(n_unique):
+        priv, alg, kid = signers[j % len(signers)]
+        claims = dict(base, sub=f"user-{j:08d}", jti=f"tok-{j:012d}")
+        tokens.append(sign_jwt(priv, alg, claims, kid=kid, rng=rng))
+    return jwks, tokens, signers
+
+
+def config4_fixtures(n_unique: int, seed: int = 0
+                     ) -> Tuple[List[JWK], List[str], list]:
+    """The PS256 + EdDSA workload (BASELINE.json's fourth configuration):
+    a JWKS of 8 RSA-2048 keys (kids ps-i) and 8 Ed25519 keys (kids
+    ed-i), and ``n_unique`` unique PS256/EdDSA tokens signed
+    round-robin over the keys (PSS salts of 32 bytes). Returns (jwks,
+    tokens, signers) with signers [(private key, alg, kid)]."""
+    rng = random.Random(seed)
+    jwks, signers = [], []
+    for i in range(8):
+        priv = generate_rsa_key(rng)
+        jwks.append(JWK(priv.public_key(), kid=f"ps-{i}"))
+        signers.append((priv, algs.PS256, f"ps-{i}"))
+    for i in range(8):
+        priv = generate_ed25519_key(rng)
+        jwks.append(JWK(priv.public_key(), kid=f"ed-{i}"))
+        signers.append((priv, algs.EdDSA, f"ed-{i}"))
     base = default_claims()
     tokens = []
     for j in range(n_unique):

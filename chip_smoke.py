@@ -10,18 +10,23 @@ Phases (any failure exits non-zero; none is caught):
 1. the card's name and power limit (nvidia-smi), then the build of
    every kernel from ``cap_tpu_torch/gpu/csrc`` with nvcc for sm_90a;
 2. kernels: each kernel against its plain PyTorch version on the card
-   at the main path's shapes (P-256, 23+23 RNS channels, 65,536 lanes:
-   one 32,768-token ES chunk with both ladder chains), outputs equal by
-   value mod p, ``deg`` equal on true degeneracies; kernel and plain
-   times by CUDA events;
-3. main path: the north-star configuration — a JWKS of 8 RSA-2048 and
-   8 P-256 keys and a batch of 65,536 RS256/ES256 tokens tiled from
-   1,024 unique signed tokens, a seeded 1/8 share tampered, and a few
-   tokens of each rejection class — through
-   ``GPUBatchKeySet(jwks).verify_batch``; every verdict checked, the
-   unique tokens cross-checked on the pure-integer oracle, the kernels'
-   launch counters read around one run, verifies/s timed after a
-   warm-up.
+   at the main paths' shapes (23+23 RNS channels, 65,536 lanes: one
+   32,768-token ES or EdDSA chunk with both ladder chains; redc and
+   madd on P-256, edw on the Ed25519 field), outputs equal by value
+   mod p on both residue planes, ``deg`` equal on true degeneracies;
+   kernel and plain times by CUDA events;
+3. the north-star path — a JWKS of 8 RSA-2048 and 8 P-256 keys and a
+   batch of 65,536 RS256/ES256 tokens tiled from 1,024 unique signed
+   tokens, a seeded 1/8 share tampered, and a few tokens of each
+   rejection class — through ``GPUBatchKeySet(jwks).verify_batch``;
+   every verdict checked, the unique tokens cross-checked on the
+   pure-integer oracle, the kernels' launch counters zeroed before one
+   run and read after it, verifies/s timed after a warm-up;
+4. the PS256 + EdDSA path (BASELINE.json's fourth configuration) the
+   same way: 8 RSA-2048 and 8 Ed25519 keys plus one Ed25519 key that
+   does not decode, 65,536 PS256/EdDSA tokens, the EdDSA and PS256
+   rejection classes, edw launched 32 times and redc 3 times per
+   EdDSA chunk, madd never.
 
 The line before the last is the per-kernel JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -94,6 +99,13 @@ def redc_ops(ia: int, ib: int) -> int:
     # ·A⁻¹ (a multiply-add, a product and two fixes per B digit)
     return (ia * (FIX_OPS + 1) + extend_ops(ia, ib)
             + ib * (2 * FIX_OPS + 3) + extend_ops(ib, ia))
+
+
+def edw_ops(ia: int, ib: int) -> int:
+    i = ia + ib
+    mults = 7 * (redc_ops(ia, ib) + i * (FIX_OPS + 1))
+    lazy = (3 * 4 + 4) * i                  # three lazy subs, four adds
+    return mults + lazy
 
 
 def madd_ops(ia: int, ib: int) -> int:
@@ -258,6 +270,49 @@ def kernel_phase(records):
         f"({b_by})")
     records["madd"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
                            bound_ms=b_ms, bound_by=b_by)
+    edw_phase(records, rng)
+
+
+def edw_phase(records, rng):
+    """The Ed25519 window kernel at 65,536 lanes: states below 2^256
+    (< 3p, the REDC output bound) and table triples below p."""
+    import numpy as np
+    import torch
+
+    from cap_tpu_torch.gpu import cuda_edw, ed25519_rns
+
+    c = ed25519_rns.ctx()
+    ia, ib = c.A.count, c.B.count
+    n = KERNEL_LANES
+    dev = torch.device("cuda")
+
+    def planes(top):
+        raw = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+        raw[:, 0] = np.minimum(raw[:, 0], top)
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in residues_of_bytes(c, raw))
+
+    ins = [planes(255) for _ in range(4)] + [planes(0x7E) for _ in range(3)]
+    out_k = cuda_edw.edw(c, *ins)
+    out_p = cuda_edw.edw_ref(c, *ins)
+    torch.cuda.synchronize()
+    err = ndiff = split = 0
+    for kk, pp in zip(out_k, out_p):
+        e, d, sp = max_err(c, [t.cpu().numpy() for t in kk],
+                           [t.cpu().numpy() for t in pp])
+        err, ndiff, split = max(err, e), ndiff + d, split + sp
+    assert err == 0 and split == 0, \
+        f"edw disagrees by {err} on {ndiff} lane planes ({split} split)"
+    ms_k = cuda_ms(lambda: cuda_edw.edw(c, *ins), 20)
+    ms_p = cuda_ms(lambda: cuda_edw.edw_ref(c, *ins), 5)
+    nbytes = n * (7 + 4) * (ia + ib) * 4
+    b_ms, b_by = bound(nbytes, n * edw_ops(ia, ib))
+    log(f"kernel edw: {n} lanes, {ndiff} lane planes not bit-equal in A or "
+        f"B, max value err {err} over both planes of X, Y, Z, T; kernel "
+        f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    records["edw"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
+                          bound_ms=b_ms, bound_by=b_by)
 
 
 # -- main path --------------------------------------------------------------
@@ -279,6 +334,31 @@ def with_sig(token: str, sig: bytes) -> str:
     return f"{h}.{p}.{b64(sig)}"
 
 
+REJECT = ("InvalidSignatureError",
+          "no known key successfully validated the token signature")
+
+
+def tile(rng, uniq):
+    """N_TOKENS tokens tiled from the unique ones, a seeded 1/8 share
+    with one signature bit flipped: (tokens, expected, tampered)."""
+    tampered = []
+    for tok in uniq:
+        sig = bytearray(unb64(tok.split(".")[2]))
+        sig[rng.randrange(len(sig))] ^= 1 << rng.randrange(8)
+        tampered.append(with_sig(tok, bytes(sig)))
+    subs = [json.loads(unb64(t.split(".")[1]))["sub"] for t in uniq]
+    tokens, expected = [], []
+    for i in range(N_TOKENS):
+        u = i % N_UNIQUE
+        if rng.random() < 0.125:
+            tokens.append(tampered[u])
+            expected.append(REJECT)
+        else:
+            tokens.append(uniq[u])
+            expected.append(subs[u])
+    return tokens, expected, tampered
+
+
 def build_batch(rng):
     """(jwks, tokens, expected) for the north-star batch. expected[i]
     is the sub claim of an accepted token, or the exception class name
@@ -291,23 +371,7 @@ def build_batch(rng):
     jwks, uniq, signers = tt.headline_fixtures(N_UNIQUE, seed=SEED)
     log(f"fixtures: 8 RSA-2048 + 8 P-256 keys, {N_UNIQUE} signed tokens "
         f"in {time.perf_counter() - t0:.1f} s")
-    reject = ("InvalidSignatureError",
-              "no known key successfully validated the token signature")
-    tampered = []
-    for tok in uniq:
-        sig = bytearray(unb64(tok.split(".")[2]))
-        sig[rng.randrange(len(sig))] ^= 1 << rng.randrange(8)
-        tampered.append(with_sig(tok, bytes(sig)))
-    subs = [json.loads(unb64(t.split(".")[1]))["sub"] for t in uniq]
-    tokens, expected = [], []
-    for i in range(N_TOKENS):
-        u = i % N_UNIQUE
-        if rng.random() < 0.125:
-            tokens.append(tampered[u])
-            expected.append(reject)
-        else:
-            tokens.append(uniq[u])
-            expected.append(subs[u])
+    tokens, expected, tampered = tile(rng, uniq)
 
     n_p256 = curve("P-256").n
     outsider = tt.generate_ec_key(rng)
@@ -318,22 +382,23 @@ def build_batch(rng):
     rs_tok = uniq[0]
     specials = [
         (tt.sign_jwt(outsider, algs.ES256, claims, kid="nobody", rng=rng),
-         reject),
+         REJECT),
         (b64(b'{"alg":"none"}') + "." + b64(b'{"sub":"x"}') + ".",
          ("TokenNotSignedError", "token must be signed")),
-        (with_sig(es_tok, b"\0" * 32 + es_sig[32:]), reject),
+        (with_sig(es_tok, b"\0" * 32 + es_sig[32:]), REJECT),
         (with_sig(es_tok, es_sig[:32] + n_p256.to_bytes(32, "big")),
-         reject),
-        (with_sig(es_tok, es_sig[:-1]), reject),
-        (with_sig(rs_tok, unb64(rs_tok.split(".")[2])[:-1]), reject),
+         REJECT),
+        (with_sig(es_tok, es_sig[:-1]), REJECT),
+        (with_sig(rs_tok, unb64(rs_tok.split(".")[2])[:-1]), REJECT),
         ("a.b", ("MalformedTokenError",
                  "compact JWS must have 3 segments")),
         ("!!!." + rs_tok.split(".", 1)[1],
          ("MalformedTokenError", "invalid base64url segment")),
     ]
+    stride = N_TOKENS // (3 * len(specials) + 1)
     for k, (tok, exp) in enumerate(specials):
         for rep in range(3):
-            pos = (k * 3 + rep) * 2741 + 17
+            pos = (k * 3 + rep) * stride + 17
             tokens[pos] = tok
             expected[pos] = exp
     return jwks, uniq, tampered, tokens, expected
@@ -341,7 +406,8 @@ def build_batch(rng):
 
 def oracle_check(jwks, uniq, tampered):
     """Unique tokens accept and a sample of tampered ones reject on the
-    pure-integer oracle (pow for RS256, py_ecdsa_verify for ES256)."""
+    pure-integer oracle (``jwt.verify.verify_parsed``: pow for RS256 and
+    PS256, py_ecdsa_verify for ES256, py_ed25519_verify for EdDSA)."""
     from cap_tpu_torch.errors import InvalidSignatureError
     from cap_tpu_torch.jwt.jose import parse_jws
     from cap_tpu_torch.jwt.verify import verify_parsed
@@ -375,40 +441,50 @@ def check_verdicts(results, expected):
     assert not bad, f"{len(bad)} wrong verdicts, first: {bad[:3]}"
 
 
-def main_path(records):
+def drive_path(records, name, jwks, tokens, expected, family, per_chunk,
+               engines):
+    """One path through ``GPUBatchKeySet(jwks).verify_batch``: every
+    launch counter zeroed just before the first run and read just
+    after it, every verdict checked, then three warm runs, the engines'
+    lines and the profile. ``family`` (alg, kid prefix) names the
+    tokens of the ladder path whose chunks ``per_chunk`` counts
+    launches for (kernel → launches per chunk; every other kernel must
+    not launch)."""
     import torch
 
-    from cap_tpu_torch.gpu import cuda_madd, cuda_redc
+    from cap_tpu_torch.gpu import cuda_edw, cuda_madd, cuda_redc
     from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet, _prep_one
 
-    rng = random.Random(SEED)
-    jwks, uniq, tampered, tokens, expected = build_batch(rng)
-    oracle_check(jwks, uniq, tampered)
     ks = GPUBatchKeySet(jwks)
-    es_kids = {j.kid for j in jwks if j.kid.startswith("es-")}
-    n_es = 0
+    alg, prefix = family
+    kids = {j.kid for j in jwks if j.kid and j.kid.startswith(prefix)}
+    n_fam = 0
     for t in tokens:
         p = _prep_one(t)
-        n_es += (not isinstance(p, Exception) and p.alg == "ES256"
-                 and p.kid in es_kids)
+        n_fam += (not isinstance(p, Exception) and p.alg == alg
+                  and p.kid in kids)
+    n_chunks = (n_fam + 32767) // 32768
 
-    cuda_redc.launches = 0
-    cuda_madd.launches = 0
+    counters = {"redc": cuda_redc, "madd": cuda_madd, "edw": cuda_edw}
+    for mod in counters.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     results = ks.verify_batch(tokens)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"redc": cuda_redc.launches, "madd": cuda_madd.launches}
+    launches = {k: mod.launches for k, mod in counters.items()}
     check_verdicts(results, expected)
-    n_chunks = (n_es + 32767) // 32768
-    log(f"main path: {len(tokens)} tokens ({n_es} ES256 on the packed "
-        f"path, {n_chunks} ES chunk(s)), every verdict as expected; "
+    log(f"{name} path: {len(tokens)} tokens ({n_fam} {alg} on the packed "
+        f"path, {n_chunks} {alg} chunk(s)), every verdict as expected; "
         f"launches {launches}; degenerate lanes re-verified on the "
         f"oracle: {ks.deg_reverified}; first run {first_s:.2f} s")
-    assert launches["madd"] == 32 * n_chunks > 0, launches
-    assert launches["redc"] == 11 * n_chunks > 0, launches
-    for name, count in launches.items():
-        records[name]["launches"] = count
+    for k, count in launches.items():
+        want = per_chunk.get(k, 0) * n_chunks
+        assert count == want and (want > 0 or k not in per_chunk), \
+            (name, launches)
+        rec = records[k]
+        rec["launches"] = rec.get("launches", 0) + count
+        rec.setdefault("launches_by_path", {})[name] = count
 
     times = []
     for _ in range(3):
@@ -418,11 +494,105 @@ def main_path(records):
         times.append(time.perf_counter() - t0)
     check_verdicts(results, expected)
     best = min(times)
-    log(f"main path warm: {len(tokens)} tokens in "
+    log(f"{name} path warm: {len(tokens)} tokens in "
         f"{', '.join(f'{t:.3f}' for t in times)} s; best "
         f"{len(tokens) / best:.0f} verifies/s")
-    engine_times(ks, tokens)
+    engine_times(ks, tokens, engines)
     profile_batch(ks, tokens, best)
+
+
+def main_path(records):
+    rng = random.Random(SEED)
+    jwks, uniq, tampered, tokens, expected = build_batch(rng)
+    oracle_check(jwks, uniq, tampered)
+    drive_path(records, "north-star", jwks, tokens, expected,
+               ("ES256", "es-"), {"madd": 32, "redc": 11},
+               ("RS256", "ES256"))
+
+
+BAD_ED_KEY = (2).to_bytes(32, "little")     # y = 2: not on the curve
+
+
+def build_config4(rng):
+    """(jwks, uniq, tampered, tokens, expected) for the PS256 + EdDSA
+    batch: 8 RSA-2048 (ps-i) and 8 Ed25519 (ed-i) keys plus one Ed25519
+    key that does not decode (ed-bad); 65,536 tokens tiled from 1,024
+    unique ones, a seeded 1/8 share with one signature bit flipped, and
+    three tokens of each rejection class, each over a token of its own
+    family (so the EdDSA tokens fill one packed chunk)."""
+    import hashlib
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu import ed25519 as ed
+    from cap_tpu_torch.jwt import algs
+    from cap_tpu_torch.jwt.jwk import JWK
+
+    t0 = time.perf_counter()
+    jwks, uniq, signers = tt.config4_fixtures(N_UNIQUE, seed=SEED + 4)
+    jwks.append(JWK(ed.HostEd25519PublicKey(BAD_ED_KEY), kid="ed-bad"))
+    log(f"fixtures: 8 RSA-2048 + 8 Ed25519 keys (+1 that does not "
+        f"decode), {N_UNIQUE} signed tokens in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens, expected, tampered = tile(rng, uniq)
+
+    ps_priv, _, ps_kid = signers[0]
+    ed_priv, _, ed_kid = signers[8]
+    claims = tt.default_claims(sub="special")
+    ed_tok = tt.sign_jwt(ed_priv, algs.EdDSA, claims, kid=ed_kid)
+    sig = unb64(ed_tok.split(".")[2])
+    s_plus_l = int.from_bytes(sig[32:], "little") + ed.L_ORDER
+    r_big = bytearray((ed.P + 1).to_bytes(32, "little"))
+    r_big[31] |= sig[31] & 0x80
+    outsider = tt.generate_ed25519_key(rng)
+    si = tt.signing_input(algs.PS256, claims, ps_kid)
+    em = tt.pss_em(hashlib.sha256(si).digest(), ps_priv.n.bit_length() - 1,
+                   "sha256", rng.randbytes(32))
+    no_sep = bytearray(em)
+    no_sep[len(em) - 32 - 1 - 32 - 1] ^= 0x01   # the 0x01 under the mask
+    top = bytearray(em)
+    top[0] = 0x80 | (top[0] & 0x0F)             # EM ≥ 2^emBits, still < n
+    ps_tok = tt.sign_jwt(ps_priv, algs.PS256, claims, kid=ps_kid, rng=rng)
+
+    def ps(sub, salt):
+        return tt.sign_jwt(ps_priv, algs.PS256, dict(claims, sub=sub),
+                           kid=ps_kid, rng=rng, salt_len=salt)
+
+    specials = [   # (token, expected, is EdDSA)
+        (with_sig(ed_tok, sig[:32] + s_plus_l.to_bytes(32, "little")),
+         REJECT, True),
+        (with_sig(ed_tok, bytes(r_big) + sig[32:]), REJECT, True),
+        (with_sig(ed_tok, sig[:63]), REJECT, True),
+        (with_sig(ed_tok, sig + b"\0"), REJECT, True),
+        (tt.sign_jwt(ed_priv, algs.EdDSA, claims, kid="ed-bad"), REJECT,
+         True),
+        (tt.sign_jwt(ed_priv, algs.EdDSA, dict(claims, sub="ed-no-kid")),
+         "ed-no-kid", True),
+        (tt.sign_jwt(outsider, algs.EdDSA, claims, kid="nobody"), REJECT,
+         True),
+        (ps("salt-0", 0), "salt-0", False),
+        (ps("salt-max", "max"), "salt-max", False),
+        (tt.sign_em(ps_priv, si, em[:-1] + b"\xbd"), REJECT, False),
+        (tt.sign_em(ps_priv, si, bytes(no_sep)), REJECT, False),
+        (tt.sign_em(ps_priv, si, bytes(top)), REJECT, False),
+        (with_sig(ps_tok, unb64(ps_tok.split(".")[2])[:-1]), REJECT, False),
+    ]
+    stride = N_TOKENS // (3 * len(specials) + 1) // 16 * 16
+    for k, (tok, exp, is_ed) in enumerate(specials):
+        for rep in range(3):
+            # unique token u signs with signers[u % 16]: EdDSA at u % 16 ≥ 8
+            pos = (k * 3 + rep) * stride + (8 if is_ed else 0)
+            tokens[pos] = tok
+            expected[pos] = exp
+    return jwks, uniq, tampered, tokens, expected
+
+
+def config4_path(records):
+    rng = random.Random(SEED + 4)
+    jwks, uniq, tampered, tokens, expected = build_config4(rng)
+    oracle_check(jwks, uniq, tampered)
+    drive_path(records, "config-4", jwks, tokens, expected,
+               ("EdDSA", "ed-"), {"edw": 32, "redc": 3},
+               ("PS256", "EdDSA"))
 
 
 def profile_batch(ks, tokens, wall_s: float):
@@ -446,37 +616,43 @@ def profile_batch(ks, tokens, wall_s: float):
     if total_ms == 0:
         log("profile: no device time recorded (not measured)")
         return
-    log(f"profile: {total_ms:.1f} ms of device time in one batch, "
-        f"{100 * total_ms / 1e3 / wall_s:.1f}% of the best wall time "
-        f"(device idle {100 - 100 * total_ms / 1e3 / wall_s:.1f}%)")
+    n_launch = sum(e.count for e in events)
+    log(f"profile: {total_ms:.1f} ms of device time in {n_launch} kernel "
+        f"launches in one batch, {100 * total_ms / 1e3 / wall_s:.1f}% of "
+        f"the best wall time (device idle "
+        f"{100 - 100 * total_ms / 1e3 / wall_s:.1f}%)")
     for e in sorted(events, key=dev_us, reverse=True)[:10]:
         log(f"  {dev_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:70]}")
 
 
-def engine_times(ks, tokens):
-    """Record packing and device time of the packed RS and ES paths
-    (host prep excluded), with the count of tokens each one packed: the
+def engine_times(ks, tokens, engines):
+    """Record packing and device time of each named packed path (host
+    prep excluded), with the count of tokens each one packed: the
     engines' share of the batch."""
     import numpy as np
     import torch
 
     from cap_tpu_torch.jwt.gpu_keyset import _prep_one
 
+    runners = {
+        "RS256": lambda *a: ks._run_rsa_packed("rs", "sha256", *a),
+        "PS256": lambda *a: ks._run_rsa_packed("ps", "sha256", *a),
+        "ES256": lambda *a: ks._run_ec_packed("ES256", *a),
+        "EdDSA": ks._run_ed_packed,
+    }
     t0 = time.perf_counter()
     parsed = [_prep_one(t) for t in tokens]
     dt = time.perf_counter() - t0
     log(f"host prep: {len(tokens)} tokens parsed in {dt * 1e3:.1f} ms "
         f"({dt / len(tokens) * 1e6:.2f} µs/token)")
-    for alg in ("RS256", "ES256"):
+    for alg in engines:
         idx = np.asarray([i for i, p in enumerate(parsed)
                           if not isinstance(p, Exception) and p.alg == alg
                           and p.kid is not None])
         pending = []
-        run = (ks._run_ec_packed if alg == "ES256" else
-               (lambda a, *r: ks._run_rsa_packed("sha256", *r)))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run(alg, idx, parsed, pending)
+        runners[alg](idx, parsed, pending)
         outs = [o.cpu() for _, _, o_list, _ in pending for o in o_list]
         dt = time.perf_counter() - t0
         packed = sum(m for _, m, _, _ in pending)
@@ -517,6 +693,7 @@ def main() -> int:
     records = {}
     kernel_phase(records)
     main_path(records)
+    config4_path(records)
 
     kernels = [
         dict(name="redc", route="cuda",
@@ -527,6 +704,10 @@ def main() -> int:
              source="cap_tpu_torch/gpu/csrc/madd.cu",
              replaces="cap_tpu/tpu/pallas_madd.py:125",
              library_ms=None, **records["madd"]),
+        dict(name="edw", route="cuda",
+             source="cap_tpu_torch/gpu/csrc/edw.cu",
+             replaces="cap_tpu/tpu/pallas_edw.py:58",
+             library_ms=None, **records["edw"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

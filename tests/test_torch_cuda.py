@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: ragged lane counts against the plain
 versions, the launch counters, the wrappers' refusals, and the keyset
-on the card against the keyset on the CPU.
+on the card against the keyset on the CPU (RS256 + ES256, and PS256 +
+EdDSA).
 
 Marked ``cuda``: without a card each test skips. On the card's machine
 (no jax there, so without the suite's conftest):
@@ -12,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from cap_tpu_torch.gpu import cuda_madd, cuda_redc, ec_rns
+from cap_tpu_torch.gpu import cuda_edw, cuda_madd, cuda_redc, ec_rns
+from cap_tpu_torch.gpu import ed25519_rns
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +105,41 @@ def test_madd_kernel_matches_plain(dev, n):
     assert not out_k[3][~has | inf].any()
 
 
+@pytest.mark.parametrize("n", [1, 127, 129, 1000])
+def test_edw_kernel_matches_plain(dev, n):
+    c = ed25519_rns.ctx()
+    rng = np.random.default_rng(200 + n)
+    p = c.p_int
+    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    planes = [tuple(T(a) for a in _residues(c, _rand(rng, b * p, n)))
+              for b in (3, 3, 3, 3, 1, 1, 1)]
+    before = cuda_edw.launches
+    out_k = cuda_edw.edw(c, *planes)
+    out_p = cuda_edw.edw_ref(c, *planes)
+    torch.cuda.synchronize()
+    assert cuda_edw.launches == before + 1
+    for kk, pp in zip(out_k, out_p):
+        assert _same_values(c, kk, pp)
+
+
+def test_edw_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    c = ed25519_rns.ctx()
+    ia, ib = c.A.count, c.B.count
+    a = torch.zeros((ia, 256), dtype=torch.int32, device=dev)
+    b = torch.zeros((ib, 256), dtype=torch.int32, device=dev)
+    good = [(a, b)] * 7
+    with pytest.raises(ValueError):
+        cuda_edw.edw(c, *good[:6], (a.to(torch.int64), b))
+    with pytest.raises(ValueError):
+        cuda_edw.edw(c, *good[:6], (a[:, ::2], b[:, ::2]))
+    with pytest.raises(ValueError):
+        cuda_edw.edw(c, *good[:6], (a[:, :128], b[:, :128]))
+    with pytest.raises(ValueError):
+        cuda_edw.edw(c, *good[:6], (a.cpu(), b.cpu()))
+    with pytest.raises(NotImplementedError):
+        cuda_edw.edw(ec_rns.ctx_for("P-384"), *good)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     c = ec_rns.ctx_for("P-256")
     ia, ib = c.A.count, c.B.count
@@ -166,3 +203,32 @@ def test_keyset_on_the_card_matches_the_plain_path(dev):
     assert sum(isinstance(x, dict) for x in on_card) == len(tokens) + 1
     assert on_card[-2] == {"sub": "deg-dbl"}
     assert card_ks.deg_reverified == 2
+
+
+def test_config4_keyset_on_the_card_matches_the_plain_path(dev):
+    """PS256 + EdDSA: the card (32 edw launches per Ed chunk, 3 REDC
+    launches for the merge) against the plain path on the CPU."""
+    import random
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu.ed25519 import HostEd25519PublicKey
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.jwt.jwk import JWK
+
+    jwks, tokens, _ = tt.config4_fixtures(48, seed=6)
+    jwks = jwks + [JWK(HostEd25519PublicKey((2).to_bytes(32, "little")),
+                       kid="ed-bad")]
+    rng = random.Random(6)
+    bad = [t[:-4] + ("AAAA" if t[-4:] != "AAAA" else "BBBB")
+           for t in rng.sample(tokens, 6)]
+    batch = tokens + bad + ["a.b"]
+    card_ks = GPUBatchKeySet(jwks)
+    before = (cuda_edw.launches, cuda_redc.launches)
+    on_card = card_ks.verify_batch(batch)
+    torch.cuda.synchronize()
+    assert (cuda_edw.launches - before[0],
+            cuda_redc.launches - before[1]) == (32, 3)
+    on_cpu = GPUBatchKeySet(jwks, device="cpu").verify_batch(batch)
+    assert [repr(x) if isinstance(x, Exception) else x for x in on_card] \
+        == [repr(x) if isinstance(x, Exception) else x for x in on_cpu]
+    assert sum(isinstance(x, dict) for x in on_card) == len(tokens)

@@ -74,19 +74,33 @@ def test_keyset_defaults_to_the_card(monkeypatch):
 def test_wrappers_take_the_plain_path_only_on_cpu_tensors():
     """On CPU tensors the wrappers run their plain versions and count
     no launch; on a non-CPU, non-CUDA device they refuse."""
-    from cap_tpu_torch.gpu import cuda_madd, cuda_redc, ec_rns
+    from cap_tpu_torch.gpu import (
+        cuda_edw,
+        cuda_madd,
+        cuda_redc,
+        ec_rns,
+        ed25519_rns,
+    )
 
     c = ec_rns.ctx_for("P-256")
     ia, ib = c.A.count, c.B.count
     xA = torch.zeros((ia, 4), dtype=torch.int32)
     xB = torch.zeros((ib, 4), dtype=torch.int32)
-    before = (cuda_redc.launches, cuda_madd.launches)
+    before = (cuda_redc.launches, cuda_madd.launches, cuda_edw.launches)
     tA, tB = cuda_redc.redc(c, xA, xB)
     rA, rB = cuda_redc.redc_ref(c, xA, xB)
     assert torch.equal(tA, rA) and torch.equal(tB, rB)
     g = torch.zeros((max(ia, ib), 4), dtype=torch.int32)
     m = torch.zeros(4, dtype=torch.bool)
     cuda_madd.madd(c, (xA, xB), (xA, xB), (xA, xB), m, m, g, g)
-    assert (cuda_redc.launches, cuda_madd.launches) == before
+    ce = ed25519_rns.ctx()
+    out = cuda_edw.edw(ce, *[(xA, xB)] * 7)
+    ref = cuda_edw.edw_ref(ce, *[(xA, xB)] * 7)
+    assert all(torch.equal(a, b) for p, q in zip(out, ref)
+               for a, b in zip(p, q))
+    assert (cuda_redc.launches, cuda_madd.launches,
+            cuda_edw.launches) == before
     with pytest.raises(ValueError):
         cuda_redc.redc(c, xA.to("meta"), xB.to("meta"))
+    with pytest.raises(ValueError):
+        cuda_edw.edw(ce, *[(xA.to("meta"), xB.to("meta"))] * 7)

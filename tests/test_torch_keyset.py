@@ -267,15 +267,22 @@ def test_degenerate_lanes_reverify_on_the_oracle(batch):
 
 
 def test_ps256_is_refused_per_token():
+    """PS256 is on the packed path now (its signature under an RS256
+    header, and the reverse, are rejected); PS384 still needs the
+    SHA-512 device engine and is refused one token at a time."""
     rng = random.Random(3)
     key = tt.generate_rsa_key(rng)
     ks = GPUBatchKeySet([t_jwk.JWK(key.public_key(), kid="k")],
                         device="cpu")
-    tok = tt.sign_jwt(key, algs.RS256, {"sub": "x"}, kid="k")
+    rs = tt.sign_jwt(key, algs.RS256, {"sub": "x"}, kid="k")
+    ps = tt.sign_jwt(key, algs.PS256, {"sub": "y"}, kid="k", rng=rng)
     h = _b64(b'{"alg":"PS256","kid":"k"}')
-    out = ks.verify_batch([tok, h + "." + tok.split(".", 1)[1]])
-    assert out[0] == {"sub": "x"}
-    assert isinstance(out[1], UnsupportedAlgError)
+    out = ks.verify_batch([rs, ps, h + "." + rs.split(".", 1)[1],
+                           tt.sign_jwt(key, algs.PS384, {"sub": "z"},
+                                       kid="k", rng=rng)])
+    assert out[0] == {"sub": "x"} and out[1] == {"sub": "y"}
+    assert type(out[2]).__name__ == "InvalidSignatureError"
+    assert isinstance(out[3], UnsupportedAlgError)
 
 
 @pytest.mark.parametrize("alg,crv", [("ES384", "P-384"), ("ES512", "P-521")])

@@ -1,0 +1,208 @@
+"""The port's PS256 engine against the JAX package's and the host:
+SHA-256 (``sha256_fixed``/``sha256_var``) against hashlib and the JAX
+engines at lengths 0–300, the RNS modexp to limbs against ``pow``, the
+device EMSA-PSS check against the JAX one and the host
+``pss_check_em`` on crafted EMs, and the packed PS256 verdicts."""
+
+import hashlib
+import random
+
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("cryptography")
+
+import jax.numpy as jnp  # noqa: E402
+
+from cap_tpu import testing as jt  # noqa: E402
+from cap_tpu.jwt import algs  # noqa: E402
+from cap_tpu.tpu import rsa as j_rsa  # noqa: E402
+from cap_tpu.tpu import sha256 as j_sha  # noqa: E402
+
+from cap_tpu_torch import testing as tt  # noqa: E402
+from cap_tpu_torch.gpu import limbs as t_limbs  # noqa: E402
+from cap_tpu_torch.gpu import rns as t_rns  # noqa: E402
+from cap_tpu_torch.gpu import rsa as t_rsa  # noqa: E402
+from cap_tpu_torch.gpu import sha256 as t_sha  # noqa: E402
+from cap_tpu_torch.jwt.gpu_keyset import _byte_matrix  # noqa: E402
+from cap_tpu_torch.jwt.jose import b64url_decode  # noqa: E402
+from cap_tpu_torch.jwt.verify import pss_check_em  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: torch's intra-op threads only contend with the
+    other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _sig(token: str) -> bytes:
+    return b64url_decode(token.split(".")[2])
+
+
+def test_sha256_var_matches_hashlib_and_jax_at_every_length():
+    rng = np.random.default_rng(1)
+    lens = np.arange(301)
+    buf = np.zeros((len(lens), 300), np.uint8)
+    for i, n in enumerate(lens):
+        buf[i, :n] = rng.integers(0, 256, n)
+    got = t_sha.sha256_var(torch.from_numpy(buf), torch.from_numpy(lens),
+                           300).numpy()
+    want = np.asarray(j_sha.sha256_var(jnp.asarray(buf), jnp.asarray(lens),
+                                       300))
+    assert np.array_equal(got, want)
+    for i, n in enumerate(lens):
+        assert got[i].tobytes() == hashlib.sha256(buf[i, :n].tobytes()) \
+            .digest()
+
+
+@pytest.mark.parametrize("length", [0, 1, 36, 55])
+def test_sha256_fixed_matches_hashlib_and_jax(length):
+    msgs = np.random.default_rng(length).integers(0, 256, (9, length),
+                                                  dtype=np.uint8)
+    got = t_sha.sha256_fixed(torch.from_numpy(msgs)).numpy()
+    assert np.array_equal(got, np.asarray(j_sha.sha256_fixed(
+        jnp.asarray(msgs))))
+    for i in range(9):
+        assert got[i].tobytes() == hashlib.sha256(msgs[i].tobytes()).digest()
+
+
+@pytest.fixture(scope="module")
+def key():
+    priv = jt.generate_keys(algs.PS256)[0]
+    nums = priv.private_numbers()
+    return tt.RSAPrivateKey(nums.p, nums.q)
+
+
+def test_rns_modexp_em_core_matches_pow(key):
+    table = t_rsa.RSAKeyTable([(key.n, 65537)], device="cpu")
+    rng = random.Random(2)
+    s_ints = [0, 1, 2, key.n - 1] + [rng.randrange(key.n) for _ in range(12)]
+    s = torch.from_numpy(np.stack([t_limbs.int_to_limbs(v, table.k)
+                                   for v in s_ints], axis=1)
+                         .astype(np.int64))
+    idx = torch.zeros(len(s_ints), dtype=torch.int64)
+    sig_c, n_B, a2_A, a2_B = table.rtab.device_tables("cpu")
+    em = t_rns._rns_modexp_em_core(
+        table.ctx, table.k + 1, s, sig_c[idx].T, n_B[idx].T, a2_A[idx].T,
+        a2_B[idx].T, table.n_tab[idx].T)
+    assert em.shape == (table.k, len(s_ints))
+    assert [t_limbs.limbs_to_int(em[:, j].tolist())
+            for j in range(len(s_ints))] == \
+        [pow(v, 65537, key.n) for v in s_ints]
+
+
+def _crafted_ems(key):
+    """(label, EM bytes as a 2k-wide big-endian integer, mHash, mod bits,
+    host verdict) for every structural case of EMSA-PSS-VERIFY."""
+    rng = random.Random(3)
+    bits = key.n.bit_length()
+    mh = hashlib.sha256(b"message").digest()
+    out = []
+
+    def add(label, em, mod_bits=bits, m_hash=mh):
+        out.append((label, em, m_hash, mod_bits))
+
+    em = tt.pss_em(mh, bits - 1, "sha256", rng.randbytes(32))
+    add("salt-32", em)
+    add("salt-0", tt.pss_em(mh, bits - 1, "sha256", b""))
+    add("salt-max", tt.pss_em(mh, bits - 1, "sha256",
+                              rng.randbytes((bits + 6) // 8 - 34)))
+    add("wrong-hash", em, m_hash=hashlib.sha256(b"other").digest())
+    add("bad-trailer", em[:-1] + b"\xcc")
+    sep = bytearray(em)
+    sep[256 - 32 - 1 - 32 - 1] ^= 0x01
+    add("no-separator", bytes(sep))
+    ps = bytearray(em)
+    ps[5] ^= 0x40
+    add("nonzero-padding", bytes(ps))
+    top = bytearray(em)
+    top[0] |= 0x80
+    add("top-bit", bytes(top))
+    em_short = tt.pss_em(mh, bits - 4, "sha256", rng.randbytes(20))
+    add("em-bits-2044", b"\0" + em_short, mod_bits=bits - 3)
+    add("em-bits-2044-top", b"\0" + bytes([em_short[0] | 0x10])
+        + em_short[1:], mod_bits=bits - 3)
+    add("tiny-modulus", em, mod_bits=8 * 33)
+    width = 2 * 129
+    rows = []
+    for label, em_, m_hash, mod_bits in out:
+        wide = bytes(width - len(em_)) + em_
+        host = pss_check_em(wide, m_hash, mod_bits - 1, "sha256")
+        rows.append((label, wide, m_hash, mod_bits, host))
+    lead = bytearray(rows[0][1])
+    lead[0] = 1
+    rows.append(("leading-byte", bytes(lead), mh, bits,
+                 pss_check_em(bytes(lead), mh, bits - 1, "sha256")))
+    return rows
+
+
+def test_pss_verify_device_matches_jax_and_host(key):
+    rows = _crafted_ems(key)
+    em = np.stack([np.frombuffer(r[1], np.uint8) for r in rows])
+    mh = np.stack([np.frombuffer(r[2], np.uint8) for r in rows])
+    mod_bits = np.asarray([r[3] for r in rows], np.int64)
+    host = [r[4] for r in rows]
+    got = t_rsa._pss_verify_device(torch.from_numpy(em),
+                                   torch.from_numpy(mh),
+                                   torch.from_numpy(mod_bits), em.shape[1],
+                                   "sha256").tolist()
+    want = np.asarray(j_rsa._pss_verify_device(
+        jnp.asarray(em), jnp.asarray(mh), jnp.asarray(mod_bits),
+        width=em.shape[1], hash_name="sha256")).tolist()
+    assert got == want == host
+    assert dict(zip([r[0] for r in rows], got)) == {
+        "salt-32": True, "salt-0": True, "salt-max": True,
+        "wrong-hash": False, "bad-trailer": False, "no-separator": False,
+        "nonzero-padding": False, "top-bit": False, "em-bits-2044": True,
+        "em-bits-2044-top": False, "tiny-modulus": False,
+        "leading-byte": False}
+
+
+def test_ps256_packed_verdicts_equal_jax(key, monkeypatch):
+    """One 128-token PS256 chunk: honest (salts 32, 0, max), tampered,
+    crafted-EM and wrong-length signatures, through both packed
+    engines on the same records."""
+    rng = random.Random(4)
+    si = tt.signing_input(algs.PS256, {"sub": "x"}, "k")
+    digest = hashlib.sha256(si).digest()
+    sigs = []
+    for salt in (None, 0, "max"):
+        tok = tt.sign_jwt(key, algs.PS256, {"sub": "x"}, kid="k", rng=rng,
+                          salt_len=salt)
+        sigs.append(_sig(tok))
+    bad = bytearray(sigs[0])
+    bad[100] ^= 2
+    sigs.append(bytes(bad))
+    em = tt.pss_em(digest, key.n.bit_length() - 1, "sha256",
+                   rng.randbytes(32))
+    sigs.append(_sig(tt.sign_em(key, si, em[:-1] + b"\x00")))
+    sigs.append(sigs[0][:-1])
+    expect = [True, True, True, False, False, False]
+    n = 128
+    sigs += [b""] * (n - len(sigs))
+    lens = np.asarray([len(s) for s in sigs])
+    hash_mat = np.zeros((n, 64), np.uint8)
+    hash_mat[:, :32] = np.frombuffer(digest, np.uint8)
+    key_idx = np.zeros(n, np.int64)
+
+    table = t_rsa.RSAKeyTable([(key.n, 65537)], device="cpu")
+    rec = t_rsa.rs_packed_records(table, _byte_matrix(sigs, 2 * table.k),
+                                  lens, hash_mat, "sha256", key_idx, "ps")
+    got = t_rsa.verify_ps_packed_pending(table, rec, "sha256").tolist()
+
+    monkeypatch.setenv("CAP_TPU_RNS", "1")
+    j_table = j_rsa.RSAKeyTable([(key.n, 65537)])
+    j_rec = j_rsa.rs_packed_records(j_table, _byte_matrix(sigs, 2 * table.k),
+                                    lens, hash_mat, "sha256",
+                                    key_idx.astype(np.int32))
+    j_rec[:, 2 * table.k + 32] = (lens == 256).astype(np.uint8)
+    assert np.array_equal(rec, j_rec)
+    want = np.asarray(j_rsa.verify_ps_packed_pending(j_table, j_rec,
+                                                     "sha256")).tolist()
+    assert got == want
+    assert got[:6] == expect and not any(got[6:])
