@@ -1,10 +1,11 @@
 """cap_tpu_torch — the PyTorch/CUDA port of cap_tpu's JWT verify engine.
 
-Batched RS256/ES256 verification on an NVIDIA H100: the JAX package's
-RNS engines rewritten in PyTorch, with the RNS REDC and the ES
-mixed add as hand-written CUDA kernels (``gpu/csrc``). The entry point
-is :class:`~cap_tpu_torch.jwt.gpu_keyset.GPUBatchKeySet`; it runs on
-the card unless the caller passes ``device="cpu"``.
+Batched RS256/ES256/PS256/EdDSA/ML-DSA verification on an NVIDIA
+H100: the JAX package's engines rewritten in PyTorch, with the RNS
+REDC, the ES and Ed25519 mixed adds, Keccak-f[1600] and the ML-DSA
+NTT and inverse NTT as hand-written CUDA kernels (``gpu/csrc``). The
+entry point is :class:`~cap_tpu_torch.jwt.gpu_keyset.GPUBatchKeySet`;
+it runs on the card unless the caller passes ``device="cpu"``.
 
 The package imports ``torch``, never ``jax``, and nothing of
 ``cap_tpu``.

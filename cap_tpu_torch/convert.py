@@ -13,7 +13,9 @@ compute on the same constants:
 - ``ECRNSKeyTable``: ``tab``;
 - ``Ed25519RNSKeyTable``: ``tna`` and the basepoint's ``b_table_rns()``
   (the JAX package's [rows, I_A + I_B] planes; the port keeps them
-  transposed).
+  transposed);
+- ``MLDSAKeyTable``: ``a_mont`` and ``t1_mont`` (uint32 in the JAX
+  package, int32 here; Montgomery-form values in [0, q)).
 
 Every array must have the shape of the table it replaces and hold
 integers (floats only where the port keeps floats).
@@ -29,6 +31,8 @@ import numpy as np
 from .gpu.ec import ECKeyTable
 from .gpu.ec_rns import ECRNSKeyTable
 from .gpu.ed25519 import Ed25519KeyTable
+from .gpu.mldsa import PARAMS as MLDSA_PARAMS
+from .gpu.mldsa import MLDSAKeyTable
 from .gpu.rns import RNSKeyTable
 from .gpu.rsa import RSAKeyTable
 
@@ -128,3 +132,20 @@ def ed25519_key_table(keys: Sequence, ctx_arrays: Dict, tna: Sequence,
         table.decoded, tna=planes(tna, len(keys) * rows, "tna"),
         tb=planes(tb, rows, "tb"), ctx_=ctx)
     return table
+
+
+def mldsa_key_table(parameter_set: str, keys: Sequence, a_mont, t1_mont,
+                    device="cuda") -> MLDSAKeyTable:
+    """An ``MLDSAKeyTable`` of ``keys`` (``MLDSAPublicKey``s of one
+    parameter set) whose Â and t̂1·2^d are the JAX table's ``a_mont``
+    [nk, k, l, 256] and ``t1_mont`` [nk, k, 256]."""
+    from .gpu.ntt import Q
+
+    p = MLDSA_PARAMS[parameter_set]
+    nk = len(keys)
+    a = _like(np.zeros((nk, p.k, p.l, 256), np.int64), a_mont, "a_mont")
+    t = _like(np.zeros((nk, p.k, 256), np.int64), t1_mont, "t1_mont")
+    for name, arr in (("a_mont", a), ("t1_mont", t)):
+        if arr.size and (arr.min() < 0 or arr.max() >= Q):
+            raise ValueError(f"{name}: entries outside [0, q)")
+    return MLDSAKeyTable(parameter_set, keys, device, a_mont=a, t1_mont=t)

@@ -1,23 +1,27 @@
 """GPUBatchKeySet — the keyset whose batch path runs on the card.
 
 The port of the JAX package's ``TPUBatchKeySet`` packed path for the
-north-star workload (RS256 + ES256 over a multi-key JWKS) and the
-PS256 + EdDSA workload. Per batch:
+north-star workload (RS256 + ES256 over a multi-key JWKS), the
+PS256 + EdDSA workload and ML-DSA-44/65/87 (AKP keys). Per batch:
 
 1. host prep in Python: JSON-form normalization, the strict compact
    parse (with the native prep's status ladder and messages, so
    rejections read the same), SHA-2 of the signing input, kid → key
    row;
 2. tokens with a unique key go to the packed paths, in chunks sized
-   and padded as the JAX keyset does: RS* and PS256 to ``gpu.rsa``
+   and padded as the JAX keyset does, the post-quantum family first:
+   ML-DSA-* to ``gpu.mldsa`` (the fused engine: μ, SampleInBall, the
+   NTT network and the c̃ compare on the device), RS* and PS256 to
+   ``gpu.rsa``
    (PS256 with the device EMSA-PSS check), ES256 to ``gpu.ec``, EdDSA
    to ``gpu.ed25519`` (k = SHA-512(R‖A‖M) on the host). Every chunk is
    queued on the device before any result is read, but each ES and
    EdDSA chunk waits once on the device inside its finish (the batch
    inverse's root is inverted by a host ``pow``, see
    ``gpu.bignum.batch_mont_inverse``);
-3. lanes the ES ladder flags degenerate are re-verified on the
-   pure-integer oracle (and counted in ``deg_reverified``);
+3. lanes the device flags (ES ladder degeneracies, ML-DSA lanes whose
+   SampleInBall walk exhausted its squeeze budget) are re-verified on
+   the pure-integer oracle (and counted in ``deg_reverified``);
 4. tokens without a unique key candidate take the trial path on the
    host oracle (``jwt.verify``), as the JAX keyset's CPU fallback does.
 
@@ -26,7 +30,8 @@ keyset's exception classes and messages.
 
 Not ported yet (ROADMAP): PS384/PS512 and ES384/ES512 (their tokens
 get a per-token ``UnsupportedAlgError``; P-384/P-521 keys are
-accepted), post-quantum verification, key classes of more than 255
+accepted), SLH-DSA (its AKP keys do not parse), the two-phase ML-DSA
+arm (host μ/c̃ around the device NTT), key classes of more than 255
 keys (RSA, EC and Ed25519 alike), hot key swaps, async/stream entry
 points, telemetry.
 """
@@ -49,6 +54,7 @@ from ..errors import (
 )
 from ..gpu import ec as gpuec
 from ..gpu import ed25519 as gpued
+from ..gpu import mldsa as gpumldsa
 from ..gpu import rsa as gpursa
 from ..gpu.limbs import nlimbs_for_bits
 from . import algs
@@ -137,7 +143,7 @@ def _byte_matrix(rows: List[bytes], width: int) -> np.ndarray:
 class GPUBatchKeySet(KeySet):
     """KeySet whose batch path runs on the GPU verify engine.
 
-    ``jwks``: JWKs of this package (RSA, EC and Ed25519 keys).
+    ``jwks``: JWKs of this package (RSA, EC, Ed25519 and ML-DSA keys).
     ``device``: where the engine runs, ``"cuda"`` by default; raises
     when CUDA is absent.
     ``device="cpu"`` runs the plain PyTorch versions of every kernel.
@@ -162,6 +168,9 @@ class GPUBatchKeySet(KeySet):
         self._ec_rows: Dict[str, Dict[int, int]] = {}
         ed_keys: list = []
         self._ed_rows: Dict[int, int] = {}
+        # one table per ML-DSA parameter set (alg name = set name)
+        mldsa_keys: Dict[str, list] = {}
+        self._mldsa_rows: Dict[str, Dict[int, int]] = {}
         for i, jwk in enumerate(self._jwks):
             key = jwk.key
             if isinstance(key, RSAPublicKey):
@@ -185,6 +194,11 @@ class GPUBatchKeySet(KeySet):
             elif isinstance(key, gpued.HostEd25519PublicKey):
                 self._ed_rows[i] = len(ed_keys)
                 ed_keys.append(key)
+            elif isinstance(key, gpumldsa.MLDSAPublicKey):
+                pset = key.parameter_set
+                rows = self._mldsa_rows.setdefault(pset, {})
+                rows[i] = len(mldsa_keys.setdefault(pset, []))
+                mldsa_keys[pset].append(key)
             else:
                 raise UnsupportedAlgError(
                     f"key type {type(key).__name__} is not supported by "
@@ -201,6 +215,9 @@ class GPUBatchKeySet(KeySet):
                            for crv, keys in self._ec_keys.items()}
         self._ed_table = (gpued.Ed25519KeyTable(ed_keys, device)
                           if ed_keys else None)
+        self._mldsa_tables = {
+            pset: gpumldsa.MLDSAKeyTable(pset, keys, device)
+            for pset, keys in mldsa_keys.items()}
 
         self._by_kid: Dict[str, List[int]] = {}
         for i, jwk in enumerate(self._jwks):
@@ -211,6 +228,8 @@ class GPUBatchKeySet(KeySet):
         self._kid_ec_row: Dict[str, Dict[str, int]] = {
             c: {} for c in self._ec_rows}
         self._kid_ed_row: Dict[str, int] = {}
+        self._kid_mldsa_row: Dict[str, Dict[str, int]] = {
+            p: {} for p in self._mldsa_rows}
         for kid, idxs in self._by_kid.items():
             if len(idxs) != 1:
                 continue
@@ -222,6 +241,9 @@ class GPUBatchKeySet(KeySet):
                     self._kid_ec_row[crv][kid] = rows[i]
             if i in self._ed_rows:
                 self._kid_ed_row[kid] = self._ed_rows[i]
+            for pset, rows in self._mldsa_rows.items():
+                if i in rows:
+                    self._kid_mldsa_row[pset][kid] = rows[i]
 
     # -- single-token path (host oracle) -----------------------------------
 
@@ -281,6 +303,12 @@ class GPUBatchKeySet(KeySet):
         for i, p in enumerate(parsed):
             if p is not None:
                 by_alg.setdefault(p.alg, []).append(i)
+        # post-quantum first: the deepest device programs go on the
+        # stream before the cheaper families
+        for pset in sorted(self._mldsa_tables):
+            if pset in by_alg:
+                self._run_mldsa_packed(pset, np.asarray(by_alg[pset]),
+                                       parsed, pending)
         for alg, crv in _ES.items():
             if crv in self._ec_tables and alg in by_alg:
                 self._run_ec_packed(alg, np.asarray(by_alg[alg]), parsed,
@@ -447,3 +475,36 @@ class GPUBatchKeySet(KeySet):
                                           msgs + [b""] * fill, key_idx)
             ok = gpued.verify_ed_packed_pending(table, rec)
             pending.append((chunk, m, [ok], self._finish_ok))
+
+    def _run_mldsa_packed(self, pset: str, idx: np.ndarray, parsed,
+                          pending: list) -> None:
+        """One ML-DSA parameter set through the fused engine, in chunks
+        of ``_chunk_tokens(bpt // 2)`` (1,024 tokens for every set) with
+        bpt the per-token device bytes of the JAX keyset's budget,
+        padded to a power of two ≥ 128. Tokens whose kid does not name
+        one key of the set take the trial path."""
+        table = self._mldsa_tables[pset]
+        p = table.params
+        rows = self._rows(idx, parsed, self._kid_mldsa_row[pset],
+                          len(table.keys))
+        fast = rows >= 0
+        idx, rows = idx[fast], rows[fast]
+        # z lanes (l·256 u32) + c lanes (256 u32) + hint lanes (k·256
+        # u8) + the key row
+        bpt = (p.l + 1) * gpumldsa.N * 4 + p.k * gpumldsa.N + 4
+        chunk_n = _chunk_tokens(max(1, bpt // 2))
+        for lo in range(0, len(idx), chunk_n):
+            chunk = idx[lo: lo + chunk_n]
+            m = len(chunk)
+            pad = _pad_size(m, chunk_n)
+            fin = gpumldsa.verify_mldsa_fused_pending(
+                table, [parsed[j].signature for j in chunk.tolist()],
+                [parsed[j].signing_input for j in chunk.tolist()],
+                rows[lo: lo + chunk_n], pad=pad)
+
+            def finish(chunk, arrs, parsed, results, fin=fin):
+                okv = fin.verdicts(arrs)
+                self.deg_reverified += fin.reverified
+                self._finish(chunk, okv, parsed, results)
+
+            pending.append((chunk, m, fin.outs, finish))

@@ -1,5 +1,5 @@
-"""Single-token RS*/PS*/ES*/EdDSA signature verification over host
-integers.
+"""Single-token RS*/PS*/ES*/EdDSA/ML-DSA signature verification over
+host integers.
 
 The oracle of the GPU keyset's trial path: tokens without a unique key
 candidate (no kid with several keys, an ambiguous or unknown kid) are
@@ -10,7 +10,8 @@ compare; PS* is ``pow`` and EMSA-PSS-VERIFY with salt auto-recovery
 :func:`~cap_tpu_torch.gpu.ec.py_ecdsa_verify`; EdDSA is
 :func:`~cap_tpu_torch.gpu.ed25519.py_ed25519_verify`, with the device
 ladder's semantics (the JAX keyset's trial path asks OpenSSL, which
-differs on two kinds of non-canonical key, ROADMAP §C).
+differs on two kinds of non-canonical key, ROADMAP §C); ML-DSA-* is
+:func:`~cap_tpu_torch.gpu.mldsa.py_verify`.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Optional
 from ..errors import InvalidSignatureError, UnsupportedAlgError
 from ..gpu.ec import HostECPublicKey, curve, py_ecdsa_verify
 from ..gpu.ed25519 import HostEd25519PublicKey, py_ed25519_verify
+from ..gpu.mldsa import py_verify as mldsa_py_verify
 from ..gpu.rsa import DIGEST_INFO_PREFIX, HASH_LEN
 from . import algs
 from .jose import ParsedJWS
@@ -40,6 +42,9 @@ _EC_FOR_ALG = {
 
 def key_matches_alg(key, alg: str) -> bool:
     """Whether the key type is usable with the given JOSE alg."""
+    if alg in algs.PQ_ALGORITHMS:
+        # AKP families: the alg name IS the key's parameter-set name.
+        return getattr(key, "parameter_set", None) == alg
     if alg in _RSA_ALGS:
         return isinstance(key, RSAPublicKey)
     if alg in _EC_FOR_ALG:
@@ -160,8 +165,7 @@ def verify_parsed(parsed: ParsedJWS, key) -> None:
 
     Raises InvalidSignatureError on any mismatch (wrong key, tampered
     content, malformed signature encoding, wrong curve/key type), and
-    UnsupportedAlgError for algs this port cannot verify (the
-    post-quantum families).
+    UnsupportedAlgError for algs this port cannot verify (SLH-DSA).
     """
     alg = parsed.alg
     if alg not in algs.SUPPORTED_ALGORITHMS:
@@ -177,6 +181,13 @@ def verify_parsed(parsed: ParsedJWS, key) -> None:
     if alg == algs.EdDSA:
         if not py_ed25519_verify(key.raw, parsed.signature,
                                  parsed.signing_input):
+            raise InvalidSignatureError("signature verification failed")
+        return None
+    if alg in algs.MLDSA_ALGORITHMS:
+        # py_verify applies every encoding rule (length, hint validity,
+        # z range): all rejects are signature-layer rejects.
+        if not mldsa_py_verify(key, parsed.signature,
+                               parsed.signing_input):
             raise InvalidSignatureError("signature verification failed")
         return None
     raise UnsupportedAlgError(f"{alg} is not ported to cap_tpu_torch yet")

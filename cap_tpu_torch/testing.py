@@ -1,12 +1,14 @@
-"""Fixtures without OpenSSL: seeded keys, JWT signing, the north-star
-and PS256 + EdDSA workloads.
+"""Fixtures without OpenSSL: seeded keys, JWT signing, the north-star,
+PS256 + EdDSA and ML-DSA workloads.
 
 Everything here is pure Python integers over ``random.Random(seed)``:
 RSA keys by Miller–Rabin, PKCS#1 v1.5 and PSS signatures by CRT
 ``pow``, P-256 signatures by :func:`~cap_tpu_torch.gpu.ec.host_ecdsa_sign`,
 Ed25519 keys and RFC 8032 signatures from 32-byte seeds
 (:func:`~cap_tpu_torch.gpu.ed25519.ed25519_sign`; deterministic, so
-byte-equal to any other RFC 8032 signer). Signing exists ONLY to
+byte-equal to any other RFC 8032 signer), ML-DSA keys from 32-byte
+seeds ξ and the deterministic FIPS 204 signer
+(:func:`~cap_tpu_torch.gpu.mldsa.keygen`). Signing exists ONLY to
 produce fixtures; nothing here is constant-time or fit for real keys.
 """
 
@@ -20,6 +22,9 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 from .gpu.ec import HostECPublicKey, curve, host_ecdsa_sign
 from .gpu.ed25519 import HostEd25519PublicKey, ed25519_sign
+from .gpu.mldsa import PARAMS as MLDSA_PARAMS
+from .gpu.mldsa import keygen as mldsa_keygen
+from .gpu.mldsa import sig_decode, sig_encode
 from .gpu.rsa import HASH_LEN
 from .jwt import algs
 from .jwt.jose import b64url_encode
@@ -167,13 +172,14 @@ def sign_jwt(priv, alg: str, claims: Dict[str, Any],
              extra_headers: Optional[Dict[str, Any]] = None,
              rng: Optional[random.Random] = None,
              salt_len: Union[int, str, None] = None) -> str:
-    """Sign ``claims`` into a compact JWS (RS*, PS*, ES* or EdDSA). ES*
+    """Sign ``claims`` into a compact JWS (RS*, PS*, ES*, EdDSA or
+    ML-DSA-*, the last with an ``MLDSAPrivateKey`` of its set). ES*
     draws its nonce and PS* its salt from ``rng`` (seeded fixtures stay
     reproducible); ``salt_len`` is the PSS salt's length: the hash's
     length by default, any int, or "max"."""
     si = signing_input(alg, claims, kid, extra_headers)
     rng = rng if rng is not None else random.Random()
-    if alg == algs.EdDSA:
+    if alg == algs.EdDSA or alg in algs.MLDSA_ALGORITHMS:
         return si.decode("ascii") + "." + b64url_encode(priv.sign(si))
     hash_name = algs.HASH_FOR_ALG[alg]
     digest = hashlib.new(hash_name, si).digest()
@@ -268,6 +274,66 @@ def config4_fixtures(n_unique: int, seed: int = 0
         claims = dict(base, sub=f"user-{j:08d}", jti=f"tok-{j:012d}")
         tokens.append(sign_jwt(priv, alg, claims, kid=kid, rng=rng))
     return jwks, tokens, signers
+
+
+def mldsa_fixtures(n_unique: int, seed: int = 0
+                   ) -> Tuple[List[JWK], List[str], list]:
+    """The ML-DSA workload: a JWKS of 8 ML-DSA-44 keys (kids
+    mldsa44-i) and 8 ML-DSA-65 keys (kids mldsa65-i), AKP keys from
+    seeded 32-byte ξ, and ``n_unique`` unique tokens signed round-robin
+    over the keys (half under each set). Returns (jwks, tokens,
+    signers) with signers [(private key, alg, kid)]."""
+    rng = random.Random(seed)
+    jwks, signers = [], []
+    for alg, tag in ((algs.MLDSA44, "mldsa44"), (algs.MLDSA65, "mldsa65")):
+        for i in range(8):
+            priv, pub = mldsa_keygen(alg, rng.randbytes(32))
+            jwks.append(JWK(pub, kid=f"{tag}-{i}"))
+            signers.append((priv, alg, f"{tag}-{i}"))
+    base = default_claims()
+    tokens = []
+    for j in range(n_unique):
+        priv, alg, kid = signers[j % len(signers)]
+        claims = dict(base, sub=f"user-{j:08d}", jti=f"tok-{j:012d}")
+        tokens.append(sign_jwt(priv, alg, claims, kid=kid))
+    return jwks, tokens, signers
+
+
+def mldsa_bad_signatures(sig: bytes, parameter_set: str
+                         ) -> List[Tuple[str, bytes]]:
+    """The ML-DSA rejection classes made from one valid signature, as
+    (label, signature): a bit flipped inside c̃ and inside z, one byte
+    short and one long, hint indices of a polynomial not increasing, a
+    hint count above ω, and a z coefficient re-encoded to γ1 − β (the
+    signature decodes; the range check rejects it)."""
+    p = MLDSA_PARAMS[parameter_set]
+    tail = p.omega + p.k
+    hints = bytearray(sig[-tail:])
+    lo = 0
+    for i in range(p.k):
+        end = hints[p.omega + i]
+        if end - lo >= 2:
+            hints[lo], hints[lo + 1] = hints[lo + 1], hints[lo]
+            break
+        lo = end
+    else:
+        raise ValueError("no polynomial with two hints")
+    count = bytearray(sig)
+    count[-1] = p.omega + 1
+    c_tilde, z, h = sig_decode(sig, p)
+    z = z.copy()
+    z[0, 3] = p.gamma1 - p.beta
+
+    def flip(at: int) -> bytes:
+        b = bytearray(sig)
+        b[at] ^= 0x04
+        return bytes(b)
+
+    return [("c-tilde-bit", flip(5)), ("z-bit", flip(p.lam // 4 + 77)),
+            ("short", sig[:-1]), ("long", sig + b"\0"),
+            ("hint-order", sig[:-tail] + bytes(hints)),
+            ("hint-count", bytes(count)),
+            ("z-range", sig_encode(c_tilde, z, h, p))]
 
 
 def jwks_document(jwks: List[JWK]) -> Dict[str, Any]:

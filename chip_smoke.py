@@ -26,7 +26,19 @@ Phases (any failure exits non-zero; none is caught):
    same way: 8 RSA-2048 and 8 Ed25519 keys plus one Ed25519 key that
    does not decode, 65,536 PS256/EdDSA tokens, the EdDSA and PS256
    rejection classes, edw launched 32 times and redc 3 times per
-   EdDSA chunk, madd never.
+   EdDSA chunk, madd never;
+5. the pq-mldsa path the same way: 8 ML-DSA-44 and 8 ML-DSA-65 AKP
+   keys, 16,384 tokens half under each set tiled from 256 unique ones,
+   the ML-DSA rejection classes, keccak launched 14 times, ntt twice
+   and intt once per ML-DSA chunk of 1,024 tokens, madd, edw and redc
+   never; then one more batch with the keccak, ntt and intt wrappers
+   hooked, every input they were handed replayed through the plain
+   versions ([1024, 25, 2] states; [1024, l, 256], [1024, 256] and
+   [1024, k, 256] rows), and both timed at each of those shapes.
+
+Phase 2 also holds keccak (65,536 states), ntt and intt (65,536 rows
+each, edge values 0 and q − 1 included) equal to their plain versions
+on every state and row.
 
 The line before the last is the per-kernel JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -42,6 +54,12 @@ import time
 SEED = 20261016
 N_TOKENS = 65536
 N_UNIQUE = 1024
+# pq-mldsa: the host decode of an ML-DSA token (its 2.4-3.3 KB
+# signature) costs several times an RS/ES token's, so the cell runs
+# 16 chunks of 1,024 tokens, not 65,536 tokens; 256 unique tokens keep
+# the pure-Python signer's fixture time near half a minute.
+N_PQ_TOKENS = 16384
+N_PQ_UNIQUE = 256
 KERNEL_LANES = 65536
 # H100 SXM peaks at 700 W. HBM: 3.35 TB/s (NVIDIA data sheet). INT32:
 # Hopper issues 64 int32 multiply-adds per SM per clock (CUDA C++
@@ -50,6 +68,12 @@ KERNEL_LANES = 65536
 # rate (132 SMs at 1.98 GHz) halved, counting a multiply-add as 2 ops.
 HBM_BPS = 3.35e12
 INT32_OPS = 33.5e12
+# Hopper issues integer instructions on two pipes, 64 per SM per clock
+# each (16.75 T/s): multiplies and multiply-adds on the FMA pipe; adds,
+# compares, selects, logic ops and (funnel) shifts on the integer ALU
+# pipe. The keccak and ntt bounds count each pipe's instructions at
+# that rate and take the busier pipe.
+INT_PIPE = INT32_OPS / 2
 
 
 def log(*a):
@@ -77,6 +101,30 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def kernel_ms(fn, reps: int, key: str) -> float:
+    """Mean device time of one launch of the kernel whose name holds
+    ``key``, over ``reps`` calls of fn (torch.profiler over CUPTI): at
+    the path's small shapes a call's host work outlasts its kernel, so
+    CUDA events around a loop of calls time the host. Falls back to
+    CUDA events when the profiler records no launch of the kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if key in e.key and dev_us(e)]
+    n = sum(e.count for e in evs)
+    if n == 0:
+        log(f"kernel_ms: no device time recorded for {key}; CUDA events")
+        return cuda_ms(fn, reps)
+    return sum(dev_us(e) for e in evs) / n / 1e3
 
 
 # -- operation counts (per lane) for the bounds ----------------------------
@@ -118,10 +166,46 @@ def madd_ops(ia: int, ib: int) -> int:
     return mults + lazy + fixes + probe + select
 
 
-def bound(nbytes: float, ops: float):
+def keccak_instr() -> int:
+    """ALU-pipe instructions of one permutation (it has no multiply),
+    the least the round needs on interleaved words: θ's column parities
+    as three-input XORs (2 per parity word), its 5 one-step rotations
+    and 10 XORs for D and 50 XORs to apply D; ρ's nonzero word
+    rotations; χ as one three-input logic op per word; ι's 2 XORs."""
+    from cap_tpu_torch.gpu import keccak as kk
+
+    rho = int((kk._RHO_RE != 0).sum() + (kk._RHO_RO != 0).sum())
+    return 24 * (20 + 5 + 10 + 50 + rho + 50 + 2)
+
+
+# a Montgomery product: a wide multiply, a multiply and a wide
+# multiply-add on the FMA pipe, a compare and a select on the ALU pipe;
+# add_q and sub_q: an add, a compare and a select on the ALU pipe
+MONT_FMA, MONT_ALU, ADDQ_ALU = 3, 2, 3
+
+
+def ntt_instr(inverse: bool) -> int:
+    """Instructions of one 256-point row on its busier pipe (the ALU):
+    8 stages of 128 butterflies (one product, one add_q, one sub_q),
+    and for the inverse the 256 products of the 256⁻¹ scale."""
+    products = 8 * 128 + (256 if inverse else 0)
+    alu = products * MONT_ALU + 8 * 128 * 2 * ADDQ_ALU
+    return max(alu, products * MONT_FMA)
+
+
+def bound(nbytes: float, ops: float, rate: float = INT32_OPS):
     t_b = nbytes / HBM_BPS * 1e3
-    t_o = ops / INT32_OPS * 1e3
+    t_o = ops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def mldsa_bound(name: str, units: int):
+    """(bound ms, by) of keccak on ``units`` states (400 B in and out a
+    state) or of ntt / intt on ``units`` rows (2 KB a row)."""
+    if name == "keccak":
+        return bound(units * 2 * 200, units * keccak_instr(), INT_PIPE)
+    return bound(units * 2 * 1024, units * ntt_instr(name == "intt"),
+                 INT_PIPE)
 
 
 # -- inputs -----------------------------------------------------------------
@@ -313,6 +397,160 @@ def edw_phase(records, rng):
         f"({b_by})")
     records["edw"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
                           bound_ms=b_ms, bound_by=b_by)
+    keccak_phase(records, rng)
+    ntt_phase(records, rng)
+
+
+def word_diff(kernel, plain):
+    """(max |kernel − plain| over the words as unsigned 32-bit values,
+    rows [leading axis] with any word differing)."""
+    import torch
+
+    d = ((kernel.to(torch.int64) & 0xFFFFFFFF)
+         - (plain.to(torch.int64) & 0xFFFFFFFF)).abs()
+    rows = int(d.reshape(d.shape[0], -1).any(dim=1).sum())
+    return int(d.max()), rows
+
+
+def keccak_phase(records, rng):
+    """The Keccak permutation at 65,536 states of random words (the
+    first all zero, the second all ones)."""
+    import numpy as np
+    import torch
+
+    from cap_tpu_torch.gpu import cuda_keccak, keccak
+
+    n = KERNEL_LANES
+    words = rng.integers(0, 2 ** 32, (n, 25, 2), dtype=np.uint64)
+    words[0], words[1] = 0, 2 ** 32 - 1
+    s = torch.from_numpy(words.astype(np.uint32).view(np.int32)).cuda()
+    got = cuda_keccak.f1600(s)
+    want = keccak.f1600_plain(s)
+    torch.cuda.synchronize()
+    err, ndiff = word_diff(got, want)
+    # the plain version against the numpy uint64 reference on a sample
+    ref = keccak.interleave(keccak.f1600_ref(keccak.deinterleave(
+        words[:256].astype(np.uint32))))
+    assert np.array_equal(got[:256].cpu().numpy().view(np.uint32), ref), \
+        "keccak against f1600_ref"
+    assert err == 0 and ndiff == 0, \
+        f"keccak disagrees on {ndiff} states (max word diff {err})"
+    ms_k = cuda_ms(lambda: cuda_keccak.f1600(s), 50)
+    ms_p = cuda_ms(lambda: keccak.f1600_plain(s), 3)
+    b_ms, b_by = mldsa_bound("keccak", n)
+    log(f"kernel keccak: {n} states, {ndiff} states not bit-equal, max "
+        f"word diff {err}; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    records["keccak"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
+                             bound_ms=b_ms, bound_by=b_by)
+
+
+def ntt_phase(records, rng):
+    """The forward and inverse NTT at 65,536 rows of canonical values,
+    a row of zeros, a row of q − 1 and an alternating row among them."""
+    import numpy as np
+    import torch
+
+    from cap_tpu_torch.gpu import cuda_ntt, ntt
+
+    q = ntt.Q
+    n = KERNEL_LANES
+    x = rng.integers(0, q, (n, 256), dtype=np.int64)
+    x[0], x[1], x[2] = 0, q - 1, np.arange(256) % 2 * (q - 1)
+    t = torch.from_numpy(x.astype(np.int32)).cuda()
+    for name, kern, plain, ref in (
+            ("ntt", cuda_ntt.ntt, ntt.ntt_plain, ntt.ntt_ref),
+            ("intt", cuda_ntt.intt, ntt.intt_plain, ntt.intt_ref)):
+        got = kern(t)
+        want = plain(t)
+        torch.cuda.synchronize()
+        err, ndiff = word_diff(got, want)
+        assert np.array_equal(got[:64].cpu().numpy(), ref(x[:64])), \
+            f"{name} against {ref.__name__}"
+        assert err == 0 and ndiff == 0, \
+            f"{name} disagrees on {ndiff} rows (max diff {err})"
+        ms_k = cuda_ms(lambda: kern(t), 50)
+        ms_p = cuda_ms(lambda: plain(t), 3)
+        b_ms, b_by = mldsa_bound(name, n)
+        log(f"kernel {name}: {n} rows, {ndiff} rows not equal, max diff "
+            f"{err}; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        records[name] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
+                             bound_ms=b_ms, bound_by=b_by)
+
+
+def capture_wrapper_calls(ks, tokens):
+    """One batch through ``ks.verify_batch`` with the keccak, ntt and
+    intt wrappers hooked: [(kernel, input, output)] for every call,
+    copies of the tensors as the path made them."""
+    from cap_tpu_torch.gpu import cuda_keccak, cuda_ntt
+
+    hooks = {"keccak": (cuda_keccak, "f1600"), "ntt": (cuda_ntt, "ntt"),
+             "intt": (cuda_ntt, "intt")}
+    wrappers = {k: getattr(mod, attr) for k, (mod, attr) in hooks.items()}
+    calls = []
+
+    def hooked(name):
+        def call(x):
+            out = wrappers[name](x)
+            calls.append((name, x.clone(), out.clone()))
+            return out
+        return call
+
+    try:
+        for k, (mod, attr) in hooks.items():
+            setattr(mod, attr, hooked(k))
+        ks.verify_batch(tokens)
+    finally:
+        for k, (mod, attr) in hooks.items():
+            setattr(mod, attr, wrappers[k])
+    return calls
+
+
+def path_shape_phase(records, ks, tokens):
+    """keccak, ntt and intt at the shapes the pq-mldsa path gives them:
+    every input one batch handed the three wrappers, the path's kernel
+    output held against the plain version on it (every state or row
+    equal), then, on the first input of each shape, the kernel's device
+    time a launch (profiler), and one wrapper call and one plain call
+    (CUDA events)."""
+    import torch
+
+    from cap_tpu_torch.gpu import cuda_keccak, cuda_ntt, keccak, ntt
+
+    fns = {"keccak": (cuda_keccak.f1600, keccak.f1600_plain, 50, "states"),
+           "ntt": (cuda_ntt.ntt, ntt.ntt_plain, 256, "rows"),
+           "intt": (cuda_ntt.intt, ntt.intt_plain, 256, "rows")}
+    kernel_keys = {"keccak": "keccak_kernel", "ntt": "ntt_kernel<false>",
+                   "intt": "ntt_kernel<true>"}
+    shapes = {}
+    for name, x, out in capture_wrapper_calls(ks, tokens):
+        width, unit = fns[name][2:]
+        n = x.numel() // width
+        err, ndiff = word_diff(out.reshape(n, width),
+                               fns[name][1](x).reshape(n, width))
+        assert err == 0 and ndiff == 0, \
+            f"{name} at {list(x.shape)} disagrees on {ndiff} {unit}"
+        first = shapes.setdefault((name, tuple(x.shape)), [x, 0])
+        first[1] += 1
+    assert {k for k, _ in shapes} == set(fns), sorted(shapes)
+    for (name, shape), (x, calls) in sorted(shapes.items(),
+                                            key=lambda kv: kv[0]):
+        kern, plain, width, unit = fns[name]
+        n = x.numel() // width
+        ms_k = kernel_ms(lambda: kern(x), 50, kernel_keys[name])
+        ms_call = cuda_ms(lambda: kern(x), 50)
+        ms_p = cuda_ms(lambda: plain(x), 3)
+        torch.cuda.synchronize()
+        b_ms, b_by = mldsa_bound(name, n)
+        log(f"kernel {name} at the path's shape {list(shape)}: {n} {unit}, "
+            f"{calls} call(s) in one batch, every one equal to the plain "
+            f"version; kernel {ms_k:.4f} ms (one wrapper call "
+            f"{ms_call:.4f} ms), plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
+        records[name].setdefault("path_shapes", []).append(dict(
+            shape=list(shape), calls=calls, max_abs_err=0, ms=ms_k,
+            call_ms=ms_call, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by))
 
 
 # -- main path --------------------------------------------------------------
@@ -338,8 +576,8 @@ REJECT = ("InvalidSignatureError",
           "no known key successfully validated the token signature")
 
 
-def tile(rng, uniq):
-    """N_TOKENS tokens tiled from the unique ones, a seeded 1/8 share
+def tile(rng, uniq, n_tokens=N_TOKENS):
+    """n_tokens tokens tiled from the unique ones, a seeded 1/8 share
     with one signature bit flipped: (tokens, expected, tampered)."""
     tampered = []
     for tok in uniq:
@@ -348,8 +586,8 @@ def tile(rng, uniq):
         tampered.append(with_sig(tok, bytes(sig)))
     subs = [json.loads(unb64(t.split(".")[1]))["sub"] for t in uniq]
     tokens, expected = [], []
-    for i in range(N_TOKENS):
-        u = i % N_UNIQUE
+    for i in range(n_tokens):
+        u = i % len(uniq)
         if rng.random() < 0.125:
             tokens.append(tampered[u])
             expected.append(REJECT)
@@ -441,42 +679,58 @@ def check_verdicts(results, expected):
     assert not bad, f"{len(bad)} wrong verdicts, first: {bad[:3]}"
 
 
-def drive_path(records, name, jwks, tokens, expected, family, per_chunk,
+def counters():
+    """Kernel name → (module, attribute) of its launch counter."""
+    from cap_tpu_torch.gpu import (
+        cuda_edw,
+        cuda_keccak,
+        cuda_madd,
+        cuda_ntt,
+        cuda_redc,
+    )
+
+    return {"redc": (cuda_redc, "launches"), "madd": (cuda_madd, "launches"),
+            "edw": (cuda_edw, "launches"),
+            "keccak": (cuda_keccak, "launches"),
+            "ntt": (cuda_ntt, "ntt_launches"),
+            "intt": (cuda_ntt, "intt_launches")}
+
+
+def drive_path(records, name, jwks, tokens, expected, families, per_chunk,
                engines):
     """One path through ``GPUBatchKeySet(jwks).verify_batch``: every
     launch counter zeroed just before the first run and read just
     after it, every verdict checked, then three warm runs, the engines'
-    lines and the profile. ``family`` (alg, kid prefix) names the
-    tokens of the ladder path whose chunks ``per_chunk`` counts
-    launches for (kernel → launches per chunk; every other kernel must
-    not launch)."""
+    lines and the profile. ``families`` [(alg, kid prefix, chunk
+    tokens)] name the tokens of the kernels' packed path, whose chunks
+    ``per_chunk`` counts launches for (kernel → launches per chunk;
+    every other kernel must not launch)."""
     import torch
 
-    from cap_tpu_torch.gpu import cuda_edw, cuda_madd, cuda_redc
     from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet, _prep_one
 
     ks = GPUBatchKeySet(jwks)
-    alg, prefix = family
-    kids = {j.kid for j in jwks if j.kid and j.kid.startswith(prefix)}
-    n_fam = 0
-    for t in tokens:
-        p = _prep_one(t)
-        n_fam += (not isinstance(p, Exception) and p.alg == alg
-                  and p.kid in kids)
-    n_chunks = (n_fam + 32767) // 32768
+    parsed = [_prep_one(t) for t in tokens]
+    n_chunks, fams = 0, []
+    for alg, prefix, chunk in families:
+        kids = {j.kid for j in jwks if j.kid and j.kid.startswith(prefix)}
+        n_fam = sum(not isinstance(p, Exception) and p.alg == alg
+                    and p.kid in kids for p in parsed)
+        n_chunks += (n_fam + chunk - 1) // chunk
+        fams.append(f"{n_fam} {alg}")
 
-    counters = {"redc": cuda_redc, "madd": cuda_madd, "edw": cuda_edw}
-    for mod in counters.values():
-        mod.launches = 0
+    ctr = counters()
+    for mod, attr in ctr.values():
+        setattr(mod, attr, 0)
     t0 = time.perf_counter()
     results = ks.verify_batch(tokens)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {k: mod.launches for k, mod in counters.items()}
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in ctr.items()}
     check_verdicts(results, expected)
-    log(f"{name} path: {len(tokens)} tokens ({n_fam} {alg} on the packed "
-        f"path, {n_chunks} {alg} chunk(s)), every verdict as expected; "
-        f"launches {launches}; degenerate lanes re-verified on the "
+    log(f"{name} path: {len(tokens)} tokens ({', '.join(fams)} on the "
+        f"packed path, {n_chunks} chunk(s)), every verdict as expected; "
+        f"launches {launches}; flagged lanes re-verified on the "
         f"oracle: {ks.deg_reverified}; first run {first_s:.2f} s")
     for k, count in launches.items():
         want = per_chunk.get(k, 0) * n_chunks
@@ -499,6 +753,7 @@ def drive_path(records, name, jwks, tokens, expected, family, per_chunk,
         f"{len(tokens) / best:.0f} verifies/s")
     engine_times(ks, tokens, engines)
     profile_batch(ks, tokens, best)
+    return ks
 
 
 def main_path(records):
@@ -506,7 +761,7 @@ def main_path(records):
     jwks, uniq, tampered, tokens, expected = build_batch(rng)
     oracle_check(jwks, uniq, tampered)
     drive_path(records, "north-star", jwks, tokens, expected,
-               ("ES256", "es-"), {"madd": 32, "redc": 11},
+               [("ES256", "es-", 32768)], {"madd": 32, "redc": 11},
                ("RS256", "ES256"))
 
 
@@ -591,8 +846,71 @@ def config4_path(records):
     jwks, uniq, tampered, tokens, expected = build_config4(rng)
     oracle_check(jwks, uniq, tampered)
     drive_path(records, "config-4", jwks, tokens, expected,
-               ("EdDSA", "ed-"), {"edw": 32, "redc": 3},
+               [("EdDSA", "ed-", 32768)], {"edw": 32, "redc": 3},
                ("PS256", "EdDSA"))
+
+
+def build_mldsa(rng):
+    """(jwks, uniq, tampered, tokens, expected) for the pq-mldsa batch:
+    8 ML-DSA-44 (mldsa44-i) and 8 ML-DSA-65 (mldsa65-i) AKP keys,
+    16,384 tokens tiled from 256 unique ones, the 1/8 tampered share,
+    and three tokens of each rejection class under each set, each over
+    a token of its own set (unique token u signs with signers[u % 16]:
+    ML-DSA-65 at u % 16 ≥ 8)."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu import mldsa
+    from cap_tpu_torch.jwt import algs
+
+    t0 = time.perf_counter()
+    jwks, uniq, signers = tt.mldsa_fixtures(N_PQ_UNIQUE, seed=SEED + 3)
+    log(f"fixtures: 8 ML-DSA-44 + 8 ML-DSA-65 keys, {N_PQ_UNIQUE} signed "
+        f"tokens in {time.perf_counter() - t0:.1f} s")
+    tokens, expected, tampered = tile(rng, uniq, N_PQ_TOKENS)
+    claims = tt.default_claims(sub="special")
+    specials = []                  # (token, expected, is ML-DSA-65)
+    for off, alg in ((0, algs.MLDSA44), (8, algs.MLDSA65)):
+        priv, _, kid = signers[off]
+        good = tt.sign_jwt(priv, alg, claims, kid=kid)
+        other = tt.sign_jwt(priv, alg, dict(claims, sub="other"), kid=kid)
+        sig = unb64(good.split(".")[2])
+        is65 = alg == algs.MLDSA65
+        for _, bad in tt.mldsa_bad_signatures(sig, alg):
+            specials.append((with_sig(good, bad), REJECT, is65))
+        h, _, s = good.split(".")
+        specials.append((f"{h}.{other.split('.')[1]}.{s}", REJECT, is65))
+        specials.append((tt.sign_jwt(priv, alg, dict(claims, sub="no-kid")),
+                         "no-kid", is65))
+        outsider, _ = mldsa.keygen(alg, bytes([off + 1]) * 32)
+        specials.append((tt.sign_jwt(outsider, alg, claims, kid="nobody"),
+                         REJECT, is65))
+    p65, _, _ = signers[8]
+    specials.append((tt.sign_jwt(p65, algs.MLDSA65, claims,
+                                 kid=signers[0][2]), REJECT, True))
+    stride = N_PQ_TOKENS // (3 * len(specials) + 1) // 16 * 16
+    for k, (tok, exp, is65) in enumerate(specials):
+        for rep in range(3):
+            pos = (k * 3 + rep) * stride + (8 if is65 else 0)
+            tokens[pos] = tok
+            expected[pos] = exp
+    return jwks, uniq, tampered, tokens, expected
+
+
+def mldsa_path(records):
+    rng = random.Random(SEED + 3)
+    jwks, uniq, tampered, tokens, expected = build_mldsa(rng)
+    oracle_check(jwks, uniq, tampered)
+    ks = drive_path(records, "pq-mldsa", jwks, tokens, expected,
+                    [("ML-DSA-44", "mldsa44-", 1024),
+                     ("ML-DSA-65", "mldsa65-", 1024)],
+                    {"keccak": 14, "ntt": 2, "intt": 1},
+                    ("ML-DSA-44", "ML-DSA-65"))
+    path_shape_phase(records, ks, tokens)
+
+
+def dev_us(e) -> float:
+    """Device µs of one profiler key average."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
 
 
 def profile_batch(ks, tokens, wall_s: float):
@@ -605,10 +923,6 @@ def profile_batch(ks, tokens, wall_s: float):
                              ProfilerActivity.CUDA]) as prof:
         ks.verify_batch(tokens)
         torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
 
     events = [e for e in prof.key_averages() if dev_us(e) > 0
               and "CPU" not in str(getattr(e, "device_type", ""))]
@@ -639,6 +953,8 @@ def engine_times(ks, tokens, engines):
         "PS256": lambda *a: ks._run_rsa_packed("ps", "sha256", *a),
         "ES256": lambda *a: ks._run_ec_packed("ES256", *a),
         "EdDSA": ks._run_ed_packed,
+        "ML-DSA-44": lambda *a: ks._run_mldsa_packed("ML-DSA-44", *a),
+        "ML-DSA-65": lambda *a: ks._run_mldsa_packed("ML-DSA-65", *a),
     }
     t0 = time.perf_counter()
     parsed = [_prep_one(t) for t in tokens]
@@ -694,6 +1010,7 @@ def main() -> int:
     kernel_phase(records)
     main_path(records)
     config4_path(records)
+    mldsa_path(records)
 
     kernels = [
         dict(name="redc", route="cuda",
@@ -708,6 +1025,18 @@ def main() -> int:
              source="cap_tpu_torch/gpu/csrc/edw.cu",
              replaces="cap_tpu/tpu/pallas_edw.py:58",
              library_ms=None, **records["edw"]),
+        dict(name="keccak", route="cuda",
+             source="cap_tpu_torch/gpu/csrc/keccak.cu",
+             replaces="cap_tpu/tpu/pallas_keccak.py:360",
+             library_ms=None, **records["keccak"]),
+        dict(name="ntt", route="cuda",
+             source="cap_tpu_torch/gpu/csrc/ntt.cu",
+             replaces="cap_tpu/tpu/pallas_ntt.py:89",
+             library_ms=None, **records["ntt"]),
+        dict(name="intt", route="cuda",
+             source="cap_tpu_torch/gpu/csrc/ntt.cu",
+             replaces="cap_tpu/tpu/pallas_ntt.py:93",
+             library_ms=None, **records["intt"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

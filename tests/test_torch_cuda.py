@@ -1,7 +1,7 @@
 """The CUDA kernels on the card: ragged lane counts against the plain
 versions, the launch counters, the wrappers' refusals, and the keyset
-on the card against the keyset on the CPU (RS256 + ES256, and PS256 +
-EdDSA).
+on the card against the keyset on the CPU (RS256 + ES256, PS256 +
+EdDSA, ML-DSA-44 + ML-DSA-65, and ML-DSA-87).
 
 Marked ``cuda``: without a card each test skips. On the card's machine
 (no jax there, so without the suite's conftest):
@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from cap_tpu_torch.gpu import cuda_edw, cuda_madd, cuda_redc, ec_rns
-from cap_tpu_torch.gpu import ed25519_rns
+from cap_tpu_torch.gpu import cuda_edw, cuda_keccak, cuda_madd, cuda_ntt
+from cap_tpu_torch.gpu import cuda_redc, ec_rns, ed25519_rns, keccak, ntt
 
 pytestmark = pytest.mark.cuda
 
@@ -228,6 +228,107 @@ def test_config4_keyset_on_the_card_matches_the_plain_path(dev):
     torch.cuda.synchronize()
     assert (cuda_edw.launches - before[0],
             cuda_redc.launches - before[1]) == (32, 3)
+    on_cpu = GPUBatchKeySet(jwks, device="cpu").verify_batch(batch)
+    assert [repr(x) if isinstance(x, Exception) else x for x in on_card] \
+        == [repr(x) if isinstance(x, Exception) else x for x in on_cpu]
+    assert sum(isinstance(x, dict) for x in on_card) == len(tokens)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1000])
+def test_keccak_kernel_matches_plain(dev, n):
+    rng = np.random.default_rng(300 + n)
+    words = rng.integers(0, 2 ** 32, (n, 25, 2), dtype=np.uint64)
+    words[0] = 0
+    s = torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(dev)
+    before = cuda_keccak.launches
+    got = cuda_keccak.f1600(s)
+    want = keccak.f1600_plain(s)
+    torch.cuda.synchronize()
+    assert cuda_keccak.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 5, 1001])
+def test_ntt_kernels_match_plain(dev, rows):
+    rng = np.random.default_rng(400 + rows)
+    x = rng.integers(0, ntt.Q, (rows, 256), dtype=np.int64)
+    x[0, :4] = [0, ntt.Q - 1, 0, ntt.Q - 1]
+    t = torch.from_numpy(x.astype(np.int32)).to(dev)
+    before = (cuda_ntt.ntt_launches, cuda_ntt.intt_launches)
+    fwd, inv = cuda_ntt.ntt(t), cuda_ntt.intt(t)
+    torch.cuda.synchronize()
+    assert (cuda_ntt.ntt_launches - before[0],
+            cuda_ntt.intt_launches - before[1]) == (1, 1)
+    assert torch.equal(fwd, ntt.ntt_plain(t))
+    assert torch.equal(inv, ntt.intt_plain(t))
+    assert torch.equal(cuda_ntt.intt(fwd), t)
+
+
+def test_keccak_and_ntt_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    s = torch.zeros((4, 25, 2), dtype=torch.int32, device=dev)
+    x = torch.zeros((4, 256), dtype=torch.int32, device=dev)
+    for bad in (s.to(torch.int64), s[:, :24], s.transpose(0, 1),
+                s.to("meta")):
+        with pytest.raises(ValueError):
+            cuda_keccak.f1600(bad)
+    for fn in (cuda_ntt.ntt, cuda_ntt.intt):
+        for bad in (x.to(torch.int64), x[:, :128], x[:, ::2],
+                    x.to("meta")):
+            with pytest.raises(ValueError):
+                fn(bad)
+
+
+def _mldsa87_fixtures(rng):
+    """Two ML-DSA-87 AKP keys (kids mldsa87-i), four tokens each."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt.jwk import JWK
+
+    jwks, tokens = [], []
+    for i in range(2):
+        priv, pub = tt.mldsa_keygen("ML-DSA-87", rng.randbytes(32))
+        jwks.append(JWK(pub, kid=f"mldsa87-{i}"))
+        tokens += [tt.sign_jwt(priv, "ML-DSA-87",
+                               tt.default_claims(sub=f"user-{i}-{j}"),
+                               kid=f"mldsa87-{i}") for j in range(4)]
+    return jwks, tokens
+
+
+@pytest.mark.parametrize("sets,launches", [
+    ("ML-DSA-44 ML-DSA-65", (28, 4, 2)),
+    ("ML-DSA-87", (16, 2, 1)),
+])
+def test_mldsa_keyset_on_the_card_matches_the_plain_path(dev, sets,
+                                                          launches):
+    """ML-DSA-44 + ML-DSA-65 (one chunk per set, each 14 keccak, 2 ntt
+    and 1 intt launches) and ML-DSA-87 (k = 8, l = 7: one chunk whose
+    c̃ recompute absorbs 9 blocks, so 16 keccak launches), with the
+    ML-DSA rejection classes under the first token's set, against the
+    plain path on the CPU."""
+    import random
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.jwt.jose import b64url_decode, b64url_encode
+
+    rng = random.Random(7)
+    if sets == "ML-DSA-87":
+        jwks, tokens = _mldsa87_fixtures(rng)
+    else:
+        jwks, tokens, _ = tt.mldsa_fixtures(32, seed=7)
+    bad = [t[:-4] + ("AAAA" if t[-4:] != "AAAA" else "BBBB")
+           for t in rng.sample(tokens, 6)]
+    h, p, s = tokens[0].split(".")
+    bad += [f"{h}.{p}.{b64url_encode(b)}" for _, b in
+            tt.mldsa_bad_signatures(b64url_decode(s), sets.split()[0])]
+    batch = tokens + bad + [f"{h}.{tokens[1].split('.')[1]}.{s}", "a.b"]
+    card_ks = GPUBatchKeySet(jwks)
+    before = (cuda_keccak.launches, cuda_ntt.ntt_launches,
+              cuda_ntt.intt_launches)
+    on_card = card_ks.verify_batch(batch)
+    torch.cuda.synchronize()
+    assert (cuda_keccak.launches - before[0],
+            cuda_ntt.ntt_launches - before[1],
+            cuda_ntt.intt_launches - before[2]) == launches
     on_cpu = GPUBatchKeySet(jwks, device="cpu").verify_batch(batch)
     assert [repr(x) if isinstance(x, Exception) else x for x in on_card] \
         == [repr(x) if isinstance(x, Exception) else x for x in on_cpu]
