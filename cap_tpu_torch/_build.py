@@ -26,7 +26,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "gpu" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cap_tpu_torch"
-KERNELS = ("redc", "madd", "edw", "keccak", "ntt")
+KERNELS = ("redc", "madd", "ladder", "edw", "keccak", "ntt")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -7,43 +7,30 @@
 // lazy adds and subs), the same-x degeneracy probe on 2 channels over
 // 20 candidates, and the infinity lift and digit-0 select.
 //
-// What bounds it on the card: integer operations. Per lane it reads
-// 186 and writes 139 int32 (about 1.3 KB) but runs 11 REDCs (~36k
-// integer multiply-adds and ~1.6k Barrett fixes) — far more work per
-// byte than the card's memory rate needs.
+// What bounds it on the card: integer operations. Per P-256 lane it
+// reads 186 and writes 139 int32 (about 1.3 KB) but runs 11 REDCs
+// (~36k integer multiply-adds and ~1.6k Barrett fixes) — far more work
+// per byte than the card's memory rate needs; P-384 and P-521 lanes
+// grow the work by the square of the channel count.
 //
 // Design: one thread per lane, blocks of 128 lanes, the ragged edge
 // masked in the kernel (no padding). The per-context constants share
-// the REDC kernel's shared-memory layout and its rns_ops.cuh code, so
-// the two kernels cannot drift apart. The live state of a lane
-// (X, Y, Z and a dozen temporaries of 46 residues each) exceeds the
-// register file; what spills goes to local memory, cached in L1. The
-// layer order and every lazy bound follow _madd_math exactly.
+// the REDC kernel's shared-memory layout and its rns_ops.cuh code, and
+// the sum and probe are madd_math.cuh's, shared with the whole-ladder
+// kernel (ladder.cu), so the kernels cannot drift apart. The lift and
+// select go straight to the outputs: selecting into the X, Y, Z
+// registers first, then storing them, made the 23+23 kernel 15%
+// slower on the H100 (more spill stores). The live state of a
+// lane (X, Y, Z and a dozen temporaries of I_A + I_B residues each)
+// exceeds the register file; what spills goes to local memory, cached
+// in L1. Instantiated for 23+23 (P-256), 34+33 (P-384) and 45+45
+// (P-521) channels; the 45+45 constants take 46,440 B of the 48 KB of
+// static shared memory.
 #include <cuda_runtime.h>
 
-#include "rns_ops.cuh"
+#include "madd_math.cuh"
 
 namespace capk {
-
-template <int IA, int IB>
-__device__ __forceinline__ void load_pair(const int* __restrict__ pa,
-                                          const int* __restrict__ pb, int n,
-                                          int lane, Pair<IA, IB>& out) {
-#pragma unroll
-  for (int i = 0; i < IA; ++i) out.a[i] = pa[i * n + lane];
-#pragma unroll
-  for (int j = 0; j < IB; ++j) out.b[j] = pb[j * n + lane];
-}
-
-template <int IA, int IB>
-__device__ __forceinline__ void store_pair(int* __restrict__ pa,
-                                           int* __restrict__ pb, int n,
-                                           int lane, const Pair<IA, IB>& v) {
-#pragma unroll
-  for (int i = 0; i < IA; ++i) pa[i * n + lane] = v.a[i];
-#pragma unroll
-  for (int j = 0; j < IB; ++j) pb[j * n + lane] = v.b[j];
-}
 
 template <int IA, int IB>
 __global__ void __launch_bounds__(128)
@@ -66,58 +53,16 @@ __global__ void __launch_bounds__(128)
 
   const bool has = has_p[lane] != 0;
   const bool inf = inf_p[lane] != 0;
-  P X, Y, Z, x2, y2;
+  P X, Y, Z, x2, y2, X3, Y3, Z3;
   load_pair<IA, IB>(xa, xb, n, lane, X);
   load_pair<IA, IB>(ya, yb, n, lane, Y);
   load_pair<IA, IB>(za, zb, n, lane, Z);
   unpack_words<IA, IB>(px, n, lane, x2);
   unpack_words<IA, IB>(py, n, lane, y2);
-
-  // _madd_math, layer for layer (bounds documented in ec_rns._madd_rns).
-  P z1z1, u2, z1_3, s2, hh, zh2, j, v, r2, y1j, t5;
-  rmul<IA, IB>(k, Z, Z, z1z1);
-  rmul<IA, IB>(k, x2, z1z1, u2);
-  rmul<IA, IB>(k, Z, z1z1, z1_3);
-  const P h = rsub<IA, IB>(k, u2, X, 16, 1);
-  const P zh = radd<IA, IB>(Z, h);
-  rmul<IA, IB>(k, y2, z1_3, s2);
-  rmul<IA, IB>(k, h, h, hh);
-  rmul<IA, IB>(k, zh, zh, zh2);
-  const P hh2 = radd<IA, IB>(hh, hh);
-  const P i4 = radd<IA, IB>(hh2, hh2);
-  const P s2y1 = rsub<IA, IB>(k, s2, Y, 16, 1);
-  const P rr = rfix<IA, IB>(k, radd<IA, IB>(s2y1, s2y1));
-  rmul<IA, IB>(k, h, i4, j);
-  rmul<IA, IB>(k, X, i4, v);
-  rmul<IA, IB>(k, rr, rr, r2);
-  const P vv = radd<IA, IB>(v, v);
-  const P X3 = rfix<IA, IB>(
-      k, rsub<IA, IB>(k, rsub<IA, IB>(k, r2, j, 4, 1), vv, 8, 2));
-  rmul<IA, IB>(k, Y, j, y1j);
-  rmul<IA, IB>(k, rr, rsub<IA, IB>(k, v, X3, 16, 1), t5);
-  const P Y3 = rfix<IA, IB>(
-      k, rsub<IA, IB>(k, t5, radd<IA, IB>(y1j, y1j), 8, 2));
-  const P Z3 = rfix<IA, IB>(
-      k, rsub<IA, IB>(k, rsub<IA, IB>(k, zh2, z1z1, 4, 1), hh, 4, 1));
-
-  // same-x degeneracy probe (ec_rns.congruent_zero_probe): sufficient;
-  // false positives only send the lane to the oracle.
-  int probe[kDegCh];
-#pragma unroll
-  for (int c = 0; c < kDegCh; ++c)
-    probe[c] = fix(h.a[c], k[L::mA + c], fbits(k, L::invA + c));
-  bool deg = false;
-#pragma unroll
-  for (int cc = 0; cc < kDegMaxC; ++cc) {
-    bool hit = true;
-#pragma unroll
-    for (int c = 0; c < kDegCh; ++c)
-      hit = hit && probe[c] == k[L::cpA + cc * IA + c];
-    deg = deg || hit;
-  }
+  const bool deg = madd_math<IA, IB>(k, X, Y, Z, x2, y2, X3, Y3, Z3);
   deg_p[lane] = (deg && !inf && has) ? 1 : 0;
 
-  // infinity lift + digit-0 select (ec_rns add_from_table semantics)
+  // infinity lift + digit-0 select, written straight to the outputs
   const bool lift = inf && has;
 #pragma unroll
   for (int i = 0; i < IA; ++i) {
@@ -126,10 +71,10 @@ __global__ void __launch_bounds__(128)
     oza[i * n + lane] = has ? (lift ? k[L::oneA + i] : Z3.a[i]) : Z.a[i];
   }
 #pragma unroll
-  for (int j2 = 0; j2 < IB; ++j2) {
-    oxb[j2 * n + lane] = has ? (lift ? x2.b[j2] : X3.b[j2]) : X.b[j2];
-    oyb[j2 * n + lane] = has ? (lift ? y2.b[j2] : Y3.b[j2]) : Y.b[j2];
-    ozb[j2 * n + lane] = has ? (lift ? k[L::oneB + j2] : Z3.b[j2]) : Z.b[j2];
+  for (int j = 0; j < IB; ++j) {
+    oxb[j * n + lane] = has ? (lift ? x2.b[j] : X3.b[j]) : X.b[j];
+    oyb[j * n + lane] = has ? (lift ? y2.b[j] : Y3.b[j]) : Y.b[j];
+    ozb[j * n + lane] = has ? (lift ? k[L::oneB + j] : Z3.b[j]) : Z.b[j];
   }
 }
 
@@ -163,11 +108,17 @@ extern "C" int cap_madd(const void* xa, const void* xb, const void* ya,
   int* out[6] = {static_cast<int*>(oxa), static_cast<int*>(oxb),
                  static_cast<int*>(oya), static_cast<int*>(oyb),
                  static_cast<int*>(oza), static_cast<int*>(ozb)};
+  const auto* h = static_cast<const uint8_t*>(has);
+  const auto* f = static_cast<const uint8_t*>(inf);
+  auto* d = static_cast<uint8_t*>(deg);
+  const auto* k = static_cast<const int*>(consts);
+  auto s = static_cast<cudaStream_t>(stream);
+  // P-256, P-384, P-521 (cuda_redc.KERNEL_SHAPES)
   if (ia == 23 && ib == 23)
-    return capk::launch_madd<23, 23>(
-        in, static_cast<const uint8_t*>(has),
-        static_cast<const uint8_t*>(inf), out, static_cast<uint8_t*>(deg),
-        static_cast<const int*>(consts), words, n,
-        static_cast<cudaStream_t>(stream));
+    return capk::launch_madd<23, 23>(in, h, f, out, d, k, words, n, s);
+  if (ia == 34 && ib == 33)
+    return capk::launch_madd<34, 33>(in, h, f, out, d, k, words, n, s);
+  if (ia == 45 && ib == 45)
+    return capk::launch_madd<45, 45>(in, h, f, out, d, k, words, n, s);
   return int(cudaErrorInvalidValue);
 }

@@ -4,11 +4,12 @@
 // and redc_fused) — t = x·A^-1 mod p on residue planes: σ = x_A·sig_c,
 // the A->B extension, t_B = (x_B + q·p)·A^-1, the B->A extension.
 //
-// What bounds it on the card: integer operations. Per lane it reads
-// and writes 2·23 int32 (368 bytes) but runs two 23x23 extensions of
-// three integer dot products each (~3.2k multiply-adds) plus ~140
-// Barrett fixes — roughly 20 integer operations per byte moved, well
-// above the H100's ratio of integer rate to memory rate.
+// What bounds it on the card: integer operations. Per P-256 lane it
+// reads and writes 2·23 int32 (368 bytes) but runs two 23x23
+// extensions of three integer dot products each (~3.2k multiply-adds)
+// plus ~140 Barrett fixes — roughly 20 integer operations per byte
+// moved, well above the H100's ratio of integer rate to memory rate
+// (P-384's 34+33 and P-521's 45+45 channels raise the ratio further).
 //
 // Design: one thread per lane, blocks of 128 lanes, the ragged edge
 // masked. All per-context constants (moduli, σ and extension
@@ -18,6 +19,8 @@
 // each channel's load and store is coalesced across the warp. The
 // extension products are integer multiply-adds, exact by construction
 // (see rns_ops.cuh); tensor cores and wgmma are left for later work.
+// Instantiated for 23+23, 34+33 and 45+45 channels: the largest
+// layout (11,610 words, 46,440 B) still fits static shared memory.
 #include <cuda_runtime.h>
 
 #include "rns_ops.cuh"
@@ -61,11 +64,18 @@ extern "C" int cap_redc(const void* xA, const void* xB, void* tA, void* tB,
                         const void* consts, int words, int n, int ia,
                         int ib, void* stream) {
   if (n <= 0) return int(cudaErrorInvalidValue);
+  const auto* a = static_cast<const int*>(xA);
+  const auto* b = static_cast<const int*>(xB);
+  auto* ta = static_cast<int*>(tA);
+  auto* tb = static_cast<int*>(tB);
+  const auto* k = static_cast<const int*>(consts);
+  auto s = static_cast<cudaStream_t>(stream);
+  // P-256 and Ed25519, P-384, P-521 (cuda_redc.KERNEL_SHAPES)
   if (ia == 23 && ib == 23)
-    return capk::launch_redc<23, 23>(
-        static_cast<const int*>(xA), static_cast<const int*>(xB),
-        static_cast<int*>(tA), static_cast<int*>(tB),
-        static_cast<const int*>(consts), words, n,
-        static_cast<cudaStream_t>(stream));
+    return capk::launch_redc<23, 23>(a, b, ta, tb, k, words, n, s);
+  if (ia == 34 && ib == 33)
+    return capk::launch_redc<34, 33>(a, b, ta, tb, k, words, n, s);
+  if (ia == 45 && ib == 45)
+    return capk::launch_redc<45, 45>(a, b, ta, tb, k, words, n, s);
   return int(cudaErrorInvalidValue);
 }

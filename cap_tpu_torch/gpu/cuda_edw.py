@@ -23,6 +23,9 @@ from . import cuda_redc
 
 launches = 0
 
+# edw.cu is instantiated for the Ed25519 field's channel counts only.
+KERNEL_SHAPES = ((23, 23),)
+
 
 def edw_ref(ctx, X, Y, Z, T, ym, yp, t2):
     """Plain PyTorch mixed add: ``ed25519_rns._edw_madd_rns`` over the
@@ -55,7 +58,7 @@ def edw(ctx, X, Y, Z, T, ym, yp, t2):
         return edw_ref(ctx, X, Y, Z, T, ym, yp, t2)
     if X[0].device.type != "cuda":
         raise ValueError(f"unsupported device {X[0].device}")
-    cuda_redc.check_shape(ctx)
+    cuda_redc.check_shape(ctx, KERNEL_SHAPES)
     ia, ib = ctx.A.count, ctx.B.count
     dev = X[0].device
     n = X[0].shape[1] if X[0].dim() == 2 else -1

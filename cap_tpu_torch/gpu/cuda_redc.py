@@ -24,9 +24,10 @@ from .rns import _redc
 
 launches = 0
 
-# The kernels are instantiated for these (I_A, I_B) channel counts:
-# P-256 (the north-star curve). Other curves raise on the card.
-KERNEL_SHAPES = ((23, 23),)
+# The REDC, mixed-add and ladder kernels are instantiated for these
+# (I_A, I_B) channel counts: P-256 (and the Ed25519 field), P-384 and
+# P-521. Other contexts raise on the card.
+KERNEL_SHAPES = ((23, 23), (34, 33), (45, 45))
 MAX_C = 32            # c·p rows per context (FieldRNSContext maxc)
 
 
@@ -68,12 +69,14 @@ def kernel_consts(ctx, device) -> torch.Tensor:
     return out
 
 
-def check_shape(ctx) -> None:
+def check_shape(ctx, shapes=KERNEL_SHAPES) -> None:
+    """Raise unless the context's channel counts are among ``shapes``
+    (the instantiations of the calling kernel)."""
     shape = (ctx.A.count, ctx.B.count)
-    if shape not in KERNEL_SHAPES:
+    if shape not in shapes:
         raise NotImplementedError(
             f"no CUDA kernel instantiated for {shape[0]}+{shape[1]} RNS "
-            f"channels (built: {KERNEL_SHAPES})")
+            f"channels (built: {shapes})")
 
 
 def check_planes(planes, rows, device, n: int) -> None:

@@ -8,12 +8,14 @@ statically (every rmul output < 3p, sums ≤ ~16p between multiplies);
 the point at infinity is an explicit boolean lane; equality tests use
 the multiple-of-p trick (d ≡ 0 iff d equals one of a few c·p rows).
 
-Two hand-written CUDA kernels carry the ladder on the card:
-``cuda_madd.madd`` runs every window's mixed add, and
-``cuda_redc.redc`` every other REDC (the accumulator merge and the
-projective check). The field ops below take the REDC as a parameter so
-the plain version of the mixed add (``cuda_madd.madd_ref``) can run
-the same arithmetic with the plain REDC.
+Hand-written CUDA kernels carry the ladder on the card: on the
+curves of ``WHOLE_LADDER_CURVES`` ``cuda_ladder.ladder`` runs every
+window in one launch, on the others ``cuda_madd.madd`` runs each
+window's mixed add (one launch a window); ``cuda_redc.redc`` runs
+every other REDC (the accumulator merge and the projective check).
+The field ops below take the REDC as a parameter so the plain version
+of the mixed add (``cuda_madd.madd_ref``) can run the same arithmetic
+with the plain REDC.
 """
 
 from __future__ import annotations
@@ -23,11 +25,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import cuda_madd, cuda_redc
+from . import cuda_ladder, cuda_madd, cuda_redc
 from .ec import CurveParams, curve
 from .rns import FieldRNSContext, I32, _limbs_to_rns, _mod_fix
 
 W_BITS = 8          # window width of the ladder (the JAX default)
+# The curves whose ladder runs as one whole-ladder launch; the others
+# run one mixed-add launch a window. Both give the same values; each
+# curve takes the faster of the two on the H100 at a 32,768-token
+# chunk (ladder_bench.py, PERF.md): on P-256 the per-window path, on
+# P-384 and P-521 the whole ladder.
+WHOLE_LADDER_CURVES = frozenset({"P-384", "P-521"})
 
 
 class ECRNSContext(FieldRNSContext):
@@ -38,6 +46,7 @@ class ECRNSContext(FieldRNSContext):
         self.cp = cp
         self.w_bits = W_BITS
         self.n_windows = (cp.nbits + W_BITS - 1) // W_BITS
+        self.whole_ladder = cp.name in WHOLE_LADDER_CURVES
 
 
 _CTX: Dict[str, ECRNSContext] = {}
@@ -232,12 +241,46 @@ def _digits_of(u: torch.Tensor, w_bits: int, n_windows: int):
     return torch.stack(outs).to(I32)
 
 
+def ladder_per_window(c: ECRNSContext, tab_t, d_all, base,
+                      win_stride: int):
+    """The ladder one mixed add a window (``cuda_madd.madd``): from the
+    point at infinity, window i adds row ``i·win_stride + base + d − 1``
+    of the transposed table tab_t [2·iap, rows] (gathered with one
+    ``index_select``) on each lane whose digit d > 0. d_all [W, M] and
+    base [M] int32. Returns what ``cuda_ladder.ladder`` returns on the
+    same inputs: (X, Y, Z, inf, deg)."""
+    ia, ib = c.A.count, c.B.count
+    iap = max(ia, ib)
+    m = d_all.shape[1]
+    dev = d_all.device
+    zA = torch.zeros((ia, m), dtype=I32, device=dev)
+    zB = torch.zeros((ib, m), dtype=I32, device=dev)
+    X, Y, Z = (zA, zB), (zA, zB), (zA, zB)
+    inf = torch.ones(m, dtype=torch.bool, device=dev)
+    deg = torch.zeros(m, dtype=torch.bool, device=dev)
+    base = base.to(torch.int64)
+    for i in range(d_all.shape[0]):
+        d = d_all[i].to(torch.int64)
+        has = d > 0
+        idx = i * win_stride + base + torch.where(has, d - 1,
+                                                  torch.zeros_like(d))
+        g = tab_t.index_select(1, idx)                # [2·iap, M] packed
+        X, Y, Z, dd = cuda_madd.madd(c, X, Y, Z, inf, has, g[:iap],
+                                     g[iap:])
+        inf = inf & ~has
+        deg = deg | dd
+    return X, Y, Z, inf, deg
+
+
 def _ecdsa_rns_core(r, s, e, key_idx, rtab: "ECRNSKeyTable",
                     cp: CurveParams):
     """ECDSA verify: scalar math in limbs, point math in RNS.
 
     r, s, e: [K, N] int64 limbs, N a power of two ≥ 128; key_idx: [N];
-    ``rtab``: the packed window table. Returns (ok, deg) [N] bools.
+    ``rtab``: the packed window table. The ladder runs as one
+    whole-ladder launch (``cuda_ladder``) or one mixed add a window as
+    the curve's context says (``whole_ladder``; same rows, masks and
+    math). Returns (ok, deg) [N] bools.
     """
     from . import bignum as B
 
@@ -259,38 +302,20 @@ def _ecdsa_rns_core(r, s, e, key_idx, rtab: "ECRNSKeyTable",
     u1 = B.mont_mul(e, w_m, nb, nppb)
     u2 = B.mont_mul(r, w_m, nb, nppb)
 
-    # 2. window digits
-    n_windows = c.n_windows
-    per = (1 << c.w_bits) - 1
-    dig1 = _digits_of(u1, c.w_bits, n_windows)
-    dig2 = _digits_of(u2, c.w_bits, n_windows)
-    iap = packed_cols(c)
+    # 2. window digits, both chains side by side: [W, 2N]
+    d_all = torch.cat([_digits_of(u1, c.w_bits, c.n_windows),
+                       _digits_of(u2, c.w_bits, c.n_windows)], dim=1)
 
     # 3. two-accumulator ladder: the G-digit and Q-digit chains run as
-    # ONE mixed add over [I, 2N] concatenated state.
-    zA = torch.zeros((c.A.count, 2 * n_tok), dtype=I32, device=dev)
-    zB = torch.zeros((c.B.count, 2 * n_tok), dtype=I32, device=dev)
-    X, Y, Z = (zA, zB), (zA, zB), (zA, zB)
-    inf = torch.ones(2 * n_tok, dtype=torch.bool, device=dev)
-    deg = torch.zeros(2 * n_tok, dtype=torch.bool, device=dev)
-
-    # window-major table, G at slot 0: row i·(nk+1)·per + s·per + (d−1)
-    tab_t = rtab.device_tab_t(dev)                  # [2·iap, rows]
-    nk = tab_t.shape[1] // (n_windows * per) - 1
-    win_stride = (nk + 1) * per
-    key_base = (key_idx.to(torch.int64) + 1) * per
-    for i in range(n_windows):
-        d = torch.cat([dig1[i], dig2[i]]).to(torch.int64)
-        row0 = torch.cat([torch.full((n_tok,), i * win_stride,
-                                     dtype=torch.int64, device=dev),
-                          i * win_stride + key_base])
-        has = d > 0
-        idx = row0 + torch.where(has, d - 1, torch.zeros_like(d))
-        g = tab_t.index_select(1, idx)                # [2·iap, 2N] packed
-        X, Y, Z, dd = cuda_madd.madd(c, X, Y, Z, inf, has, g[:iap],
-                                     g[iap:])
-        inf = inf & ~has
-        deg = deg | dd
+    # ONE mixed add over [I, 2N] concatenated state. Window-major
+    # table, G at slot 0: row i·(nk+1)·per + s·per + (d−1).
+    per = (1 << c.w_bits) - 1
+    win_stride = (rtab.nk + 1) * per
+    base = torch.cat([torch.zeros(n_tok, dtype=I32, device=dev),
+                      ((key_idx.to(torch.int64) + 1) * per).to(I32)])
+    ladder = cuda_ladder.ladder if c.whole_ladder else ladder_per_window
+    X, Y, Z, inf, deg = ladder(c, rtab.device_tab(dev), d_all, base,
+                               win_stride)
 
     def half(pair, lo):
         return (pair[0][:, lo:lo + n_tok], pair[1][:, lo:lo + n_tok])
@@ -361,9 +386,8 @@ class ECRNSKeyTable:
     ``tab``: host [n_windows·(nk+1)·per, 2·iap] int32, window-major
     with G as slot 0 and key k as slot k+1; each row is the packed x
     residues followed by the packed y residues (the JAX package's
-    layout, byte for byte). The device keeps it transposed,
-    [2·iap, rows], so one ``index_select`` per window yields the
-    kernel's contiguous [iap, M] operands.
+    layout, byte for byte). ``device_tab`` puts it on a device in the
+    layout of the curve's ladder (:func:`_ecdsa_rns_core`).
     """
 
     def __init__(self, crv: str, keys: Sequence,
@@ -373,7 +397,7 @@ class ECRNSKeyTable:
         self.cp = self.ctx.cp
         c = self.ctx
         self.nk = nk = len(keys)
-        self._dev: Dict[torch.device, torch.Tensor] = {}
+        self._dev: Dict[Tuple[torch.device, bool], torch.Tensor] = {}
         if tab is not None:
             self.tab = np.ascontiguousarray(tab, np.int32)
             return
@@ -393,12 +417,18 @@ class ECRNSKeyTable:
         ty = ty.transpose(1, 0, 2, 3).reshape(nw * (nk + 1) * per, iap)
         self.tab = np.concatenate([tx, ty], axis=1)
 
-    def device_tab_t(self, device) -> torch.Tensor:
-        device = torch.device(device)
-        if device not in self._dev:
-            self._dev[device] = torch.as_tensor(
-                np.ascontiguousarray(self.tab.T), device=device)
-        return self._dev[device]
+    def device_tab(self, device) -> torch.Tensor:
+        """The table on ``device`` as the curve's ladder reads it: for
+        the whole-ladder kernel as it is, [rows, 2·iap], a lane's row
+        contiguous; for the per-window path transposed, [2·iap, rows],
+        so one ``index_select`` a window yields the madd kernel's
+        contiguous [iap, M] operands."""
+        key = (torch.device(device), self.ctx.whole_ladder)
+        if key not in self._dev:
+            tab = self.tab if key[1] else self.tab.T
+            self._dev[key] = torch.as_tensor(np.ascontiguousarray(tab),
+                                             device=key[0])
+        return self._dev[key]
 
 
 def _residue_matrix(c: ECRNSContext, vals: List[int]) -> np.ndarray:

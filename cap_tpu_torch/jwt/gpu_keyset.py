@@ -1,8 +1,9 @@
 """GPUBatchKeySet — the keyset whose batch path runs on the card.
 
 The port of the JAX package's ``TPUBatchKeySet`` packed path for the
-north-star workload (RS256 + ES256 over a multi-key JWKS), the
-PS256 + EdDSA workload and ML-DSA-44/65/87 (AKP keys). Per batch:
+north-star workload (RS256 + ES256 over a multi-key JWKS), ES384 and
+ES512 (P-384 and P-521 keys), the PS256 + EdDSA workload and
+ML-DSA-44/65/87 (AKP keys). Per batch:
 
 1. host prep in Python: JSON-form normalization, the strict compact
    parse (with the native prep's status ladder and messages, so
@@ -12,9 +13,11 @@ PS256 + EdDSA workload and ML-DSA-44/65/87 (AKP keys). Per batch:
    and padded as the JAX keyset does, the post-quantum family first:
    ML-DSA-* to ``gpu.mldsa`` (the fused engine: μ, SampleInBall, the
    NTT network and the c̃ compare on the device), RS* and PS256 to
-   ``gpu.rsa``
-   (PS256 with the device EMSA-PSS check), ES256 to ``gpu.ec``, EdDSA
-   to ``gpu.ed25519`` (k = SHA-512(R‖A‖M) on the host). Every chunk is
+   ``gpu.rsa`` (PS256 with the device EMSA-PSS check),
+   ES256/ES384/ES512 to ``gpu.ec`` (P-256/P-384/P-521; the ladder runs
+   one whole-ladder launch a chunk or one mixed-add launch a window, as
+   ``gpu.ec_rns.WHOLE_LADDER_CURVES`` says for the curve), EdDSA to
+   ``gpu.ed25519`` (k = SHA-512(R‖A‖M) on the host). Every chunk is
    queued on the device before any result is read, but each ES and
    EdDSA chunk waits once on the device inside its finish (the batch
    inverse's root is inverted by a host ``pow``, see
@@ -28,12 +31,11 @@ PS256 + EdDSA workload and ML-DSA-44/65/87 (AKP keys). Per batch:
 Results are one claims dict or one exception per token, with the JAX
 keyset's exception classes and messages.
 
-Not ported yet (ROADMAP): PS384/PS512 and ES384/ES512 (their tokens
-get a per-token ``UnsupportedAlgError``; P-384/P-521 keys are
-accepted), SLH-DSA (its AKP keys do not parse), the two-phase ML-DSA
-arm (host μ/c̃ around the device NTT), key classes of more than 255
-keys (RSA, EC and Ed25519 alike), hot key swaps, async/stream entry
-points, telemetry.
+Not ported yet (ROADMAP): PS384/PS512 (their tokens get a per-token
+``UnsupportedAlgError``), SLH-DSA (its AKP keys do not parse), the
+two-phase ML-DSA arm (host μ/c̃ around the device NTT), key classes of
+more than 255 keys (RSA, EC and Ed25519 alike), hot key swaps,
+async/stream entry points, telemetry.
 """
 
 from __future__ import annotations
@@ -66,8 +68,7 @@ from .verify import key_matches_alg, verify_parsed
 _RS = {algs.RS256: "sha256", algs.RS384: "sha384", algs.RS512: "sha512"}
 _PS = {algs.PS256: "sha256"}        # PSS with the device SHA-256
 _PS_UNPORTED = (algs.PS384, algs.PS512)
-_ES = {algs.ES256: "P-256"}           # the curves the kernels are built for
-_ES_UNPORTED = (algs.ES384, algs.ES512)
+_ES = {algs.ES256: "P-256", algs.ES384: "P-384", algs.ES512: "P-521"}
 
 _MIN_BUCKET = 128
 # RSA key-table rows encode as class * _RSA_CLS_STRIDE + row.
@@ -186,8 +187,6 @@ class GPUBatchKeySet(KeySet):
                 rsa_classes[cls].append((key.n, key.e))
             elif isinstance(key, gpuec.HostECPublicKey):
                 crv = key.curve_name
-                if crv not in _ES.values():
-                    continue
                 rows = self._ec_rows.setdefault(crv, {})
                 rows[i] = len(self._ec_keys.setdefault(crv, []))
                 self._ec_keys[crv].append(key)
@@ -323,13 +322,10 @@ class GPUBatchKeySet(KeySet):
                         self._run_rsa_packed(
                             kind, hash_name, np.asarray(by_alg[alg]),
                             parsed, pending)
-            unported = _ES_UNPORTED + _PS_UNPORTED
-        else:
-            unported = _ES_UNPORTED
-        for alg in unported:
-            for j in by_alg.get(alg, ()):
-                results[j] = UnsupportedAlgError(
-                    f"{alg} is not ported to GPUBatchKeySet yet")
+            for alg in _PS_UNPORTED:
+                for j in by_alg.get(alg, ()):
+                    results[j] = UnsupportedAlgError(
+                        f"{alg} is not ported to GPUBatchKeySet yet")
 
         for chunk, m, outs, finish in pending:
             finish(chunk, [o.cpu().numpy()[:m] for o in outs], parsed,

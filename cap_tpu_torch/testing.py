@@ -20,6 +20,8 @@ import math
 import random
 from typing import Any, Dict, List, Optional, Tuple, Union
 
+import numpy as np
+
 from .gpu.ec import HostECPublicKey, curve, host_ecdsa_sign
 from .gpu.ed25519 import HostEd25519PublicKey, ed25519_sign
 from .gpu.mldsa import PARAMS as MLDSA_PARAMS
@@ -250,6 +252,43 @@ def headline_fixtures(n_unique: int, seed: int = 0
     return jwks, tokens, signers
 
 
+def config3_fixtures(n_unique: int, seed: int = 0
+                     ) -> Tuple[List[JWK], List[str], list]:
+    """The ES256 + ES384 workload (BASELINE.json's third configuration):
+    a JWKS of 8 P-256 keys (kids es-i) and 8 P-384 keys (kids
+    es384-i), and ``n_unique`` unique ES256/ES384 tokens signed
+    round-robin over the keys (half under each curve). Returns (jwks,
+    tokens, signers) with signers [(private key, alg, kid)]."""
+    return _ec_fixtures(((algs.ES256, "P-256", "es"),
+                         (algs.ES384, "P-384", "es384")), 8, n_unique,
+                        seed)
+
+
+def es512_fixtures(n_unique: int, seed: int = 0, n_keys: int = 2
+                   ) -> Tuple[List[JWK], List[str], list]:
+    """A small ES512 set: ``n_keys`` P-521 keys (kids es512-i) and
+    ``n_unique`` unique ES512 tokens signed round-robin over them."""
+    return _ec_fixtures(((algs.ES512, "P-521", "es512"),), n_keys,
+                        n_unique, seed)
+
+
+def _ec_fixtures(families, n_keys: int, n_unique: int, seed: int):
+    rng = random.Random(seed)
+    jwks, signers = [], []
+    for alg, crv, tag in families:
+        for i in range(n_keys):
+            priv = generate_ec_key(rng, crv)
+            jwks.append(JWK(priv.public_key(), kid=f"{tag}-{i}"))
+            signers.append((priv, alg, f"{tag}-{i}"))
+    base = default_claims()
+    tokens = []
+    for j in range(n_unique):
+        priv, alg, kid = signers[j % len(signers)]
+        claims = dict(base, sub=f"user-{j:08d}", jti=f"tok-{j:012d}")
+        tokens.append(sign_jwt(priv, alg, claims, kid=kid, rng=rng))
+    return jwks, tokens, signers
+
+
 def config4_fixtures(n_unique: int, seed: int = 0
                      ) -> Tuple[List[JWK], List[str], list]:
     """The PS256 + EdDSA workload (BASELINE.json's fourth configuration):
@@ -334,6 +373,50 @@ def mldsa_bad_signatures(sig: bytes, parameter_set: str
             ("hint-order", sig[:-tail] + bytes(hints)),
             ("hint-count", bytes(count)),
             ("z-range", sig_encode(c_tilde, z, h, p))]
+
+
+def ladder_inputs(c, n_windows: int, m: int, n_keys: int, rng,
+                  at_inf: int = 16, plant_every: int = 97,
+                  zero_share: float = 0.0):
+    """Seeded inputs of the whole ladder (``gpu.cuda_ladder.ladder``) and
+    of the per-window one over ``c`` (an ``ec_rns`` context), from the
+    numpy Generator ``rng``: a window table of G and ``n_keys`` key
+    slots, [n_windows·(n_keys+1)·255, 2·iap] packed words of random
+    values < p (the ladder's arithmetic needs no curve points); 8-bit
+    digits [n_windows, m], a ``zero_share`` of them forced to 0 and
+    lanes below ``at_inf`` all 0 (they stay at infinity); the first
+    half of the lanes on G's slot, the second on a random key's; and
+    every ``plant_every``-th lane from ``at_inf`` on (at most 255) a
+    true same-x degeneracy: its window-1 row a copy of its window-0
+    row, so window 1 adds the lifted point to itself. Returns numpy
+    (tab, d_all, base, win_stride, true_deg)."""
+    from .gpu import ec_rns
+
+    per = (1 << c.w_bits) - 1
+    stride = (n_keys + 1) * per
+    rows = n_windows * stride
+    nbytes = (c.p_int.bit_length() + 71) // 8
+    res = ec_rns._residue_matrix(
+        c, [int.from_bytes(rng.bytes(nbytes), "big") % c.p_int
+            for _ in range(2 * rows)])
+    tab = np.concatenate([ec_rns._pack_residue_rows(c, res[:rows]),
+                          ec_rns._pack_residue_rows(c, res[rows:])],
+                         axis=1)
+    d = rng.integers(0, per + 1, (n_windows, m)).astype(np.int32)
+    if zero_share:
+        d[rng.random((n_windows, m)) < zero_share] = 0
+    d[:, :at_inf] = 0
+    base = np.zeros(m, np.int32)
+    base[m // 2:] = (rng.integers(0, n_keys, m - m // 2) + 1) * per
+    true_deg = np.zeros(m, bool)
+    for k, j in enumerate(range(at_inf, m, plant_every)):
+        if k == per:
+            break
+        a = 1 + int(rng.integers(0, per))
+        d[0, j], d[1, j] = a, 1 + k
+        tab[stride + base[j] + k] = tab[base[j] + a - 1]
+        true_deg[j] = True
+    return tab, d, base, stride, true_deg
 
 
 def jwks_document(jwks: List[JWK]) -> Dict[str, Any]:

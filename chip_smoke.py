@@ -8,26 +8,41 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases (any failure exits non-zero; none is caught):
 
 1. the card's name and power limit (nvidia-smi), then the build of
-   every kernel from ``cap_tpu_torch/gpu/csrc`` with nvcc for sm_90a;
+   every kernel from ``cap_tpu_torch/gpu/csrc`` with nvcc for sm_90a,
+   one nvcc a source, all in parallel;
 2. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (23+23 RNS channels, 65,536 lanes: one
    32,768-token ES or EdDSA chunk with both ladder chains; redc and
    madd on P-256, edw on the Ed25519 field), outputs equal by value
    mod p on both residue planes, ``deg`` equal on true degeneracies;
-   kernel and plain times by CUDA events;
+   kernel and plain times by CUDA events. keccak (65,536 states), ntt
+   and intt (65,536 rows each, edge values 0 and q − 1 included) equal
+   to their plain versions on every state and row. redc and madd also
+   at P-384's 34+33 channels; the whole-ladder kernel at 65,536 lanes
+   over a table of G and 8 keys, 32 windows on P-256 and 48 on P-384,
+   against its plain version and the per-window path (gathers + W madd
+   launches) on every lane, with planted same-x degeneracies;
 3. the north-star path — a JWKS of 8 RSA-2048 and 8 P-256 keys and a
    batch of 65,536 RS256/ES256 tokens tiled from 1,024 unique signed
    tokens, a seeded 1/8 share tampered, and a few tokens of each
    rejection class — through ``GPUBatchKeySet(jwks).verify_batch``;
    every verdict checked, the unique tokens cross-checked on the
    pure-integer oracle, the kernels' launch counters zeroed before one
-   run and read after it, verifies/s timed after a warm-up;
-4. the PS256 + EdDSA path (BASELINE.json's fourth configuration) the
+   run and read after it, verifies/s timed after a warm-up. Each ES
+   chunk runs its curve's ladder (``ec_rns.WHOLE_LADDER_CURVES``): the
+   whole-ladder kernel once, or madd once a window; redc 11 times;
+4. the config-3 path (BASELINE.json's third configuration) the same
+   way (the oracle cross-check on 256 of the unique tokens): 8 P-256
+   and 8 P-384 keys, 65,536 ES256/ES384 tokens, the ES rejection
+   classes, one chunk of each curve with its curve's ladder; then
+   every whole-ladder input of one batch, captured at the wrapper,
+   replayed through the plain version and timed at that shape;
+5. the PS256 + EdDSA path (BASELINE.json's fourth configuration) the
    same way: 8 RSA-2048 and 8 Ed25519 keys plus one Ed25519 key that
    does not decode, 65,536 PS256/EdDSA tokens, the EdDSA and PS256
    rejection classes, edw launched 32 times and redc 3 times per
    EdDSA chunk, madd never;
-5. the pq-mldsa path the same way: 8 ML-DSA-44 and 8 ML-DSA-65 AKP
+6. the pq-mldsa path the same way: 8 ML-DSA-44 and 8 ML-DSA-65 AKP
    keys, 16,384 tokens half under each set tiled from 256 unique ones,
    the ML-DSA rejection classes, keccak launched 14 times, ntt twice
    and intt once per ML-DSA chunk of 1,024 tokens, madd, edw and redc
@@ -35,10 +50,6 @@ Phases (any failure exits non-zero; none is caught):
    hooked, every input they were handed replayed through the plain
    versions ([1024, 25, 2] states; [1024, l, 256], [1024, 256] and
    [1024, k, 256] rows), and both timed at each of those shapes.
-
-Phase 2 also holds keccak (65,536 states), ntt and intt (65,536 rows
-each, edge values 0 and q − 1 included) equal to their plain versions
-on every state and row.
 
 The line before the last is the per-kernel JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -255,23 +266,31 @@ def max_err(c, kernel, plain):
     return err, len(diff), split
 
 
-def kernel_phase(records):
+def pack_words(c, a, b):
+    """(A [I_A, N], B [I_B, N]) residues → [max(I_A, I_B), N] int32
+    table words, A|B<<16 (ec_rns._pack_residue_rows)."""
+    import numpy as np
+
+    out = np.zeros((max(c.A.count, c.B.count), a.shape[1]), np.int32)
+    out[:c.A.count] = a
+    out[:c.B.count] |= b << 16
+    return out
+
+
+def redc_check(c, rng, n: int, label: str):
+    """The REDC kernel against its plain version on ``n`` lanes of
+    products x < 2^(16·cb) < A·p (what an rmul feeds its REDC, cb the
+    curve's coordinate bytes), 64 lanes also against x·A⁻¹ mod p;
+    kernel and plain times by CUDA events."""
     import numpy as np
     import torch
 
-    from cap_tpu_torch.gpu import cuda_madd, cuda_redc, ec_rns
+    from cap_tpu_torch.gpu import cuda_redc
 
-    c = ec_rns.ctx_for("P-256")
     ia, ib = c.A.count, c.B.count
     p = c.p_int
-    a_dom = c.A.prod % p
-    n = KERNEL_LANES
-    rng = np.random.default_rng(SEED)
-    dev = torch.device("cuda")
-    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-
-    # REDC: products x < 2^512 < A·p (what an rmul feeds its REDC)
-    raw = rng.integers(0, 256, (n, 64), dtype=np.uint8)
+    T = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    raw = rng.integers(0, 256, (n, 2 * c.cp.coord_bytes), dtype=np.uint8)
     xa, xb = residues_of_bytes(c, raw)
     xA, xB = T(xa), T(xb)
     tA, tB = cuda_redc.redc(c, xA, xB)
@@ -290,16 +309,32 @@ def kernel_phase(records):
     ms_p = cuda_ms(lambda: cuda_redc.redc_ref(c, xA, xB), 10)
     nbytes = n * (2 * ia + 2 * ib) * 4
     b_ms, b_by = bound(nbytes, n * redc_ops(ia, ib))
-    log(f"kernel redc: {n} lanes, {ndiff} lanes not bit-equal in A or B,"
-        f" max value err {err} over both planes; kernel {ms_k:.4f} ms, "
+    log(f"kernel {label}: {n} lanes, {ndiff} lanes not bit-equal in A or "
+        f"B, max value err {err} over both planes; kernel {ms_k:.4f} ms, "
         f"plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    records["redc"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
-                           bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by)
 
-    # madd: states < 2^256 (< 11p), table points < p, random has/inf,
-    # every 97th lane a true same-x degeneracy (X = x2·Z², has, ¬inf)
+
+def madd_check(c, rng, n: int, label: str):
+    """The mixed-add kernel against its plain version on ``n`` lanes:
+    states below 2^(8·cb) (< 11p), table points < p, random has/inf,
+    every 97th lane a true same-x degeneracy (X = x2·Z², has, ¬inf);
+    outputs equal by value on both planes, ``deg`` on every true
+    degeneracy and on no masked lane; times by CUDA events."""
+    import numpy as np
+    import torch
+
+    from cap_tpu_torch.gpu import cuda_madd
+
+    ia, ib = c.A.count, c.B.count
+    p = c.p_int
+    cb = c.cp.coord_bytes
+    a_dom = c.A.prod % p
+    T = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+
     def rand_vals(top):
-        raw = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+        raw = rng.integers(0, 256, (n, cb), dtype=np.uint8)
         raw[:, 0] = np.minimum(raw[:, 0], top)
         return raw
 
@@ -313,16 +348,12 @@ def kernel_phase(records):
         z = int.from_bytes(zs[j].tobytes(), "big") * a_inv_dom % p
         x2 = int.from_bytes(x2s[j].tobytes(), "big") * a_inv_dom % p
         xs[j] = np.frombuffer(((x2 * z * z % p) * a_dom % p)
-                              .to_bytes(32, "big"), np.uint8)
+                              .to_bytes(cb, "big"), np.uint8)
         has[j], inf[j], true_deg[j] = True, False, True
     planes = [tuple(T(a) for a in residues_of_bytes(c, v))
               for v in (xs, ys, zs)]
-
-    def packed(v):
-        a, b = residues_of_bytes(c, v)
-        return T(a | (b << 16))
-
-    x2p, y2p = packed(x2s), packed(y2s)
+    x2p, y2p = (T(pack_words(c, *residues_of_bytes(c, v)))
+                for v in (x2s, y2s))
     t_has, t_inf = T(has), T(inf)
     out_k = cuda_madd.madd(c, *planes, t_inf, t_has, x2p, y2p)
     out_p = cuda_madd.madd_ref(c, *planes, t_inf, t_has, x2p, y2p)
@@ -347,14 +378,40 @@ def kernel_phase(records):
     nbytes = n * (4 * (3 * (ia + ib) + 2 * iap) + 2
                   + 4 * 3 * (ia + ib) + 1)
     b_ms, b_by = bound(nbytes, n * madd_ops(ia, ib))
-    log(f"kernel madd: {n} lanes, {ndiff} lane planes not bit-equal in A "
-        f"or B, max value err {err} over both planes, {int(true_deg.sum())} true degeneracies "
-        f"flagged by both, {deg_only} probe flags differ; kernel "
-        f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
-    records["madd"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
-                           bound_ms=b_ms, bound_by=b_by)
+    log(f"kernel {label}: {n} lanes, {ndiff} lane planes not bit-equal in "
+        f"A or B, max value err {err} over both planes, "
+        f"{int(true_deg.sum())} true degeneracies flagged by both, "
+        f"{deg_only} probe flags differ; kernel {ms_k:.4f} ms, plain "
+        f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def kernel_phase(records):
+    import numpy as np
+
+    from cap_tpu_torch.gpu import ec_rns
+
+    c = ec_rns.ctx_for("P-256")
+    rng = np.random.default_rng(SEED)
+    records["redc"] = redc_check(c, rng, KERNEL_LANES, "redc")
+    records["madd"] = madd_check(c, rng, KERNEL_LANES, "madd")
     edw_phase(records, rng)
+
+
+def wide_phase(records):
+    """REDC and madd at P-384's 34+33 channels, 65,536 lanes (one
+    32,768-token ES384 chunk's ladder lanes)."""
+    import numpy as np
+
+    from cap_tpu_torch.gpu import ec_rns
+
+    c = ec_rns.ctx_for("P-384")
+    rng = np.random.default_rng(SEED + 5)
+    shape = dict(curve="P-384", channels="34+33", lanes=KERNEL_LANES)
+    for name, check in (("redc", redc_check), ("madd", madd_check)):
+        rec = check(c, rng, KERNEL_LANES, f"{name} at 34+33 (P-384)")
+        records[name].setdefault("shapes", []).append(dict(shape, **rec))
 
 
 def edw_phase(records, rng):
@@ -399,6 +456,103 @@ def edw_phase(records, rng):
                           bound_ms=b_ms, bound_by=b_by)
     keccak_phase(records, rng)
     ntt_phase(records, rng)
+
+
+def ladder_bound(c, n: int, w: int):
+    """(bound ms, by) of the whole ladder on ``n`` lanes of ``w``
+    windows: W × madd's operations; each lane reads a table row and a
+    digit a window and its base, and writes X, Y, Z, inf and deg."""
+    ia, ib = c.A.count, c.B.count
+    iap = max(ia, ib)
+    nbytes = n * (w * (2 * iap + 1) * 4 + 4 + 3 * (ia + ib) * 4 + 2)
+    return bound(nbytes, n * w * madd_ops(ia, ib))
+
+
+def ladder_compare(c, out_k, out_p, what: str):
+    """X, Y, Z equal by value on both planes, inf equal, deg equal on
+    every lane whose planes are bit-equal. Returns (max err, lane
+    planes not bit-equal, deg flags that differ)."""
+    import numpy as np
+
+    err = ndiff = split = 0
+    same = None
+    for kk, pp in zip(out_k[:3], out_p[:3]):
+        ka, kb = (t.cpu().numpy() for t in kk)
+        pa, pb = (t.cpu().numpy() for t in pp)
+        e, d, sp = max_err(c, (ka, kb), (pa, pb))
+        err, ndiff, split = max(err, e), ndiff + d, split + sp
+        eq = ~((ka != pa).any(axis=0) | (kb != pb).any(axis=0))
+        same = eq if same is None else same & eq
+    assert err == 0 and split == 0, \
+        f"{what}: disagrees by {err} on {ndiff} lane planes ({split} split)"
+    inf_k, inf_p = out_k[3].cpu().numpy(), out_p[3].cpu().numpy()
+    assert np.array_equal(inf_k, inf_p), f"{what}: inf differs"
+    deg_k, deg_p = out_k[4].cpu().numpy(), out_p[4].cpu().numpy()
+    assert np.array_equal(deg_k[same], deg_p[same]), f"{what}: deg differs"
+    assert not deg_k[inf_k].any(), f"{what}: deg on a lane at infinity"
+    return err, ndiff, int((deg_k != deg_p).sum())
+
+
+def ladder_phase(records):
+    """The whole-ladder kernel at the config-3 cell's shapes: 65,536
+    lanes (one 32,768-token chunk, both chains) over a table of G and 8
+    keys, 32 windows on P-256 and 48 on P-384; held against its plain
+    version (and the per-window path on the same inputs) on every lane;
+    kernel, plain and per-window times by CUDA events, against the
+    bound and against W × the madd kernel's time of this run."""
+    import numpy as np
+    import torch
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu import cuda_ladder, ec_rns
+
+    rng = np.random.default_rng(SEED + 6)
+    n = KERNEL_LANES
+    shapes = []
+    for crv, madd_ms in (("P-256", records["madd"]["ms"]),
+                         ("P-384", records["madd"]["shapes"][0]["ms"])):
+        c = ec_rns.ctx_for(crv)
+        w = c.n_windows
+        # a table of G and 8 keys; lanes 0..15 at infinity, every 97th
+        # lane of the first 255·97 a planted same-x degeneracy
+        tab, d, base, stride, true_deg = tt.ladder_inputs(c, w, n, 8, rng)
+        T = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+        args = (T(tab), T(d), T(base), stride)
+        tab_t = T(np.ascontiguousarray(tab.T))
+
+        def per_window():
+            return ec_rns.ladder_per_window(c, tab_t, *args[1:])
+
+        out_k = cuda_ladder.ladder(c, *args)
+        out_p = cuda_ladder.ladder_ref(c, *args)
+        out_w = per_window()
+        torch.cuda.synchronize()
+        err, ndiff, deg_only = ladder_compare(c, out_k, out_p,
+                                              f"ladder {crv}")
+        ladder_compare(c, out_k, out_w, f"ladder {crv} per-window")
+        deg_k = out_k[4].cpu().numpy()
+        assert deg_k[true_deg].all(), f"ladder {crv}: deg missed"
+        ms_k = cuda_ms(lambda: cuda_ladder.ladder(c, *args), 3)
+        ms_w = cuda_ms(per_window, 3)
+        ms_p = cuda_ms(lambda: cuda_ladder.ladder_ref(c, *args), 1)
+        b_ms, b_by = ladder_bound(c, n, w)
+        log(f"kernel ladder {crv}: {n} lanes, {w} windows, {ndiff} lane "
+            f"planes not bit-equal, max value err {err}, inf equal, "
+            f"{int(true_deg.sum())} true degeneracies flagged, {deg_only} "
+            f"probe flags differ; kernel {ms_k:.4f} ms, per-window path "
+            f"(gathers + {w} madd) {ms_w:.4f} ms, {w} x madd "
+            f"{w * madd_ms:.4f} ms (ladder/that {ms_k / (w * madd_ms):.3f}),"
+            f" plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        shapes.append(dict(curve=crv, windows=w, lanes=n, max_abs_err=err,
+                           ms=ms_k, per_window_ms=ms_w,
+                           madd_x_windows_ms=w * madd_ms, plain_ms=ms_p,
+                           bound_ms=b_ms, bound_by=b_by))
+    # the top-level numbers: the first curve whose paths run the kernel
+    main = next(sh for sh in shapes
+                if ec_rns.ctx_for(sh["curve"]).whole_ladder)
+    records["ladder"] = dict(
+        {k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        max_abs_err=max(sh["max_abs_err"] for sh in shapes), shapes=shapes)
 
 
 def word_diff(kernel, plain):
@@ -684,39 +838,45 @@ def counters():
     from cap_tpu_torch.gpu import (
         cuda_edw,
         cuda_keccak,
+        cuda_ladder,
         cuda_madd,
         cuda_ntt,
         cuda_redc,
     )
 
     return {"redc": (cuda_redc, "launches"), "madd": (cuda_madd, "launches"),
+            "ladder": (cuda_ladder, "launches"),
             "edw": (cuda_edw, "launches"),
             "keccak": (cuda_keccak, "launches"),
             "ntt": (cuda_ntt, "ntt_launches"),
             "intt": (cuda_ntt, "intt_launches")}
 
 
-def drive_path(records, name, jwks, tokens, expected, families, per_chunk,
-               engines):
-    """One path through ``GPUBatchKeySet(jwks).verify_batch``: every
-    launch counter zeroed just before the first run and read just
+def drive_path(records, name, jwks, tokens, expected, families, engines,
+               **ks_opts):
+    """One path through ``GPUBatchKeySet(jwks, **ks_opts).verify_batch``:
+    every launch counter zeroed just before the first run and read just
     after it, every verdict checked, then three warm runs, the engines'
     lines and the profile. ``families`` [(alg, kid prefix, chunk
-    tokens)] name the tokens of the kernels' packed path, whose chunks
-    ``per_chunk`` counts launches for (kernel → launches per chunk;
-    every other kernel must not launch)."""
+    tokens, {kernel: launches per chunk})] name the tokens of the
+    kernels' packed path and what each of their chunks launches; every
+    other kernel must not launch. Returns the keyset, the first run's
+    verdicts, the best verifies/s and the profiled device ms."""
     import torch
 
     from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet, _prep_one
 
-    ks = GPUBatchKeySet(jwks)
+    ks = GPUBatchKeySet(jwks, **ks_opts)
     parsed = [_prep_one(t) for t in tokens]
-    n_chunks, fams = 0, []
-    for alg, prefix, chunk in families:
+    want, n_chunks, fams = {}, 0, []
+    for alg, prefix, chunk, per_chunk in families:
         kids = {j.kid for j in jwks if j.kid and j.kid.startswith(prefix)}
         n_fam = sum(not isinstance(p, Exception) and p.alg == alg
                     and p.kid in kids for p in parsed)
-        n_chunks += (n_fam + chunk - 1) // chunk
+        chunks = (n_fam + chunk - 1) // chunk
+        n_chunks += chunks
+        for k, per in per_chunk.items():
+            want[k] = want.get(k, 0) + per * chunks
         fams.append(f"{n_fam} {alg}")
 
     ctr = counters()
@@ -733,9 +893,8 @@ def drive_path(records, name, jwks, tokens, expected, families, per_chunk,
         f"launches {launches}; flagged lanes re-verified on the "
         f"oracle: {ks.deg_reverified}; first run {first_s:.2f} s")
     for k, count in launches.items():
-        want = per_chunk.get(k, 0) * n_chunks
-        assert count == want and (want > 0 or k not in per_chunk), \
-            (name, launches)
+        assert count == want.get(k, 0) and (k not in want or want[k] > 0), \
+            (name, launches, want)
         rec = records[k]
         rec["launches"] = rec.get("launches", 0) + count
         rec.setdefault("launches_by_path", {})[name] = count
@@ -743,17 +902,30 @@ def drive_path(records, name, jwks, tokens, expected, families, per_chunk,
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        results = ks.verify_batch(tokens)
+        again = ks.verify_batch(tokens)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    check_verdicts(results, expected)
+    check_verdicts(again, expected)
     best = min(times)
+    vps = len(tokens) / best
     log(f"{name} path warm: {len(tokens)} tokens in "
         f"{', '.join(f'{t:.3f}' for t in times)} s; best "
-        f"{len(tokens) / best:.0f} verifies/s")
+        f"{vps:.0f} verifies/s")
     engine_times(ks, tokens, engines)
-    profile_batch(ks, tokens, best)
-    return ks
+    device_ms = profile_batch(ks, tokens, best)
+    return dict(ks=ks, results=results, vps=vps, device_ms=device_ms)
+
+
+def es_launches(crv: str):
+    """What one ES chunk of the curve launches: its ladder (the
+    whole-ladder kernel once, or madd once a window), then redc 11
+    times (the merge and the projective check)."""
+    from cap_tpu_torch.gpu import ec_rns
+
+    c = ec_rns.ctx_for(crv)
+    if c.whole_ladder:
+        return {"ladder": 1, "redc": 11}
+    return {"madd": c.n_windows, "redc": 11}
 
 
 def main_path(records):
@@ -761,7 +933,7 @@ def main_path(records):
     jwks, uniq, tampered, tokens, expected = build_batch(rng)
     oracle_check(jwks, uniq, tampered)
     drive_path(records, "north-star", jwks, tokens, expected,
-               [("ES256", "es-", 32768)], {"madd": 32, "redc": 11},
+               [("ES256", "es-", 32768, es_launches("P-256"))],
                ("RS256", "ES256"))
 
 
@@ -846,8 +1018,128 @@ def config4_path(records):
     jwks, uniq, tampered, tokens, expected = build_config4(rng)
     oracle_check(jwks, uniq, tampered)
     drive_path(records, "config-4", jwks, tokens, expected,
-               [("EdDSA", "ed-", 32768)], {"edw": 32, "redc": 3},
+               [("EdDSA", "ed-", 32768, {"edw": 32, "redc": 3})],
                ("PS256", "EdDSA"))
+
+
+def build_config3(rng):
+    """(jwks, uniq, tampered, tokens, expected) for the ES256 + ES384
+    batch: 8 P-256 (es-i) and 8 P-384 (es384-i) keys, 65,536 tokens
+    tiled from 1,024 unique ones (half under each curve), the 1/8
+    tampered share, and three tokens of each rejection class: r = 0,
+    s ≥ n and a signature one byte short under each curve, an ES384
+    alg over a P-256 kid, a kid-less ES384 token (the trial path over
+    the 8 P-384 keys: accepted) and an outsider's under an unknown kid;
+    each in place of a token of its own curve (unique token u signs
+    with signers[u % 16]: ES384 at u % 16 ≥ 8)."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu.ec import curve
+    from cap_tpu_torch.jwt import algs
+
+    t0 = time.perf_counter()
+    jwks, uniq, signers = tt.config3_fixtures(N_UNIQUE, seed=SEED + 5)
+    log(f"fixtures: 8 P-256 + 8 P-384 keys, {N_UNIQUE} signed tokens in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens, expected, tampered = tile(rng, uniq)
+    claims = tt.default_claims(sub="special")
+    specials = []                  # (token, expected, is ES384)
+    for u, crv in ((0, "P-256"), (8, "P-384")):
+        tok = uniq[u]
+        sig = unb64(tok.split(".")[2])
+        cb = curve(crv).coord_bytes
+        n = curve(crv).n.to_bytes(cb, "big")
+        is384 = crv == "P-384"
+        specials += [(with_sig(tok, b"\0" * cb + sig[cb:]), REJECT, is384),
+                     (with_sig(tok, sig[:cb] + n), REJECT, is384),
+                     (with_sig(tok, sig[:-1]), REJECT, is384)]
+    p384, _, _ = signers[8]
+    specials += [
+        (tt.sign_jwt(p384, algs.ES384, claims, kid="es-0", rng=rng),
+         REJECT, True),
+        (tt.sign_jwt(p384, algs.ES384, dict(claims, sub="no-kid"),
+                     rng=rng), "no-kid", True),
+        (tt.sign_jwt(tt.generate_ec_key(rng, "P-384"), algs.ES384, claims,
+                     kid="nobody", rng=rng), REJECT, True),
+    ]
+    stride = N_TOKENS // (3 * len(specials) + 1) // 16 * 16
+    for k, (tok, exp, is384) in enumerate(specials):
+        for rep in range(3):
+            pos = (k * 3 + rep) * stride + (8 if is384 else 0)
+            tokens[pos] = tok
+            expected[pos] = exp
+    return jwks, uniq, tampered, tokens, expected
+
+
+def config3_path(records):
+    """The config-3 cell: one ES256 and one ES384 chunk, each with its
+    curve's ladder. Then the whole-ladder inputs of one batch,
+    replayed."""
+    from cap_tpu_torch.gpu import ec_rns
+
+    rng = random.Random(SEED + 5)
+    jwks, uniq, tampered, tokens, expected = build_config3(rng)
+    # the first 256 unique tokens, 128 under each curve: the pure-Python
+    # P-384 verify takes ~0.1 s a token, and every verdict of the batch
+    # is checked against its expected value anyway
+    oracle_check(jwks, uniq[:256], tampered)
+    run = drive_path(records, "config-3", jwks, tokens, expected,
+                     [("ES256", "es-", 32768, es_launches("P-256")),
+                      ("ES384", "es384-", 32768, es_launches("P-384"))],
+                     ("ES256", "ES384"))
+    whole = sum(ec_rns.ctx_for(crv).whole_ladder
+                for crv in ("P-256", "P-384"))
+    if whole:
+        ladder_path_shapes(records, run["ks"], tokens, whole)
+
+
+def ladder_path_shapes(records, ks, tokens, n_calls: int):
+    """Every whole-ladder input of one config-3 batch (``n_calls``: one
+    a chunk of a whole-ladder curve), captured at the wrapper and
+    replayed through the plain version: X, Y, Z equal by value, inf and
+    deg equal; each shape's kernel and plain times (CUDA events) and
+    bound."""
+    import torch
+
+    from cap_tpu_torch.gpu import cuda_ladder
+
+    kern = cuda_ladder.ladder
+    calls = []
+
+    def hooked(ctx, tab, d_all, base, win_stride):
+        out = kern(ctx, tab, d_all, base, win_stride)
+        calls.append((ctx, tab, d_all.clone(), base.clone(), win_stride,
+                      [t.clone() for pair in out[:3] for t in pair]
+                      + [out[3].clone(), out[4].clone()]))
+        return out
+
+    cuda_ladder.ladder = hooked
+    try:
+        ks.verify_batch(tokens)
+    finally:
+        cuda_ladder.ladder = kern
+    assert len(calls) == n_calls, len(calls)
+    for ctx, tab, d_all, base, stride, o in calls:
+        args = (tab, d_all, base, stride)
+        out_k = ((o[0], o[1]), (o[2], o[3]), (o[4], o[5]), o[6], o[7])
+        out_p = cuda_ladder.ladder_ref(ctx, *args)
+        torch.cuda.synchronize()
+        w, m = d_all.shape
+        err, ndiff, deg_only = ladder_compare(ctx, out_k, out_p,
+                                              f"ladder at {w}x{m}")
+        # a launch takes tens of ms here: CUDA events around a loop of
+        # wrapper calls time the kernel, not the host
+        ms_k = cuda_ms(lambda: kern(ctx, *args), 3)
+        ms_p = cuda_ms(lambda: cuda_ladder.ladder_ref(ctx, *args), 1)
+        b_ms, b_by = ladder_bound(ctx, m, w)
+        flagged = int(o[7].sum())
+        log(f"kernel ladder at the path's shape: {w} windows x {m} lanes "
+            f"over a {tab.shape[0]}-row table, equal to the plain version "
+            f"({ndiff} lane planes not bit-equal, {flagged} lanes flagged, "
+            f"{deg_only} flags differ); kernel {ms_k:.4f} ms, plain "
+            f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        records["ladder"].setdefault("path_shapes", []).append(dict(
+            shape=[w, m], table_rows=int(tab.shape[0]), max_abs_err=err,
+            ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by))
 
 
 def build_mldsa(rng):
@@ -899,12 +1191,12 @@ def mldsa_path(records):
     rng = random.Random(SEED + 3)
     jwks, uniq, tampered, tokens, expected = build_mldsa(rng)
     oracle_check(jwks, uniq, tampered)
-    ks = drive_path(records, "pq-mldsa", jwks, tokens, expected,
-                    [("ML-DSA-44", "mldsa44-", 1024),
-                     ("ML-DSA-65", "mldsa65-", 1024)],
-                    {"keccak": 14, "ntt": 2, "intt": 1},
-                    ("ML-DSA-44", "ML-DSA-65"))
-    path_shape_phase(records, ks, tokens)
+    per_chunk = {"keccak": 14, "ntt": 2, "intt": 1}
+    run = drive_path(records, "pq-mldsa", jwks, tokens, expected,
+                     [("ML-DSA-44", "mldsa44-", 1024, per_chunk),
+                      ("ML-DSA-65", "mldsa65-", 1024, per_chunk)],
+                     ("ML-DSA-44", "ML-DSA-65"))
+    path_shape_phase(records, run["ks"], tokens)
 
 
 def dev_us(e) -> float:
@@ -929,7 +1221,7 @@ def profile_batch(ks, tokens, wall_s: float):
     total_ms = sum(dev_us(e) for e in events) / 1e3
     if total_ms == 0:
         log("profile: no device time recorded (not measured)")
-        return
+        return None
     n_launch = sum(e.count for e in events)
     log(f"profile: {total_ms:.1f} ms of device time in {n_launch} kernel "
         f"launches in one batch, {100 * total_ms / 1e3 / wall_s:.1f}% of "
@@ -937,6 +1229,7 @@ def profile_batch(ks, tokens, wall_s: float):
         f"{100 - 100 * total_ms / 1e3 / wall_s:.1f}%)")
     for e in sorted(events, key=dev_us, reverse=True)[:10]:
         log(f"  {dev_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:70]}")
+    return total_ms
 
 
 def engine_times(ks, tokens, engines):
@@ -952,6 +1245,7 @@ def engine_times(ks, tokens, engines):
         "RS256": lambda *a: ks._run_rsa_packed("rs", "sha256", *a),
         "PS256": lambda *a: ks._run_rsa_packed("ps", "sha256", *a),
         "ES256": lambda *a: ks._run_ec_packed("ES256", *a),
+        "ES384": lambda *a: ks._run_ec_packed("ES384", *a),
         "EdDSA": ks._run_ed_packed,
         "ML-DSA-44": lambda *a: ks._run_mldsa_packed("ML-DSA-44", *a),
         "ML-DSA-65": lambda *a: ks._run_mldsa_packed("ML-DSA-65", *a),
@@ -1000,7 +1294,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s for "
-        f"{', '.join(_build.KERNELS)} (parallel nvcc)")
+        f"{', '.join(_build.KERNELS)} (parallel nvcc: "
+        + ", ".join(f"{n} {info['seconds']:.1f} s"
+                    for n, info in _build.BUILD_LOG.items()) + ")")
     for name, info in sorted(_build.BUILD_LOG.items()):
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
@@ -1008,7 +1304,10 @@ def main() -> int:
 
     records = {}
     kernel_phase(records)
+    wide_phase(records)
+    ladder_phase(records)
     main_path(records)
+    config3_path(records)
     config4_path(records)
     mldsa_path(records)
 
@@ -1021,6 +1320,10 @@ def main() -> int:
              source="cap_tpu_torch/gpu/csrc/madd.cu",
              replaces="cap_tpu/tpu/pallas_madd.py:125",
              library_ms=None, **records["madd"]),
+        dict(name="ladder", route="cuda",
+             source="cap_tpu_torch/gpu/csrc/ladder.cu",
+             replaces="cap_tpu/tpu/pallas_madd.py:262",
+             library_ms=None, **records["ladder"]),
         dict(name="edw", route="cuda",
              source="cap_tpu_torch/gpu/csrc/edw.cu",
              replaces="cap_tpu/tpu/pallas_edw.py:58",

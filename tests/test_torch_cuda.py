@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: ragged lane counts against the plain
 versions, the launch counters, the wrappers' refusals, and the keyset
-on the card against the keyset on the CPU (RS256 + ES256, PS256 +
-EdDSA, ML-DSA-44 + ML-DSA-65, and ML-DSA-87).
+on the card against the keyset on the CPU (RS256 + ES256, ES256 +
+ES384 and ES512 with either ladder, PS256 + EdDSA, ML-DSA-44 +
+ML-DSA-65, and ML-DSA-87).
 
 Marked ``cuda``: without a card each test skips. On the card's machine
 (no jax there, so without the suite's conftest):
@@ -13,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from cap_tpu_torch.gpu import cuda_edw, cuda_keccak, cuda_madd, cuda_ntt
-from cap_tpu_torch.gpu import cuda_redc, ec_rns, ed25519_rns, keccak, ntt
+from cap_tpu_torch.gpu import cuda_edw, cuda_keccak, cuda_ladder, cuda_madd
+from cap_tpu_torch.gpu import cuda_ntt, cuda_redc, ec_rns, ed25519_rns
+from cap_tpu_torch.gpu import keccak, ntt, rns
 
 pytestmark = pytest.mark.cuda
 
@@ -151,8 +153,93 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         cuda_redc.redc(c, good[:, ::2], goodb[:, ::2])
     with pytest.raises(ValueError):
         cuda_redc.redc(c, good[:5], goodb)
+    # a context whose channel counts no kernel is instantiated for
+    p192 = rns.FieldRNSContext((1 << 192) - (1 << 64) - 1, 12)
     with pytest.raises(NotImplementedError):
-        cuda_redc.redc(ec_rns.ctx_for("P-384"), good, goodb)
+        cuda_redc.redc(p192, good, goodb)
+
+
+@pytest.mark.parametrize("n", [127, 1000])
+@pytest.mark.parametrize("crv", ["P-384", "P-521"])
+def test_wide_redc_and_madd_kernels_match_plain(dev, crv, n):
+    """The REDC and mixed-add kernels at 34+33 and 45+45 channels."""
+    c = ec_rns.ctx_for(crv)
+    rng = np.random.default_rng(500 + n)
+    p = c.p_int
+    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    xa, xb = _residues(c, [u * v for u, v in zip(_rand(rng, 3 * p, n),
+                                                   _rand(rng, 3 * p, n))])
+    xA, xB = T(xa), T(xb)
+    before = (cuda_redc.launches, cuda_madd.launches)
+    got = cuda_redc.redc(c, xA, xB)
+    assert _same_values(c, got, cuda_redc.redc_ref(c, xA, xB))
+    planes = [tuple(T(a) for a in _residues(c, _rand(rng, b * p, n)))
+              for b in (15, 11, 11)]
+    iap = max(c.A.count, c.B.count)
+
+    def packed():
+        a, b = _residues(c, _rand(rng, p, n))
+        w = np.zeros((iap, n), np.int32)
+        w[:c.A.count] = a
+        w[:c.B.count] |= b << 16
+        return T(w)
+
+    x2p, y2p = packed(), packed()
+    has = T(rng.integers(0, 2, n).astype(bool))
+    inf = T(rng.integers(0, 2, n).astype(bool))
+    out_k = cuda_madd.madd(c, *planes, inf, has, x2p, y2p)
+    out_p = cuda_madd.madd_ref(c, *planes, inf, has, x2p, y2p)
+    torch.cuda.synchronize()
+    assert (cuda_redc.launches - before[0],
+            cuda_madd.launches - before[1]) == (1, 1)
+    for kk, pp in zip(out_k[:3], out_p[:3]):
+        assert _same_values(c, kk, pp)
+    assert not out_k[3][~has | inf].any()
+
+
+def _ladder_case(c, n, rng):
+    """A whole-ladder input over a random table of G and one key slot,
+    digits with 10% zeros, lanes 0..3 at infinity and every 9th lane a
+    planted same-x degeneracy (``testing.ladder_inputs``)."""
+    from cap_tpu_torch import testing as tt
+
+    return tt.ladder_inputs(c, c.n_windows, n, 1, rng, at_inf=4,
+                            plant_every=9, zero_share=0.1)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 4097])
+@pytest.mark.parametrize("crv", ["P-256", "P-384", "P-521"])
+def test_ladder_kernel_matches_plain(dev, crv, n):
+    c = ec_rns.ctx_for(crv)
+    rng = np.random.default_rng(600 + n)
+    tab, d, base, stride, true_deg = _ladder_case(c, n, rng)
+    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    args = (T(tab), T(d), T(base), stride)
+    before = cuda_ladder.launches
+    out_k = cuda_ladder.ladder(c, *args)
+    out_p = cuda_ladder.ladder_ref(c, *args)
+    torch.cuda.synchronize()
+    assert cuda_ladder.launches == before + 1
+    for kk, pp in zip(out_k[:3], out_p[:3]):
+        assert _same_values(c, kk, pp)
+    assert torch.equal(out_k[3], out_p[3])
+    deg = out_k[4].cpu().numpy()
+    assert deg[true_deg].all() and out_p[4].cpu().numpy()[true_deg].all()
+    assert not out_k[4][out_k[3]].any()
+
+
+def test_ladder_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    c = ec_rns.ctx_for("P-256")
+    tab, d, base, stride, _ = _ladder_case(c, 64, np.random.default_rng(1))
+    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    tab, d, base = T(tab), T(d), T(base)
+    for args in ((tab.to(torch.int64), d, base), (tab, d.cpu(), base),
+                 (tab, d[:, ::2], base[::2]), (tab[:, :-1], d, base)):
+        with pytest.raises(ValueError):
+            cuda_ladder.ladder(c, *args, stride)
+    p192 = rns.FieldRNSContext((1 << 192) - (1 << 64) - 1, 12)
+    with pytest.raises((NotImplementedError, ValueError)):
+        cuda_ladder.ladder(p192, tab, d, base, stride)
 
 
 def _degenerate_token(kid: str, inverse: bool, rng):
@@ -203,6 +290,51 @@ def test_keyset_on_the_card_matches_the_plain_path(dev):
     assert sum(isinstance(x, dict) for x in on_card) == len(tokens) + 1
     assert on_card[-2] == {"sub": "deg-dbl"}
     assert card_ks.deg_reverified == 2
+
+
+@pytest.mark.parametrize("whole", [None, False, True],
+                         ids=["per-curve", "per-window", "whole-ladder"])
+@pytest.mark.parametrize("family", ["ES256 ES384", "ES512"])
+def test_es_keysets_on_the_card_match_the_plain_path(dev, family, whole,
+                                                      monkeypatch):
+    """ES256 + ES384 (8 P-256 and 8 P-384 keys, one chunk each) and
+    ES512 (2 P-521 keys, one chunk), each curve with its own ladder or
+    every curve forced to one: per window 32, 48 or 66 madd launches a
+    chunk, whole one ladder launch a chunk and no madd; 11 REDC
+    launches a chunk either way (the merge and the projective
+    check)."""
+    import random
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+
+    if family == "ES512":
+        jwks, tokens, _ = tt.es512_fixtures(24, seed=8)
+        curves = ["P-521"]
+    else:
+        jwks, tokens, _ = tt.config3_fixtures(32, seed=8)
+        curves = ["P-256", "P-384"]
+    if whole is not None:
+        for crv in ("P-256", "P-384", "P-521"):
+            monkeypatch.setattr(ec_rns.ctx_for(crv), "whole_ladder", whole)
+    ctxs = [ec_rns.ctx_for(crv) for crv in curves]
+    rng = random.Random(8)
+    bad = [t[:-4] + ("AAAA" if t[-4:] != "AAAA" else "BBBB")
+           for t in rng.sample(tokens, 6)]
+    batch = tokens + bad + ["a.b"]
+    card_ks = GPUBatchKeySet(jwks)
+    before = (cuda_madd.launches, cuda_ladder.launches, cuda_redc.launches)
+    on_card = card_ks.verify_batch(batch)
+    torch.cuda.synchronize()
+    want = (sum(c.n_windows for c in ctxs if not c.whole_ladder),
+            sum(c.whole_ladder for c in ctxs), 11 * len(ctxs))
+    assert (cuda_madd.launches - before[0],
+            cuda_ladder.launches - before[1],
+            cuda_redc.launches - before[2]) == want
+    on_cpu = GPUBatchKeySet(jwks, device="cpu").verify_batch(batch)
+    assert [repr(x) if isinstance(x, Exception) else x for x in on_card] \
+        == [repr(x) if isinstance(x, Exception) else x for x in on_cpu]
+    assert sum(isinstance(x, dict) for x in on_card) == len(tokens)
 
 
 def test_config4_keyset_on_the_card_matches_the_plain_path(dev):

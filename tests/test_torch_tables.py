@@ -212,3 +212,80 @@ def test_convert_rejects_mismatched_shapes():
         ctx.device_consts("cpu").mA,
         convert.load_context(ctx, _ctx_arrays(ctx, True))
         .device_consts("cpu").mA)
+
+
+_ES_FOR = {"P-384": (algs.ES384, "sha384"), "P-521": (algs.ES512, "sha512")}
+
+
+@pytest.fixture(scope="module")
+def wide_keys():
+    """One OpenSSL key on each of P-384 and P-521, with the JAX
+    package's window table of it."""
+    out = {}
+    for crv, (alg, _) in _ES_FOR.items():
+        key = jt.generate_keys(alg)[0]
+        out[crv] = key, j_ec_rns.ECRNSKeyTable(crv, [key.public_key()])
+    return out
+
+
+@pytest.mark.parametrize("crv", ["P-384", "P-521"])
+def test_wide_curve_context_bytes_equal(crv):
+    port, ref = t_ec_rns.ctx_for(crv), j_ec_rns.ctx_for(crv)
+    _check_context(port, ref, field=True)
+    assert port.n_windows == ref.n_windows
+
+
+@pytest.mark.parametrize("crv", ["P-384", "P-521"])
+def test_wide_curve_window_table_bytes_equal(crv, wide_keys):
+    key, ref = wide_keys[crv]
+    nums = key.public_key().public_numbers()
+    port = t_ec_rns.ECRNSKeyTable(crv, [t_ec.HostECPublicKey(crv, nums.x,
+                                                             nums.y)])
+    _bytes_equal(port.tab, ref.tab)
+
+
+@pytest.mark.parametrize("crv", ["P-384", "P-521"])
+def test_converted_wide_curve_tables_give_the_same_verdicts(crv,
+                                                            wide_keys):
+    """``convert.ec_key_table`` carries the JAX package's P-384 and P-521
+    context and table across; the converted table and the port's own
+    give the same verdicts (coordinates 48 and 66 bytes, SHA-384 and
+    SHA-512 digests, no truncation at 512 < 521 bits)."""
+    from cryptography.hazmat.primitives import hashes
+    from cryptography.hazmat.primitives.asymmetric import ec
+    from cryptography.hazmat.primitives.asymmetric.utils import (
+        decode_dss_signature,
+    )
+
+    _, hash_name = _ES_FOR[crv]
+    key, ref = wide_keys[crv]
+    cb = t_ec.curve(crv).coord_bytes
+    msg = b"convert parity " + crv.encode()
+    digest = hashlib.new(hash_name, msg).digest()
+    h = hashes.SHA384() if hash_name == "sha384" else hashes.SHA512()
+    r, s = decode_dss_signature(key.sign(msg, ec.ECDSA(h)))
+    good = r.to_bytes(cb, "big") + s.to_bytes(cb, "big")
+    bad = bytearray(good)
+    bad[-1] ^= 1
+    sigs = [good, bytes(bad), b"\x00" * (2 * cb), good[:-1]]
+    expect = [True, False, False, False]
+    nums = key.public_key().public_numbers()
+    host = [t_ec.HostECPublicKey(crv, nums.x, nums.y)]
+    conv = convert.ec_key_table(crv, host, _ctx_arrays(ref.ctx, field=True),
+                                np.asarray(ref.tab), device="cpu")
+    own = t_ec.ECKeyTable(crv, host, device="cpu")
+    n = 128                                   # the batch-inverse width
+    sig_mat = np.zeros((n, 2 * cb), np.uint8)
+    sig_mat[:len(sigs)] = _byte_matrix(sigs, 2 * cb)
+    lens = np.zeros(n, np.int64)
+    lens[:len(sigs)] = [len(s) for s in sigs]
+    hash_mat = np.zeros((n, 64), np.uint8)
+    hash_mat[:len(sigs), :len(digest)] = np.frombuffer(digest, np.uint8)
+    key_idx = np.zeros(n, np.int64)
+    for table in (conv, own):
+        rec = t_ec.es_packed_records(table, sig_mat, lens, hash_mat,
+                                     len(digest), key_idx)
+        ok, deg = t_ec.verify_es_packed_pending(table, rec, len(digest))
+        assert ok[:len(sigs)].tolist() == expect
+        assert not deg.any()
+    _bytes_equal(conv.rns().tab, own.rns().tab)
