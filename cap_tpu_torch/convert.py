@@ -70,6 +70,7 @@ def load_context(ctx, arrays: Dict):
         setattr(new, name, _like(getattr(ctx, name), arrays[name], name))
     new._dev = {}
     new.__dict__.pop("_kernel_consts", None)
+    new.__dict__.pop("_madd_consts", None)
     new.__dict__.pop("_to_limbs", None)
     return new
 

@@ -1,5 +1,5 @@
 // The whole ES ladder in one launch: every window's mixed add with the
-// state kept by its thread.
+// state kept in its group's registers.
 //
 // Replaces: cap_tpu/tpu/pallas_madd.py, _ladder_kernel (via _ladder_call
 // and ladder_fused) — all W windows of the per-window kernel (madd.cu),
@@ -13,30 +13,34 @@
 // What bounds it on the card: integer operations, W times madd's
 // (11 REDCs a window). Per lane it reads one packed table row
 // (2·iap int32) and one digit a window, and writes the state once:
-// for P-256, 32 windows of 188 B and 552 B out, ~6.6 KB against ~1.5M
-// integer operations.
+// for P-256, 32 windows of 188 B and 552 B out, ~6.6 KB against ~0.5M
+// integer instructions.
 //
-// Design: one thread per lane, blocks of 128 lanes, the ragged edge
-// masked. The context constants are loaded into static shared memory
-// once a block for all W windows (46,440 B at 45+45 channels, within
-// the 48 KB static limit). The sum and the probe are madd_math.cuh's,
-// shared with the per-window kernel, so the two cannot diverge; the
-// lift and select write into the registers carried to the next
-// window. The ES path runs this kernel on the curves where it beats
-// the per-window one (ec_rns.WHOLE_LADDER_CURVES). Unlike JAX's
-// kernel, which streams a pre-gathered [W, 2·iap, M] table block a
-// window, each thread gathers its own row of the row-major
-// [rows, 2·iap] table (row = i·win_stride + base + d − 1 for a digit
-// d > 0, the row at base for d = 0, whose sum is discarded): the
-// table of a few keys is L2-resident, and the pre-gather would move
-// W·2·iap·4 bytes a lane through device memory twice. The X, Y, Z
-// state (3·(I_A + I_B) residues) lives across the window loop; what
-// does not fit the registers spills to local memory, cached in L1.
+// Design: madd.cu's — each lane over a group of T threads (rns_int.cuh),
+// the sum and probe of madd_math.cuh, the constants loaded into shared
+// memory once a block for all W windows. X, Y, Z stay in the group's
+// registers across the windows. Each thread gathers only its share of
+// the lane's table row (row = i·win_stride + base + d − 1 for a digit
+// d > 0, the row at base for d = 0, whose sum is discarded) from the
+// row-major [rows, 2·iap] table, L2-resident for a few keys: the next
+// window's share is copied into shared memory by cp.async while the
+// current window computes (on the H100 as fast as a register
+// prefetch on P-256 and 5% faster on P-384 and P-521, where the
+// registers are scarcer). A digit-0 lane
+// keeps its state: it is parked in the output planes before the sum
+// and read back after it, so the sum's live set does not carry it;
+// the infinity lift re-reads the table point. Unlike JAX's kernel,
+// which streams a pre-gathered [W, 2·iap, M] table block a window, the
+// gather stays in the kernel: the pre-gather would move W·2·iap·4
+// bytes a lane through device memory twice. The ES path runs this
+// kernel on every curve: it beats the per-window one on all three
+// (ladder_bench.py, PERF.md).
 #include <cuda_runtime.h>
 
 #include "madd_math.cuh"
 
 namespace capk {
+namespace ri {
 
 struct LadderOut {
   int* xa;
@@ -49,75 +53,195 @@ struct LadderOut {
   uint8_t* deg;
 };
 
-template <int IA, int IB>
-__global__ void __launch_bounds__(128)
+// Copy this thread's words of a packed table row (its share of the x
+// words, then of the y words) into its C + C words of shared memory by
+// cp.async, one 4-byte copy a word, committed as one group;
+// cp_async_wait() waits for them.
+template <int IAP, int C>
+__device__ __forceinline__ void fetch_row(int* dst, const int* row, int t) {
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const int c = t * C + i < IAP ? t * C + i : IAP - 1;
+#ifdef __CUDA_ARCH__
+    const auto sx = static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
+    const auto sy =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + C + i));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(sx),
+                 "l"(row + c) : "memory");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(sy),
+                 "l"(row + IAP + c) : "memory");
+#else
+    dst[i] = row[c];
+    dst[C + i] = row[IAP + c];
+#endif
+  }
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;" ::: "memory");
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;" ::: "memory");
+#endif
+}
+
+template <int IA, int IB, int C>
+__device__ __forceinline__ Share<C, C> decode(const int* w, int t) {
+  Share<C, C> o;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    o.a[i] = t * C + i < IA ? (w[i] & 0xFFFF) : 0;
+    o.b[i] = t * C + i < IB ? (w[i] >> 16) : 0;
+  }
+  return o;
+}
+
+// Park (to) or fetch (!to) this thread's share of a value in the
+// lane's column of [I_A, m] / [I_B, m] planes.
+template <int IA, int IB, int C>
+__device__ __forceinline__ void park(int* pa, int* pb, int m, int lane,
+                                     int t, Share<C, C>& v, bool to) {
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const int c = t * C + i;
+    if (c < IA) {
+      int* p = pa + static_cast<size_t>(c) * m + lane;
+      if (to) st_cg(p, v.a[i]); else v.a[i] = ld_cg(p);
+    }
+    if (c < IB) {
+      int* p = pb + static_cast<size_t>(c) * m + lane;
+      if (to) st_cg(p, v.b[i]); else v.b[i] = ld_cg(p);
+    }
+  }
+}
+
+template <int IA, int IB, int T>
+__global__ void __launch_bounds__(kThreads)
     ladder_kernel(const int* __restrict__ tab, const int* __restrict__ d_all,
                   const int* __restrict__ base, int win_stride,
                   int n_windows, const LadderOut out,
                   const int* __restrict__ consts, int m) {
-  using L = Layout<IA, IB>;
-  using P = Pair<IA, IB>;
+  using L = KLayout<IA, IB>;
+  using G = Group<IA, IB, T>;
+  static_assert(G::CA == G::CB, "a thread's A and B shares share words");
+  constexpr int C = G::CA;
   constexpr int IAP = IA > IB ? IA : IB;
-  __shared__ int k[L::words];
-  load_consts(k, consts, L::words);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= m) return;
+  using Sh = Share<C, C>;
+  __shared__ __align__(16) int k[L::words];
+  __shared__ __align__(16) int xs[G::kLanes * G::S];
+  __shared__ __align__(16) float xf[G::kLanes * G::S];
+  load_block(k, consts, L::words, xs, xf, G::kLanes * G::S);
+  int lane;
+  const Ctx g = make_ctx<IA, IB, T>(k, xs, xf, lane);
+  const bool valid = lane < m;
+  const int ln = valid ? lane : m - 1;
+  const int t = g.t;
+  const int row_base = base[ln];
 
-  P X = {}, Y = {}, Z = {};
+  Sh X = {}, Y = {}, Z = {};
   bool inf = true, deg = false;
-  const int row_base = base[lane];
+  int d = d_all[ln];
+  const int* row = tab + static_cast<size_t>(row_base + (d > 0 ? d - 1 : 0)) *
+                             (2 * IAP);
+  // the row buffer is this thread's own: no barrier orders it
+  __shared__ __align__(16) int rowbuf[kThreads * 2 * C];
+  int* const mine = rowbuf + threadIdx.x * 2 * C;
+  fetch_row<IAP, C>(mine, row, t);
 #pragma unroll 1
   for (int i = 0; i < n_windows; ++i) {
-    const int d = d_all[static_cast<size_t>(i) * m + lane];
     const bool has = d > 0;
-    const int r = i * win_stride + row_base + (has ? d - 1 : 0);
-    const int* row = tab + static_cast<size_t>(r) * (2 * IAP);
-    P x2, y2, X3, Y3, Z3;
-    unpack_row<IA, IB>(row, x2);
-    unpack_row<IA, IB>(row + IAP, y2);
-    const bool hit = madd_math<IA, IB>(k, X, Y, Z, x2, y2, X3, Y3, Z3);
+    cp_async_wait();
+    // the raw words, decoded only where the sum takes them: a decoded
+    // share is twice the registers
+    int wx[C], wy[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) wx[j] = mine[j], wy[j] = mine[C + j];
+    // the next window's digit and row share, fetched under this window
+    // into the words just read. cp.async is not ordered after the
+    // thread's own shared loads; a barrier between the reads of a
+    // buffer and the copies that overwrite it orders them (the CUDA C++
+    // Programming Guide's single-stage memcpy_async loop), and the
+    // lane's group is one warp's.
+    const int inext = i + 1 < n_windows ? i + 1 : i;
+    const int dn = d_all[static_cast<size_t>(inext) * m + ln];
+    const int* row_n =
+        tab + static_cast<size_t>(inext * win_stride + row_base +
+                                  (dn > 0 ? dn - 1 : 0)) * (2 * IAP);
+    __syncwarp();
+    fetch_row<IAP, C>(mine, row_n, t);
+
+    if (!has && valid) {
+      park<IA, IB, C>(out.xa, out.xb, m, lane, t, X, true);
+      park<IA, IB, C>(out.ya, out.yb, m, lane, t, Y, true);
+      park<IA, IB, C>(out.za, out.zb, m, lane, t, Z, true);
+    }
+    Sh X3, Y3, Z3;
+    const bool hit = madd_sum<IA, IB, T>(g, X, Y, Z, decode<IA, IB, C>(wx, t),
+                                         decode<IA, IB, C>(wy, t), X3, Y3,
+                                         Z3);
     deg = deg || (hit && has && !inf);
     // infinity lift + digit-0 select, into the carried state
-    if (has) {
-#pragma unroll
-      for (int a = 0; a < IA; ++a) {
-        X.a[a] = inf ? x2.a[a] : X3.a[a];
-        Y.a[a] = inf ? y2.a[a] : Y3.a[a];
-        Z.a[a] = inf ? k[L::oneA + a] : Z3.a[a];
+    if (!has) {
+      if (valid) {
+        park<IA, IB, C>(out.xa, out.xb, m, lane, t, X, false);
+        park<IA, IB, C>(out.ya, out.yb, m, lane, t, Y, false);
+        park<IA, IB, C>(out.za, out.zb, m, lane, t, Z, false);
       }
+    } else if (inf) {
 #pragma unroll
-      for (int b = 0; b < IB; ++b) {
-        X.b[b] = inf ? x2.b[b] : X3.b[b];
-        Y.b[b] = inf ? y2.b[b] : Y3.b[b];
-        Z.b[b] = inf ? k[L::oneB + b] : Z3.b[b];
+      for (int j = 0; j < C; ++j) {
+        const int c = t * C + j < IAP ? t * C + j : IAP - 1;
+        wx[j] = ld_cg(row + c);
+        wy[j] = ld_cg(row + IAP + c);
       }
+      X = decode<IA, IB, C>(wx, t);
+      Y = decode<IA, IB, C>(wy, t);
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        Z.a[j] = k[L::oneA + t * C + j];
+        Z.b[j] = k[L::oneB + t * C + j];
+      }
+    } else {
+      X = X3, Y = Y3, Z = Z3;
     }
     inf = inf && !has;
+    d = dn;
+    row = row_n;
   }
-  store_pair<IA, IB>(out.xa, out.xb, m, lane, X);
-  store_pair<IA, IB>(out.ya, out.yb, m, lane, Y);
-  store_pair<IA, IB>(out.za, out.zb, m, lane, Z);
-  out.inf[lane] = inf ? 1 : 0;
-  out.deg[lane] = deg ? 1 : 0;
+  if (!valid) return;
+  park<IA, IB, C>(out.xa, out.xb, m, lane, t, X, true);
+  park<IA, IB, C>(out.ya, out.yb, m, lane, t, Y, true);
+  park<IA, IB, C>(out.za, out.zb, m, lane, t, Z, true);
+  if (t == 0) {
+    out.inf[lane] = inf ? 1 : 0;
+    out.deg[lane] = deg ? 1 : 0;
+  }
 }
 
+#ifndef CAPK_NO_LAUNCH
 template <int IA, int IB>
 int launch_ladder(const int* tab, const int* d_all, const int* base,
                   int win_stride, int n_windows, const LadderOut& out,
                   const int* consts, int words, int m,
                   cudaStream_t stream) {
-  if (words != Layout<IA, IB>::words) return int(cudaErrorInvalidValue);
-  const int threads = 128;
-  ladder_kernel<IA, IB><<<(m + threads - 1) / threads, threads, 0, stream>>>(
+  if (words != KLayout<IA, IB>::words) return int(cudaErrorInvalidValue);
+  constexpr int T = kGroup<IA, IB>;
+  constexpr int lanes = Group<IA, IB, T>::kLanes;
+  ladder_kernel<IA, IB, T><<<(m + lanes - 1) / lanes, kThreads, 0, stream>>>(
       tab, d_all, base, win_stride, n_windows, out, consts, m);
   return int(cudaGetLastError());
 }
+#endif
 
+}  // namespace ri
 }  // namespace capk
 
+#ifndef CAPK_NO_LAUNCH
 // tab: [rows, 2·iap] packed x‖y words, row-major; d_all: [n_windows, m]
-// digits; base: [m] per-lane slot base. Outputs: X, Y, Z planes
-// ([I_A, m] and [I_B, m] each), inf and deg [m] bytes.
+// digits; base: [m] per-lane slot base; consts: cuda_madd.madd_consts.
+// Outputs: X, Y, Z planes ([I_A, m] and [I_B, m] each), inf and deg
+// [m] bytes.
 extern "C" int cap_ladder(const void* tab, const void* d_all,
                           const void* base, int win_stride, int n_windows,
                           void* oxa, void* oxb, void* oya, void* oyb,
@@ -125,7 +249,7 @@ extern "C" int cap_ladder(const void* tab, const void* d_all,
                           const void* consts, int words, int m, int ia,
                           int ib, void* stream) {
   if (m <= 0 || n_windows <= 0) return int(cudaErrorInvalidValue);
-  const capk::LadderOut out = {
+  const capk::ri::LadderOut out = {
       static_cast<int*>(oxa),     static_cast<int*>(oxb),
       static_cast<int*>(oya),     static_cast<int*>(oyb),
       static_cast<int*>(oza),     static_cast<int*>(ozb),
@@ -135,15 +259,17 @@ extern "C" int cap_ladder(const void* tab, const void* d_all,
   const auto* b = static_cast<const int*>(base);
   const auto* k = static_cast<const int*>(consts);
   auto s = static_cast<cudaStream_t>(stream);
+  using capk::ri::launch_ladder;
   // P-256, P-384, P-521 (cuda_redc.KERNEL_SHAPES)
   if (ia == 23 && ib == 23)
-    return capk::launch_ladder<23, 23>(t, d, b, win_stride, n_windows, out,
-                                       k, words, m, s);
+    return launch_ladder<23, 23>(t, d, b, win_stride, n_windows, out, k,
+                                 words, m, s);
   if (ia == 34 && ib == 33)
-    return capk::launch_ladder<34, 33>(t, d, b, win_stride, n_windows, out,
-                                       k, words, m, s);
+    return launch_ladder<34, 33>(t, d, b, win_stride, n_windows, out, k,
+                                 words, m, s);
   if (ia == 45 && ib == 45)
-    return capk::launch_ladder<45, 45>(t, d, b, win_stride, n_windows, out,
-                                       k, words, m, s);
+    return launch_ladder<45, 45>(t, d, b, win_stride, n_windows, out, k,
+                                 words, m, s);
   return int(cudaErrorInvalidValue);
 }
+#endif

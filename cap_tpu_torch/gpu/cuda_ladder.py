@@ -119,7 +119,7 @@ def ladder(ctx, tab, d_all, base, win_stride: int):
     ia, ib = ctx.A.count, ctx.B.count
     dev = tab.device
     n_windows, m = d_all.shape
-    consts = cuda_redc.kernel_consts(ctx, dev)
+    consts = cuda_madd.madd_consts(ctx, dev)
     outs = [torch.empty((r, m), dtype=torch.int32, device=dev)
             for r in (ia, ib) * 3]
     inf = torch.empty(m, dtype=torch.bool, device=dev)

@@ -10,7 +10,8 @@ launches.
 
 The kernel reads every per-context constant from ONE int32 buffer
 (:func:`kernel_consts`), laid out as ``Layout<IA, IB>`` in
-``csrc/rns_ops.cuh``; the mixed-add kernel shares it.
+``csrc/rns_ops.cuh``; the Ed25519 window kernel (``cuda_edw``) shares
+it. The ES mixed-add kernels have their own (``cuda_madd.madd_consts``).
 """
 
 from __future__ import annotations

@@ -8,14 +8,15 @@ statically (every rmul output < 3p, sums ≤ ~16p between multiplies);
 the point at infinity is an explicit boolean lane; equality tests use
 the multiple-of-p trick (d ≡ 0 iff d equals one of a few c·p rows).
 
-Hand-written CUDA kernels carry the ladder on the card: on the
-curves of ``WHOLE_LADDER_CURVES`` ``cuda_ladder.ladder`` runs every
-window in one launch, on the others ``cuda_madd.madd`` runs each
-window's mixed add (one launch a window); ``cuda_redc.redc`` runs
-every other REDC (the accumulator merge and the projective check).
-The field ops below take the REDC as a parameter so the plain version
-of the mixed add (``cuda_madd.madd_ref``) can run the same arithmetic
-with the plain REDC.
+Hand-written CUDA kernels carry the ladder on the card:
+``cuda_ladder.ladder`` runs every window in one launch, and
+``cuda_redc.redc`` runs every other REDC (the accumulator merge and
+the projective check). ``ladder_per_window`` runs the same ladder as
+one ``cuda_madd.madd`` launch a window; it is on no path and serves
+as the whole-ladder kernel's comparison. The field ops below take the
+REDC as a parameter so the plain version of the mixed add
+(``cuda_madd.madd_ref``) can run the same arithmetic with the plain
+REDC.
 """
 
 from __future__ import annotations
@@ -30,12 +31,6 @@ from .ec import CurveParams, curve
 from .rns import FieldRNSContext, I32, _limbs_to_rns, _mod_fix
 
 W_BITS = 8          # window width of the ladder (the JAX default)
-# The curves whose ladder runs as one whole-ladder launch; the others
-# run one mixed-add launch a window. Both give the same values; each
-# curve takes the faster of the two on the H100 at a 32,768-token
-# chunk (ladder_bench.py, PERF.md): on P-256 the per-window path, on
-# P-384 and P-521 the whole ladder.
-WHOLE_LADDER_CURVES = frozenset({"P-384", "P-521"})
 
 
 class ECRNSContext(FieldRNSContext):
@@ -46,7 +41,6 @@ class ECRNSContext(FieldRNSContext):
         self.cp = cp
         self.w_bits = W_BITS
         self.n_windows = (cp.nbits + W_BITS - 1) // W_BITS
-        self.whole_ladder = cp.name in WHOLE_LADDER_CURVES
 
 
 _CTX: Dict[str, ECRNSContext] = {}
@@ -241,14 +235,15 @@ def _digits_of(u: torch.Tensor, w_bits: int, n_windows: int):
     return torch.stack(outs).to(I32)
 
 
-def ladder_per_window(c: ECRNSContext, tab_t, d_all, base,
+def ladder_per_window(c: ECRNSContext, tab, d_all, base,
                       win_stride: int):
-    """The ladder one mixed add a window (``cuda_madd.madd``): from the
-    point at infinity, window i adds row ``i·win_stride + base + d − 1``
-    of the transposed table tab_t [2·iap, rows] (gathered with one
-    ``index_select``) on each lane whose digit d > 0. d_all [W, M] and
-    base [M] int32. Returns what ``cuda_ladder.ladder`` returns on the
-    same inputs: (X, Y, Z, inf, deg)."""
+    """The ladder one mixed add a window (``cuda_madd.madd``), on
+    ``cuda_ladder.ladder``'s inputs: from the point at infinity, window
+    i adds row ``i·win_stride + base + d − 1`` of the table tab
+    [rows, 2·iap] (gathered with one ``index_select`` and transposed
+    into the madd kernel's [iap, M] operands) on each lane whose digit
+    d > 0. d_all [W, M] and base [M] int32. Returns what
+    ``cuda_ladder.ladder`` returns: (X, Y, Z, inf, deg)."""
     ia, ib = c.A.count, c.B.count
     iap = max(ia, ib)
     m = d_all.shape[1]
@@ -264,7 +259,7 @@ def ladder_per_window(c: ECRNSContext, tab_t, d_all, base,
         has = d > 0
         idx = i * win_stride + base + torch.where(has, d - 1,
                                                   torch.zeros_like(d))
-        g = tab_t.index_select(1, idx)                # [2·iap, M] packed
+        g = tab.index_select(0, idx).T.contiguous()   # [2·iap, M] packed
         X, Y, Z, dd = cuda_madd.madd(c, X, Y, Z, inf, has, g[:iap],
                                      g[iap:])
         inf = inf & ~has
@@ -278,9 +273,8 @@ def _ecdsa_rns_core(r, s, e, key_idx, rtab: "ECRNSKeyTable",
 
     r, s, e: [K, N] int64 limbs, N a power of two ≥ 128; key_idx: [N];
     ``rtab``: the packed window table. The ladder runs as one
-    whole-ladder launch (``cuda_ladder``) or one mixed add a window as
-    the curve's context says (``whole_ladder``; same rows, masks and
-    math). Returns (ok, deg) [N] bools.
+    whole-ladder launch (``cuda_ladder``). Returns (ok, deg) [N]
+    bools.
     """
     from . import bignum as B
 
@@ -313,9 +307,8 @@ def _ecdsa_rns_core(r, s, e, key_idx, rtab: "ECRNSKeyTable",
     win_stride = (rtab.nk + 1) * per
     base = torch.cat([torch.zeros(n_tok, dtype=I32, device=dev),
                       ((key_idx.to(torch.int64) + 1) * per).to(I32)])
-    ladder = cuda_ladder.ladder if c.whole_ladder else ladder_per_window
-    X, Y, Z, inf, deg = ladder(c, rtab.device_tab(dev), d_all, base,
-                               win_stride)
+    X, Y, Z, inf, deg = cuda_ladder.ladder(c, rtab.device_tab(dev), d_all,
+                                           base, win_stride)
 
     def half(pair, lo):
         return (pair[0][:, lo:lo + n_tok], pair[1][:, lo:lo + n_tok])
@@ -375,8 +368,9 @@ def _pack_residue_rows(c, r: np.ndarray) -> np.ndarray:
 
 def unpack_pt(g: torch.Tensor, ia: int, ib: int):
     """[iap, M] packed words → ((A [ia, M], B [ib, M])) int32 planes —
-    the decode of :func:`_pack_residue_rows` (the madd kernel decodes
-    the same words in ``rns_ops.cuh``)."""
+    the decode of :func:`_pack_residue_rows` (the madd and ladder
+    kernels decode the same words in ``madd_math.cuh`` and
+    ``ladder.cu``)."""
     return ((g & 0xFFFF)[:ia], (g >> 16)[:ib])
 
 
@@ -386,8 +380,8 @@ class ECRNSKeyTable:
     ``tab``: host [n_windows·(nk+1)·per, 2·iap] int32, window-major
     with G as slot 0 and key k as slot k+1; each row is the packed x
     residues followed by the packed y residues (the JAX package's
-    layout, byte for byte). ``device_tab`` puts it on a device in the
-    layout of the curve's ladder (:func:`_ecdsa_rns_core`).
+    layout, byte for byte), the whole-ladder kernel's table; ``device_tab``
+    puts it on a device.
     """
 
     def __init__(self, crv: str, keys: Sequence,
@@ -397,7 +391,7 @@ class ECRNSKeyTable:
         self.cp = self.ctx.cp
         c = self.ctx
         self.nk = nk = len(keys)
-        self._dev: Dict[Tuple[torch.device, bool], torch.Tensor] = {}
+        self._dev: Dict[torch.device, torch.Tensor] = {}
         if tab is not None:
             self.tab = np.ascontiguousarray(tab, np.int32)
             return
@@ -418,16 +412,11 @@ class ECRNSKeyTable:
         self.tab = np.concatenate([tx, ty], axis=1)
 
     def device_tab(self, device) -> torch.Tensor:
-        """The table on ``device`` as the curve's ladder reads it: for
-        the whole-ladder kernel as it is, [rows, 2·iap], a lane's row
-        contiguous; for the per-window path transposed, [2·iap, rows],
-        so one ``index_select`` a window yields the madd kernel's
-        contiguous [iap, M] operands."""
-        key = (torch.device(device), self.ctx.whole_ladder)
+        """The table on ``device``, [rows, 2·iap], a lane's row
+        contiguous."""
+        key = torch.device(device)
         if key not in self._dev:
-            tab = self.tab if key[1] else self.tab.T
-            self._dev[key] = torch.as_tensor(np.ascontiguousarray(tab),
-                                             device=key[0])
+            self._dev[key] = torch.as_tensor(self.tab, device=key)
         return self._dev[key]
 
 

@@ -15,8 +15,7 @@ ML-DSA-44/65/87 (AKP keys). Per batch:
    NTT network and the c̃ compare on the device), RS* and PS256 to
    ``gpu.rsa`` (PS256 with the device EMSA-PSS check),
    ES256/ES384/ES512 to ``gpu.ec`` (P-256/P-384/P-521; the ladder runs
-   one whole-ladder launch a chunk or one mixed-add launch a window, as
-   ``gpu.ec_rns.WHOLE_LADDER_CURVES`` says for the curve), EdDSA to
+   as one whole-ladder launch a chunk), EdDSA to
    ``gpu.ed25519`` (k = SHA-512(R‖A‖M) on the host). Every chunk is
    queued on the device before any result is read, but each ES and
    EdDSA chunk waits once on the device inside its finish (the batch

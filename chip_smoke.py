@@ -18,10 +18,14 @@ Phases (any failure exits non-zero; none is caught):
    kernel and plain times by CUDA events. keccak (65,536 states), ntt
    and intt (65,536 rows each, edge values 0 and q − 1 included) equal
    to their plain versions on every state and row. redc and madd also
-   at P-384's 34+33 channels; the whole-ladder kernel at 65,536 lanes
-   over a table of G and 8 keys, 32 windows on P-256 and 48 on P-384,
-   against its plain version and the per-window path (gathers + W madd
-   launches) on every lane, with planted same-x degeneracies;
+   at P-384's 34+33 and P-521's 45+45 channels; the whole-ladder
+   kernel at 65,536 lanes over a table of G and 8 keys, 32 windows on
+   P-256, 48 on P-384 and 66 on P-521, against its plain version and
+   the per-window path (gathers + W madd launches) on every lane, with
+   planted same-x degeneracies. The RNS kernels' bounds count their
+   work per pipe (``madd_work`` and the rest); the JSON carries
+   ptxas's registers and spill bytes of each madd and ladder
+   instantiation;
 3. the north-star path — a JWKS of 8 RSA-2048 and 8 P-256 keys and a
    batch of 65,536 RS256/ES256 tokens tiled from 1,024 unique signed
    tokens, a seeded 1/8 share tampered, and a few tokens of each
@@ -29,12 +33,12 @@ Phases (any failure exits non-zero; none is caught):
    every verdict checked, the unique tokens cross-checked on the
    pure-integer oracle, the kernels' launch counters zeroed before one
    run and read after it, verifies/s timed after a warm-up. Each ES
-   chunk runs its curve's ladder (``ec_rns.WHOLE_LADDER_CURVES``): the
-   whole-ladder kernel once, or madd once a window; redc 11 times;
+   chunk runs the whole-ladder kernel once and redc 11 times, madd
+   never;
 4. the config-3 path (BASELINE.json's third configuration) the same
    way (the oracle cross-check on 256 of the unique tokens): 8 P-256
    and 8 P-384 keys, 65,536 ES256/ES384 tokens, the ES rejection
-   classes, one chunk of each curve with its curve's ladder; then
+   classes, one chunk of each curve, each one ladder launch; then
    every whole-ladder input of one batch, captured at the wrapper,
    replayed through the plain version and timed at that shape;
 5. the PS256 + EdDSA path (BASELINE.json's fourth configuration) the
@@ -99,6 +103,33 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_kernels(text: str) -> dict:
+    """Registers and spill bytes of each mixed-add kernel instantiation
+    in an ``nvcc -Xptxas -v`` log: {"madd<23,23>": {"registers": r,
+    "spill_stores": s, "spill_loads": l}, ...} ("T=4" appended where
+    the kernel takes a group size)."""
+    import re
+
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(madd|ladder)_kernelILi(\d+)ELi(\d+)E(?:Li(\d+)E)?",
+                      line)
+        if m and ("Compiling entry" in line or "Function properties" in line):
+            cur = f"{m[1]}<{m[2]},{m[3]}>" + (f" T={m[4]}" if m[4] else "")
+            out.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       line)
+        if sp:
+            out[cur].update(spill_stores=int(sp[1]), spill_loads=int(sp[2]))
+        rg = re.search(r"Used (\d+) registers", line)
+        if rg:
+            out[cur]["registers"] = int(rg[1])
+    return out
+
+
 def cuda_ms(fn, reps: int) -> float:
     import torch
 
@@ -138,43 +169,79 @@ def kernel_ms(fn, reps: int, key: str) -> float:
     return sum(dev_us(e) for e in evs) / n / 1e3
 
 
-# -- operation counts (per lane) for the bounds ----------------------------
-# The least work the function needs, every op at the int32 rate: one
-# multiply-add (2 ops) per extension weight (13-bit × 13-bit products
-# summed over 23 terms stay below 2^31), one fix per digit the sums
-# leave.
+# -- the RNS kernels' work per lane, by pipe, for the bounds ---------------
+# The least work a lane needs, counted the same way whatever implements
+# it: the extension products on the int8 tensor cores (four products
+# of 7-bit halves a weight, 2 ops each, at 1,979 T op/s); each
+# reduction an integer Barrett (a multiply-high and a multiply on the
+# FMA pipe; a subtract and an unsigned min of r and r − m on the ALU
+# pipe); lazy adds and subs one ALU instruction a digit; α on the
+# float32 pipe (a multiply and an add a source digit, 128 a clock an
+# SM) with one
+# conversion a source digit and one for its floor on the conversion
+# pipe (16 a clock an SM, the CUDA C++ Programming Guide's throughput
+# table for compute capability 9.0). The bound is the busiest pipe, or
+# the bytes.
+INT8_OPS = 1979e12
+FP32_PIPE = INT32_OPS          # 33.5 T float32 instructions/s
+CVT_PIPE = INT_PIPE / 4        # 4.19 T conversions/s
+PIPE_RATE = dict(fma=INT_PIPE, alu=INT_PIPE, fp32=FP32_PIPE, cvt=CVT_PIPE,
+                 mma=INT8_OPS)
+RED = dict(fma=2, alu=2)
 
-FIX_OPS = 8       # cvt, mul, floor, cvt, mul, sub, two selects
+
+def work(*parts, **counts) -> dict:
+    """Sum of per-pipe counts: each part a dict or (k, dict) for k
+    times it, plus keyword counts."""
+    out = dict.fromkeys(PIPE_RATE, 0)
+    for part in parts + (counts,):
+        k, d = part if isinstance(part, tuple) else (1, part)
+        for pipe, v in d.items():
+            out[pipe] += k * v
+    return out
 
 
-def extend_ops(i_src: int, i_dst: int) -> int:
-    # one multiply-add per weight, the α sum (2 ops) per source digit,
-    # and per destination digit the α correction (2 ops) and one fix
-    return i_src * i_dst * 2 + i_src * 2 + i_dst * (FIX_OPS + 2)
+def extend_work(i_src: int, i_dst: int) -> dict:
+    # per destination digit: the hh reduction, the recombination
+    # hh·2^14 + mid·2^7 + ll (two multiply-adds), the α fold (a
+    # multiply-add and a select) and the final reduction
+    return work((2 * i_dst, RED), mma=8 * i_src * i_dst, fma=3 * i_dst,
+                alu=i_dst, fp32=2 * i_src + 1, cvt=i_src + 1)
 
 
-def redc_ops(ia: int, ib: int) -> int:
-    # σ = x_A·sig_c (a product and a fix per A digit); t_B = (x_B + q·p)
-    # ·A⁻¹ (a multiply-add, a product and two fixes per B digit)
-    return (ia * (FIX_OPS + 1) + extend_ops(ia, ib)
-            + ib * (2 * FIX_OPS + 3) + extend_ops(ib, ia))
+def redc_work(ia: int, ib: int) -> dict:
+    # σ = x_A·sig_c (a product and a reduction an A digit); t_B =
+    # (x_B + q·p)·A⁻¹ and σ' = t_B·(B/b_j)⁻¹ (three products and three
+    # reductions a B digit)
+    return work(extend_work(ia, ib), extend_work(ib, ia),
+                (ia + 3 * ib, RED), fma=ia + 3 * ib)
 
 
-def edw_ops(ia: int, ib: int) -> int:
+def rmul_work(ia: int, ib: int) -> dict:
+    return work(redc_work(ia, ib), (ia + ib, RED), fma=ia + ib)
+
+
+def edw_work(ia: int, ib: int) -> dict:
+    # 7 multiplies; three lazy subs and four adds
+    return work((7, rmul_work(ia, ib)), alu=7 * (ia + ib))
+
+
+def madd_work(ia: int, ib: int) -> dict:
     i = ia + ib
-    mults = 7 * (redc_ops(ia, ib) + i * (FIX_OPS + 1))
-    lazy = (3 * 4 + 4) * i                  # three lazy subs, four adds
-    return mults + lazy
+    # 11 multiplies; 6 lazy adds and 8 subs; rr, X3, Y3, Z3 reduced;
+    # the probe (2 reductions, 40 compares, 20 ORs); the unpack of x2,
+    # y2 and the lift and select (two selects an output digit)
+    return work((11, rmul_work(ia, ib)), (4 * i + 2, RED),
+                alu=14 * i + 60 + 2 * i + 6 * i)
 
 
-def madd_ops(ia: int, ib: int) -> int:
-    i = ia + ib
-    mults = 11 * (redc_ops(ia, ib) + i * (FIX_OPS + 1))
-    lazy = 18 * 4 * i                       # lazy add/sub/guard terms
-    fixes = 4 * i * FIX_OPS                 # rr, X3, Y3, Z3
-    probe = 2 * FIX_OPS + 20 * 3
-    select = 6 * i * 2 + 2 * i               # unpack + picks
-    return mults + lazy + fixes + probe + select
+def rns_bound(nbytes: float, per_lane: dict, lanes: int):
+    """(bound ms, by, busiest pipe) of ``lanes`` lanes of ``per_lane``
+    work moving ``nbytes``."""
+    t_b = nbytes / HBM_BPS * 1e3
+    pipe = max(PIPE_RATE, key=lambda p: per_lane[p] / PIPE_RATE[p])
+    t_o = lanes * per_lane[pipe] / PIPE_RATE[pipe] * 1e3
+    return (t_b, "bytes", pipe) if t_b >= t_o else (t_o, "operations", pipe)
 
 
 def keccak_instr() -> int:
@@ -308,17 +375,17 @@ def redc_check(c, rng, n: int, label: str):
     ms_k = cuda_ms(lambda: cuda_redc.redc(c, xA, xB), 50)
     ms_p = cuda_ms(lambda: cuda_redc.redc_ref(c, xA, xB), 10)
     nbytes = n * (2 * ia + 2 * ib) * 4
-    b_ms, b_by = bound(nbytes, n * redc_ops(ia, ib))
+    b_ms, b_by, pipe = rns_bound(nbytes, redc_work(ia, ib), n)
     log(f"kernel {label}: {n} lanes, {ndiff} lanes not bit-equal in A or "
         f"B, max value err {err} over both planes; kernel {ms_k:.4f} ms, "
-        f"plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {pipe})")
     return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                 bound_by=b_by)
 
 
 def madd_check(c, rng, n: int, label: str):
     """The mixed-add kernel against its plain version on ``n`` lanes:
-    states below 2^(8·cb) (< 11p), table points < p, random has/inf,
+    states below 11p, table points below p, random has/inf,
     every 97th lane a true same-x degeneracy (X = x2·Z², has, ¬inf);
     outputs equal by value on both planes, ``deg`` on every true
     degeneracy and on no masked lane; times by CUDA events."""
@@ -338,8 +405,12 @@ def madd_check(c, rng, n: int, label: str):
         raw[:, 0] = np.minimum(raw[:, 0], top)
         return raw
 
-    xs, ys, zs = rand_vals(255), rand_vals(255), rand_vals(255)
-    x2s, y2s = rand_vals(254), rand_vals(254)
+    # leading-byte caps: states below 11p, table points below p
+    shift = 8 * (cb - 1)
+    state_top = min(255, (11 * p >> shift) - 1)
+    point_top = (p >> shift) - 1
+    xs, ys, zs = (rand_vals(state_top) for _ in range(3))
+    x2s, y2s = rand_vals(point_top), rand_vals(point_top)
     has = rng.integers(0, 2, n).astype(bool)
     inf = rng.integers(0, 2, n).astype(bool)
     true_deg = np.zeros(n, bool)
@@ -377,12 +448,12 @@ def madd_check(c, rng, n: int, label: str):
     iap = max(ia, ib)
     nbytes = n * (4 * (3 * (ia + ib) + 2 * iap) + 2
                   + 4 * 3 * (ia + ib) + 1)
-    b_ms, b_by = bound(nbytes, n * madd_ops(ia, ib))
+    b_ms, b_by, pipe = rns_bound(nbytes, madd_work(ia, ib), n)
     log(f"kernel {label}: {n} lanes, {ndiff} lane planes not bit-equal in "
         f"A or B, max value err {err} over both planes, "
         f"{int(true_deg.sum())} true degeneracies flagged by both, "
         f"{deg_only} probe flags differ; kernel {ms_k:.4f} ms, plain "
-        f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {pipe})")
     return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -400,18 +471,20 @@ def kernel_phase(records):
 
 
 def wide_phase(records):
-    """REDC and madd at P-384's 34+33 channels, 65,536 lanes (one
-    32,768-token ES384 chunk's ladder lanes)."""
+    """REDC and madd at P-384's 34+33 and P-521's 45+45 channels,
+    65,536 lanes (one 32,768-token ES384 chunk's ladder lanes)."""
     import numpy as np
 
     from cap_tpu_torch.gpu import ec_rns
 
-    c = ec_rns.ctx_for("P-384")
-    rng = np.random.default_rng(SEED + 5)
-    shape = dict(curve="P-384", channels="34+33", lanes=KERNEL_LANES)
-    for name, check in (("redc", redc_check), ("madd", madd_check)):
-        rec = check(c, rng, KERNEL_LANES, f"{name} at 34+33 (P-384)")
-        records[name].setdefault("shapes", []).append(dict(shape, **rec))
+    for k, crv in enumerate(("P-384", "P-521")):
+        c = ec_rns.ctx_for(crv)
+        rng = np.random.default_rng(SEED + 5 + 2 * k)
+        ch = f"{c.A.count}+{c.B.count}"
+        shape = dict(curve=crv, channels=ch, lanes=KERNEL_LANES)
+        for name, check in (("redc", redc_check), ("madd", madd_check)):
+            rec = check(c, rng, KERNEL_LANES, f"{name} at {ch} ({crv})")
+            records[name].setdefault("shapes", []).append(dict(shape, **rec))
 
 
 def edw_phase(records, rng):
@@ -447,11 +520,11 @@ def edw_phase(records, rng):
     ms_k = cuda_ms(lambda: cuda_edw.edw(c, *ins), 20)
     ms_p = cuda_ms(lambda: cuda_edw.edw_ref(c, *ins), 5)
     nbytes = n * (7 + 4) * (ia + ib) * 4
-    b_ms, b_by = bound(nbytes, n * edw_ops(ia, ib))
+    b_ms, b_by, pipe = rns_bound(nbytes, edw_work(ia, ib), n)
     log(f"kernel edw: {n} lanes, {ndiff} lane planes not bit-equal in A or "
         f"B, max value err {err} over both planes of X, Y, Z, T; kernel "
         f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
+        f"({b_by}, {pipe})")
     records["edw"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
                           bound_ms=b_ms, bound_by=b_by)
     keccak_phase(records, rng)
@@ -460,12 +533,12 @@ def edw_phase(records, rng):
 
 def ladder_bound(c, n: int, w: int):
     """(bound ms, by) of the whole ladder on ``n`` lanes of ``w``
-    windows: W × madd's operations; each lane reads a table row and a
-    digit a window and its base, and writes X, Y, Z, inf and deg."""
+    windows: W × madd's work; each lane reads a table row and a digit a
+    window and its base, and writes X, Y, Z, inf and deg."""
     ia, ib = c.A.count, c.B.count
     iap = max(ia, ib)
     nbytes = n * (w * (2 * iap + 1) * 4 + 4 + 3 * (ia + ib) * 4 + 2)
-    return bound(nbytes, n * w * madd_ops(ia, ib))
+    return rns_bound(nbytes, work((w, madd_work(ia, ib))), n)[:2]
 
 
 def ladder_compare(c, out_k, out_p, what: str):
@@ -494,10 +567,11 @@ def ladder_compare(c, out_k, out_p, what: str):
 
 
 def ladder_phase(records):
-    """The whole-ladder kernel at the config-3 cell's shapes: 65,536
-    lanes (one 32,768-token chunk, both chains) over a table of G and 8
-    keys, 32 windows on P-256 and 48 on P-384; held against its plain
-    version (and the per-window path on the same inputs) on every lane;
+    """The whole-ladder kernel at the ES cells' shapes: 65,536 lanes
+    (one 32,768-token chunk, both chains) over a table of G and 8 keys,
+    32 windows on P-256, 48 on P-384 and 66 on P-521; held against its
+    plain version (and the per-window path on the same inputs) on every
+    lane;
     kernel, plain and per-window times by CUDA events, against the
     bound and against W × the madd kernel's time of this run."""
     import numpy as np
@@ -509,8 +583,10 @@ def ladder_phase(records):
     rng = np.random.default_rng(SEED + 6)
     n = KERNEL_LANES
     shapes = []
-    for crv, madd_ms in (("P-256", records["madd"]["ms"]),
-                         ("P-384", records["madd"]["shapes"][0]["ms"])):
+    madd_at = {sh["curve"]: sh["ms"] for sh in records["madd"]["shapes"]}
+    madd_at["P-256"] = records["madd"]["ms"]
+    for crv in ("P-256", "P-384", "P-521"):
+        madd_ms = madd_at[crv]
         c = ec_rns.ctx_for(crv)
         w = c.n_windows
         # a table of G and 8 keys; lanes 0..15 at infinity, every 97th
@@ -518,10 +594,9 @@ def ladder_phase(records):
         tab, d, base, stride, true_deg = tt.ladder_inputs(c, w, n, 8, rng)
         T = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
         args = (T(tab), T(d), T(base), stride)
-        tab_t = T(np.ascontiguousarray(tab.T))
 
         def per_window():
-            return ec_rns.ladder_per_window(c, tab_t, *args[1:])
+            return ec_rns.ladder_per_window(c, *args)
 
         out_k = cuda_ladder.ladder(c, *args)
         out_p = cuda_ladder.ladder_ref(c, *args)
@@ -547,9 +622,8 @@ def ladder_phase(records):
                            ms=ms_k, per_window_ms=ms_w,
                            madd_x_windows_ms=w * madd_ms, plain_ms=ms_p,
                            bound_ms=b_ms, bound_by=b_by))
-    # the top-level numbers: the first curve whose paths run the kernel
-    main = next(sh for sh in shapes
-                if ec_rns.ctx_for(sh["curve"]).whole_ladder)
+    # the top-level numbers: P-256's, the north-star's curve
+    main = shapes[0]
     records["ladder"] = dict(
         {k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         max_abs_err=max(sh["max_abs_err"] for sh in shapes), shapes=shapes)
@@ -916,16 +990,9 @@ def drive_path(records, name, jwks, tokens, expected, families, engines,
     return dict(ks=ks, results=results, vps=vps, device_ms=device_ms)
 
 
-def es_launches(crv: str):
-    """What one ES chunk of the curve launches: its ladder (the
-    whole-ladder kernel once, or madd once a window), then redc 11
-    times (the merge and the projective check)."""
-    from cap_tpu_torch.gpu import ec_rns
-
-    c = ec_rns.ctx_for(crv)
-    if c.whole_ladder:
-        return {"ladder": 1, "redc": 11}
-    return {"madd": c.n_windows, "redc": 11}
+# what one ES chunk launches, on every curve: the whole-ladder kernel
+# once, then redc 11 times (the merge and the projective check)
+ES_LAUNCHES = {"ladder": 1, "redc": 11}
 
 
 def main_path(records):
@@ -933,7 +1000,7 @@ def main_path(records):
     jwks, uniq, tampered, tokens, expected = build_batch(rng)
     oracle_check(jwks, uniq, tampered)
     drive_path(records, "north-star", jwks, tokens, expected,
-               [("ES256", "es-", 32768, es_launches("P-256"))],
+               [("ES256", "es-", 32768, ES_LAUNCHES)],
                ("RS256", "ES256"))
 
 
@@ -1071,11 +1138,9 @@ def build_config3(rng):
 
 
 def config3_path(records):
-    """The config-3 cell: one ES256 and one ES384 chunk, each with its
-    curve's ladder. Then the whole-ladder inputs of one batch,
+    """The config-3 cell: one ES256 and one ES384 chunk, one ladder
+    launch each. Then the whole-ladder inputs of one batch,
     replayed."""
-    from cap_tpu_torch.gpu import ec_rns
-
     rng = random.Random(SEED + 5)
     jwks, uniq, tampered, tokens, expected = build_config3(rng)
     # the first 256 unique tokens, 128 under each curve: the pure-Python
@@ -1083,18 +1148,15 @@ def config3_path(records):
     # is checked against its expected value anyway
     oracle_check(jwks, uniq[:256], tampered)
     run = drive_path(records, "config-3", jwks, tokens, expected,
-                     [("ES256", "es-", 32768, es_launches("P-256")),
-                      ("ES384", "es384-", 32768, es_launches("P-384"))],
+                     [("ES256", "es-", 32768, ES_LAUNCHES),
+                      ("ES384", "es384-", 32768, ES_LAUNCHES)],
                      ("ES256", "ES384"))
-    whole = sum(ec_rns.ctx_for(crv).whole_ladder
-                for crv in ("P-256", "P-384"))
-    if whole:
-        ladder_path_shapes(records, run["ks"], tokens, whole)
+    ladder_path_shapes(records, run["ks"], tokens, 2)
 
 
 def ladder_path_shapes(records, ks, tokens, n_calls: int):
     """Every whole-ladder input of one config-3 batch (``n_calls``: one
-    a chunk of a whole-ladder curve), captured at the wrapper and
+    a chunk), captured at the wrapper and
     replayed through the plain version: X, Y, Z equal by value, inf and
     deg equal; each shape's kernel and plain times (CUDA events) and
     bound."""
@@ -1297,7 +1359,9 @@ def main() -> int:
         f"{', '.join(_build.KERNELS)} (parallel nvcc: "
         + ", ".join(f"{n} {info['seconds']:.1f} s"
                     for n, info in _build.BUILD_LOG.items()) + ")")
+    ptxas = {}
     for name, info in sorted(_build.BUILD_LOG.items()):
+        ptxas.update(ptxas_kernels(info["ptxas"]))
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
@@ -1319,11 +1383,14 @@ def main() -> int:
         dict(name="madd", route="cuda",
              source="cap_tpu_torch/gpu/csrc/madd.cu",
              replaces="cap_tpu/tpu/pallas_madd.py:125",
-             library_ms=None, **records["madd"]),
+             library_ms=None, **records["madd"],
+             ptxas={k: v for k, v in ptxas.items() if k.startswith("madd")}),
         dict(name="ladder", route="cuda",
              source="cap_tpu_torch/gpu/csrc/ladder.cu",
              replaces="cap_tpu/tpu/pallas_madd.py:262",
-             library_ms=None, **records["ladder"]),
+             library_ms=None, **records["ladder"],
+             ptxas={k: v for k, v in ptxas.items()
+                    if k.startswith("ladder")}),
         dict(name="edw", route="cuda",
              source="cap_tpu_torch/gpu/csrc/edw.cu",
              replaces="cap_tpu/tpu/pallas_edw.py:58",

@@ -2,14 +2,18 @@
 """Time the ES ladder's CUDA kernels of one checkout on one NVIDIA card.
 
     python3 ladder_bench.py [--root DIR] [--lanes N] [--build-only]
+                            [--sass]
 
 Imports ``cap_tpu_torch`` from DIR (default: this script's checkout)
 and builds its madd kernel, and its whole-ladder kernel where DIR has
 one; a build run in this process prints ptxas's register and spill
-lines. ``--build-only`` stops there, so several checkouts can build in
-parallel before any of them is timed. Then, on inputs made from one
-seed the same way for any checkout, it times by CUDA events, at
-``--lanes`` lanes (default 65,536: one 32,768-token ES chunk):
+lines. To time another layout, edit it in a second checkout and
+pass that with ``--root``. ``--sass`` counts the built kernels'
+SASS instructions by class (cuobjdump). ``--build-only`` stops after
+the build, so several checkouts can build in parallel before any of
+them is timed. Then, on inputs made from one seed the same way for any
+checkout, it times by CUDA events, at ``--lanes`` lanes (default
+65,536: one 32,768-token ES chunk):
 
 - one ``cuda_madd.madd`` launch on each curve whose channel counts the
   checkout builds (random state and table values < p, random has and
@@ -21,16 +25,23 @@ seed the same way for any checkout, it times by CUDA events, at
   checkout has it, the whole-ladder kernel on the same inputs, with the
   count of lanes whose results differ between the two.
 
+The JSON carries a SHA-256 digest of each kernel's outputs per curve:
+equal digests across checkouts show their kernels equal word for word
+on these inputs.
+
 Prints the card's name and power limit, then one JSON line. To compare
 two checkouts, build both, then run A, B, B, A in one call on one card.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
 import sys
 import time
+
+from chip_smoke import ptxas_kernels  # this script's checkout's
 
 SEED = 20261017
 CURVES = ("P-256", "P-384", "P-521")
@@ -94,6 +105,62 @@ def per_window(cuda_madd, c, tab_t, d_all, base, stride: int):
     return X, Y, Z, inf, deg
 
 
+def digest(tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def flat(out):
+    """The tensors of a madd or ladder result: X, Y, Z pairs, then the
+    masks."""
+    return [t for pair in out[:3] for t in pair] + list(out[3:])
+
+
+# SASS classes counted by --sass (opcode prefixes): the conversions
+# I2F(P), F2I(P) and FRND, the integer multiply-adds (IMAD, not its
+# MOV form), shared loads, local-memory loads and stores (spills).
+SASS_CLASSES = ("I2F", "F2I", "FRND", "IMAD", "LDS", "LDL", "STL")
+
+
+def sass_counts(lib: str) -> dict:
+    """{kernel: {class: count, "total": n}} of a built library's madd
+    and ladder kernels (cuobjdump -sass from the CUDA toolkit or
+    Triton's copy)."""
+    import re
+    import shutil
+    from importlib.util import find_spec
+    from pathlib import Path
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool) and find_spec("triton"):
+        tool = str(Path(find_spec("triton").origin).parent / "backends" /
+                   "nvidia" / "bin" / "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = next(iter(ptxas_kernels("Compiling entry " + line)), None)
+            cur = out.setdefault(name, dict.fromkeys(SASS_CLASSES, 0))
+            cur["total"] = 0
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                     line)
+        if cur is None or not m:
+            continue
+        op = m[1]
+        cur["total"] += 1
+        for cls in SASS_CLASSES:
+            # I2F counts I2FP, F2I F2IP; IMAD.MOV is a move
+            if op.startswith(cls) and not op.startswith("IMAD.MOV"):
+                cur[cls] += 1
+    out.pop(None, None)
+    return out
+
+
 def lanes_differ(a, b) -> int:
     diff = (a[3] != b[3]) | (a[4] != b[4])
     for pa, pb in zip(a[:3], b[:3]):
@@ -108,6 +175,7 @@ def main() -> int:
         os.path.abspath(__file__)))
     ap.add_argument("--lanes", type=int, default=65536)
     ap.add_argument("--build-only", action="store_true")
+    ap.add_argument("--sass", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -123,14 +191,24 @@ def main() -> int:
 
     names = [n for n in ("madd", "ladder") if n in _build.KERNELS]
     t0 = time.perf_counter()
-    _build.build_all(names)
+    libs = _build.build_all(names)
     build_s = time.perf_counter() - t0
+    ptxas = {}
     for name, info in sorted(_build.BUILD_LOG.items()):
+        ptxas.update(ptxas_kernels(info["ptxas"]))
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    sass = {}
+    if args.sass:
+        for name in names:
+            sass.update(sass_counts(str(libs[name])))
+        for kern, counts in sorted(sass.items()):
+            print(f"sass {kern}: {json.dumps(counts)}", flush=True)
     if args.build_only:
         print(f"build: {build_s:.1f} s for {', '.join(names)} in {root}")
+        print(json.dumps(dict(root=root, build_s=build_s,
+                              ptxas=ptxas, sass=sass)), flush=True)
         return 0
     cuda_ladder = None
     if "ladder" in names:
@@ -144,8 +222,8 @@ def main() -> int:
     dev = torch.device("cuda")
     T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     n = args.lanes
-    out = dict(root=root, card=card, lanes=n, build_s=build_s, madd={},
-               ladder={})
+    out = dict(root=root, card=card, lanes=n, build_s=build_s,
+               ptxas=ptxas, sass=sass, madd={}, ladder={}, digests={})
     for crv in CURVES:
         c = ec_rns.ctx_for(crv)
         if (c.A.count, c.B.count) not in cuda_redc.KERNEL_SHAPES:
@@ -161,7 +239,11 @@ def main() -> int:
         ms = cuda_ms(lambda: cuda_madd.madd(c, X, Y, Z, inf, has, x2p,
                                             y2p), 20)
         out["madd"][crv] = ms
-        print(f"madd {crv}: {n} lanes, {ms:.4f} ms", flush=True)
+        dig = out["digests"].setdefault(crv, {})
+        dig["madd"] = digest(flat(cuda_madd.madd(c, X, Y, Z, inf, has, x2p,
+                                                 y2p)))
+        print(f"madd {crv}: {n} lanes, {ms:.4f} ms, outputs sha256 "
+              f"{dig['madd'][:16]}", flush=True)
         # the ladder both ways
         w = c.n_windows
         per = (1 << c.w_bits) - 1
@@ -182,13 +264,15 @@ def main() -> int:
             tab = T(tab)
             rec["ladder_ms"] = cuda_ms(
                 lambda: cuda_ladder.ladder(c, tab, d, base, stride), 5)
+            whole = cuda_ladder.ladder(c, tab, d, base, stride)
             rec["lanes_differ"] = lanes_differ(
-                cuda_ladder.ladder(c, tab, d, base, stride),
-                per_window(cuda_madd, c, tab_t, d, base, stride))
+                whole, per_window(cuda_madd, c, tab_t, d, base, stride))
+            dig["ladder"] = digest(flat(whole))
             line += (f", whole-ladder kernel {rec['ladder_ms']:.4f} ms "
                      f"(ladder/per-window "
                      f"{rec['ladder_ms'] / rec['per_window_ms']:.3f}), "
-                     f"{rec['lanes_differ']} lanes differ")
+                     f"{rec['lanes_differ']} lanes differ, outputs sha256 "
+                     f"{dig['ladder'][:16]}")
         out["ladder"][crv] = rec
         print(line, flush=True)
     print(json.dumps(out), flush=True)

@@ -81,7 +81,12 @@ def test_redc_kernel_matches_plain(dev, n):
     assert np.array_equal(tB.cpu().numpy(), b_of_a)
 
 
-@pytest.mark.parametrize("n", [1, 127, 129, 1000])
+# lane counts around the mixed-add kernels' lane groups: a warp holds
+# 32/T lanes and a block 128/T (T = 2, 4 or 8 threads a lane)
+GROUP_EDGES = [3, 5, 7, 9, 15, 17, 31, 33, 63, 65]
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1000] + GROUP_EDGES)
 def test_madd_kernel_matches_plain(dev, n):
     c = ec_rns.ctx_for("P-256")
     rng = np.random.default_rng(100 + n)
@@ -159,7 +164,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         cuda_redc.redc(p192, good, goodb)
 
 
-@pytest.mark.parametrize("n", [127, 1000])
+@pytest.mark.parametrize("n", [127, 1000, 7, 9, 31, 33])
 @pytest.mark.parametrize("crv", ["P-384", "P-521"])
 def test_wide_redc_and_madd_kernels_match_plain(dev, crv, n):
     """The REDC and mixed-add kernels at 34+33 and 45+45 channels."""
@@ -207,7 +212,7 @@ def _ladder_case(c, n, rng):
                             plant_every=9, zero_share=0.1)
 
 
-@pytest.mark.parametrize("n", [1, 127, 129, 4097])
+@pytest.mark.parametrize("n", [1, 127, 129, 4097, 7, 9, 31, 33])
 @pytest.mark.parametrize("crv", ["P-256", "P-384", "P-521"])
 def test_ladder_kernel_matches_plain(dev, crv, n):
     c = ec_rns.ctx_for(crv)
@@ -292,17 +297,16 @@ def test_keyset_on_the_card_matches_the_plain_path(dev):
     assert card_ks.deg_reverified == 2
 
 
-@pytest.mark.parametrize("whole", [None, False, True],
-                         ids=["per-curve", "per-window", "whole-ladder"])
+@pytest.mark.parametrize("whole", [True, False],
+                         ids=["whole-ladder", "per-window"])
 @pytest.mark.parametrize("family", ["ES256 ES384", "ES512"])
 def test_es_keysets_on_the_card_match_the_plain_path(dev, family, whole,
                                                       monkeypatch):
     """ES256 + ES384 (8 P-256 and 8 P-384 keys, one chunk each) and
-    ES512 (2 P-521 keys, one chunk), each curve with its own ladder or
-    every curve forced to one: per window 32, 48 or 66 madd launches a
-    chunk, whole one ladder launch a chunk and no madd; 11 REDC
-    launches a chunk either way (the merge and the projective
-    check)."""
+    ES512 (2 P-521 keys, one chunk), with the keyset's own ladder (one
+    whole-ladder launch a chunk, no madd) or with the per-window one
+    swapped in (32, 48 or 66 madd launches a chunk); 11 REDC launches a
+    chunk either way (the merge and the projective check)."""
     import random
 
     from cap_tpu_torch import testing as tt
@@ -314,9 +318,8 @@ def test_es_keysets_on_the_card_match_the_plain_path(dev, family, whole,
     else:
         jwks, tokens, _ = tt.config3_fixtures(32, seed=8)
         curves = ["P-256", "P-384"]
-    if whole is not None:
-        for crv in ("P-256", "P-384", "P-521"):
-            monkeypatch.setattr(ec_rns.ctx_for(crv), "whole_ladder", whole)
+    if not whole:
+        monkeypatch.setattr(cuda_ladder, "ladder", ec_rns.ladder_per_window)
     ctxs = [ec_rns.ctx_for(crv) for crv in curves]
     rng = random.Random(8)
     bad = [t[:-4] + ("AAAA" if t[-4:] != "AAAA" else "BBBB")
@@ -326,8 +329,8 @@ def test_es_keysets_on_the_card_match_the_plain_path(dev, family, whole,
     before = (cuda_madd.launches, cuda_ladder.launches, cuda_redc.launches)
     on_card = card_ks.verify_batch(batch)
     torch.cuda.synchronize()
-    want = (sum(c.n_windows for c in ctxs if not c.whole_ladder),
-            sum(c.whole_ladder for c in ctxs), 11 * len(ctxs))
+    want = (0 if whole else sum(c.n_windows for c in ctxs),
+            len(ctxs) if whole else 0, 11 * len(ctxs))
     assert (cuda_madd.launches - before[0],
             cuda_ladder.launches - before[1],
             cuda_redc.launches - before[2]) == want

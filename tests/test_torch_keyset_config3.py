@@ -1,7 +1,8 @@
 """ES256 + ES384 (+ ES512): GPUBatchKeySet (plain path on the CPU) with
-each curve's own ladder and with each curve swapped to the other one
-(the per-window ladder or the whole-ladder kernel's plain version), so
-both ladders run on every curve, against the JAX package — accepts,
+its own ladder (the whole-ladder kernel's plain version) and with the
+per-window ladder swapped in (``ec_rns.ladder_per_window``, one
+``madd_ref`` a window), so both ladders run on every curve, against
+the JAX package — accepts,
 every rejection class of the config-3 cell, the trial path, and
 degenerate P-384 lanes re-verified on the oracle — with verdicts
 bit-equal: claims dicts equal, exception class and message equal.
@@ -45,8 +46,8 @@ CURVES = {algs.ES256: ("P-256", "es"), algs.ES384: ("P-384", "es384"),
           algs.ES512: ("P-521", "es512")}
 HASH = {algs.ES256: hashlib.sha256, algs.ES384: hashlib.sha384,
         algs.ES512: hashlib.sha512}
-# which ladder each curve runs: its own (ec_rns.WHOLE_LADDER_CURVES)
-# or the other one
+# which ladder every curve runs: the keyset's own (the whole ladder)
+# or, swapped in, the per-window one
 LADDERS = {"per-curve": False, "swapped": True}
 
 
@@ -154,15 +155,19 @@ def batch():
 
 
 def _port_verdicts(doc, tokens, swap: bool):
-    """(verdicts, keyset) of the port on the CPU, each curve with its
-    own ladder or, with ``swap``, the other one."""
+    """(verdicts, keyset, curves the ladder ran on) of the port on the
+    CPU, with its own ladder or, with ``swap``, the per-window one."""
+    ladder = ec_rns.ladder_per_window if swap else ec_rns.cuda_ladder.ladder
+    curves = []
+
+    def counted(c, *args):
+        curves.append(c.cp.name)
+        return ladder(c, *args)
+
     with pytest.MonkeyPatch.context() as mp:
-        if swap:
-            for crv, _ in CURVES.values():
-                c = ec_rns.ctx_for(crv)
-                mp.setattr(c, "whole_ladder", not c.whole_ladder)
+        mp.setattr(ec_rns.cuda_ladder, "ladder", counted)
         ks = GPUBatchKeySet(t_jwk.parse_jwks(doc), device="cpu")
-        return ks.verify_batch(tokens), ks
+        return ks.verify_batch(tokens), ks, curves
 
 
 def _jax_reference(doc, tokens):
@@ -206,12 +211,12 @@ def test_the_two_ladders_agree(batch):
                                            port["swapped"][0]))
 
 
-def test_each_curve_has_its_ladder():
-    """The faster ladder of each curve on the card (PERF.md): per
-    window on P-256, the whole-ladder kernel on P-384 and P-521."""
-    assert {crv: ec_rns.ctx_for(crv).whole_ladder
-            for crv, _ in CURVES.values()} == \
-        {"P-256": False, "P-384": True, "P-521": True}
+def test_each_curve_has_its_ladder(batch):
+    """Every curve's chunk runs the whole-ladder kernel (the faster on
+    the card, PERF.md): one ladder call a chunk on P-256, P-384 and
+    P-521."""
+    _, _, _, port = batch
+    assert sorted(port["per-curve"][2]) == ["P-256", "P-384", "P-521"]
 
 
 @pytest.mark.parametrize("ladders", list(LADDERS))
@@ -228,7 +233,7 @@ def test_accepts_and_rejects_what_it_should(batch, ladders):
 @pytest.mark.parametrize("ladders", list(LADDERS))
 def test_degenerate_p384_lanes_reverify_on_the_oracle(batch, ladders):
     labels, _, _, port = batch
-    results, ks = port[ladders]
+    results, ks, _ = port[ladders]
     assert ks.deg_reverified == 2
     got = dict(zip(labels, results))
     assert got["degenerate-doubling"] == {"sub": "deg-dbl"}

@@ -96,8 +96,7 @@ def test_ladder_ref_equals_the_per_window_loop(crv):
                                               seed=11)
     fused = _port(c, tab, d, base, stride)
     t = torch.from_numpy
-    loop = t_ec_rns.ladder_per_window(c, t(np.ascontiguousarray(tab.T)),
-                                      t(d), t(base), stride)
+    loop = t_ec_rns.ladder_per_window(c, t(tab), t(d), t(base), stride)
     for f, w in zip(fused[:3], loop[:3]):
         assert torch.equal(f[0], w[0]) and torch.equal(f[1], w[1])
     assert torch.equal(fused[3], loop[3]) and torch.equal(fused[4], loop[4])
