@@ -30,9 +30,8 @@ KERNELS = ("redc", "madd", "ladder", "edw", "keccak", "ntt")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
-    # The Barrett quotient and the extension's α are float32 products
-    # and sums with separate roundings; a fused multiply-add would
-    # change them.
+    # The base extensions' α is a float32 sum of products with
+    # separate roundings; a fused multiply-add would change it.
     "-fmad=false",
     "-Xptxas", "-v",
 )

@@ -69,7 +69,6 @@ def load_context(ctx, arrays: Dict):
     for name in names:
         setattr(new, name, _like(getattr(ctx, name), arrays[name], name))
     new._dev = {}
-    new.__dict__.pop("_kernel_consts", None)
     new.__dict__.pop("_madd_consts", None)
     new.__dict__.pop("_to_limbs", None)
     return new

@@ -1,131 +1,146 @@
-// One window of the Ed25519 ladder: the RNS mixed add.
+// One window of the Ed25519 ladder: the table gather and the RNS mixed
+// add.
 //
 // Replaces: cap_tpu/tpu/pallas_edw.py, _edw_kernel (via _edw_call and
 // edw_madd_fused) — the complete a = -1 extended + precomputed mixed
 // add (madd-2008-hwcd-3): 7 RNS multiplies, each a full REDC with both
 // base extensions, and the lazy adds and subs. The Edwards law is
 // complete and the window tables hold the identity at digit 0, so
-// there are no masks, no degeneracy probe and no lift.
+// there are no masks, no degeneracy probe and no lift. The JAX package
+// gathers the window's table rows (jnp.take) before its kernel; here
+// the kernel reads them itself.
 //
-// What bounds it on the card: integer operations. Per lane it reads 7
-// residue pairs (322 int32) and writes 4 (184 int32), about 2 KB, but
-// runs 7 REDCs (~23k integer multiply-adds and ~1k Barrett fixes) —
-// far more work per byte than the card's memory rate needs.
+// What bounds it on the card: integer operations. Per lane it reads
+// the state (4 residue pairs, 184 int32), one packed table row (69
+// int32: the triple (y−x, y+x, 2dxy) as A|B<<16 words) and its row
+// index, and writes 4 pairs: 1,752 bytes against 7 REDCs.
 //
-// Design: the one of the madd kernel. One thread per lane, blocks of
-// 128 lanes, the ragged edge masked in the kernel (no padding). The
-// per-context constants sit in shared memory in the REDC kernel's
-// layout, and all arithmetic is rns_ops.cuh's, so the three kernels
-// cannot drift apart; rmul stays out of line, so the kernel carries one
-// copy of the REDC. The three table planes arrive gathered by the
-// caller. The layer order and every lazy bound follow _edw_madd_rns.
+// Design: madd.cu's (rns_int.cuh). Each lane runs on a group of
+// kGroup<23, 23> = 8 threads, each holding its share of X, Y, Z and T
+// in registers; the arithmetic is conversion-free (integer Barrett
+// reductions) with whole-weight extensions from shared memory, the
+// group meeting in shared memory between warp barriers. Each thread
+// loads only its words of the lane's table row (read-only path, issued
+// first so the state loads overlap them), keeps them packed and decodes
+// a triple only where the sum takes it. The layer order and every lazy
+// bound follow _edw_madd_rns; the four outputs are stored as soon as
+// each is formed. The ragged edge: lanes past n compute on lane n−1's
+// inputs and store nothing. Instantiated for the Ed25519 field's 23+23
+// channels.
 #include <cuda_runtime.h>
 
-#include "rns_ops.cuh"
+#include "rns_int.cuh"
 
 namespace capk {
+namespace ri {
 
-template <int IA, int IB>
-__device__ __forceinline__ void load_plane_pair(const int* __restrict__ pa,
-                                                const int* __restrict__ pb,
-                                                int n, int lane,
-                                                Pair<IA, IB>& out) {
-#pragma unroll
-  for (int i = 0; i < IA; ++i) out.a[i] = pa[i * n + lane];
-#pragma unroll
-  for (int j = 0; j < IB; ++j) out.b[j] = pb[j * n + lane];
-}
-
-template <int IA, int IB>
-__device__ __forceinline__ void store_plane_pair(int* __restrict__ pa,
-                                                 int* __restrict__ pb, int n,
-                                                 int lane,
-                                                 const Pair<IA, IB>& v) {
-#pragma unroll
-  for (int i = 0; i < IA; ++i) pa[i * n + lane] = v.a[i];
-#pragma unroll
-  for (int j = 0; j < IB; ++j) pb[j * n + lane] = v.b[j];
-}
-
-// in: X, Y, Z, T, ym, yp, t2 as (A, B) plane pointers; out: X3, Y3,
-// Z3, T3 likewise. Every plane is [I, n] with lanes contiguous.
-struct EdwArgs {
-  const int* in[14];
+// in: X, Y, Z, T as (A, B) plane pointers; out: X3, Y3, Z3, T3
+// likewise. Every plane is [I, n] with lanes contiguous.
+struct EdwPlanes {
+  const int* in[8];
   int* out[8];
 };
 
-template <int IA, int IB>
-__global__ void __launch_bounds__(128)
-    edw_kernel(const EdwArgs args, const int* __restrict__ consts, int n) {
-  using L = Layout<IA, IB>;
-  using P = Pair<IA, IB>;
-  __shared__ int k[L::words];
-  load_consts(k, consts, L::words);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+template <int IA, int IB, int T>
+__global__ void __launch_bounds__(kThreads)
+    edw_kernel(const EdwPlanes pl, const int* __restrict__ tab,
+               const int* __restrict__ rows, const int* __restrict__ consts,
+               int n) {
+  using L = KLayout<IA, IB>;
+  using G = Group<IA, IB, T>;
+  static_assert(G::CA == G::CB, "a thread's A and B shares share words");
+  constexpr int C = G::CA;
+  constexpr int IAP = IA > IB ? IA : IB;
+  using Sh = Share<C, C>;
+  __shared__ __align__(16) int k[L::words];
+  __shared__ __align__(16) int xs[G::kLanes * G::S];
+  __shared__ __align__(16) float xf[G::kLanes * G::S];
+  load_block(k, consts, L::words, xs, xf, G::kLanes * G::S);
+  int lane;
+  const Ctx g = make_ctx<IA, IB, T>(k, xs, xf, lane);
+  const bool valid = lane < n;
+  const int ln = valid ? lane : n - 1;
+  const int t = g.t;
+  const int a0 = t * C, b0 = t * C;
 
-  P X, Y, Z, T, ym, yp, t2;
-  load_plane_pair<IA, IB>(args.in[0], args.in[1], n, lane, X);
-  load_plane_pair<IA, IB>(args.in[2], args.in[3], n, lane, Y);
-  load_plane_pair<IA, IB>(args.in[4], args.in[5], n, lane, Z);
-  load_plane_pair<IA, IB>(args.in[6], args.in[7], n, lane, T);
-  load_plane_pair<IA, IB>(args.in[8], args.in[9], n, lane, ym);
-  load_plane_pair<IA, IB>(args.in[10], args.in[11], n, lane, yp);
-  load_plane_pair<IA, IB>(args.in[12], args.in[13], n, lane, t2);
+  // this thread's words of the row's three triples, kept packed
+  const int* row = tab + static_cast<size_t>(__ldg(rows + ln)) * (3 * IAP);
+  int wm[C], wp[C], w2[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const int c = t * C + j < IAP ? t * C + j : IAP - 1;
+    wm[j] = __ldg(row + c);
+    wp[j] = __ldg(row + IAP + c);
+    w2[j] = __ldg(row + 2 * IAP + c);
+  }
+  const Sh X = load_share<IA, IB, C, C>(pl.in[0], pl.in[1], n, ln, t);
+  const Sh Y = load_share<IA, IB, C, C>(pl.in[2], pl.in[3], n, ln, t);
+  const Sh Z = load_share<IA, IB, C, C>(pl.in[4], pl.in[5], n, ln, t);
+  const Sh Tt = load_share<IA, IB, C, C>(pl.in[6], pl.in[7], n, ln, t);
 
-  // _edw_madd_rns, layer for layer (bounds documented there).
-  P a, b, cc, X3, Y3, Z3, T3;
-  rmul<IA, IB>(k, rsub<IA, IB>(k, Y, X, 4, 1), ym, a);
-  rmul<IA, IB>(k, radd<IA, IB>(Y, X), yp, b);
-  rmul<IA, IB>(k, T, t2, cc);
-  const P d = radd<IA, IB>(Z, Z);
-  const P e = rsub<IA, IB>(k, b, a, 4, 1);
-  const P f = rsub<IA, IB>(k, d, cc, 4, 1);
-  const P g = radd<IA, IB>(d, cc);
-  const P h = radd<IA, IB>(b, a);
-  rmul<IA, IB>(k, e, f, X3);
-  rmul<IA, IB>(k, g, h, Y3);
-  rmul<IA, IB>(k, f, g, Z3);
-  rmul<IA, IB>(k, e, h, T3);
-
-  store_plane_pair<IA, IB>(args.out[0], args.out[1], n, lane, X3);
-  store_plane_pair<IA, IB>(args.out[2], args.out[3], n, lane, Y3);
-  store_plane_pair<IA, IB>(args.out[4], args.out[5], n, lane, Z3);
-  store_plane_pair<IA, IB>(args.out[6], args.out[7], n, lane, T3);
+  // _edw_madd_rns, layer for layer (bounds documented there); rsub's
+  // 4p + m is k4A/k4B
+  const Sh a = rmul<IA, IB, T>(
+      g, rsub(g, a0, b0, Y, X, L::k4A, L::k4B), decode<IA, IB, C>(wm, t));
+  const Sh b = rmul<IA, IB, T>(g, radd(Y, X), decode<IA, IB, C>(wp, t));
+  const Sh cc = rmul<IA, IB, T>(g, Tt, decode<IA, IB, C>(w2, t));
+  const Sh d = radd(Z, Z);
+  const Sh e = rsub(g, a0, b0, b, a, L::k4A, L::k4B);
+  const Sh f = rsub(g, a0, b0, d, cc, L::k4A, L::k4B);
+  const Sh gg = radd(d, cc);
+  const Sh h = radd(b, a);
+  const Sh X3 = rmul<IA, IB, T>(g, e, f);
+  if (valid) store_share<IA, IB>(pl.out[0], pl.out[1], n, lane, t, X3);
+  const Sh T3 = rmul<IA, IB, T>(g, e, h);
+  if (valid) store_share<IA, IB>(pl.out[6], pl.out[7], n, lane, t, T3);
+  const Sh Y3 = rmul<IA, IB, T>(g, gg, h);
+  if (valid) store_share<IA, IB>(pl.out[2], pl.out[3], n, lane, t, Y3);
+  const Sh Z3 = rmul<IA, IB, T>(g, f, gg);
+  if (valid) store_share<IA, IB>(pl.out[4], pl.out[5], n, lane, t, Z3);
 }
 
+#ifndef CAPK_NO_LAUNCH
 template <int IA, int IB>
-int launch_edw(const EdwArgs& args, const int* consts, int words, int n,
-               cudaStream_t stream) {
-  if (words != Layout<IA, IB>::words) return int(cudaErrorInvalidValue);
-  const int threads = 128;
-  edw_kernel<IA, IB><<<(n + threads - 1) / threads, threads, 0, stream>>>(
-      args, consts, n);
+int launch_edw(const EdwPlanes& pl, const int* tab, const int* rows,
+               const int* consts, int words, int n, cudaStream_t stream) {
+  if (words != KLayout<IA, IB>::words) return int(cudaErrorInvalidValue);
+  constexpr int T = kGroup<IA, IB>;
+  constexpr int lanes = Group<IA, IB, T>::kLanes;
+  edw_kernel<IA, IB, T><<<(n + lanes - 1) / lanes, kThreads, 0, stream>>>(
+      pl, tab, rows, consts, n);
   return int(cudaGetLastError());
 }
+#endif
 
+}  // namespace ri
 }  // namespace capk
 
-// Planes in the order X, Y, Z, T, ym, yp, t2 (each A then B), then the
-// outputs X3, Y3, Z3, T3 (each A then B).
+#ifndef CAPK_NO_LAUNCH
+// Planes X, Y, Z, T (each A then B), then the outputs X3, Y3, Z3, T3
+// (each A then B); tab: [rows, 3·max(ia, ib)] packed words, row-major;
+// rows: [n] int32 row of each lane; consts: cuda_madd.madd_consts
+// (KLayout); words: its length.
 extern "C" int cap_edw(const void* xa, const void* xb, const void* ya,
                        const void* yb, const void* za, const void* zb,
-                       const void* ta, const void* tb, const void* yma,
-                       const void* ymb, const void* ypa, const void* ypb,
-                       const void* t2a, const void* t2b, void* oxa,
-                       void* oxb, void* oya, void* oyb, void* oza,
-                       void* ozb, void* ota, void* otb, const void* consts,
-                       int words, int n, int ia, int ib, void* stream) {
+                       const void* ta, const void* tb, void* oxa, void* oxb,
+                       void* oya, void* oyb, void* oza, void* ozb,
+                       void* ota, void* otb, const void* tab,
+                       const void* rows, const void* consts, int words,
+                       int n, int ia, int ib, void* stream) {
   if (n <= 0) return int(cudaErrorInvalidValue);
-  const void* in[14] = {xa, xb, ya, yb, za, zb, ta, tb,
-                        yma, ymb, ypa, ypb, t2a, t2b};
+  const void* in[8] = {xa, xb, ya, yb, za, zb, ta, tb};
   void* out[8] = {oxa, oxb, oya, oyb, oza, ozb, ota, otb};
-  capk::EdwArgs args;
-  for (int q = 0; q < 14; ++q) args.in[q] = static_cast<const int*>(in[q]);
-  for (int q = 0; q < 8; ++q) args.out[q] = static_cast<int*>(out[q]);
+  capk::ri::EdwPlanes pl;
+  for (int q = 0; q < 8; ++q) {
+    pl.in[q] = static_cast<const int*>(in[q]);
+    pl.out[q] = static_cast<int*>(out[q]);
+  }
+  // the Ed25519 field (cuda_edw.KERNEL_SHAPES)
   if (ia == 23 && ib == 23)
-    return capk::launch_edw<23, 23>(args, static_cast<const int*>(consts),
-                                    words, n,
-                                    static_cast<cudaStream_t>(stream));
+    return capk::ri::launch_edw<23, 23>(
+        pl, static_cast<const int*>(tab), static_cast<const int*>(rows),
+        static_cast<const int*>(consts), words, n,
+        static_cast<cudaStream_t>(stream));
   return int(cudaErrorInvalidValue);
 }
+#endif

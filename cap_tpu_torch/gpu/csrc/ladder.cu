@@ -86,17 +86,6 @@ __device__ __forceinline__ void cp_async_wait() {
 #endif
 }
 
-template <int IA, int IB, int C>
-__device__ __forceinline__ Share<C, C> decode(const int* w, int t) {
-  Share<C, C> o;
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-    o.a[i] = t * C + i < IA ? (w[i] & 0xFFFF) : 0;
-    o.b[i] = t * C + i < IB ? (w[i] >> 16) : 0;
-  }
-  return o;
-}
-
 // Park (to) or fetch (!to) this thread's share of a value in the
 // lane's column of [I_A, m] / [I_B, m] planes.
 template <int IA, int IB, int C>

@@ -89,26 +89,6 @@ __device__ __forceinline__ bool madd_sum(
   return deg;
 }
 
-// This thread's share of a value held as [I_A, n] and [I_B, n] planes
-// (channels past I read as 0).
-template <int IA, int IB, int CA, int CB>
-__device__ __forceinline__ Share<CA, CB> load_share(
-    const int* __restrict__ pa, const int* __restrict__ pb, int n, int lane,
-    int t) {
-  Share<CA, CB> o;
-#pragma unroll
-  for (int i = 0; i < CA; ++i) {
-    const int c = t * CA + i;
-    o.a[i] = c < IA ? pa[static_cast<size_t>(c) * n + lane] : 0;
-  }
-#pragma unroll
-  for (int j = 0; j < CB; ++j) {
-    const int c = t * CB + j;
-    o.b[j] = c < IB ? pb[static_cast<size_t>(c) * n + lane] : 0;
-  }
-  return o;
-}
-
 // Decode this thread's share of packed words (A channel c in the low
 // 16 bits of word c, B channel c in the high 16; ec_rns
 // _pack_residue_rows): word c at w[c·stride].

@@ -4,62 +4,93 @@
 // and redc_fused) — t = x·A^-1 mod p on residue planes: σ = x_A·sig_c,
 // the A->B extension, t_B = (x_B + q·p)·A^-1, the B->A extension.
 //
-// What bounds it on the card: integer operations. Per P-256 lane it
-// reads and writes 2·23 int32 (368 bytes) but runs two 23x23
-// extensions of three integer dot products each (~3.2k multiply-adds)
-// plus ~140 Barrett fixes — roughly 20 integer operations per byte
-// moved, well above the H100's ratio of integer rate to memory rate
-// (P-384's 34+33 and P-521's 45+45 channels raise the ratio further).
+// What bounds it on the card: bytes. A P-256 lane reads and writes
+// 2·23 int32 (368 B) and runs two 23x23 extensions and ~140 reductions;
+// counted per pipe (chip_smoke.rns_bound) the work takes less time
+// than the bytes at every instantiated shape.
 //
-// Design: one thread per lane, blocks of 128 lanes, the ragged edge
-// masked. All per-context constants (moduli, σ and extension
-// constants, the four 7-bit extension blocks) sit in shared memory:
-// every thread of a warp reads the same word at the same time, a
-// broadcast. The residue planes are [I, N] with lanes contiguous, so
-// each channel's load and store is coalesced across the warp. The
-// extension products are integer multiply-adds, exact by construction
-// (see rns_ops.cuh); tensor cores and wgmma are left for later work.
-// Instantiated for 23+23, 34+33 and 45+45 channels: the largest
-// layout (11,610 words, 46,440 B) still fits static shared memory.
+// Design: the REDC body of rns_int.cuh, the one every rmul of the
+// mixed-add kernels runs (integer Barrett reductions, whole-weight
+// extensions), with each lane over a group of kGroup<IA, IB> threads
+// (8 at 23+23 and 34+33, 4 at 45+45) that meet in shared memory
+// between warp barriers. Each thread loads and stores its own share of
+// the lane's planes. A warp's load of one plane row then covers 32/T
+// lanes, at T = 8 half a 32-byte sector whose other half the block's
+// next warp loads; staging each tile through shared memory for
+// whole-sector rows measured slower on the H100 at every shape
+// (ladder_bench.py, PERF.md §6). The block copies KLayout's constants
+// (6.7, 14.9 and 22.4 KB) into shared memory once and then walks over
+// lane tiles (grid-stride), so the copy is not paid again for every
+// 128/T lanes (one tile a block measured up to 40% slower). The
+// ragged edge: lanes past n compute on lane n−1's inputs and store
+// nothing. Instantiated for 23+23 (P-256 and the Ed25519 field), 34+33
+// (P-384) and 45+45 (P-521) channels.
 #include <cuda_runtime.h>
 
-#include "rns_ops.cuh"
+#include "rns_int.cuh"
 
 namespace capk {
+namespace ri {
 
-template <int IA, int IB>
-__global__ void __launch_bounds__(128)
-    redc_kernel(const int* __restrict__ xA, const int* __restrict__ xB,
-                int* __restrict__ tA, int* __restrict__ tB,
+template <int IA, int IB, int T>
+__global__ void __launch_bounds__(kThreads)
+    redc_kernel(const int* __restrict__ xa, const int* __restrict__ xb,
+                int* __restrict__ ta, int* __restrict__ tb,
                 const int* __restrict__ consts, int n) {
-  __shared__ int k[Layout<IA, IB>::words];
-  load_consts(k, consts, Layout<IA, IB>::words);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  int a[IA], b[IB], ra[IA], rb[IB];
-#pragma unroll
-  for (int i = 0; i < IA; ++i) a[i] = xA[i * n + lane];
-#pragma unroll
-  for (int j = 0; j < IB; ++j) b[j] = xB[j * n + lane];
-  redc<IA, IB>(k, a, b, ra, rb);
-#pragma unroll
-  for (int i = 0; i < IA; ++i) tA[i * n + lane] = ra[i];
-#pragma unroll
-  for (int j = 0; j < IB; ++j) tB[j * n + lane] = rb[j];
+  using L = KLayout<IA, IB>;
+  using G = Group<IA, IB, T>;
+  constexpr int CA = G::CA, CB = G::CB;
+  __shared__ __align__(16) int k[L::words];
+  __shared__ __align__(16) int xs[G::kLanes * G::S];
+  __shared__ __align__(16) float xf[G::kLanes * G::S];
+  load_block(k, consts, L::words, xs, xf, G::kLanes * G::S);
+  int lane;
+  const Ctx g = make_ctx<IA, IB, T>(k, xs, xf, lane);
+  const int row = lane - blockIdx.x * G::kLanes;  // its place in a tile
+  const int tiles = (n + G::kLanes - 1) / G::kLanes;
+#pragma unroll 1
+  for (int tl = blockIdx.x; tl < tiles; tl += gridDim.x) {
+    const int ln = tl * G::kLanes + row;
+    const Share<CA, CB> x = load_share<IA, IB, CA, CB>(
+        xa, xb, n, ln < n ? ln : n - 1, g.t);
+    const Share<CA, CB> t = redc<IA, IB, T>(g, Digits<CA, CB>{x});
+    if (ln < n) store_share<IA, IB>(ta, tb, n, ln, g.t, t);
+  }
 }
 
+#ifndef CAPK_NO_LAUNCH
 template <int IA, int IB>
 int launch_redc(const int* xA, const int* xB, int* tA, int* tB,
                 const int* consts, int words, int n, cudaStream_t stream) {
-  if (words != Layout<IA, IB>::words) return int(cudaErrorInvalidValue);
-  const int threads = 128;
-  redc_kernel<IA, IB><<<(n + threads - 1) / threads, threads, 0, stream>>>(
-      xA, xB, tA, tB, consts, n);
+  if (words != KLayout<IA, IB>::words) return int(cudaErrorInvalidValue);
+  constexpr int T = kGroup<IA, IB>;
+  constexpr int lanes = Group<IA, IB, T>::kLanes;
+  // as many blocks as the card holds at once, each walking over tiles
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, redc_kernel<IA, IB, T>, kThreads, 0);
+    if (e != cudaSuccess) return int(e);
+    resident = sms * per_sm;
+  }
+  const int tiles = (n + lanes - 1) / lanes;
+  const int blocks = tiles < resident ? tiles : resident;
+  redc_kernel<IA, IB, T><<<blocks, kThreads, 0, stream>>>(xA, xB, tA, tB,
+                                                          consts, n);
   return int(cudaGetLastError());
 }
+#endif
 
+}  // namespace ri
 }  // namespace capk
 
+#ifndef CAPK_NO_LAUNCH
+// consts: cuda_madd.madd_consts (KLayout); words: its length.
 extern "C" int cap_redc(const void* xA, const void* xB, void* tA, void* tB,
                         const void* consts, int words, int n, int ia,
                         int ib, void* stream) {
@@ -70,12 +101,14 @@ extern "C" int cap_redc(const void* xA, const void* xB, void* tA, void* tB,
   auto* tb = static_cast<int*>(tB);
   const auto* k = static_cast<const int*>(consts);
   auto s = static_cast<cudaStream_t>(stream);
+  using capk::ri::launch_redc;
   // P-256 and Ed25519, P-384, P-521 (cuda_redc.KERNEL_SHAPES)
   if (ia == 23 && ib == 23)
-    return capk::launch_redc<23, 23>(a, b, ta, tb, k, words, n, s);
+    return launch_redc<23, 23>(a, b, ta, tb, k, words, n, s);
   if (ia == 34 && ib == 33)
-    return capk::launch_redc<34, 33>(a, b, ta, tb, k, words, n, s);
+    return launch_redc<34, 33>(a, b, ta, tb, k, words, n, s);
   if (ia == 45 && ib == 45)
-    return capk::launch_redc<45, 45>(a, b, ta, tb, k, words, n, s);
+    return launch_redc<45, 45>(a, b, ta, tb, k, words, n, s);
   return int(cudaErrorInvalidValue);
 }
+#endif

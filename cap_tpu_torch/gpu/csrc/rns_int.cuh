@@ -1,5 +1,5 @@
-// Integer RNS arithmetic for the mixed-add kernels (madd.cu, ladder.cu),
-// with one lane spread over a group of T threads.
+// Integer RNS arithmetic for every RNS kernel (redc.cu, madd.cu,
+// ladder.cu, edw.cu), with one lane spread over a group of T threads.
 //
 // The residues of one lane (I_A + I_B channels a value) are cut into T
 // contiguous shares: thread t of the group holds A channels
@@ -13,20 +13,23 @@
 // output channels. The same-x probe runs on share 0, which holds
 // channels 0 and 1, and is broadcast by a shuffle.
 //
-// Exactness (the residues equal those of rns_ops.cuh word for word):
+// Exactness (the residues equal, word for word, those of a float32
+// quotient guess with 7-bit split extension weights, the arithmetic of
+// the plain version rns._redc and of the JAX package's kernels):
 // - bred(): a Barrett reduction on the integer pipes, q = umulhi(v, μ)
 //   with μ = ⌊2^32/m⌋. For 0 <= v < 2^32 and m < 2^13, q is floor(v/m)
 //   or one less, so one conditional subtract gives v mod m exactly, the
-//   residue rns_ops.cuh's float fix() gives, with no conversion.
+//   residue a float guess with its ±1 correction gives, with no
+//   conversion.
 // - extend_sum(): whole 13-bit weights (A/a_i mod b_j), one int32
 //   multiply-add each: every modulus and weight is below 4,900, so
 //   Σ σ_i·w_ij over 45 channels stays below 1.1·10^9, and the α
 //   correction α·((−A) mod b_j) < 2.4·10^7 is folded into the same sum,
 //   reduced once: below 2^31 throughout.
-// - α is computed as rns_ops.cuh computes it: the float32 products
-//   σ_i·(1/m_i) (__fmul_rn) summed in channel order (__fadd_rn), built
-//   with -fmad=false, then floor(sum + offset). Each thread forms the
-//   products of its own digits once; every thread sums the whole row.
+// - α is the float32 sum of the products σ_i·(1/m_i) (__fmul_rn) in
+//   channel order (__fadd_rn), built with -fmad=false, then
+//   floor(sum + offset). Each thread forms the products of its own
+//   digits once; every thread sums the whole row.
 #pragma once
 
 #include <cstdint>
@@ -38,8 +41,9 @@ constexpr int kThreads = 128;  // threads a block
 constexpr int kProbeC = 20;    // same-x probe candidates (h < 20p)
 
 // Threads a lane by shape, the fastest of 2, 4 and 8 on the H100 for
-// both kernels (ladder_bench.py, PERF.md): 8 at 23+23 and 34+33, 4 at
-// 45+45.
+// the ES mixed adds (ladder_bench.py, PERF.md): 8 at 23+23 and 34+33,
+// 4 at 45+45. redc and edw take the same (redc<45,45> measured 1.5x
+// faster at 4 than at 8).
 template <int IA, int IB>
 constexpr int kGroup = IA + IB > 80 ? 4 : 8;
 
@@ -225,13 +229,37 @@ __device__ __forceinline__ void publish(const Ctx& g, const int (&sig)[C],
   __syncwarp();
 }
 
-// (x·y)·A^-1 mod p on digit-bounded values (ec_rns.rmul): the channel
-// products, then the RNS Montgomery reduction (rns._redc) with both
-// base extensions. Output digits canonical, value < 3p.
-template <int IA, int IB, int T>
+// The input of a REDC, read digit by digit where the reduction takes
+// it (so a product holds no register before its turn): Prod, the
+// channel products of two shares (rmul); Digits, reduced digits held
+// as a share (the REDC kernel).
+template <int CA, int CB>
+struct Prod {
+  const Share<CA, CB>& x;
+  const Share<CA, CB>& y;
+  __device__ __forceinline__ int a(int i, int m, int mu) const {
+    return bred(x.a[i] * y.a[i], m, mu);
+  }
+  __device__ __forceinline__ int b(int j, int m, int mu) const {
+    return bred(x.b[j] * y.b[j], m, mu);
+  }
+};
+
+template <int CA, int CB>
+struct Digits {
+  const Share<CA, CB>& x;
+  __device__ __forceinline__ int a(int i, int, int) const { return x.a[i]; }
+  __device__ __forceinline__ int b(int j, int, int) const { return x.b[j]; }
+};
+
+// The RNS Montgomery reduction t = x·A^-1 mod p (rns._redc) of x < A·p
+// with canonical digits (given by `in`, a Prod or Digits): σ = x_A·sig_c,
+// the A→B extension to q, t_B = (x_B + q·p)·A^-1, σ' = t_B·(B/b_j)^-1,
+// the B→A extension. Output digits canonical, value < 3p. Every thread
+// of the warp must call it.
+template <int IA, int IB, int T, class In>
 __device__ __forceinline__ Share<Group<IA, IB, T>::CA, Group<IA, IB, T>::CB>
-rmul(const Ctx& g, const Share<Group<IA, IB, T>::CA, Group<IA, IB, T>::CB>& x,
-     const Share<Group<IA, IB, T>::CA, Group<IA, IB, T>::CB>& y) {
+redc(const Ctx& g, const In& in) {
   using L = KLayout<IA, IB>;
   using G = Group<IA, IB, T>;
   const int* k = g.k;
@@ -241,7 +269,7 @@ rmul(const Ctx& g, const Share<Group<IA, IB, T>::CA, Group<IA, IB, T>::CB>& x,
 #pragma unroll
   for (int i = 0; i < G::CA; ++i) {
     const int m = k[L::mA + a0 + i], mu = k[L::muA + a0 + i];
-    sig[i] = bred(bred(x.a[i] * y.a[i], m, mu) * k[L::sigc + a0 + i], m, mu);
+    sig[i] = bred(in.a(i, m, mu) * k[L::sigc + a0 + i], m, mu);
   }
   publish<IA, G::CA>(g, sig, a0, L::invA);
   int q[G::CB];
@@ -254,7 +282,7 @@ rmul(const Ctx& g, const Share<Group<IA, IB, T>::CA, Group<IA, IB, T>::CB>& x,
     const int m = k[L::mB + c], mu = k[L::muB + c];
     const int aadj = alpha < 0 ? alpha + m : alpha;
     const int qj = bred(q[j] + aadj * k[L::negAB + c], m, mu);
-    const int pb = bred(x.b[j] * y.b[j], m, mu);
+    const int pb = in.b(j, m, mu);
     // q·p + x < 2^28: one reduction covers the product-and-add
     int t = bred(pb + qj * k[L::pB + c], m, mu);
     t = bred(t * k[L::invab + c], m, mu);
@@ -272,6 +300,16 @@ rmul(const Ctx& g, const Share<Group<IA, IB, T>::CA, Group<IA, IB, T>::CB>& x,
     out.a[i] = bred(r[i] + aadj * k[L::negBA + a0 + i], m, mu);
   }
   return out;
+}
+
+// (x·y)·A^-1 mod p on digit-bounded values (ec_rns.rmul): the channel
+// products, then the REDC. Output digits canonical, value < 3p.
+template <int IA, int IB, int T>
+__device__ __forceinline__ Share<Group<IA, IB, T>::CA, Group<IA, IB, T>::CB>
+rmul(const Ctx& g, const Share<Group<IA, IB, T>::CA, Group<IA, IB, T>::CB>& x,
+     const Share<Group<IA, IB, T>::CA, Group<IA, IB, T>::CB>& y) {
+  using G = Group<IA, IB, T>;
+  return redc<IA, IB, T>(g, Prod<G::CA, G::CB>{x, y});
 }
 
 // a + b, lazy (ec_rns.radd).
@@ -313,6 +351,59 @@ __device__ __forceinline__ Share<CA, CB> rfix(const Ctx& g, int a0, int b0,
 #pragma unroll
   for (int j = 0; j < CB; ++j)
     o.b[j] = bred(x.b[j], g.k[L::mB + b0 + j], g.k[L::muB + b0 + j]);
+  return o;
+}
+
+// This thread's share of a value held as [I_A, n] and [I_B, n] planes
+// (channels past I read as 0).
+template <int IA, int IB, int CA, int CB>
+__device__ __forceinline__ Share<CA, CB> load_share(
+    const int* __restrict__ pa, const int* __restrict__ pb, int n, int lane,
+    int t) {
+  Share<CA, CB> o;
+#pragma unroll
+  for (int i = 0; i < CA; ++i) {
+    const int c = t * CA + i;
+    o.a[i] = c < IA ? pa[static_cast<size_t>(c) * n + lane] : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < CB; ++j) {
+    const int c = t * CB + j;
+    o.b[j] = c < IB ? pb[static_cast<size_t>(c) * n + lane] : 0;
+  }
+  return o;
+}
+
+// Write this thread's share of a value to [I_A, n] and [I_B, n] planes
+// at ``lane`` (padding channels are not written).
+template <int IA, int IB, int CA, int CB>
+__device__ __forceinline__ void store_share(int* __restrict__ pa,
+                                            int* __restrict__ pb, int n,
+                                            int lane, int t,
+                                            const Share<CA, CB>& v) {
+#pragma unroll
+  for (int i = 0; i < CA; ++i) {
+    const int c = t * CA + i;
+    if (c < IA) pa[static_cast<size_t>(c) * n + lane] = v.a[i];
+  }
+#pragma unroll
+  for (int j = 0; j < CB; ++j) {
+    const int c = t * CB + j;
+    if (c < IB) pb[static_cast<size_t>(c) * n + lane] = v.b[j];
+  }
+}
+
+// Decode this thread's C words of a packed table row (A channel c in
+// the low 16 bits of word c, B channel c in the high 16; ec_rns
+// _pack_residue_rows) into its share; padding channels read as 0.
+template <int IA, int IB, int C>
+__device__ __forceinline__ Share<C, C> decode(const int* w, int t) {
+  Share<C, C> o;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    o.a[i] = t * C + i < IA ? (w[i] & 0xFFFF) : 0;
+    o.b[i] = t * C + i < IB ? (w[i] >> 16) : 0;
+  }
   return o;
 }
 

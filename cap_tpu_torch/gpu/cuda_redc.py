@@ -8,17 +8,15 @@ computes. On a CUDA tensor it launches ``csrc/redc.cu`` (or raises);
 on a CPU tensor it runs :func:`redc_ref`. ``launches`` counts kernel
 launches.
 
-The kernel reads every per-context constant from ONE int32 buffer
-(:func:`kernel_consts`), laid out as ``Layout<IA, IB>`` in
-``csrc/rns_ops.cuh``; the Ed25519 window kernel (``cuda_edw``) shares
-it. The ES mixed-add kernels have their own (``cuda_madd.madd_consts``).
+Every RNS kernel (this one, the mixed adds of ``cuda_madd``,
+``cuda_ladder`` and ``cuda_edw``) runs the arithmetic of
+``csrc/rns_int.cuh`` on one constant buffer, ``cuda_madd.madd_consts``.
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from .rns import _redc
@@ -29,45 +27,12 @@ launches = 0
 # (I_A, I_B) channel counts: P-256 (and the Ed25519 field), P-384 and
 # P-521. Other contexts raise on the card.
 KERNEL_SHAPES = ((23, 23), (34, 33), (45, 45))
-MAX_C = 32            # c·p rows per context (FieldRNSContext maxc)
 
 
 def redc_ref(ctx, xA: torch.Tensor, xB: torch.Tensor):
     """Plain PyTorch REDC (``rns._redc`` with the context's constants)."""
     cc = ctx.device_consts(xA.device)
     return _redc(xA, xB, cc.sig_c, cc.p_B, cc)
-
-
-def kernel_consts(ctx, device) -> torch.Tensor:
-    """The context's constants as the kernels' int32 buffer on ``device``
-    (order and sizes: ``Layout`` in csrc/rns_ops.cuh)."""
-    device = torch.device(device)
-    cache = ctx.__dict__.setdefault("_kernel_consts", {})
-    hit = cache.get(device)
-    if hit is not None:
-        return hit
-    if ctx.cp_A.shape[0] != MAX_C:
-        raise ValueError(f"kernels expect {MAX_C} c·p rows")
-
-    def f32(a):
-        return np.asarray(a, np.float32).view(np.int32)
-
-    mA = np.asarray(ctx.dA["m"], np.int64)
-    mB = np.asarray(ctx.dB["m"], np.int64)
-    one = ctx.a_mod_p
-    parts = [
-        mA, mB, f32(ctx.dA["inv_f"]), f32(ctx.dB["inv_f"]),
-        ctx.sig_c, ctx.p_B, ctx.Amod_B, ctx.Bmod_A, ctx.invA_B,
-        ctx.dB["inv_Mi"], (1 << 14) % mA, (1 << 14) % mB,
-        [one % int(m) for m in mA], [one % int(m) for m in mB],
-        ctx.W_AB[0], ctx.W_AB[1], ctx.W_BA[0], ctx.W_BA[1],
-        ctx.cp_A, ctx.cp_B,
-    ]
-    buf = np.concatenate([np.asarray(p).astype(np.int32).ravel()
-                          for p in parts])
-    out = torch.as_tensor(buf, device=device)
-    cache[device] = out
-    return out
 
 
 def check_shape(ctx, shapes=KERNEL_SHAPES) -> None:
@@ -124,7 +89,9 @@ def redc(ctx, xA: torch.Tensor, xB: torch.Tensor):
     ia, ib = ctx.A.count, ctx.B.count
     n = xA.shape[1] if xA.dim() == 2 else -1
     check_planes((xA, xB), (ia, ib), xA.device, n)
-    consts = kernel_consts(ctx, xA.device)
+    from .cuda_madd import madd_consts
+
+    consts = madd_consts(ctx, xA.device)
     tA = torch.empty_like(xA)
     tB = torch.empty_like(xB)
     if n == 0:

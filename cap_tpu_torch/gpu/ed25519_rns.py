@@ -10,11 +10,14 @@ converts X, Y, Z back to 16-bit limbs by CRT (``rns.RNSToLimbs``) and
 runs the limb engine's batch inverse and the encoding compare (x's
 parity is not a residue-domain property).
 
-On the card every window's mixed add is one launch of the hand-written
-kernel ``cuda_edw.edw`` and the accumulator merge's three multiply
-layers are ``cuda_redc.redc`` launches. The field ops take the REDC as
-a parameter so the plain version (``cuda_edw.edw_ref``) runs the same
-arithmetic with the plain REDC.
+On the card every window (its table gather and mixed add) is one
+launch of the hand-written kernel ``cuda_edw.edw_window``, over the
+packed row-major table of ``Ed25519RNSKeyTable.device_tab`` and the
+row index that :func:`window_rows` builds once a chunk; the
+accumulator merge's three multiply layers are ``cuda_redc.redc``
+launches. The field ops take the REDC as a parameter so the plain
+version (``cuda_edw.edw_ref``) runs the same arithmetic with the plain
+REDC.
 
 Value bounds (the JAX package's): every rmul output < 3p; sums grow to
 ≤ 10p between multiplies; A ≥ 2^14·p keeps λ₁λ₂p²/A ≪ p.
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from . import cuda_edw, cuda_redc
-from .ec_rns import radd, rmul, rmul_many, rsub
+from .ec_rns import _pack_residue_rows, radd, rmul, rmul_many, rsub
 from .ed25519 import (
     _B_POINT,
     _IDENTITY,
@@ -170,9 +173,9 @@ class Ed25519RNSKeyTable:
 
     ``tna``: 3 × [I_A + I_B, nk·NW8·PER] int32, key k's windows in
     columns k·NW8·PER onward (the JAX package's ``tna`` transposed).
-    The device keeps ONE [3·(I_A + I_B), (1 + nk)·NW8·PER] table, the
-    basepoint's columns first, so a single ``index_select`` per window
-    gathers the kernel's contiguous operands for both ladder chains.
+    The device keeps ONE row-major table for both ladder chains
+    (:meth:`device_tab`), the basepoint's rows first, in the row order
+    of the JAX package's gather.
     """
 
     def __init__(self, keys_decoded: Sequence[Optional[Tuple[int, int]]],
@@ -193,12 +196,29 @@ class Ed25519RNSKeyTable:
         self._dev: Dict[torch.device, torch.Tensor] = {}
 
     def device_tab(self, device) -> torch.Tensor:
+        """[(1 + nk)·NW8·PER, 3·max(I_A, I_B)] int32 on ``device``: row r
+        holds the triple (y−x, y+x, 2dxy) of the basepoint's (r <
+        NW8·PER) or key (r − NW8·PER) // (NW8·PER)'s table entry, each
+        as packed A|B<<16 words (``ec_rns._pack_residue_rows``)."""
         device = torch.device(device)
         if device not in self._dev:
             self._dev[device] = torch.as_tensor(np.concatenate(
-                [np.concatenate([b, a], axis=1)
-                 for b, a in zip(self.tb, self.tna)]), device=device)
+                [_pack_residue_rows(self.ctx, np.concatenate([b, a], axis=1).T)
+                 for b, a in zip(self.tb, self.tna)], axis=1), device=device)
         return self._dev[device]
+
+
+def window_rows(dig1: torch.Tensor, dig2: torch.Tensor,
+                key_idx: torch.Tensor) -> torch.Tensor:
+    """[NW8, 2N] int32 table rows of every window: window i's B chain
+    (lanes 0..N−1) at row i·PER + dig1[i], its A chain at row
+    NW8·PER + key·NW8·PER + i·PER + dig2[i] (the JAX ladder's per-window
+    ``idx``). dig1, dig2: [≥ NW8, N] window digits; key_idx: [N]."""
+    win = torch.arange(NW8, dtype=torch.int64,
+                       device=dig1.device)[:, None] * PER
+    key_base = (key_idx.to(torch.int64) + 1)[None, :] * (NW8 * PER)
+    return torch.cat([win + dig1[:NW8], key_base + win + dig2[:NW8]],
+                     dim=1).to(I32)
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +249,7 @@ def _ed25519_rns_core(s, kk, yr, sign_r, key_idx,
             2 * k, n_tok)
 
     dig1, dig2 = bytes_of(s), bytes_of(kk)
-    key_base = key_idx.to(torch.int64) * (NW8 * PER)
+    rows = window_rows(dig1, dig2, key_idx)     # [NW8, 2N]
 
     # two-accumulator ladder: the B chain ([S]B) and the A chain
     # ([k](−A)) run as ONE mixed add over [I, 2N] lanes per window
@@ -240,16 +260,9 @@ def _ed25519_rns_core(s, kk, yr, sign_r, key_idx,
     one_b = (one[0].expand(ia, 2 * n_tok).contiguous(),
              one[1].expand(ib, 2 * n_tok).contiguous())
     X, Y, Z, T = zero, one_b, one_b, zero
-    tab = rtab.device_tab(dev)                  # [3·(I_A + I_B), rows]
-    w = ia + ib
-    q_off = NW8 * PER                           # key columns follow B's
+    tab = rtab.device_tab(dev)
     for i in range(NW8):
-        idx = torch.cat([i * PER + dig1[i],
-                         q_off + key_base + i * PER + dig2[i]])
-        g = tab.index_select(1, idx)            # [3·(I_A + I_B), 2N]
-        ym, yp, t2 = [(g[t * w: t * w + ia], g[t * w + ia: (t + 1) * w])
-                      for t in range(3)]
-        X, Y, Z, T = cuda_edw.edw(c, X, Y, Z, T, ym, yp, t2)
+        X, Y, Z, T = cuda_edw.edw_window(c, X, Y, Z, T, tab, rows[i])
 
     def halves(pair):
         return ((pair[0][:, :n_tok], pair[1][:, :n_tok]),

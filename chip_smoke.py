@@ -13,8 +13,10 @@ Phases (any failure exits non-zero; none is caught):
 2. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (23+23 RNS channels, 65,536 lanes: one
    32,768-token ES or EdDSA chunk with both ladder chains; redc and
-   madd on P-256, edw on the Ed25519 field), outputs equal by value
-   mod p on both residue planes, ``deg`` equal on true degeneracies;
+   madd on P-256, edw on the Ed25519 field: one window, its table
+   gather inside, over a random packed table of the basepoint and 9
+   keys), outputs equal by value mod p on both residue planes, ``deg``
+   equal on true degeneracies;
    kernel and plain times by CUDA events. keccak (65,536 states), ntt
    and intt (65,536 rows each, edge values 0 and q − 1 included) equal
    to their plain versions on every state and row. redc and madd also
@@ -24,8 +26,8 @@ Phases (any failure exits non-zero; none is caught):
    the per-window path (gathers + W madd launches) on every lane, with
    planted same-x degeneracies. The RNS kernels' bounds count their
    work per pipe (``madd_work`` and the rest); the JSON carries
-   ptxas's registers and spill bytes of each madd and ladder
-   instantiation;
+   ptxas's registers and spill bytes of each redc, madd, ladder and
+   edw instantiation;
 3. the north-star path — a JWKS of 8 RSA-2048 and 8 P-256 keys and a
    batch of 65,536 RS256/ES256 tokens tiled from 1,024 unique signed
    tokens, a seeded 1/8 share tampered, and a few tokens of each
@@ -104,16 +106,16 @@ def card_line() -> str:
 
 
 def ptxas_kernels(text: str) -> dict:
-    """Registers and spill bytes of each mixed-add kernel instantiation
-    in an ``nvcc -Xptxas -v`` log: {"madd<23,23>": {"registers": r,
-    "spill_stores": s, "spill_loads": l}, ...} ("T=4" appended where
-    the kernel takes a group size)."""
+    """Registers and spill bytes of each RNS kernel instantiation in an
+    ``nvcc -Xptxas -v`` log: {"madd<23,23> T=8": {"registers": r,
+    "spill_stores": s, "spill_loads": l}, ...} (" T=…" where the kernel
+    takes a group size)."""
     import re
 
     out, cur = {}, None
     for line in text.splitlines():
-        m = re.search(r"(madd|ladder)_kernelILi(\d+)ELi(\d+)E(?:Li(\d+)E)?",
-                      line)
+        m = re.search(r"(redc|madd|ladder|edw)_kernelILi(\d+)ELi(\d+)E"
+                      r"(?:Li(\d+)E)?", line)
         if m and ("Compiling entry" in line or "Function properties" in line):
             cur = f"{m[1]}<{m[2]},{m[3]}>" + (f" T={m[4]}" if m[4] else "")
             out.setdefault(cur, {})
@@ -222,8 +224,9 @@ def rmul_work(ia: int, ib: int) -> dict:
 
 
 def edw_work(ia: int, ib: int) -> dict:
-    # 7 multiplies; three lazy subs and four adds
-    return work((7, rmul_work(ia, ib)), alu=7 * (ia + ib))
+    # 7 multiplies; three lazy subs and four adds; the unpack of the
+    # table triple (a mask or a shift a digit)
+    return work((7, rmul_work(ia, ib)), alu=10 * (ia + ib))
 
 
 def madd_work(ia: int, ib: int) -> dict:
@@ -348,7 +351,8 @@ def redc_check(c, rng, n: int, label: str):
     """The REDC kernel against its plain version on ``n`` lanes of
     products x < 2^(16·cb) < A·p (what an rmul feeds its REDC, cb the
     curve's coordinate bytes), 64 lanes also against x·A⁻¹ mod p;
-    kernel and plain times by CUDA events."""
+    the kernel's device time by the profiler, the plain version's by
+    CUDA events."""
     import numpy as np
     import torch
 
@@ -372,7 +376,10 @@ def redc_check(c, rng, n: int, label: str):
         assert (c.value_of(ka[:, j]) - x * a_inv) % p == 0, "redc value"
     assert err == 0 and split == 0, \
         f"redc disagrees by {err} on {ndiff} lanes ({split} split)"
-    ms_k = cuda_ms(lambda: cuda_redc.redc(c, xA, xB), 50)
+    # the kernel's device time a launch: at 65,536 lanes a call's host
+    # work outlasts the kernel, so CUDA events around a loop of calls
+    # would time the host
+    ms_k = kernel_ms(lambda: cuda_redc.redc(c, xA, xB), 50, "redc_kernel")
     ms_p = cuda_ms(lambda: cuda_redc.redc_ref(c, xA, xB), 10)
     nbytes = n * (2 * ia + 2 * ib) * 4
     b_ms, b_by, pipe = rns_bound(nbytes, redc_work(ia, ib), n)
@@ -488,8 +495,12 @@ def wide_phase(records):
 
 
 def edw_phase(records, rng):
-    """The Ed25519 window kernel at 65,536 lanes: states below 2^256
-    (< 3p, the REDC output bound) and table triples below p."""
+    """One Ed25519 ladder window (``cuda_edw.edw_window``) at 65,536
+    lanes, as a 32,768-token EdDSA chunk runs it: states below 2^256
+    (< 3p, the REDC output bound), a packed table of random triples
+    below p in the basepoint's slot and 9 key slots (config-4's 8 + 1
+    keys), and window 17's rows, the B chain on the basepoint's slot
+    and the A chain on random key slots, with random digits."""
     import numpy as np
     import torch
 
@@ -497,18 +508,30 @@ def edw_phase(records, rng):
 
     c = ed25519_rns.ctx()
     ia, ib = c.A.count, c.B.count
+    iap = max(ia, ib)
     n = KERNEL_LANES
     dev = torch.device("cuda")
 
-    def planes(top):
-        raw = rng.integers(0, 256, (n, 32), dtype=np.uint8)
-        raw[:, 0] = np.minimum(raw[:, 0], top)
-        return tuple(torch.from_numpy(a).to(dev)
-                     for a in residues_of_bytes(c, raw))
+    def raw(m, top):
+        r = rng.integers(0, 256, (m, 32), dtype=np.uint8)
+        r[:, 0] = np.minimum(r[:, 0], top)
+        return r
 
-    ins = [planes(255) for _ in range(4)] + [planes(0x7E) for _ in range(3)]
-    out_k = cuda_edw.edw(c, *ins)
-    out_p = cuda_edw.edw_ref(c, *ins)
+    state = [tuple(torch.from_numpy(a).to(dev)
+                   for a in residues_of_bytes(c, raw(n, 255)))
+             for _ in range(4)]
+    slot = ed25519_rns.NW8 * ed25519_rns.PER
+    n_rows = 10 * slot
+    tab = torch.from_numpy(np.ascontiguousarray(np.concatenate(
+        [pack_words(c, *residues_of_bytes(c, raw(n_rows, 0x7E))).T
+         for _ in range(3)], axis=1))).to(dev)
+    win = 17 * ed25519_rns.PER
+    slots = np.concatenate([np.zeros(n // 2, np.int64),
+                            rng.integers(1, 10, n - n // 2)])
+    rows = torch.from_numpy((slots * slot + win + rng.integers(
+        0, ed25519_rns.PER, n)).astype(np.int32)).to(dev)
+    out_k = cuda_edw.edw_window(c, *state, tab, rows)
+    out_p = cuda_edw.edw_window_ref(c, *state, tab, rows)
     torch.cuda.synchronize()
     err = ndiff = split = 0
     for kk, pp in zip(out_k, out_p):
@@ -517,14 +540,15 @@ def edw_phase(records, rng):
         err, ndiff, split = max(err, e), ndiff + d, split + sp
     assert err == 0 and split == 0, \
         f"edw disagrees by {err} on {ndiff} lane planes ({split} split)"
-    ms_k = cuda_ms(lambda: cuda_edw.edw(c, *ins), 20)
-    ms_p = cuda_ms(lambda: cuda_edw.edw_ref(c, *ins), 5)
-    nbytes = n * (7 + 4) * (ia + ib) * 4
+    ms_k = cuda_ms(lambda: cuda_edw.edw_window(c, *state, tab, rows), 20)
+    ms_p = cuda_ms(lambda: cuda_edw.edw_window_ref(c, *state, tab, rows), 5)
+    # 4 state pairs in and 4 out, one packed table row and its index
+    nbytes = n * (8 * (ia + ib) * 4 + 3 * iap * 4 + 4)
     b_ms, b_by, pipe = rns_bound(nbytes, edw_work(ia, ib), n)
-    log(f"kernel edw: {n} lanes, {ndiff} lane planes not bit-equal in A or "
-        f"B, max value err {err} over both planes of X, Y, Z, T; kernel "
-        f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}, {pipe})")
+    log(f"kernel edw: {n} lanes, one window over a {n_rows}-row table, "
+        f"{ndiff} lane planes not bit-equal in A or B, max value err {err} "
+        f"over both planes of X, Y, Z, T; kernel {ms_k:.4f} ms, plain "
+        f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {pipe})")
     records["edw"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
                           bound_ms=b_ms, bound_by=b_by)
     keccak_phase(records, rng)
@@ -1379,7 +1403,8 @@ def main() -> int:
         dict(name="redc", route="cuda",
              source="cap_tpu_torch/gpu/csrc/redc.cu",
              replaces="cap_tpu/tpu/pallas_redc.py:177",
-             library_ms=None, **records["redc"]),
+             library_ms=None, **records["redc"],
+             ptxas={k: v for k, v in ptxas.items() if k.startswith("redc")}),
         dict(name="madd", route="cuda",
              source="cap_tpu_torch/gpu/csrc/madd.cu",
              replaces="cap_tpu/tpu/pallas_madd.py:125",
@@ -1394,7 +1419,8 @@ def main() -> int:
         dict(name="edw", route="cuda",
              source="cap_tpu_torch/gpu/csrc/edw.cu",
              replaces="cap_tpu/tpu/pallas_edw.py:58",
-             library_ms=None, **records["edw"]),
+             library_ms=None, **records["edw"],
+             ptxas={k: v for k, v in ptxas.items() if k.startswith("edw")}),
         dict(name="keccak", route="cuda",
              source="cap_tpu_torch/gpu/csrc/keccak.cu",
              replaces="cap_tpu/tpu/pallas_keccak.py:360",

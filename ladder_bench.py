@@ -1,33 +1,41 @@
 #!/usr/bin/env python3
-"""Time the ES ladder's CUDA kernels of one checkout on one NVIDIA card.
+"""Time the RNS CUDA kernels of one checkout on one NVIDIA card.
 
     python3 ladder_bench.py [--root DIR] [--lanes N] [--build-only]
                             [--sass]
 
 Imports ``cap_tpu_torch`` from DIR (default: this script's checkout)
-and builds its madd kernel, and its whole-ladder kernel where DIR has
-one; a build run in this process prints ptxas's register and spill
-lines. To time another layout, edit it in a second checkout and
-pass that with ``--root``. ``--sass`` counts the built kernels'
+and builds its redc, madd and edw kernels, and its whole-ladder kernel
+where DIR has one; a build run in this process prints ptxas's register
+and spill lines. To time another layout, edit it in a second checkout
+and pass that with ``--root``. ``--sass`` counts the built kernels'
 SASS instructions by class (cuobjdump). ``--build-only`` stops after
 the build, so several checkouts can build in parallel before any of
 them is timed. Then, on inputs made from one seed the same way for any
 checkout, it times by CUDA events, at ``--lanes`` lanes (default
-65,536: one 32,768-token ES chunk):
+65,536: one 32,768-token ES or EdDSA chunk):
 
-- one ``cuda_madd.madd`` launch on each curve whose channel counts the
-  checkout builds (random state and table values < p, random has and
-  inf masks);
+- one ``cuda_redc.redc`` launch on each curve whose channel counts the
+  checkout builds (products x < 2^(16·coordinate bytes), as an rmul
+  feeds its REDC), by the profiler's device time a launch: at this
+  size a call's host work outlasts the kernel;
+- one ``cuda_madd.madd`` launch on each of those curves (random state
+  and table values < p, random has and inf masks);
 - that curve's ladder over a window table of G and 8 key slots
   (random values < p, random 8-bit digits, half the lanes on G's slot):
   one madd a window, each after an ``index_select`` gather of the
   window's rows (the per-window path of ``ec_rns``), and, where the
   checkout has it, the whole-ladder kernel on the same inputs, with the
-  count of lanes whose results differ between the two.
+  count of lanes whose results differ between the two;
+- the 32-window Ed25519 ladder of one chunk (both chains, a random
+  table of the basepoint and 9 key slots, random digits, window rows
+  built once): ``cuda_edw.edw_window`` a window where the checkout has
+  it, else a gather of the window's planes and ``cuda_edw.edw``; the
+  edw kernel's device time a launch also by the profiler.
 
-The JSON carries a SHA-256 digest of each kernel's outputs per curve:
-equal digests across checkouts show their kernels equal word for word
-on these inputs.
+The JSON carries a SHA-256 digest of each kernel's outputs per curve
+(and of the Ed ladder's): equal digests across checkouts show their
+kernels equal word for word on these inputs.
 
 Prints the card's name and power limit, then one JSON line. To compare
 two checkouts, build both, then run A, B, B, A in one call on one card.
@@ -41,7 +49,8 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import ptxas_kernels  # this script's checkout's
+# this script's checkout's
+from chip_smoke import kernel_ms, ptxas_kernels, residues_of_bytes
 
 SEED = 20261017
 CURVES = ("P-256", "P-384", "P-521")
@@ -126,9 +135,8 @@ SASS_CLASSES = ("I2F", "F2I", "FRND", "IMAD", "LDS", "LDL", "STL")
 
 
 def sass_counts(lib: str) -> dict:
-    """{kernel: {class: count, "total": n}} of a built library's madd
-    and ladder kernels (cuobjdump -sass from the CUDA toolkit or
-    Triton's copy)."""
+    """{kernel: {class: count, "total": n}} of a built library's RNS
+    kernels (cuobjdump -sass from the CUDA toolkit or Triton's copy)."""
     import re
     import shutil
     from importlib.util import find_spec
@@ -161,6 +169,66 @@ def sass_counts(lib: str) -> dict:
     return out
 
 
+def ed_ladder_case(er, rng, n: int):
+    """(state, column-major table [3·(I_A + I_B), rows], packed table
+    [rows, 3·iap], window rows [NW8, n]) of a 32-window Ed25519 ladder
+    on n lanes: random triples < p in the basepoint's slot and 9 key
+    slots; the first n/2 lanes (the B chain) on the basepoint's slot,
+    the others on a random key's, random digits."""
+    import numpy as np
+
+    c = er.ctx()
+    ia, ib = c.A.count, c.B.count
+    iap = max(ia, ib)
+    slot = er.NW8 * er.PER
+    n_rows = 10 * slot
+    planes, packed = [], []
+    for _ in range(3):
+        raw = rng.integers(0, 256, (n_rows, 32), dtype=np.uint8)
+        raw[:, 0] = np.minimum(raw[:, 0], 0x7E)
+        a, b = residues_of_bytes(c, raw)
+        planes += [a, b]
+        w = np.zeros((n_rows, iap), np.int32)
+        w[:, :ia] = a.T
+        w[:, :ib] |= b.T << 16
+        packed.append(w)
+    key = np.concatenate([np.zeros(n // 2, np.int64),
+                          rng.integers(1, 10, n - n // 2)])
+    d = rng.integers(0, er.PER, (er.NW8, n))
+    rows = key[None, :] * slot + np.arange(er.NW8)[:, None] * er.PER + d
+    return (np.ascontiguousarray(np.concatenate(planes)),
+            np.ascontiguousarray(np.concatenate(packed, axis=1)),
+            np.ascontiguousarray(rows.astype(np.int32)))
+
+
+def ed_ladder(cuda_edw, c, tab_cols, tab, rows):
+    """The 32 windows from X = T = 0, Y = Z = 1 (A-domain): one fused
+    ``edw_window`` launch a window where the checkout has it, else the
+    gather of the window's planes and one ``edw`` launch."""
+    import torch
+
+    ia, ib = c.A.count, c.B.count
+    w = ia + ib
+    n = rows.shape[1]
+    dev = rows.device
+    one = c.device_consts(dev).one
+    zero = (torch.zeros((ia, n), dtype=torch.int32, device=dev),
+            torch.zeros((ib, n), dtype=torch.int32, device=dev))
+    one_b = (one[0].expand(ia, n).contiguous(),
+             one[1].expand(ib, n).contiguous())
+    X, Y, Z, T = zero, one_b, one_b, zero
+    fused = getattr(cuda_edw, "edw_window", None)
+    for i in range(rows.shape[0]):
+        if fused is not None:
+            X, Y, Z, T = fused(c, X, Y, Z, T, tab, rows[i])
+            continue
+        g = tab_cols.index_select(1, rows[i].to(torch.int64))
+        ym, yp, t2 = [(g[t * w: t * w + ia], g[t * w + ia: (t + 1) * w])
+                      for t in range(3)]
+        X, Y, Z, T = cuda_edw.edw(c, X, Y, Z, T, ym, yp, t2)
+    return X, Y, Z, T
+
+
 def lanes_differ(a, b) -> int:
     diff = (a[3] != b[3]) | (a[4] != b[4])
     for pa, pb in zip(a[:3], b[:3]):
@@ -187,9 +255,11 @@ def main() -> int:
     import numpy as np
 
     from cap_tpu_torch import _build
-    from cap_tpu_torch.gpu import cuda_madd, cuda_redc, ec_rns
+    from cap_tpu_torch.gpu import cuda_edw, cuda_madd, cuda_redc, ec_rns
+    from cap_tpu_torch.gpu import ed25519_rns as er
 
-    names = [n for n in ("madd", "ladder") if n in _build.KERNELS]
+    names = [n for n in ("redc", "madd", "ladder", "edw")
+             if n in _build.KERNELS]
     t0 = time.perf_counter()
     libs = _build.build_all(names)
     build_s = time.perf_counter() - t0
@@ -223,11 +293,22 @@ def main() -> int:
     T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     n = args.lanes
     out = dict(root=root, card=card, lanes=n, build_s=build_s,
-               ptxas=ptxas, sass=sass, madd={}, ladder={}, digests={})
+               ptxas=ptxas, sass=sass, redc={}, madd={}, ladder={},
+               digests={})
     for crv in CURVES:
         c = ec_rns.ctx_for(crv)
         if (c.A.count, c.B.count) not in cuda_redc.KERNEL_SHAPES:
             continue
+        dig = out["digests"].setdefault(crv, {})
+        # one redc launch, on its own stream of the seed
+        rng = np.random.default_rng([SEED, CURVES.index(crv), 1])
+        xA, xB = (T(a) for a in residues_of_bytes(c, rng.integers(
+            0, 256, (n, 2 * c.cp.coord_bytes), dtype=np.uint8)))
+        ms = kernel_ms(lambda: cuda_redc.redc(c, xA, xB), 50, "redc_kernel")
+        out["redc"][crv] = ms
+        dig["redc"] = digest(cuda_redc.redc(c, xA, xB))
+        print(f"redc {crv}: {n} lanes, {ms:.4f} ms, outputs sha256 "
+              f"{dig['redc'][:16]}", flush=True)
         rng = np.random.default_rng([SEED, CURVES.index(crv)])
         # one madd launch
         X, Y, Z = (tuple(T(a) for a in residues(ec_rns, c, rng, n)[:2])
@@ -239,7 +320,6 @@ def main() -> int:
         ms = cuda_ms(lambda: cuda_madd.madd(c, X, Y, Z, inf, has, x2p,
                                             y2p), 20)
         out["madd"][crv] = ms
-        dig = out["digests"].setdefault(crv, {})
         dig["madd"] = digest(flat(cuda_madd.madd(c, X, Y, Z, inf, has, x2p,
                                                  y2p)))
         print(f"madd {crv}: {n} lanes, {ms:.4f} ms, outputs sha256 "
@@ -275,6 +355,23 @@ def main() -> int:
                      f"{dig['ladder'][:16]}")
         out["ladder"][crv] = rec
         print(line, flush=True)
+    # the Ed25519 ladder of one chunk
+    c = er.ctx()
+    tab_cols, tab, rows = (T(a) for a in ed_ladder_case(
+        er, np.random.default_rng([SEED, len(CURVES)]), n))
+    ms = cuda_ms(lambda: ed_ladder(cuda_edw, c, tab_cols, tab, rows), 5)
+    edw_ms = kernel_ms(lambda: ed_ladder(cuda_edw, c, tab_cols, tab, rows),
+                       2, "edw_kernel")
+    via = "edw_window" if hasattr(cuda_edw, "edw_window") else \
+        "gather + edw"
+    out["ed_ladder"] = dict(windows=int(rows.shape[0]), ms=ms,
+                            edw_ms=edw_ms, via=via)
+    dig = out["digests"].setdefault("Ed25519", {})
+    dig["ed_ladder"] = digest([t for pair in ed_ladder(
+        cuda_edw, c, tab_cols, tab, rows) for t in pair])
+    print(f"Ed25519 ladder: {n} lanes, {rows.shape[0]} windows ({via}) "
+          f"{ms:.4f} ms, edw kernel {edw_ms:.4f} ms a launch, outputs "
+          f"sha256 {dig['ed_ladder'][:16]}", flush=True)
     print(json.dumps(out), flush=True)
     return 0
 

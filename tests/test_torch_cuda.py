@@ -61,7 +61,14 @@ def _same_values(c, kernel, plain):
     return True
 
 
-@pytest.mark.parametrize("n", [1, 127, 129, 1000])
+# lane counts around the RNS kernels' lane groups: a warp holds 32/T
+# lanes and a block 128/T (T = 2, 4 or 8 threads a lane)
+GROUP_EDGES = [3, 5, 7, 9, 15, 17, 31, 33, 63, 65]
+
+
+# 70,001 lanes: more 16-lane tiles than the card holds redc blocks, so
+# blocks walk over several
+@pytest.mark.parametrize("n", [1, 127, 129, 1000, 15, 17, 33, 70001])
 def test_redc_kernel_matches_plain(dev, n):
     c = ec_rns.ctx_for("P-256")
     rng = np.random.default_rng(n)
@@ -79,11 +86,6 @@ def test_redc_kernel_matches_plain(dev, n):
     ka = tA.cpu().numpy()
     _, b_of_a = _residues(c, [c.value_of(ka[:, j]) for j in range(n)])
     assert np.array_equal(tB.cpu().numpy(), b_of_a)
-
-
-# lane counts around the mixed-add kernels' lane groups: a warp holds
-# 32/T lanes and a block 128/T (T = 2, 4 or 8 threads a lane)
-GROUP_EDGES = [3, 5, 7, 9, 15, 17, 31, 33, 63, 65]
 
 
 @pytest.mark.parametrize("n", [1, 127, 129, 1000] + GROUP_EDGES)
@@ -112,17 +114,27 @@ def test_madd_kernel_matches_plain(dev, n):
     assert not out_k[3][~has | inf].any()
 
 
-@pytest.mark.parametrize("n", [1, 127, 129, 1000])
-def test_edw_kernel_matches_plain(dev, n):
-    c = ed25519_rns.ctx()
-    rng = np.random.default_rng(200 + n)
+def _edw_case(c, n, rng, dev, n_rows=97):
+    """States X, Y, Z, T < 3p, a packed table of random triples < p
+    ([n_rows, 3·iap]) and random rows of it."""
     p = c.p_int
     T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    planes = [tuple(T(a) for a in _residues(c, _rand(rng, b * p, n)))
-              for b in (3, 3, 3, 3, 1, 1, 1)]
+    state = [tuple(T(a) for a in _residues(c, _rand(rng, 3 * p, n)))
+             for _ in range(4)]
+    tab = np.concatenate([(a | (b << 16)).T for a, b in
+                          (_residues(c, _rand(rng, p, n_rows))
+                           for _ in range(3))], axis=1)
+    rows = rng.integers(0, n_rows, n).astype(np.int32)
+    return state, T(np.ascontiguousarray(tab)), T(rows)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1000, 7, 9, 15, 17, 33])
+def test_edw_kernel_matches_plain(dev, n):
+    c = ed25519_rns.ctx()
+    state, tab, rows = _edw_case(c, n, np.random.default_rng(200 + n), dev)
     before = cuda_edw.launches
-    out_k = cuda_edw.edw(c, *planes)
-    out_p = cuda_edw.edw_ref(c, *planes)
+    out_k = cuda_edw.edw_window(c, *state, tab, rows)
+    out_p = cuda_edw.edw_window_ref(c, *state, tab, rows)
     torch.cuda.synchronize()
     assert cuda_edw.launches == before + 1
     for kk, pp in zip(out_k, out_p):
@@ -131,20 +143,25 @@ def test_edw_kernel_matches_plain(dev, n):
 
 def test_edw_wrapper_refuses_what_the_kernel_does_not_take(dev):
     c = ed25519_rns.ctx()
-    ia, ib = c.A.count, c.B.count
-    a = torch.zeros((ia, 256), dtype=torch.int32, device=dev)
-    b = torch.zeros((ib, 256), dtype=torch.int32, device=dev)
-    good = [(a, b)] * 7
-    with pytest.raises(ValueError):
-        cuda_edw.edw(c, *good[:6], (a.to(torch.int64), b))
-    with pytest.raises(ValueError):
-        cuda_edw.edw(c, *good[:6], (a[:, ::2], b[:, ::2]))
-    with pytest.raises(ValueError):
-        cuda_edw.edw(c, *good[:6], (a[:, :128], b[:, :128]))
-    with pytest.raises(ValueError):
-        cuda_edw.edw(c, *good[:6], (a.cpu(), b.cpu()))
+    state, tab, rows = _edw_case(c, 256, np.random.default_rng(1), dev)
+    a, b = state[3]
+    wide = torch.zeros((tab.shape[0], 2 * tab.shape[1]), dtype=torch.int32,
+                       device=dev)
+    for args in ((*state[:3], (a.to(torch.int64), b), tab, rows),
+                 (*state[:3], (a[:, ::2], b[:, ::2]), tab, rows),
+                 (*state[:3], (a[:, :128], b[:, :128]), tab, rows),
+                 (*state[:3], (a.cpu(), b.cpu()), tab, rows),
+                 (*state, tab.to(torch.int64), rows),
+                 (*state, wide[:, :tab.shape[1]], rows),
+                 (*state, tab[:, :-1].contiguous(), rows),
+                 (*state, tab.cpu(), rows),
+                 (*state, tab, rows.cpu()),
+                 (*state, tab, rows.to(torch.int64)),
+                 (*state, tab, rows[:128])):
+        with pytest.raises(ValueError):
+            cuda_edw.edw_window(c, *args)
     with pytest.raises(NotImplementedError):
-        cuda_edw.edw(ec_rns.ctx_for("P-384"), *good)
+        cuda_edw.edw_window(ec_rns.ctx_for("P-384"), *state, tab, rows)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

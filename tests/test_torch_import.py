@@ -94,8 +94,10 @@ def test_wrappers_take_the_plain_path_only_on_cpu_tensors():
     m = torch.zeros(4, dtype=torch.bool)
     cuda_madd.madd(c, (xA, xB), (xA, xB), (xA, xB), m, m, g, g)
     ce = ed25519_rns.ctx()
-    out = cuda_edw.edw(ce, *[(xA, xB)] * 7)
-    ref = cuda_edw.edw_ref(ce, *[(xA, xB)] * 7)
+    tab = torch.zeros((4, 3 * ce.A.count), dtype=torch.int32)
+    rows = torch.zeros(4, dtype=torch.int32)
+    out = cuda_edw.edw_window(ce, *[(xA, xB)] * 4, tab, rows)
+    ref = cuda_edw.edw_window_ref(ce, *[(xA, xB)] * 4, tab, rows)
     assert all(torch.equal(a, b) for p, q in zip(out, ref)
                for a, b in zip(p, q))
     assert (cuda_redc.launches, cuda_madd.launches,
@@ -103,4 +105,5 @@ def test_wrappers_take_the_plain_path_only_on_cpu_tensors():
     with pytest.raises(ValueError):
         cuda_redc.redc(c, xA.to("meta"), xB.to("meta"))
     with pytest.raises(ValueError):
-        cuda_edw.edw(ce, *[(xA.to("meta"), xB.to("meta"))] * 7)
+        cuda_edw.edw_window(ce, *[(xA.to("meta"), xB.to("meta"))] * 4,
+                            tab, rows)

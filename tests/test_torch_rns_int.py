@@ -17,7 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 from cap_tpu.tpu import ec_rns as j_ec_rns  # noqa: E402
 from cap_tpu.tpu import rns as j_rns  # noqa: E402
 
-from cap_tpu_torch.gpu import cuda_madd, cuda_redc  # noqa: E402
+from cap_tpu_torch.gpu import cuda_madd  # noqa: E402
 from cap_tpu_torch.gpu import ec_rns as t_ec_rns  # noqa: E402
 
 CURVES = ["P-256", "P-384", "P-521"]
@@ -36,16 +36,10 @@ def _fields(c) -> dict:
 
 
 def _split_weights(c):
-    """(hi, lo) 7-bit halves of both extension matrices as the REDC
-    kernel's buffer holds them (``Layout`` in csrc/rns_ops.cuh)."""
-    ia, ib = c.A.count, c.B.count
-    k = cuda_redc.kernel_consts(c, "cpu").numpy().astype(np.int64)
-    wh_ab = 6 * ia + 8 * ib
-    cut = [wh_ab, wh_ab + ib * ia, wh_ab + 2 * ib * ia,
-           wh_ab + 2 * ib * ia + ia * ib, wh_ab + 2 * ib * ia + 2 * ia * ib]
-    whab, wlab = (k[cut[i]:cut[i + 1]].reshape(ib, ia) for i in (0, 1))
-    whba, wlba = (k[cut[i]:cut[i + 1]].reshape(ia, ib) for i in (2, 3))
-    return (whab, wlab), (whba, wlba)
+    """(hi, lo) 7-bit halves of both extension matrices, as the
+    context's ``W_AB``/``W_BA`` hold them for the plain extension."""
+    return tuple(tuple(np.asarray(w, np.int64) for w in pair)
+                 for pair in (c.W_AB, c.W_BA))
 
 
 def bred(v, m, mu):
