@@ -8,27 +8,40 @@
 // (lane-major, even word first), so every host packing and compare
 // target matches the JAX package's word for word.
 //
-// What bounds it on the card: integer operations. A state reads and
-// writes 200 bytes each, and runs 24 rounds of ~180 32-bit integer
-// instructions (theta's parities as three-input XORs, rho's 46 funnel
-// shifts, chi as one three-input logic op a word): about twice the
-// time its bytes need at the card's memory rate.
+// What bounds it on the card: at the ML-DSA path's 1,024 states a
+// launch, latency. The work (24 rounds of ~180 integer instructions a
+// state) fills only 8 SMs when one thread runs a whole state, each
+// walking one warp a scheduler through ~4,400 dependent steps. Split
+// over a warp, a round is four dependent shuffle levels; at large
+// batches the shuffle unit's rate bounds it instead (16 a state and
+// round, about one warp shuffle a clock an SM), which makes 65,536
+// states slower than the one-thread-a-state design. That size is on
+// no path.
 //
-// Design: one thread per state, the whole state (50 words) in
-// registers for all 24 rounds, fully unrolled so every lane index is a
-// constant; round constants in __constant__. A block of 128 threads
-// stages its 128 states through shared memory (rows padded to 51
-// words, so a warp's row reads hit distinct banks), so the loads and
-// stores of device memory are coalesced although each thread owns 200
-// contiguous bytes. The ragged edge is masked in the kernel.
+// Design: 25 threads a state, one state a warp: thread l holds lane l
+// (its even and odd word) for all 24 rounds. Every exchange is a
+// __shfl_sync from a lane that the per-thread table names (g_lane_tab,
+// generated by keccak.lane_tables and uploaded once by
+// cap_keccak_set_tables), so no register array is indexed by a
+// thread-dependent value:
+// - theta: the column parity in two shuffle levels (y+1, then y+2 of
+//   that sum, with y+4 beside the first), D from x-1 and x+1;
+// - rho: the thread's own rotation, amounts and the even/odd swap read
+//   from the table;
+// - pi and chi together: each thread takes its output lane and that
+//   lane's two row neighbours straight from their pi sources;
+// - iota: XOR under a mask that is all ones on lane 0 only.
+// Threads 25..31 and the warps past the last state run on zero words
+// and skip the store; every thread executes every shuffle. A warp reads
+// and writes its state's 200 contiguous bytes, 8 bytes a thread.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace capk {
 
-constexpr int kThreads = 128;
-constexpr int kWords = 50;       // 25 lanes x (even, odd)
-constexpr int kStride = 51;      // shared row pitch (odd: no bank clash)
+constexpr int kWarps = 4;                // states a block
+constexpr int kLanes = 25;
+constexpr int kTabRows = 12;             // keccak.LANE_TAB_ROWS
 
 // RC_IL of keccak.py: the iota constants, interleaved (even, odd).
 __constant__ uint32_t c_rc[24][2] = {
@@ -46,111 +59,80 @@ __constant__ uint32_t c_rc[24][2] = {
     {0x00000001u, 0x00008000u}, {0x00000000u, 0x80008082u},
 };
 
-// rho offset of flat lane l = x + 5y (FIPS 202 §3.2.2)
-__host__ __device__ __forceinline__ constexpr int rho_of(int l) {
-  return l == 0 ? 0 : l == 1 ? 1 : l == 2 ? 62 : l == 3 ? 28
-       : l == 4 ? 27 : l == 5 ? 36 : l == 6 ? 44 : l == 7 ? 6
-       : l == 8 ? 55 : l == 9 ? 20 : l == 10 ? 3 : l == 11 ? 10
-       : l == 12 ? 43 : l == 13 ? 25 : l == 14 ? 39 : l == 15 ? 41
-       : l == 16 ? 45 : l == 17 ? 15 : l == 18 ? 21 : l == 19 ? 8
-       : l == 20 ? 18 : l == 21 ? 2 : l == 22 ? 61 : l == 23 ? 56 : 14;
-}
-
-// pi: input lane x + 5y lands at y + 5((2x + 3y) mod 5)
-__host__ __device__ __forceinline__ constexpr int pi_dest(int l) {
-  return l / 5 + 5 * ((2 * (l % 5) + 3 * (l / 5)) % 5);
-}
+// keccak.LANE_TAB, [kTabRows][32]: row k holds constant k of every
+// thread of a warp (global memory, so a warp's 32 different words are
+// one coalesced load, not 32 serialized constant reads).
+__device__ int32_t g_lane_tab[kTabRows * 32];
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int s) {
-  return s == 0 ? x : __funnelshift_l(x, x, s);
+  return __funnelshift_l(x, x, s);       // s & 31; s = 0 gives x
 }
 
-// The permutation on one state: e[l], o[l] the even and odd words of
-// lane l. The 64-bit rotation by r: even r rotates both words by r/2;
-// odd r swaps them, the new even word rotating by (r+1)/2 and the new
-// odd one by r/2.
-__device__ __forceinline__ void f1600(uint32_t (&e)[25], uint32_t (&o)[25]) {
+__device__ __forceinline__ uint32_t shfl(uint32_t v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+
+__global__ void __launch_bounds__(32 * kWarps)
+    keccak_kernel(const uint2* __restrict__ in, uint2* __restrict__ out,
+                  int n) {
+  const int t = threadIdx.x & 31;
+  const long st = long(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const bool live = st < n && t < kLanes;
+  const int32_t* tab = g_lane_tab + t;
+  const int up1 = __ldg(tab), up2 = __ldg(tab + 32), up4 = __ldg(tab + 64);
+  const int xm1 = __ldg(tab + 96), xp1 = __ldg(tab + 128);
+  const int re = __ldg(tab + 160), ro = __ldg(tab + 192);
+  const uint32_t swap = uint32_t(__ldg(tab + 224));
+  const int pi0 = __ldg(tab + 256), pi1 = __ldg(tab + 288);
+  const int pi2 = __ldg(tab + 320);
+  const uint32_t iota = uint32_t(__ldg(tab + 352));
+  uint2 w = make_uint2(0u, 0u);
+  if (live) w = in[st * kLanes + t];
+  uint32_t e = w.x, o = w.y;
 #pragma unroll
   for (int rnd = 0; rnd < 24; ++rnd) {
-    uint32_t ce[5], co[5];
-#pragma unroll
-    for (int x = 0; x < 5; ++x) {
-      ce[x] = e[x] ^ e[x + 5] ^ e[x + 10] ^ e[x + 15] ^ e[x + 20];
-      co[x] = o[x] ^ o[x + 5] ^ o[x + 10] ^ o[x + 15] ^ o[x + 20];
-    }
-#pragma unroll
-    for (int x = 0; x < 5; ++x) {
-      const uint32_t de = ce[(x + 4) % 5] ^ rotl(co[(x + 1) % 5], 1);
-      const uint32_t d_o = co[(x + 4) % 5] ^ ce[(x + 1) % 5];
-#pragma unroll
-      for (int y = 0; y < 25; y += 5) {
-        e[x + y] ^= de;
-        o[x + y] ^= d_o;
-      }
-    }
-    uint32_t be[25], bo[25];
-#pragma unroll
-    for (int l = 0; l < 25; ++l) {
-      const int r = rho_of(l);
-      const int d = pi_dest(l);
-      if (r & 1) {
-        be[d] = rotl(o[l], (r + 1) / 2);
-        bo[d] = rotl(e[l], r / 2);
-      } else {
-        be[d] = rotl(e[l], r / 2);
-        bo[d] = rotl(o[l], r / 2);
-      }
-    }
-#pragma unroll
-    for (int l = 0; l < 25; ++l) {
-      const int row = l - l % 5;
-      e[l] = be[l] ^ (~be[row + (l + 1) % 5] & be[row + (l + 2) % 5]);
-      o[l] = bo[l] ^ (~bo[row + (l + 1) % 5] & bo[row + (l + 2) % 5]);
-    }
-    e[0] ^= c_rc[rnd][0];
-    o[0] ^= c_rc[rnd][1];
+    // theta: C[x] = A[x, y..y+4], then D[x] = C[x-1] ^ rot64(C[x+1], 1)
+    const uint32_t se = e ^ shfl(e, up1), so = o ^ shfl(o, up1);
+    const uint32_t fe = shfl(e, up4), fo = shfl(o, up4);
+    const uint32_t ce = se ^ shfl(se, up2) ^ fe;
+    const uint32_t co = so ^ shfl(so, up2) ^ fo;
+    const uint32_t me = shfl(ce, xm1), mo = shfl(co, xm1);
+    const uint32_t pe = shfl(ce, xp1), po = shfl(co, xp1);
+    e ^= me ^ rotl(po, 1);
+    o ^= mo ^ pe;
+    // rho on the thread's own lane: an odd amount swaps the words
+    const uint32_t be = rotl((o & swap) | (e & ~swap), re);
+    const uint32_t bo = rotl((e & swap) | (o & ~swap), ro);
+    // pi + chi: B[l] ^ (~B[x+1] & B[x+2]), each from its pi source
+    const uint32_t b0e = shfl(be, pi0), b0o = shfl(bo, pi0);
+    const uint32_t b1e = shfl(be, pi1), b1o = shfl(bo, pi1);
+    const uint32_t b2e = shfl(be, pi2), b2o = shfl(bo, pi2);
+    e = b0e ^ (~b1e & b2e) ^ (c_rc[rnd][0] & iota);
+    o = b0o ^ (~b1o & b2o) ^ (c_rc[rnd][1] & iota);
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    keccak_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                  int n) {
-  __shared__ uint32_t tile[kThreads * kStride];
-  const long first = long(blockIdx.x) * kThreads;
-  const int cnt = n - first < kThreads ? int(n - first) : kThreads;
-  const uint32_t* src = in + first * kWords;
-  for (int w = threadIdx.x; w < cnt * kWords; w += kThreads)
-    tile[(w / kWords) * kStride + w % kWords] = src[w];
-  __syncthreads();
-  uint32_t e[25], o[25];
-  uint32_t* mine = tile + threadIdx.x * kStride;
-  if (threadIdx.x < cnt) {
-#pragma unroll
-    for (int l = 0; l < 25; ++l) {
-      e[l] = mine[2 * l];
-      o[l] = mine[2 * l + 1];
-    }
-    f1600(e, o);
-#pragma unroll
-    for (int l = 0; l < 25; ++l) {
-      mine[2 * l] = e[l];
-      mine[2 * l + 1] = o[l];
-    }
-  }
-  __syncthreads();
-  uint32_t* dst = out + first * kWords;
-  for (int w = threadIdx.x; w < cnt * kWords; w += kThreads)
-    dst[w] = tile[(w / kWords) * kStride + w % kWords];
+  if (live) out[st * kLanes + t] = make_uint2(e, o);
 }
 
 }  // namespace capk
 
+#ifndef CAPK_NO_LAUNCH
+// tab: keccak.LANE_TAB, [12, 32] int32, copied once per process before
+// the first launch.
+extern "C" int cap_keccak_set_tables(const void* tab) {
+  return int(cudaMemcpyToSymbol(capk::g_lane_tab, tab,
+                                sizeof(int32_t) * capk::kTabRows * 32));
+}
+
 // in, out: [n, 25, 2] uint32 words (int32 tensors), contiguous.
 extern "C" int cap_keccak(const void* in, void* out, int n, void* stream) {
   if (n <= 0) return int(cudaErrorInvalidValue);
-  const int grid = (n + capk::kThreads - 1) / capk::kThreads;
-  capk::keccak_kernel<<<grid, capk::kThreads, 0,
+  const uintptr_t ends = reinterpret_cast<uintptr_t>(in) |
+                         reinterpret_cast<uintptr_t>(out);
+  if (ends % 8) return int(cudaErrorMisalignedAddress);   // 8-byte lanes
+  const int grid = (n + capk::kWarps - 1) / capk::kWarps;
+  capk::keccak_kernel<<<grid, 32 * capk::kWarps, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), n);
+      static_cast<const uint2*>(in), static_cast<uint2*>(out), n);
   return int(cudaGetLastError());
 }
+#endif

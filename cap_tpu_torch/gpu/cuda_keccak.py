@@ -7,7 +7,8 @@ every state of an int32 ``[..., 25, 2]`` tensor of bit-interleaved
 words (the uint32 bit patterns; ``[..., l, 0]`` the even bits of lane
 l, ``[..., l, 1]`` the odd). The kernel takes that layout as it is,
 one contiguous ``[n, 25, 2]`` buffer with the leading axes folded,
-one thread per state.
+25 threads (one warp) a state; its per-thread constants are
+``keccak.LANE_TAB``, uploaded once per process.
 
 On a CUDA tensor it launches ``csrc/keccak.cu`` (or raises); on a CPU
 tensor it runs ``keccak.f1600_plain``. ``launches`` counts kernel
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 launches = 0
@@ -34,6 +36,14 @@ def _kernel():
         vp = ctypes.c_void_p
         lib.cap_keccak.argtypes = [vp, vp, ctypes.c_int, vp]
         lib.cap_keccak.restype = ctypes.c_int
+        lib.cap_keccak_set_tables.argtypes = [vp]
+        lib.cap_keccak_set_tables.restype = ctypes.c_int
+        from .keccak import LANE_TAB
+
+        tab = np.ascontiguousarray(LANE_TAB, np.int32)
+        rc = lib.cap_keccak_set_tables(tab.ctypes.data)
+        if rc != 0:
+            raise RuntimeError(f"keccak table upload failed: CUDA error {rc}")
         _lib = lib
     return _lib
 

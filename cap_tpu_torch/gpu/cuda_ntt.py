@@ -4,9 +4,10 @@ their plain PyTorch versions.
 ``ntt(x)`` and ``intt(x)`` compute what the JAX package's
 ``pallas_ntt._ntt_kernel`` and ``_intt_kernel`` compute: all 8
 butterfly stages (and, for the inverse, the folded 256⁻¹ scale) on
-int32 ``[..., 256]`` rows of canonical values in [0, q). The kernel
-takes the rows as one contiguous ``[rows, 256]`` buffer (the leading
-axes folded), one block per four rows.
+int32 ``[..., 256]`` rows of canonical values in [0, q). The kernels
+take the rows as one contiguous ``[rows, 256]`` buffer (the leading
+axes folded): the forward one warp a row, its 8 stages in registers;
+the inverse one block per four rows.
 
 On a CUDA tensor each launches ``csrc/ntt.cu`` (or raises); on a CPU
 tensor it runs ``ntt.ntt_plain`` / ``ntt.intt_plain``.

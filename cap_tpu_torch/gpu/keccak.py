@@ -170,6 +170,48 @@ _RHO_RO = RHO // 2                                        # rot for O'
 
 
 # ---------------------------------------------------------------------------
+# the per-thread constants of csrc/keccak.cu (25 threads a state)
+# ---------------------------------------------------------------------------
+
+# Rows of LANE_TAB, in the kernel's order. Thread l < 25 of a warp holds
+# flat lane l = x + 5y; each *source* row names the thread a shuffle
+# reads from:
+# - up1, up2, up4: lanes (x, y+1), (x, y+2), (x, y+4) (θ's parity);
+# - xm1, xp1: lanes (x-1, y), (x+1, y) (θ's D);
+# - re, ro, swap: ρ on the thread's own lane (its word rotations, and
+#   -1 where the odd amount swaps the words);
+# - pi0, pi1, pi2: the π sources of output lane l and of its row
+#   neighbours x+1 and x+2 (χ);
+# - iota: -1 on lane 0 (ι's mask).
+# Threads 25..31 hold no lane: they read from themselves and rotate by 0.
+LANE_TAB_ROWS = ("up1", "up2", "up4", "xm1", "xp1", "re", "ro", "swap",
+                 "pi0", "pi1", "pi2", "iota")
+
+
+def lane_tables() -> np.ndarray:
+    """The kernel's per-thread constants, int32 [len(LANE_TAB_ROWS), 32]
+    (row k holds constant k of each thread of a warp)."""
+    def lane(x, y):
+        return x % 5 + 5 * (y % 5)
+
+    tab = np.zeros((len(LANE_TAB_ROWS), 32), np.int64)
+    for r in ("up1", "up2", "up4", "xm1", "xp1", "pi0", "pi1", "pi2"):
+        tab[LANE_TAB_ROWS.index(r)] = np.arange(32)
+    for t in range(25):
+        x, y = t % 5, t // 5
+        row = 5 * y
+        tab[:, t] = (lane(x, y + 1), lane(x, y + 2), lane(x, y + 4),
+                     lane(x - 1, y), lane(x + 1, y), _RHO_RE[t],
+                     _RHO_RO[t], -int(_RHO_SWAP[t]), PI_SRC[t],
+                     PI_SRC[row + (x + 1) % 5], PI_SRC[row + (x + 2) % 5],
+                     -int(t == 0))
+    return tab.astype(np.int32)
+
+
+LANE_TAB = lane_tables()
+
+
+# ---------------------------------------------------------------------------
 # the plain PyTorch permutation (words in int64, below 2^32)
 # ---------------------------------------------------------------------------
 

@@ -26,8 +26,9 @@ Phases (any failure exits non-zero; none is caught):
    the per-window path (gathers + W madd launches) on every lane, with
    planted same-x degeneracies. The RNS kernels' bounds count their
    work per pipe (``madd_work`` and the rest); the JSON carries
-   ptxas's registers and spill bytes of each redc, madd, ladder and
-   edw instantiation;
+   ptxas's registers, stack frame and spill bytes of each redc, madd,
+   ladder and edw instantiation and of the keccak, ntt and intt
+   kernels;
 3. the north-star path — a JWKS of 8 RSA-2048 and 8 P-256 keys and a
    batch of 65,536 RS256/ES256 tokens tiled from 1,024 unique signed
    tokens, a seeded 1/8 share tampered, and a few tokens of each
@@ -106,26 +107,36 @@ def card_line() -> str:
 
 
 def ptxas_kernels(text: str) -> dict:
-    """Registers and spill bytes of each RNS kernel instantiation in an
-    ``nvcc -Xptxas -v`` log: {"madd<23,23> T=8": {"registers": r,
-    "spill_stores": s, "spill_loads": l}, ...} (" T=…" where the kernel
-    takes a group size)."""
+    """Registers, stack frame and spill bytes of each kernel
+    instantiation in an ``nvcc -Xptxas -v`` log: {"madd<23,23> T=8":
+    {"registers": r, "stack_frame": f, "spill_stores": s, "spill_loads":
+    l}, ...} (" T=…" where an RNS kernel takes a group size; "keccak",
+    "ntt_fwd" and "intt" for the ML-DSA kernels, "ntt<false>" and
+    "ntt<true>" for an older checkout's)."""
     import re
 
     out, cur = {}, None
     for line in text.splitlines():
-        m = re.search(r"(redc|madd|ladder|edw)_kernelILi(\d+)ELi(\d+)E"
-                      r"(?:Li(\d+)E)?", line)
-        if m and ("Compiling entry" in line or "Function properties" in line):
-            cur = f"{m[1]}<{m[2]},{m[3]}>" + (f" T={m[4]}" if m[4] else "")
-            out.setdefault(cur, {})
-            continue
+        if "Compiling entry" in line or "Function properties" in line:
+            m = re.search(r"(redc|madd|ladder|edw)_kernelILi(\d+)ELi(\d+)E"
+                          r"(?:Li(\d+)E)?", line)
+            k = re.search(r"(keccak|ntt_fwd|intt)_kernel|ntt_kernelILb([01])E",
+                          line)
+            if m:
+                cur = f"{m[1]}<{m[2]},{m[3]}>" + (f" T={m[4]}" if m[4]
+                                                  else "")
+            elif k:
+                cur = k[1] or f"ntt<{'true' if k[2] == '1' else 'false'}>"
+            if m or k:
+                out.setdefault(cur, {})
+                continue
         if cur is None:
             continue
-        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                       line)
+        sp = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads", line)
         if sp:
-            out[cur].update(spill_stores=int(sp[1]), spill_loads=int(sp[2]))
+            out[cur].update(stack_frame=int(sp[1]), spill_stores=int(sp[2]),
+                            spill_loads=int(sp[3]))
         rg = re.search(r"Used (\d+) registers", line)
         if rg:
             out[cur]["registers"] = int(rg[1])
@@ -773,8 +784,8 @@ def path_shape_phase(records, ks, tokens):
     fns = {"keccak": (cuda_keccak.f1600, keccak.f1600_plain, 50, "states"),
            "ntt": (cuda_ntt.ntt, ntt.ntt_plain, 256, "rows"),
            "intt": (cuda_ntt.intt, ntt.intt_plain, 256, "rows")}
-    kernel_keys = {"keccak": "keccak_kernel", "ntt": "ntt_kernel<false>",
-                   "intt": "ntt_kernel<true>"}
+    kernel_keys = {"keccak": "keccak_kernel", "ntt": "ntt_fwd_kernel",
+                   "intt": "intt_kernel"}
     shapes = {}
     for name, x, out in capture_wrapper_calls(ks, tokens):
         width, unit = fns[name][2:]
@@ -1424,15 +1435,18 @@ def main() -> int:
         dict(name="keccak", route="cuda",
              source="cap_tpu_torch/gpu/csrc/keccak.cu",
              replaces="cap_tpu/tpu/pallas_keccak.py:360",
-             library_ms=None, **records["keccak"]),
+             library_ms=None, **records["keccak"],
+             ptxas={k: v for k, v in ptxas.items() if k == "keccak"}),
         dict(name="ntt", route="cuda",
              source="cap_tpu_torch/gpu/csrc/ntt.cu",
              replaces="cap_tpu/tpu/pallas_ntt.py:89",
-             library_ms=None, **records["ntt"]),
+             library_ms=None, **records["ntt"],
+             ptxas={k: v for k, v in ptxas.items() if k == "ntt_fwd"}),
         dict(name="intt", route="cuda",
              source="cap_tpu_torch/gpu/csrc/ntt.cu",
              replaces="cap_tpu/tpu/pallas_ntt.py:93",
-             library_ms=None, **records["intt"]),
+             library_ms=None, **records["intt"],
+             ptxas={k: v for k, v in ptxas.items() if k == "intt"}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Time the RNS CUDA kernels of one checkout on one NVIDIA card.
+"""Time the CUDA kernels of one checkout on one NVIDIA card.
 
     python3 ladder_bench.py [--root DIR] [--lanes N] [--build-only]
                             [--sass]
 
 Imports ``cap_tpu_torch`` from DIR (default: this script's checkout)
-and builds its redc, madd and edw kernels, and its whole-ladder kernel
-where DIR has one; a build run in this process prints ptxas's register
-and spill lines. To time another layout, edit it in a second checkout
-and pass that with ``--root``. ``--sass`` counts the built kernels'
-SASS instructions by class (cuobjdump). ``--build-only`` stops after
-the build, so several checkouts can build in parallel before any of
-them is timed. Then, on inputs made from one seed the same way for any
-checkout, it times by CUDA events, at ``--lanes`` lanes (default
-65,536: one 32,768-token ES or EdDSA chunk):
+and builds its redc, madd, edw, keccak and ntt kernels, and its
+whole-ladder kernel where DIR has one; a build run in this process
+prints ptxas's register and spill lines. To time another layout, edit
+it in a second checkout and pass that with ``--root``. ``--sass``
+counts the built kernels' SASS instructions by class (cuobjdump).
+``--build-only`` stops after the build, so several checkouts can build
+in parallel before any of them is timed. Then, on inputs made from
+one seed the same way for any checkout, it times by CUDA events, at
+``--lanes`` lanes (default 65,536: one 32,768-token ES or EdDSA
+chunk):
 
 - one ``cuda_redc.redc`` launch on each curve whose channel counts the
   checkout builds (products x < 2^(16·coordinate bytes), as an rmul
@@ -33,9 +34,18 @@ checkout, it times by CUDA events, at ``--lanes`` lanes (default
   it, else a gather of the window's planes and ``cuda_edw.edw``; the
   edw kernel's device time a launch also by the profiler.
 
+- the ML-DSA kernels at the shapes of one 1,024-token chunk, and
+  keccak also at 65,536 states: ``cuda_keccak.f1600`` on [1024, 25, 2]
+  and [65536, 25, 2], ``cuda_ntt.ntt`` on [1024, 4, 256], [1024, 5,
+  256] and [1024, 256], ``cuda_ntt.intt`` on [1024, 4, 256] and [1024,
+  6, 256] (random words or values < q, edge values among them), each
+  by the profiler's device time a launch; beside them the launch
+  floor, the device time of a one-element ``add_``.
+
 The JSON carries a SHA-256 digest of each kernel's outputs per curve
-(and of the Ed ladder's): equal digests across checkouts show their
-kernels equal word for word on these inputs.
+(and of the Ed ladder's, and of each ML-DSA kernel's per shape): equal
+digests across checkouts show their kernels equal word for word on
+these inputs.
 
 Prints the card's name and power limit, then one JSON line. To compare
 two checkouts, build both, then run A, B, B, A in one call on one card.
@@ -135,7 +145,7 @@ SASS_CLASSES = ("I2F", "F2I", "FRND", "IMAD", "LDS", "LDL", "STL")
 
 
 def sass_counts(lib: str) -> dict:
-    """{kernel: {class: count, "total": n}} of a built library's RNS
+    """{kernel: {class: count, "total": n}} of a built library's
     kernels (cuobjdump -sass from the CUDA toolkit or Triton's copy)."""
     import re
     import shutil
@@ -229,6 +239,59 @@ def ed_ladder(cuda_edw, c, tab_cols, tab, rows):
     return X, Y, Z, T
 
 
+# (kernel, shape) of the ML-DSA kernels' cases: one chunk's shapes,
+# and keccak at 65,536 states
+MLDSA_CASES = (("keccak", (1024, 25, 2)), ("keccak", (65536, 25, 2)),
+               ("ntt", (1024, 4, 256)), ("ntt", (1024, 5, 256)),
+               ("ntt", (1024, 256)), ("intt", (1024, 4, 256)),
+               ("intt", (1024, 6, 256)))
+
+
+def mldsa_kernels(root: str, dev, out: dict) -> None:
+    """Time and digest each of MLDSA_CASES (inputs from the seed, the
+    same for any checkout) into out["mldsa"] and out["digests"]."""
+    import numpy as np
+    import torch
+
+    from cap_tpu_torch.gpu import cuda_keccak, cuda_ntt, ntt
+
+    src = open(os.path.join(root, "cap_tpu_torch", "gpu", "csrc",
+                            "ntt.cu")).read()
+    # profiler keys: this tree's kernel names, or those of a checkout
+    # whose two NTTs are one template's instantiations
+    old = "ntt_kernel<kInverse>" in src
+    fns = {"keccak": (cuda_keccak.f1600, "keccak_kernel"),
+           "ntt": (cuda_ntt.ntt,
+                   "ntt_kernel<false>" if old else "ntt_fwd_kernel"),
+           "intt": (cuda_ntt.intt,
+                    "ntt_kernel<true>" if old else "intt_kernel")}
+    # the launch floor: the device time of a one-element add_
+    one = torch.zeros(1, device=dev)
+    out["floor_ms"] = kernel_ms(lambda: one.add_(1), 50, "elementwise_kernel")
+    print(f"launch floor (one-element add_): {out['floor_ms']:.4f} ms",
+          flush=True)
+    out["mldsa"] = {}
+    dig = out["digests"].setdefault("ML-DSA", {})
+    for i, (name, shape) in enumerate(MLDSA_CASES):
+        rng = np.random.default_rng([SEED, 10 + i])
+        if name == "keccak":
+            x = rng.integers(0, 2 ** 32, shape, dtype=np.uint64)
+            x.reshape(-1, 50)[0], x.reshape(-1, 50)[1] = 0, 2 ** 32 - 1
+            x = x.astype(np.uint32).view(np.int32)
+        else:
+            x = rng.integers(0, ntt.Q, shape, dtype=np.int64)
+            x.reshape(-1, 256)[0], x.reshape(-1, 256)[1] = 0, ntt.Q - 1
+            x = x.astype(np.int32)
+        x = torch.from_numpy(x).to(dev)
+        fn, key = fns[name]
+        ms = kernel_ms(lambda: fn(x), 50, key)
+        label = f"{name} {list(shape)}"
+        out["mldsa"][label] = ms
+        dig[label] = digest([fn(x)])
+        print(f"{label}: {ms:.4f} ms a launch ({key}), outputs sha256 "
+              f"{dig[label][:16]}", flush=True)
+
+
 def lanes_differ(a, b) -> int:
     diff = (a[3] != b[3]) | (a[4] != b[4])
     for pa, pb in zip(a[:3], b[:3]):
@@ -258,7 +321,7 @@ def main() -> int:
     from cap_tpu_torch.gpu import cuda_edw, cuda_madd, cuda_redc, ec_rns
     from cap_tpu_torch.gpu import ed25519_rns as er
 
-    names = [n for n in ("redc", "madd", "ladder", "edw")
+    names = [n for n in ("redc", "madd", "ladder", "edw", "keccak", "ntt")
              if n in _build.KERNELS]
     t0 = time.perf_counter()
     libs = _build.build_all(names)
@@ -372,6 +435,7 @@ def main() -> int:
     print(f"Ed25519 ladder: {n} lanes, {rows.shape[0]} windows ({via}) "
           f"{ms:.4f} ms, edw kernel {edw_ms:.4f} ms a launch, outputs "
           f"sha256 {dig['ed_ladder'][:16]}", flush=True)
+    mldsa_kernels(root, dev, out)
     print(json.dumps(out), flush=True)
     return 0
 

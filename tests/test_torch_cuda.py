@@ -386,7 +386,10 @@ def test_config4_keyset_on_the_card_matches_the_plain_path(dev):
     assert sum(isinstance(x, dict) for x in on_card) == len(tokens)
 
 
-@pytest.mark.parametrize("n", [1, 127, 129, 1000])
+# state counts around the keccak kernel's warps (one state each) and
+# blocks (4 states), and the ML-DSA chunk's 1,024
+@pytest.mark.parametrize("n", [1, 127, 129, 1000, 2, 5, 6, 7, 31, 33, 1023,
+                               1024, 1025])
 def test_keccak_kernel_matches_plain(dev, n):
     rng = np.random.default_rng(300 + n)
     words = rng.integers(0, 2 ** 32, (n, 25, 2), dtype=np.uint64)
@@ -400,7 +403,26 @@ def test_keccak_kernel_matches_plain(dev, n):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("rows", [1, 3, 5, 1001])
+@pytest.mark.parametrize("lead", [(2, 512), (4, 8, 33)],
+                         ids=["2x512", "4x8x33"])
+def test_keccak_kernel_matches_plain_on_folded_leading_axes(dev, lead):
+    """[2, 512, 25, 2] and a ragged [4, 8, 33, 25, 2] batch, all ones
+    and all zeros among seeded states."""
+    rng = np.random.default_rng(310 + len(lead))
+    words = rng.integers(0, 2 ** 32, lead + (25, 2), dtype=np.uint64)
+    words.reshape(-1, 25, 2)[0] = 0
+    words.reshape(-1, 25, 2)[-1] = 2 ** 32 - 1
+    s = torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(dev)
+    before = cuda_keccak.launches
+    got = cuda_keccak.f1600(s)
+    want = keccak.f1600_plain(s)
+    torch.cuda.synchronize()
+    assert cuda_keccak.launches == before + 1
+    assert got.shape == s.shape and torch.equal(got, want)
+
+
+# rows around the forward kernel's blocks (4 rows, one a warp)
+@pytest.mark.parametrize("rows", [1, 3, 5, 1001, 7, 9, 4096])
 def test_ntt_kernels_match_plain(dev, rows):
     rng = np.random.default_rng(400 + rows)
     x = rng.integers(0, ntt.Q, (rows, 256), dtype=np.int64)
@@ -414,6 +436,20 @@ def test_ntt_kernels_match_plain(dev, rows):
     assert torch.equal(fwd, ntt.ntt_plain(t))
     assert torch.equal(inv, ntt.intt_plain(t))
     assert torch.equal(cuda_ntt.intt(fwd), t)
+
+
+def test_ntt_kernel_matches_plain_at_the_path_shape(dev):
+    """NTT(z) of a 1,024-token ML-DSA-65 chunk: [1024, 5, 256]."""
+    rng = np.random.default_rng(450)
+    x = rng.integers(0, ntt.Q, (1024, 5, 256), dtype=np.int64)
+    x[0, 0], x[-1, -1] = 0, ntt.Q - 1
+    t = torch.from_numpy(x.astype(np.int32)).to(dev)
+    before = cuda_ntt.ntt_launches
+    got = cuda_ntt.ntt(t)
+    torch.cuda.synchronize()
+    assert cuda_ntt.ntt_launches == before + 1
+    assert got.shape == t.shape and torch.equal(got, ntt.ntt_plain(t))
+    assert torch.equal(cuda_ntt.intt(got), t)
 
 
 def test_keccak_and_ntt_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -134,3 +134,109 @@ def test_use_hint_equals_jax_at_both_gamma2(gamma2):
                          torch.from_numpy(r.astype(np.int32)), gamma2)
     assert np.array_equal(got.numpy(), want.astype(np.int64))
     assert np.array_equal(got.numpy(), j_ntt.use_hint_ref(h, r, gamma2))
+
+
+# -- the warp-a-row schedule of csrc/ntt.cu's ntt_fwd_kernel, in numpy ------
+
+def _mont(a: np.ndarray, b) -> np.ndarray:
+    """mont_mul of ntt.cu on uint64-held words: the REDC, step by step."""
+    m32 = np.uint64(0xFFFFFFFF)
+    p = a.astype(np.uint64) * np.uint64(b) if np.isscalar(b) else \
+        a.astype(np.uint64) * b.astype(np.uint64)
+    m = ((p & m32) * np.uint64(t_ntt.NQINV)) & m32
+    u = (p + m * np.uint64(Q)) >> np.uint64(32)
+    return np.where(u >= Q, u - np.uint64(Q), u)
+
+
+def _pad(i):
+    return i + ((i >> 5) << 2)
+
+
+def _warp_schedule_ntt(x: np.ndarray) -> np.ndarray:
+    """ntt_fwd_kernel on int64 rows [rows, 256]: one array row a warp,
+    one column a thread, 8 registers each. Each register carries its
+    coefficient index beside its value; every butterfly checks that it
+    pairs indices ln apart and that the kernel's twiddle index is the
+    stage's ZETAS[2^s + i / 2ln]."""
+    zm = t_ntt.ZETAS_MONT.astype(np.uint64)
+    rows = x.shape[0]
+    t = np.arange(32)
+    k = t >> 2
+    idx = np.stack([t + 32 * j for j in range(8)], axis=-1)   # [32, 8]
+    val = x.astype(np.uint64)[:, idx]                          # [rows,32,8]
+    # the kernel's twiddle index of stage s, register j, thread t
+    zidx = [lambda j: np.full(32, 1), lambda j: np.full(32, 2 + (j >> 2)),
+            lambda j: np.full(32, 4 + (j >> 1)), lambda j: 8 + k,
+            lambda j: 16 + 2 * k + (j >> 2), lambda j: 32 + 4 * k + (j >> 1),
+            lambda j: 64 + 2 * t + (j >> 2), lambda j: 128 + 4 * t + (j >> 1)]
+
+    def stage(s, half):
+        ln = 128 >> s
+        for j in range(8):
+            if j & half:
+                continue
+            a, b = idx[:, j], idx[:, j + half]
+            z = zidx[s](j)
+            assert (b - a == ln).all() and \
+                (z == (1 << s) + a // (2 * ln)).all(), (s, j)
+            tt = _mont(val[:, :, j + half], zm[z])
+            lo = val[:, :, j]
+            val[:, :, j + half] = np.where(lo >= tt, lo - tt, lo + Q - tt)
+            su = lo + tt
+            val[:, :, j] = np.where(su >= Q, su - Q, su)
+
+    def relayout(write, read):
+        """Through a per-warp tile: register j of thread t to word
+        write[t, j], then register j from word read[t, j]."""
+        nonlocal idx, val
+        assert len(set(write.ravel())) == 256 == len(set(read.ravel()))
+        for j in range(8):
+            # 32 distinct banks for each register's access
+            assert len(set(write[:, j] % 32)) == 32
+        tile_i = np.full(288, -1)
+        tile_v = np.zeros((rows, 288), np.uint64)
+        tile_i[write] = idx
+        tile_v[:, write] = val
+        idx, val = tile_i[read], tile_v[:, read]
+
+    for s, half in ((0, 4), (1, 2), (2, 1)):
+        stage(s, half)
+    mid = ((t & 3) + 32 * k)[:, None] + 4 * np.arange(8)
+    relayout(_pad(t[:, None] + 32 * np.arange(8)), _pad(mid))
+    for j in range(8):
+        assert len(set(_pad(mid[:, j]) % 32)) == 32
+    assert np.array_equal(idx, mid)
+    for s, half in ((3, 4), (4, 2), (5, 1)):
+        stage(s, half)
+    # the 16-byte reads: words pad(8t) + 0..3 and pad(8t + 4) + 0..3
+    base = np.stack([_pad(8 * t), _pad(8 * t + 4)], axis=-1)
+    read = (base[:, :, None] + np.arange(4)).reshape(32, 8)
+    assert (base % 4 == 0).all()
+    # a quarter warp's 16-byte reads cover the 8 bank quads once
+    for q in range(4):
+        for h in range(2):
+            assert len(set(base[8 * q: 8 * q + 8, h] // 4 % 8)) == 8
+    relayout(_pad(mid), read)
+    assert np.array_equal(idx, 8 * t[:, None] + np.arange(8))
+    for s, half in ((6, 2), (7, 1)):
+        stage(s, half)
+    out = np.zeros((rows, 256), np.int64)
+    out[:, idx] = val.astype(np.int64)
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_warp_schedule_model_equals_the_references(seed):
+    """The forward kernel's register layouts, re-layouts and twiddle
+    indices, exact against ``ntt_ref``, the plain version and the JAX
+    package's ``ntt_fused`` in interpret mode (edge rows of 0 and q − 1
+    among seeded ones)."""
+    x = np.concatenate([np.stack([np.zeros(256, np.int64),
+                                  np.full(256, Q - 1)]),
+                        _rows(30 + seed, lead=(40,))])
+    got = _warp_schedule_ntt(x)
+    assert np.array_equal(got, j_ntt.ntt_ref(x))
+    assert np.array_equal(got, t_ntt.ntt_plain(_t(x)).numpy())
+    want = pallas_ntt.ntt_fused(jnp.asarray(x.astype(np.uint32)),
+                                interpret=True)
+    assert np.array_equal(got, np.asarray(want).astype(np.int64))
