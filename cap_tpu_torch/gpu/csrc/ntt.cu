@@ -18,31 +18,33 @@
 // ML-DSA path's 1,024 to 6,144 rows a launch, a launch's fixed cost
 // and latency weigh as much as the work.
 //
-// Forward (ntt_fwd_kernel): one warp a row, the 8 stages in registers.
-// Each thread holds 8 coefficients and runs every butterfly whose two
-// ends it holds; the row is re-laid out twice through a per-warp
-// shared tile between __syncwarp()s, so each stage's pairs are in one
-// thread:
-// - stages 128, 64, 32: coefficient t + 32j in register j (bits 7..5
-//   of the index in the register), loaded 4 bytes a thread, coalesced;
-//   their twiddles are the same for the whole warp (__constant__);
-// - stages 16, 8, 4: (t & 3) + 4j + 32(t >> 2) in register j;
-// - stages 2, 1: 8t + j in register j, read as two 16-byte words and
-//   stored to device memory the same way.
+// Both kernels: one warp a row, kWarps rows a block, the 8 stages in
+// registers. Each thread holds 8 coefficients and runs every butterfly
+// whose two ends it holds; the row is re-laid out twice through a
+// per-warp shared tile between __syncwarp()s, so each stage's pairs
+// are in one thread. The three register layouts:
+// - t + 32j in register j (bits 7..5 of the index in the register):
+//   stages 128, 64, 32, whose twiddles are the same for the whole warp
+//   (__constant__); moved 4 bytes a thread, coalesced;
+// - (t & 3) + 4j + 32(t >> 2): stages 16, 8, 4;
+// - 8t + j: stages 2, 1; moved as two 16-byte words a thread.
 // The tile pads each 32 coefficients with 4 words, so every re-layout's
-// reads and writes hit 32 distinct banks and every register's word is
-// at a constant offset from the thread's base. A thread's 13 twiddles
-// of the last five stages are loaded once, from g_zetas. A warp past
-// the last row reads the last row and skips the store; no
-// __syncthreads.
-//
-// Inverse (intt_kernel): kRows rows per block, 128 threads per row; a
-// row's 256 coefficients sit in shared memory and each thread does one
-// butterfly per stage, __syncthreads() between stages, so device
-// memory is touched once on the way in and once on the way out. The
-// twiddles live in __constant__ and are staged into shared memory per
-// block: from the sixth stage on, the threads of one warp index
-// different twiddles, which the constant cache would serialize.
+// reads and writes hit 32 distinct banks (the 16-byte accesses each
+// bank quad once a quarter warp) and every register's word is at a
+// constant offset from the thread's base. A thread's 13 twiddles of
+// the five stages of the other two layouts are loaded once, from
+// g_zetas or g_neg_zetas. A warp past the last row reads the last row
+// and skips the store; no __syncthreads. One stage template runs both,
+// given the butterfly:
+// - forward (ntt_fwd_kernel, CT): layouts in the order above, the
+//   stages 128 down to 1, 16-byte row stores;
+// - inverse (intt_kernel, GS): the same layouts and tiles in reverse,
+//   16-byte row loads, the stages 1 up to 128, coalesced 4-byte
+//   stores. The 256^-1 scale is folded into the last stage (GSScale):
+//   its sum is scaled by 256^-1 and its difference by NEG_ZETAS[1] *
+//   256^-1 in one product, 128 products a row fewer than a separate
+//   scale and the same words (a Montgomery result in [0, q) is
+//   unique).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,18 +53,24 @@ namespace capk {
 constexpr uint32_t kQ = 8380417u;
 constexpr uint32_t kNQInv = 4236238847u;  // -q^-1 mod 2^32
 constexpr int kN = 256;
-constexpr int kRows = 4;                  // rows per block, inverse
+constexpr int kWarps = 4;                 // rows (warps) a block
+constexpr int kTile = kN + kN / 8;        // 4 words of pad a 32
 
 // ZETAS_MONT, NEG_ZETAS_MONT and INV256_MONT of ntt.py, set once by
 // cap_ntt_set_tables.
 __constant__ uint32_t c_zetas[kN];
 __constant__ uint32_t c_neg_zetas[kN];
 __constant__ uint32_t c_inv256;
-// ZETAS_MONT again, in global memory: the forward kernel's per-thread
-// twiddles (32 different words a warp) as coalesced loads.
+// mont_mul(NEG_ZETAS_MONT[1], INV256_MONT): the last inverse stage's
+// twiddle and the scale in one factor
+__constant__ uint32_t c_neg1_inv256;
+// ZETAS_MONT and NEG_ZETAS_MONT again, in global memory: the kernels'
+// per-thread twiddles (32 different words a warp) as coalesced loads.
 __device__ uint32_t g_zetas[kN];
+__device__ uint32_t g_neg_zetas[kN];
 
-__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b) {
+__host__ __device__ __forceinline__ uint32_t mont_mul(uint32_t a,
+                                                      uint32_t b) {
   const uint64_t t = uint64_t(a) * b;
   const uint32_t m = uint32_t(t) * kNQInv;
   // t + m*q = 0 mod 2^32; t < q^2 and m*q < 2^55, so the sum fits and
@@ -80,77 +88,59 @@ __device__ __forceinline__ uint32_t sub_q(uint32_t a, uint32_t b) {
   return a >= b ? a - b : a + kQ - b;
 }
 
-__global__ void __launch_bounds__(128 * kRows)
-    intt_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                int rows) {
-  __shared__ uint32_t zs[kN];
-  __shared__ uint32_t xs[kRows][kN];
-  const int t = threadIdx.x;                     // 0..127: the butterfly
-  const int r = threadIdx.y;
-  const long row = long(blockIdx.x) * kRows + r;
-  const bool live = row < rows;
-  if (r == 0) {
-    zs[t] = c_neg_zetas[t];
-    zs[t + 128] = c_neg_zetas[t + 128];
-  }
-  uint32_t* x = xs[r];
-  if (live) {
-    x[t] = in[row * kN + t];
-    x[t + 128] = in[row * kN + t + 128];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < 8; ++s) {
-    const int ln = 1 << s;
-    const int nblk = kN / (2 * ln);
-    const int blk = t / ln;
-    const int lo = blk * 2 * ln + t % ln;
-    const uint32_t a = x[lo];
-    const uint32_t b = x[lo + ln];
-    // ntt.intt: z = NEG_ZETAS_MONT[nblk:2 nblk][::-1]
-    const uint32_t z = zs[2 * nblk - 1 - blk];
-    x[lo] = add_q(a, b);
-    x[lo + ln] = mont_mul(z, sub_q(a, b));
-    __syncthreads();
-  }
-  if (live) {
-    out[row * kN + t] = mont_mul(c_inv256, x[t]);
-    out[row * kN + t + 128] = mont_mul(c_inv256, x[t + 128]);
-  }
-}
-
-constexpr int kFwdWarps = 4;              // rows a block, forward
-
-constexpr int kTile = kN + kN / 8;       // 4 words of pad a 32
-
 // The word of coefficient i in a row's shared tile.
 __device__ __forceinline__ int pad(int i) { return i + ((i >> 5) << 2); }
 
-__device__ __forceinline__ void butterfly(uint32_t& a, uint32_t& b,
-                                          uint32_t z) {
-  const uint32_t t = mont_mul(z, b);
-  b = sub_q(a, t);
-  a = add_q(a, t);
-}
+// Cooley-Tukey: (a, b) -> (a + z b, a - z b).
+struct CT {
+  __device__ __forceinline__ void operator()(uint32_t& a, uint32_t& b,
+                                             uint32_t z) const {
+    const uint32_t t = mont_mul(z, b);
+    b = sub_q(a, t);
+    a = add_q(a, t);
+  }
+};
 
-// Stage s (ln = 128 >> s, twiddle ZETAS[2^s + i / 2ln]) on the pairs
-// (v[j], v[j + kHalf]) of a thread's 8 registers; z(j) gives the
-// twiddle.
-template <int kHalf, class Z>
-__device__ __forceinline__ void stage(uint32_t (&v)[8], Z z) {
+// Gentleman-Sande: (a, b) -> (a + b, z (a - b)).
+struct GS {
+  __device__ __forceinline__ void operator()(uint32_t& a, uint32_t& b,
+                                             uint32_t z) const {
+    const uint32_t d = sub_q(a, b);
+    a = add_q(a, b);
+    b = mont_mul(z, d);
+  }
+};
+
+// The last inverse stage with the 256^-1 scale folded in:
+// (a, b) -> (256^-1 (a + b), z (a - b)), z = NEG_ZETAS[1] 256^-1.
+struct GSScale {
+  __device__ __forceinline__ void operator()(uint32_t& a, uint32_t& b,
+                                             uint32_t z) const {
+    const uint32_t d = sub_q(a, b);
+    a = mont_mul(c_inv256, add_q(a, b));
+    b = mont_mul(z, d);
+  }
+};
+
+// One stage on the pairs (v[j], v[j + kHalf]) of a thread's 8
+// registers: bf(v[j], v[j + kHalf], z(j)). A forward stage s (ln = 128
+// >> s) takes ZETAS[2^s + i / 2ln], an inverse one (ln = 2^s, nblk =
+// 128 >> s) NEG_ZETAS[2 nblk - 1 - i / 2ln], i the index of v[j].
+template <int kHalf, class B, class Z>
+__device__ __forceinline__ void stage(uint32_t (&v)[8], B bf, Z z) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
-    if (!(j & kHalf)) butterfly(v[j], v[j + kHalf], z(j));
+    if (!(j & kHalf)) bf(v[j], v[j + kHalf], z(j));
 }
 
-__global__ void __launch_bounds__(32 * kFwdWarps)
+__global__ void __launch_bounds__(32 * kWarps)
     ntt_fwd_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                    int rows) {
-  __shared__ __align__(16) uint32_t tiles[kFwdWarps][2][kTile];
+  __shared__ __align__(16) uint32_t tiles[kWarps][2][kTile];
   const int t = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int k = t >> 2;
-  const long row = long(blockIdx.x) * kFwdWarps + w;
+  const long row = long(blockIdx.x) * kWarps + w;
   const bool live = row < rows;
   const uint32_t* src = in + (live ? row : rows - 1) * kN + t;
   uint32_t v[8];
@@ -170,9 +160,9 @@ __global__ void __launch_bounds__(32 * kFwdWarps)
     z7[j] = __ldg(g_zetas + 128 + 4 * t + j);
   }
   // i = t + 32j: stages 128, 64, 32 pair registers 4, 2, 1 apart
-  stage<4>(v, [](int) { return c_zetas[1]; });
-  stage<2>(v, [](int j) { return c_zetas[2 + (j >> 2)]; });
-  stage<1>(v, [](int j) { return c_zetas[4 + (j >> 1)]; });
+  stage<4>(v, CT(), [](int) { return c_zetas[1]; });
+  stage<2>(v, CT(), [](int j) { return c_zetas[2 + (j >> 2)]; });
+  stage<1>(v, CT(), [](int j) { return c_zetas[4 + (j >> 1)]; });
   uint32_t* ta = tiles[w][0];
   uint32_t* tb = tiles[w][1];
 #pragma unroll
@@ -181,9 +171,9 @@ __global__ void __launch_bounds__(32 * kFwdWarps)
   const int mid = (t & 3) + 32 * k;          // i = mid + 4j
 #pragma unroll
   for (int j = 0; j < 8; ++j) v[j] = ta[pad(mid + 4 * j)];
-  stage<4>(v, [&](int) { return z3; });
-  stage<2>(v, [&](int j) { return z4[j >> 2]; });
-  stage<1>(v, [&](int j) { return z5[j >> 1]; });
+  stage<4>(v, CT(), [&](int) { return z3; });
+  stage<2>(v, CT(), [&](int j) { return z4[j >> 2]; });
+  stage<1>(v, CT(), [&](int j) { return z5[j >> 1]; });
 #pragma unroll
   for (int j = 0; j < 8; ++j) tb[pad(mid + 4 * j)] = v[j];
   __syncwarp();
@@ -192,8 +182,8 @@ __global__ void __launch_bounds__(32 * kFwdWarps)
   const uint4 hi = *reinterpret_cast<const uint4*>(tb + pad(8 * t + 4));
   v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
   v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-  stage<2>(v, [&](int j) { return z6[j >> 2]; });
-  stage<1>(v, [&](int j) { return z7[j >> 1]; });
+  stage<2>(v, CT(), [&](int j) { return z6[j >> 2]; });
+  stage<1>(v, CT(), [&](int j) { return z7[j >> 1]; });
   if (live) {
     uint4* dst = reinterpret_cast<uint4*>(out + row * kN + 8 * t);
     dst[0] = make_uint4(v[0], v[1], v[2], v[3]);
@@ -201,23 +191,76 @@ __global__ void __launch_bounds__(32 * kFwdWarps)
   }
 }
 
-#ifndef CAPK_NO_LAUNCH
-int launch_intt(const void* in, void* out, int rows, void* stream) {
-  if (rows <= 0) return int(cudaErrorInvalidValue);
-  const dim3 block(128, kRows);
-  const int grid = (rows + kRows - 1) / kRows;
-  intt_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), rows);
-  return int(cudaGetLastError());
+__global__ void __launch_bounds__(32 * kWarps)
+    intt_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                int rows) {
+  __shared__ __align__(16) uint32_t tiles[kWarps][2][kTile];
+  const int t = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int k = t >> 2;
+  const long row = long(blockIdx.x) * kWarps + w;
+  const bool live = row < rows;
+  // i = 8t + j: two 16-byte words
+  const uint4* src = reinterpret_cast<const uint4*>(
+      in + (live ? row : rows - 1) * kN + 8 * t);
+  const uint4 lo = __ldg(src);
+  const uint4 hi = __ldg(src + 1);
+  uint32_t v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  // twiddles of stages 1, 2 (z0, z1) and 4, 8, 16 (z2, z3, z4)
+  uint32_t z0[4], z1[2], z2[4], z3[2], z4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    z0[j] = __ldg(g_neg_zetas + 255 - 4 * t - j);
+    z2[j] = __ldg(g_neg_zetas + 63 - 4 * k - j);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    z1[j] = __ldg(g_neg_zetas + 127 - 2 * t - j);
+    z3[j] = __ldg(g_neg_zetas + 31 - 2 * k - j);
+  }
+  z4 = __ldg(g_neg_zetas + 15 - k);
+  // i = 8t + j: stages 1, 2 pair registers 1, 2 apart
+  stage<1>(v, GS(), [&](int j) { return z0[j >> 1]; });
+  stage<2>(v, GS(), [&](int j) { return z1[j >> 2]; });
+  uint32_t* ta = tiles[w][0];
+  uint32_t* tb = tiles[w][1];
+  *reinterpret_cast<uint4*>(ta + pad(8 * t)) =
+      make_uint4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<uint4*>(ta + pad(8 * t + 4)) =
+      make_uint4(v[4], v[5], v[6], v[7]);
+  __syncwarp();
+  const int mid = (t & 3) + 32 * k;          // i = mid + 4j
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = ta[pad(mid + 4 * j)];
+  stage<1>(v, GS(), [&](int j) { return z2[j >> 1]; });
+  stage<2>(v, GS(), [&](int j) { return z3[j >> 2]; });
+  stage<4>(v, GS(), [&](int) { return z4; });
+#pragma unroll
+  for (int j = 0; j < 8; ++j) tb[pad(mid + 4 * j)] = v[j];
+  __syncwarp();
+  // i = t + 32j: stages 32, 64, 128 pair registers 1, 2, 4 apart, the
+  // last with the scale
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = tb[pad(t + 32 * j)];
+  stage<1>(v, GS(), [](int j) { return c_neg_zetas[7 - (j >> 1)]; });
+  stage<2>(v, GS(), [](int j) { return c_neg_zetas[3 - (j >> 2)]; });
+  stage<4>(v, GSScale(), [](int) { return c_neg1_inv256; });
+  if (live) {
+    uint32_t* dst = out + row * kN + t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[32 * j] = v[j];
+  }
 }
 
-int launch_fwd(const void* in, void* out, int rows, void* stream) {
+#ifndef CAPK_NO_LAUNCH
+int launch(bool inverse, const void* in, void* out, int rows, void* stream) {
   if (rows <= 0) return int(cudaErrorInvalidValue);
-  if (reinterpret_cast<uintptr_t>(out) % 16)    // 16-byte row stores
+  // 16-byte row loads (inverse) or stores (forward)
+  if (reinterpret_cast<uintptr_t>(inverse ? in : out) % 16)
     return int(cudaErrorMisalignedAddress);
-  const int grid = (rows + kFwdWarps - 1) / kFwdWarps;
-  ntt_fwd_kernel<<<grid, 32 * kFwdWarps, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  const int grid = (rows + kWarps - 1) / kWarps;
+  const auto kernel = inverse ? intt_kernel : ntt_fwd_kernel;
+  kernel<<<grid, 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), rows);
   return int(cudaGetLastError());
 }
@@ -226,9 +269,10 @@ int launch_fwd(const void* in, void* out, int rows, void* stream) {
 }  // namespace capk
 
 #ifndef CAPK_NO_LAUNCH
-// The twiddle tables (256 + 256 words) and 256^-1 R mod q, copied to
-// __constant__ (and the forward twiddles to g_zetas) once per process
-// before the first launch.
+// The twiddle tables (256 + 256 words), 256^-1 R mod q and its product
+// with NEG_ZETAS_MONT[1], copied to __constant__ (and both twiddle
+// tables to g_zetas and g_neg_zetas) once per process before the first
+// launch.
 extern "C" int cap_ntt_set_tables(const void* zetas, const void* neg_zetas,
                                   unsigned inv256) {
   cudaError_t e = cudaMemcpyToSymbol(capk::c_zetas, zetas,
@@ -238,18 +282,27 @@ extern "C" int cap_ntt_set_tables(const void* zetas, const void* neg_zetas,
                            sizeof(uint32_t) * capk::kN);
   if (e == cudaSuccess)
     e = cudaMemcpyToSymbol(capk::c_inv256, &inv256, sizeof(uint32_t));
+  const uint32_t neg1_inv256 =
+      capk::mont_mul(static_cast<const uint32_t*>(neg_zetas)[1], inv256);
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(capk::c_neg1_inv256, &neg1_inv256,
+                           sizeof(uint32_t));
   if (e == cudaSuccess)
     e = cudaMemcpyToSymbol(capk::g_zetas, zetas,
+                           sizeof(uint32_t) * capk::kN);
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(capk::g_neg_zetas, neg_zetas,
                            sizeof(uint32_t) * capk::kN);
   return int(e);
 }
 
-// in, out: [rows, 256] uint32 (int32 tensors), contiguous.
+// in, out: [rows, 256] uint32 (int32 tensors), contiguous, the
+// 16-byte-word side (out forward, in inverse) 16-byte aligned.
 extern "C" int cap_ntt(const void* in, void* out, int rows, void* stream) {
-  return capk::launch_fwd(in, out, rows, stream);
+  return capk::launch(false, in, out, rows, stream);
 }
 
 extern "C" int cap_intt(const void* in, void* out, int rows, void* stream) {
-  return capk::launch_intt(in, out, rows, stream);
+  return capk::launch(true, in, out, rows, stream);
 }
 #endif

@@ -6,8 +6,9 @@ their plain PyTorch versions.
 butterfly stages (and, for the inverse, the folded 256⁻¹ scale) on
 int32 ``[..., 256]`` rows of canonical values in [0, q). The kernels
 take the rows as one contiguous ``[rows, 256]`` buffer (the leading
-axes folded): the forward one warp a row, its 8 stages in registers;
-the inverse one block per four rows.
+axes folded), one warp a row, the 8 stages in registers. The inverse
+reads each row as 16-byte words, so its input must start 16-byte
+aligned: a misaligned view raises.
 
 On a CUDA tensor each launches ``csrc/ntt.cu`` (or raises); on a CPU
 tensor it runs ``ntt.ntt_plain`` / ``ntt.intt_plain``.
@@ -65,6 +66,9 @@ def _check_rows(x: torch.Tensor) -> None:
 def _launch(x: torch.Tensor, inverse: bool):
     """(output, 1 if a kernel launched else 0)."""
     _check_rows(x)
+    if inverse and x.data_ptr() % 16:
+        raise ValueError("intt reads 16-byte words: rows must start "
+                         "16-byte aligned")
     out = torch.empty_like(x)
     rows = x.numel() // _ntt.N
     if rows == 0:

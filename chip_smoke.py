@@ -158,28 +158,37 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def kernel_ms(fn, reps: int, key: str) -> float:
-    """Mean device time of one launch of the kernel whose name holds
-    ``key``, over ``reps`` calls of fn (torch.profiler over CUPTI): at
-    the path's small shapes a call's host work outlasts its kernel, so
-    CUDA events around a loop of calls time the host. Falls back to
-    CUDA events when the profiler records no launch of the kernel."""
+PROFILE_TRIES = 3
+
+
+def kernel_ms(fn, reps: int, key: str):
+    """(ms, by): the mean device time of one launch of the kernel whose
+    name holds ``key``, over ``reps`` calls of fn (torch.profiler over
+    CUPTI), by "profiler". At the path's small shapes a call's host
+    work outlasts its kernel, so CUDA events around a loop of calls
+    time the host: only when PROFILE_TRIES profiles in a row record no
+    launch of the kernel is that time returned, by "events", and no
+    table may read it as a launch's device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if key in e.key and dev_us(e)]
-    n = sum(e.count for e in evs)
-    if n == 0:
-        log(f"kernel_ms: no device time recorded for {key}; CUDA events")
-        return cuda_ms(fn, reps)
-    return sum(dev_us(e) for e in evs) / n / 1e3
+    for i in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if key in e.key and dev_us(e)]
+        n = sum(e.count for e in evs)
+        if n:
+            return sum(dev_us(e) for e in evs) / n / 1e3, "profiler"
+        log(f"kernel_ms: no device time recorded for {key} (profile "
+            f"{i + 1} of {PROFILE_TRIES})")
+    log(f"kernel_ms: {key} timed by CUDA events: a call's host time, not "
+        f"the kernel's")
+    return cuda_ms(fn, reps), "events"
 
 
 # -- the RNS kernels' work per lane, by pipe, for the bounds ---------------
@@ -390,15 +399,17 @@ def redc_check(c, rng, n: int, label: str):
     # the kernel's device time a launch: at 65,536 lanes a call's host
     # work outlasts the kernel, so CUDA events around a loop of calls
     # would time the host
-    ms_k = kernel_ms(lambda: cuda_redc.redc(c, xA, xB), 50, "redc_kernel")
+    ms_k, by = kernel_ms(lambda: cuda_redc.redc(c, xA, xB), 50,
+                         "redc_kernel")
     ms_p = cuda_ms(lambda: cuda_redc.redc_ref(c, xA, xB), 10)
     nbytes = n * (2 * ia + 2 * ib) * 4
     b_ms, b_by, pipe = rns_bound(nbytes, redc_work(ia, ib), n)
     log(f"kernel {label}: {n} lanes, {ndiff} lanes not bit-equal in A or "
-        f"B, max value err {err} over both planes; kernel {ms_k:.4f} ms, "
-        f"plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {pipe})")
-    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by)
+        f"B, max value err {err} over both planes; kernel {ms_k:.4f} ms "
+        f"(by {by}), plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{pipe})")
+    return dict(max_abs_err=err, ms=ms_k, by=by, plain_ms=ms_p,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def madd_check(c, rng, n: int, label: str):
@@ -472,8 +483,8 @@ def madd_check(c, rng, n: int, label: str):
         f"{int(true_deg.sum())} true degeneracies flagged by both, "
         f"{deg_only} probe flags differ; kernel {ms_k:.4f} ms, plain "
         f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {pipe})")
-    return dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by)
+    return dict(max_abs_err=err, ms=ms_k, by="events", plain_ms=ms_p,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def kernel_phase(records):
@@ -560,8 +571,8 @@ def edw_phase(records, rng):
         f"{ndiff} lane planes not bit-equal in A or B, max value err {err} "
         f"over both planes of X, Y, Z, T; kernel {ms_k:.4f} ms, plain "
         f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {pipe})")
-    records["edw"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
-                          bound_ms=b_ms, bound_by=b_by)
+    records["edw"] = dict(max_abs_err=err, ms=ms_k, by="events",
+                          plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
     keccak_phase(records, rng)
     ntt_phase(records, rng)
 
@@ -654,13 +665,14 @@ def ladder_phase(records):
             f"{w * madd_ms:.4f} ms (ladder/that {ms_k / (w * madd_ms):.3f}),"
             f" plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         shapes.append(dict(curve=crv, windows=w, lanes=n, max_abs_err=err,
-                           ms=ms_k, per_window_ms=ms_w,
+                           ms=ms_k, by="events", per_window_ms=ms_w,
                            madd_x_windows_ms=w * madd_ms, plain_ms=ms_p,
                            bound_ms=b_ms, bound_by=b_by))
     # the top-level numbers: P-256's, the north-star's curve
     main = shapes[0]
     records["ladder"] = dict(
-        {k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        {k: main[k] for k in ("ms", "by", "plain_ms", "bound_ms",
+                              "bound_by")},
         max_abs_err=max(sh["max_abs_err"] for sh in shapes), shapes=shapes)
 
 
@@ -704,8 +716,8 @@ def keccak_phase(records, rng):
     log(f"kernel keccak: {n} states, {ndiff} states not bit-equal, max "
         f"word diff {err}; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
-    records["keccak"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
-                             bound_ms=b_ms, bound_by=b_by)
+    records["keccak"] = dict(max_abs_err=err, ms=ms_k, by="events",
+                             plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
 
 
 def ntt_phase(records, rng):
@@ -738,8 +750,8 @@ def ntt_phase(records, rng):
         log(f"kernel {name}: {n} rows, {ndiff} rows not equal, max diff "
             f"{err}; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by})")
-        records[name] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
-                             bound_ms=b_ms, bound_by=b_by)
+        records[name] = dict(max_abs_err=err, ms=ms_k, by="events",
+                             plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
 
 
 def capture_wrapper_calls(ks, tokens):
@@ -801,18 +813,18 @@ def path_shape_phase(records, ks, tokens):
                                             key=lambda kv: kv[0]):
         kern, plain, width, unit = fns[name]
         n = x.numel() // width
-        ms_k = kernel_ms(lambda: kern(x), 50, kernel_keys[name])
+        ms_k, by = kernel_ms(lambda: kern(x), 50, kernel_keys[name])
         ms_call = cuda_ms(lambda: kern(x), 50)
         ms_p = cuda_ms(lambda: plain(x), 3)
         torch.cuda.synchronize()
         b_ms, b_by = mldsa_bound(name, n)
         log(f"kernel {name} at the path's shape {list(shape)}: {n} {unit}, "
             f"{calls} call(s) in one batch, every one equal to the plain "
-            f"version; kernel {ms_k:.4f} ms (one wrapper call "
+            f"version; kernel {ms_k:.4f} ms (by {by}; one wrapper call "
             f"{ms_call:.4f} ms), plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by})")
         records[name].setdefault("path_shapes", []).append(dict(
-            shape=list(shape), calls=calls, max_abs_err=0, ms=ms_k,
+            shape=list(shape), calls=calls, max_abs_err=0, ms=ms_k, by=by,
             call_ms=ms_call, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by))
 
 
@@ -1236,7 +1248,8 @@ def ladder_path_shapes(records, ks, tokens, n_calls: int):
             f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         records["ladder"].setdefault("path_shapes", []).append(dict(
             shape=[w, m], table_rows=int(tab.shape[0]), max_abs_err=err,
-            ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by))
+            ms=ms_k, by="events", plain_ms=ms_p, bound_ms=b_ms,
+            bound_by=b_by))
 
 
 def build_mldsa(rng):

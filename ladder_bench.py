@@ -38,9 +38,16 @@ chunk):
   keccak also at 65,536 states: ``cuda_keccak.f1600`` on [1024, 25, 2]
   and [65536, 25, 2], ``cuda_ntt.ntt`` on [1024, 4, 256], [1024, 5,
   256] and [1024, 256], ``cuda_ntt.intt`` on [1024, 4, 256] and [1024,
-  6, 256] (random words or values < q, edge values among them), each
-  by the profiler's device time a launch; beside them the launch
-  floor, the device time of a one-element ``add_``.
+  6, 256] (random words or values < q, edge values among them; the
+  inverse, one warp a row, reads its rows as 16-byte words), each by
+  the profiler's device time a launch; beside them the launch floor,
+  the device time of a one-element ``add_``.
+
+Each time meant as the profiler's says how it was taken, in its
+printed line and in the JSON's ``by`` (keyed as printed): "profiler", or
+"events" where three profiles in a row recorded no launch of the
+kernel and CUDA events timed the calls instead (a call's host time,
+not the kernel's device time).
 
 The JSON carries a SHA-256 digest of each kernel's outputs per curve
 (and of the Ed ladder's, and of each ML-DSA kernel's per shape): equal
@@ -267,9 +274,11 @@ def mldsa_kernels(root: str, dev, out: dict) -> None:
                     "ntt_kernel<true>" if old else "intt_kernel")}
     # the launch floor: the device time of a one-element add_
     one = torch.zeros(1, device=dev)
-    out["floor_ms"] = kernel_ms(lambda: one.add_(1), 50, "elementwise_kernel")
-    print(f"launch floor (one-element add_): {out['floor_ms']:.4f} ms",
-          flush=True)
+    out["floor_ms"], by = kernel_ms(lambda: one.add_(1), 50,
+                                    "elementwise_kernel")
+    out["by"]["floor"] = by
+    print(f"launch floor (one-element add_): {out['floor_ms']:.4f} ms "
+          f"(by {by})", flush=True)
     out["mldsa"] = {}
     dig = out["digests"].setdefault("ML-DSA", {})
     for i, (name, shape) in enumerate(MLDSA_CASES):
@@ -284,12 +293,13 @@ def mldsa_kernels(root: str, dev, out: dict) -> None:
             x = x.astype(np.int32)
         x = torch.from_numpy(x).to(dev)
         fn, key = fns[name]
-        ms = kernel_ms(lambda: fn(x), 50, key)
+        ms, by = kernel_ms(lambda: fn(x), 50, key)
         label = f"{name} {list(shape)}"
         out["mldsa"][label] = ms
+        out["by"][label] = by
         dig[label] = digest([fn(x)])
-        print(f"{label}: {ms:.4f} ms a launch ({key}), outputs sha256 "
-              f"{dig[label][:16]}", flush=True)
+        print(f"{label}: {ms:.4f} ms a launch ({key}, by {by}), outputs "
+              f"sha256 {dig[label][:16]}", flush=True)
 
 
 def lanes_differ(a, b) -> int:
@@ -357,7 +367,7 @@ def main() -> int:
     n = args.lanes
     out = dict(root=root, card=card, lanes=n, build_s=build_s,
                ptxas=ptxas, sass=sass, redc={}, madd={}, ladder={},
-               digests={})
+               digests={}, by={})
     for crv in CURVES:
         c = ec_rns.ctx_for(crv)
         if (c.A.count, c.B.count) not in cuda_redc.KERNEL_SHAPES:
@@ -367,10 +377,12 @@ def main() -> int:
         rng = np.random.default_rng([SEED, CURVES.index(crv), 1])
         xA, xB = (T(a) for a in residues_of_bytes(c, rng.integers(
             0, 256, (n, 2 * c.cp.coord_bytes), dtype=np.uint8)))
-        ms = kernel_ms(lambda: cuda_redc.redc(c, xA, xB), 50, "redc_kernel")
+        ms, by = kernel_ms(lambda: cuda_redc.redc(c, xA, xB), 50,
+                           "redc_kernel")
         out["redc"][crv] = ms
+        out["by"][f"redc {crv}"] = by
         dig["redc"] = digest(cuda_redc.redc(c, xA, xB))
-        print(f"redc {crv}: {n} lanes, {ms:.4f} ms, outputs sha256 "
+        print(f"redc {crv}: {n} lanes, {ms:.4f} ms (by {by}), outputs sha256 "
               f"{dig['redc'][:16]}", flush=True)
         rng = np.random.default_rng([SEED, CURVES.index(crv)])
         # one madd launch
@@ -423,8 +435,9 @@ def main() -> int:
     tab_cols, tab, rows = (T(a) for a in ed_ladder_case(
         er, np.random.default_rng([SEED, len(CURVES)]), n))
     ms = cuda_ms(lambda: ed_ladder(cuda_edw, c, tab_cols, tab, rows), 5)
-    edw_ms = kernel_ms(lambda: ed_ladder(cuda_edw, c, tab_cols, tab, rows),
-                       2, "edw_kernel")
+    edw_ms, by = kernel_ms(
+        lambda: ed_ladder(cuda_edw, c, tab_cols, tab, rows), 2, "edw_kernel")
+    out["by"]["edw"] = by
     via = "edw_window" if hasattr(cuda_edw, "edw_window") else \
         "gather + edw"
     out["ed_ladder"] = dict(windows=int(rows.shape[0]), ms=ms,
@@ -433,8 +446,8 @@ def main() -> int:
     dig["ed_ladder"] = digest([t for pair in ed_ladder(
         cuda_edw, c, tab_cols, tab, rows) for t in pair])
     print(f"Ed25519 ladder: {n} lanes, {rows.shape[0]} windows ({via}) "
-          f"{ms:.4f} ms, edw kernel {edw_ms:.4f} ms a launch, outputs "
-          f"sha256 {dig['ed_ladder'][:16]}", flush=True)
+          f"{ms:.4f} ms, edw kernel {edw_ms:.4f} ms a launch (by {by}), "
+          f"outputs sha256 {dig['ed_ladder'][:16]}", flush=True)
     mldsa_kernels(root, dev, out)
     print(json.dumps(out), flush=True)
     return 0

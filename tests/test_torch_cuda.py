@@ -452,6 +452,40 @@ def test_ntt_kernel_matches_plain_at_the_path_shape(dev):
     assert torch.equal(cuda_ntt.intt(got), t)
 
 
+# intt's input at the path's shapes: [1024, k, 256] for ML-DSA-44, -65
+# and -87
+@pytest.mark.parametrize("k", [4, 6, 8])
+def test_intt_kernel_matches_plain_at_the_path_shapes(dev, k):
+    rng = np.random.default_rng(460 + k)
+    x = rng.integers(0, ntt.Q, (1024, k, 256), dtype=np.int64)
+    x[0, 0], x[-1, -1], x[1, 0, :3] = 0, ntt.Q - 1, [0, ntt.Q - 1, 1]
+    t = torch.from_numpy(x.astype(np.int32)).to(dev)
+    before = cuda_ntt.intt_launches
+    got = cuda_ntt.intt(t)
+    torch.cuda.synchronize()
+    assert cuda_ntt.intt_launches == before + 1
+    assert got.shape == t.shape and torch.equal(got, ntt.intt_plain(t))
+    assert torch.equal(cuda_ntt.ntt(got), t)
+
+
+def test_intt_refuses_a_misaligned_input(dev):
+    """A contiguous [rows, 256] view 4 bytes into its buffer: the
+    inverse reads 16-byte words and raises; the forward, which reads 4
+    bytes a thread, takes it."""
+    rows = 8
+    rng = np.random.default_rng(470)
+    buf = torch.from_numpy(rng.integers(0, ntt.Q, rows * 256 + 1)
+                           .astype(np.int32)).to(dev)
+    x = buf[1:].view(rows, 256)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    before = cuda_ntt.intt_launches
+    with pytest.raises(ValueError):
+        cuda_ntt.intt(x)
+    assert cuda_ntt.intt_launches == before
+    assert torch.equal(cuda_ntt.ntt(x), ntt.ntt_plain(x))
+    assert torch.equal(cuda_ntt.intt(x.clone()), ntt.intt_plain(x))
+
+
 def test_keccak_and_ntt_wrappers_refuse_what_the_kernels_do_not_take(dev):
     s = torch.zeros((4, 25, 2), dtype=torch.int32, device=dev)
     x = torch.zeros((4, 256), dtype=torch.int32, device=dev)

@@ -240,3 +240,117 @@ def test_warp_schedule_model_equals_the_references(seed):
     want = pallas_ntt.ntt_fused(jnp.asarray(x.astype(np.uint32)),
                                 interpret=True)
     assert np.array_equal(got, np.asarray(want).astype(np.int64))
+
+
+# -- the warp-a-row schedule of csrc/ntt.cu's intt_kernel, in numpy --------
+
+def _banks_once(words: np.ndarray) -> None:
+    """A warp's 4-byte tile accesses, [32, 8] words: each register's
+    32 words in 32 distinct banks."""
+    for j in range(8):
+        assert len(set(words[:, j] % 32)) == 32, j
+
+
+def _quads_once(base: np.ndarray) -> None:
+    """A warp's 16-byte tile accesses, [32, 2] first words: aligned,
+    and each quarter warp's 8 words cover the 8 bank quads once."""
+    assert (base % 4 == 0).all()
+    for q in range(4):
+        for h in range(2):
+            assert len(set(base[8 * q: 8 * q + 8, h] // 4 % 8)) == 8
+
+
+def _warp_schedule_intt(x: np.ndarray) -> np.ndarray:
+    """intt_kernel on int64 rows [rows, 256]: one array row a warp, one
+    column a thread, 8 registers each, each carrying its coefficient
+    index beside its value. Every Gentleman–Sande butterfly checks
+    that it pairs indices ln apart and that the kernel's twiddle index
+    is the stage's NEG_ZETAS[2·nblk − 1 − i / 2ln]; every tile access
+    its banks. The last stage folds in the 256⁻¹ scale: its sum times
+    INV256, its difference times mont_mul(NEG_ZETAS[1], INV256)."""
+    nz = t_ntt.NEG_ZETAS_MONT.astype(np.uint64)
+    inv = np.uint64(t_ntt.INV256_MONT)
+    neg1_inv = _mont(np.array([nz[1]]), inv)[0]
+    rows = x.shape[0]
+    t = np.arange(32)
+    k = t >> 2
+    # the 16-byte row loads: register j holds 8t + j
+    idx = 8 * t[:, None] + np.arange(8)                       # [32, 8]
+    val = x.astype(np.uint64)[:, idx]                          # [rows,32,8]
+    # the kernel's twiddle index of stage s (ln = 2^s), register j,
+    # thread t
+    zidx = [lambda j: 255 - 4 * t - (j >> 1), lambda j: 127 - 2 * t - (j >> 2),
+            lambda j: 63 - 4 * k - (j >> 1), lambda j: 31 - 2 * k - (j >> 2),
+            lambda j: 15 - k, lambda j: np.full(32, 7 - (j >> 1)),
+            lambda j: np.full(32, 3 - (j >> 2)), lambda j: np.full(32, 1)]
+
+    def stage(s, half):
+        ln, nblk = 1 << s, 128 >> s
+        for j in range(8):
+            if j & half:
+                continue
+            a, b = idx[:, j], idx[:, j + half]
+            z = zidx[s](j)
+            assert (b - a == ln).all() and \
+                (z == 2 * nblk - 1 - a // (2 * ln)).all(), (s, j)
+            lo, hi = val[:, :, j], val[:, :, j + half]
+            d = np.where(lo >= hi, lo - hi, lo + Q - hi)
+            su = lo + hi
+            su = np.where(su >= Q, su - Q, su)
+            if s < 7:
+                val[:, :, j], val[:, :, j + half] = su, _mont(d, nz[z])
+            else:
+                val[:, :, j], val[:, :, j + half] = (_mont(su, inv),
+                                                     _mont(d, neg1_inv))
+
+    def relayout(write, read):
+        """Register j of thread t to tile word write[t, j], then
+        register j from word read[t, j]."""
+        nonlocal idx, val
+        assert len(set(write.ravel())) == 256 == len(set(read.ravel()))
+        tile_i = np.full(288, -1)
+        tile_v = np.zeros((rows, 288), np.uint64)
+        tile_i[write] = idx
+        tile_v[:, write] = val
+        idx, val = tile_i[read], tile_v[:, read]
+
+    for s, half in ((0, 1), (1, 2)):
+        stage(s, half)
+    # tile A: two 16-byte words at pad(8t) and pad(8t + 4), read back
+    # at pad(mid + 4j)
+    base = np.stack([_pad(8 * t), _pad(8 * t + 4)], axis=-1)
+    _quads_once(base)
+    mid = ((t & 3) + 32 * k)[:, None] + 4 * np.arange(8)
+    _banks_once(_pad(mid))
+    relayout((base[:, :, None] + np.arange(4)).reshape(32, 8), _pad(mid))
+    assert np.array_equal(idx, mid)
+    for s, half in ((2, 1), (3, 2), (4, 4)):
+        stage(s, half)
+    # tile B: written at pad(mid + 4j), read back at pad(t + 32j)
+    wide = t[:, None] + 32 * np.arange(8)
+    _banks_once(_pad(wide))
+    relayout(_pad(mid), _pad(wide))
+    assert np.array_equal(idx, wide)
+    for s, half in ((5, 1), (6, 2), (7, 4)):
+        stage(s, half)
+    # stored 4 bytes a thread at t + 32j: coalesced
+    out = np.zeros((rows, 256), np.int64)
+    out[:, idx] = val.astype(np.int64)
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_inverse_warp_schedule_model_equals_the_references(seed):
+    """The inverse kernel's register layouts, re-layouts, tile banks,
+    twiddle indices and folded scale, exact against ``intt_ref``, the plain version and
+    the JAX package's ``intt_fused`` in interpret mode (edge rows of 0
+    and q − 1 among seeded ones)."""
+    x = np.concatenate([np.stack([np.zeros(256, np.int64),
+                                  np.full(256, Q - 1)]),
+                        _rows(40 + seed, lead=(40,))])
+    got = _warp_schedule_intt(x)
+    assert np.array_equal(got, j_ntt.intt_ref(x))
+    assert np.array_equal(got, t_ntt.intt_plain(_t(x)).numpy())
+    want = pallas_ntt.intt_fused(jnp.asarray(x.astype(np.uint32)),
+                                 interpret=True)
+    assert np.array_equal(got, np.asarray(want).astype(np.int64))
