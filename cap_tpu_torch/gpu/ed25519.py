@@ -269,20 +269,26 @@ def ed_packed_records(table: Ed25519KeyTable, sigs: Sequence[bytes],
 
     Row layout: signature R‖S (64) ‖ k = SHA-512(R‖A‖M) mod L as 32
     little-endian bytes ‖ validity flag u8 (length ok AND key decodes)
-    ‖ key row u8. The k hash is host work (variable-length input);
-    everything after it runs on the device.
+    ‖ key row u8. The k hash is host work (variable-length input), one
+    native ``sha_batch`` call a chunk; everything after it runs on the
+    device.
     """
+    from ..runtime.native_binding import sha_batch
+
     n = len(sigs)
     rec = np.zeros((n, 64 + 32 + ED_REC_EXTRA), np.uint8)
+    chunks: List[bytes] = []
+    live: List[int] = []
     for j, sg in enumerate(sigs):
         row = int(key_idx[j])
         rec[j, 97] = row
-        if len(sg) != 64:
-            continue
-        rec[j, :64] = np.frombuffer(sg, np.uint8)
-        rec[j, 96] = not table.invalid[row]
-        h = hashlib.sha512(sg[:32] + table.key_bytes[row] + msgs[j])
-        kk = int.from_bytes(h.digest(), "little") % L_ORDER
+        if len(sg) == 64:
+            rec[j, :64] = np.frombuffer(sg, np.uint8)
+            rec[j, 96] = not table.invalid[row]
+            chunks.append(sg[:32] + table.key_bytes[row] + msgs[j])
+            live.append(j)
+    for j, h in zip(live, sha_batch(chunks, 512)):
+        kk = int.from_bytes(h, "little") % L_ORDER
         rec[j, 64:96] = np.frombuffer(kk.to_bytes(32, "little"), np.uint8)
     return rec
 

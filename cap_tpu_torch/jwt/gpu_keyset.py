@@ -3,32 +3,38 @@
 The port of the JAX package's ``TPUBatchKeySet`` packed path for the
 north-star workload (RS256 + ES256 over a multi-key JWKS), ES384 and
 ES512 (P-384 and P-521 keys), the PS256 + EdDSA workload and
-ML-DSA-44/65/87 (AKP keys). Per batch:
+ML-DSA-44/65/87 (AKP keys). A batch runs in two phases, as the JAX
+keyset's ``_dispatch_batch`` and ``_collect_batch`` do:
 
-1. host prep in Python: JSON-form normalization, the strict compact
-   parse (with the native prep's status ladder and messages, so
-   rejections read the same), SHA-2 of the signing input, kid → key
-   row;
-2. tokens with a unique key go to the packed paths, in chunks sized
-   and padded as the JAX keyset does, the post-quantum family first:
-   ML-DSA-* to ``gpu.mldsa`` (the fused engine: μ, SampleInBall, the
-   NTT network and the c̃ compare on the device), RS* and PS256 to
-   ``gpu.rsa`` (PS256 with the device EMSA-PSS check),
-   ES256/ES384/ES512 to ``gpu.ec`` (P-256/P-384/P-521; the ladder runs
-   as one whole-ladder launch a chunk), EdDSA to
-   ``gpu.ed25519`` (k = SHA-512(R‖A‖M) on the host). Every chunk is
-   queued on the device before any result is read, but each ES and
-   EdDSA chunk waits once on the device inside its finish (the batch
-   inverse's root is inverted by a host ``pow``, see
-   ``gpu.bignum.batch_mont_inverse``);
-3. lanes the device flags (ES ladder degeneracies, ML-DSA lanes whose
-   SampleInBall walk exhausted its squeeze budget) are re-verified on
-   the pure-integer oracle (and counted in ``deg_reverified``);
-4. tokens without a unique key candidate take the trial path on the
-   host oracle (``jwt.verify``), as the JAX keyset's CPU fallback does.
+1. dispatch: JSON-form normalization, then one native prep call
+   (``runtime.native_binding.prepare_batch_arrays``: the strict
+   compact parse, the header's alg and kid, SHA-2 of the signing
+   input); families bucketed by alg id (ML-DSA sets by the raw alg
+   bytes), kid → key row per distinct kid. Tokens with a unique key
+   go to the packed paths, in chunks sized and padded as the JAX
+   keyset does, the post-quantum family first: ML-DSA-* to
+   ``gpu.mldsa`` (the fused engine: μ, SampleInBall, the NTT network
+   and the c̃ compare on the device), RS* and PS256 to ``gpu.rsa``
+   (PS256 with the device EMSA-PSS check), ES256/ES384/ES512 to
+   ``gpu.ec`` (P-256/P-384/P-521; the ladder runs as one whole-ladder
+   launch a chunk), EdDSA to ``gpu.ed25519`` (k = SHA-512(R‖A‖M) by
+   one native hash call a chunk). RS, PS and ES records come from the
+   native record packer. Every chunk is queued on the device before
+   any result is read, but each ES and EdDSA chunk waits once on the
+   device while it is queued (the batch inverse's root is inverted by
+   a host ``pow``, see ``gpu.bignum.batch_mont_inverse``);
+2. collect: the claims of every parsed token are parsed natively
+   (``PreparedBatch.prefetch_claims``) while the device drains, then
+   each chunk's verdicts are read; lanes the device flags (ES ladder
+   degeneracies, ML-DSA lanes whose SampleInBall walk exhausted its
+   squeeze budget) are re-verified on the pure-integer oracle (and
+   counted in ``deg_reverified``); tokens without a unique key
+   candidate take the trial path on the host oracle (``jwt.verify``),
+   as the JAX keyset's CPU fallback does.
 
 Results are one claims dict or one exception per token, with the JAX
-keyset's exception classes and messages.
+keyset's exception classes and messages. An entry that is not a
+``str`` raises ``TypeError`` for the whole batch, as in the JAX keyset.
 
 Not ported yet (ROADMAP): PS384/PS512 (their tokens get a per-token
 ``UnsupportedAlgError``), SLH-DSA (its AKP keys do not parse), the
@@ -39,8 +45,6 @@ async/stream entry points, telemetry.
 
 from __future__ import annotations
 
-import hashlib
-import json
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -50,7 +54,6 @@ from ..errors import (
     InvalidSignatureError,
     MalformedTokenError,
     NilParameterError,
-    TokenNotSignedError,
     UnsupportedAlgError,
 )
 from ..gpu import ec as gpuec
@@ -58,8 +61,9 @@ from ..gpu import ed25519 as gpued
 from ..gpu import mldsa as gpumldsa
 from ..gpu import rsa as gpursa
 from ..gpu.limbs import nlimbs_for_bits
+from ..runtime import native_binding as nb
 from . import algs
-from .jose import ParsedJWS, b64url_decode, normalize_batch, parse_jws
+from .jose import normalize_batch, parse_jws
 from .jwk import JWK, RSAPublicKey
 from .keyset import KeySet
 from .verify import key_matches_alg, verify_parsed
@@ -86,40 +90,19 @@ def _pad_size(n: int, max_chunk: int) -> int:
     return min(size, max_chunk)
 
 
-def _prep_one(token) -> Any:
-    """Strict compact parse → ParsedJWS, or the rejection.
+def _mldsa_alg_indices(pb, ok: np.ndarray, name: str) -> np.ndarray:
+    """Token indices whose protected alg is the ML-DSA set ``name``.
 
-    The checks and their order are the native batch prep's (split,
-    header base64url, header JSON object, alg, crit, payload and
-    signature base64url, empty signature), and so are the messages.
+    The native prep interns only the ten classical alg names
+    (``ALG_NAMES``); any other alg has ``alg_id`` -1 and its raw bytes,
+    so the set's bucket is a vectorized compare against ``alg_raw``.
     """
-    if not isinstance(token, str) or not token or token.count(".") != 2:
-        return MalformedTokenError("compact JWS must have 3 segments")
-    raw_h, raw_p, raw_s = token.split(".")
-    try:
-        header_bytes = b64url_decode(raw_h)
-    except MalformedTokenError:
-        return MalformedTokenError("invalid base64url segment")
-    try:
-        header = json.loads(header_bytes)
-    except (ValueError, UnicodeDecodeError):
-        header = None
-    if not isinstance(header, dict):
-        return MalformedTokenError("protected header is not a JSON object")
-    alg = header.get("alg")
-    if not isinstance(alg, str) or not alg:
-        return MalformedTokenError("protected header missing alg parameter")
-    if "crit" in header:
-        return MalformedTokenError("unsupported crit header")
-    try:
-        payload = b64url_decode(raw_p)
-        sig = b64url_decode(raw_s)
-    except MalformedTokenError:
-        return MalformedTokenError("invalid base64url segment")
-    if not sig:
-        return TokenNotSignedError("token must be signed")
-    return ParsedJWS(header=header, payload=payload, signature=sig,
-                     signing_input=(raw_h + "." + raw_p).encode("ascii"))
+    want = np.frombuffer(name.encode(), np.uint8)
+    cand = ok & (pb.alg_id == -1) & (pb.alg_len == len(want))
+    if not cand.any():
+        return np.zeros(0, np.int64)
+    match = (pb.alg_raw[:, : len(want)] == want).all(axis=1)
+    return np.nonzero(cand & match)[0]
 
 
 def _chunk_tokens(rec_width: int) -> int:
@@ -131,13 +114,32 @@ def _chunk_tokens(rec_width: int) -> int:
     return min(_MAX_CHUNK, max(1024, c))
 
 
-def _byte_matrix(rows: List[bytes], width: int) -> np.ndarray:
-    """Left-aligned [len(rows), width] u8 matrix, zero-padded."""
-    out = np.zeros((len(rows), width), np.uint8)
-    for i, r in enumerate(rows):
-        b = r[:width]
-        out[i, :len(b)] = np.frombuffer(b, np.uint8)
-    return out
+def rsa_records(pb, table, kind: str, hash_name: str, chunk: np.ndarray,
+                crows: np.ndarray, pad: int) -> np.ndarray:
+    """The packed RS* (``kind`` "rs") or PS* ("ps") records of one chunk
+    by the native packer: the bytes ``gpu.rsa.rs_packed_records`` makes."""
+    h_len = gpursa.HASH_LEN[hash_name]
+    sizes = np.asarray(table.sizes_bytes, np.int64)[crows]
+    if kind == "rs":
+        # PKCS#1 v1.5 needs emLen ≥ tLen + 11; the PSS length checks
+        # run on the device
+        t_len = len(gpursa.DIGEST_INFO_PREFIX[hash_name]) + h_len
+        extra = sizes >= t_len + 11
+    else:
+        extra = np.ones(len(chunk), bool)
+    return pb.pack_sig_records(chunk, sizes, extra, crows, 2 * table.k,
+                               h_len, pad)
+
+
+def es_records(pb, table, chunk: np.ndarray, crows: np.ndarray,
+               hash_len: int, pad: int) -> np.ndarray:
+    """The packed ES* records of one chunk by the native packer: the
+    bytes ``gpu.ec.es_packed_records`` makes."""
+    width = 2 * table.coord_bytes
+    m = len(chunk)
+    return pb.pack_sig_records(chunk, np.full(m, width, np.int64),
+                               np.ones(m, bool), crows, width, hash_len,
+                               pad)
 
 
 class GPUBatchKeySet(KeySet):
@@ -276,16 +278,16 @@ class GPUBatchKeySet(KeySet):
     # -- batch path --------------------------------------------------------
 
     def verify_batch(self, tokens: Sequence[str]) -> List[Any]:
+        return self._collect_batch(self._dispatch_batch(tokens))
+
+    def _dispatch_batch(self, tokens: Sequence[str]) -> dict:
+        """Phase 1: prep, bucket, pack and queue every chunk."""
         tokens, specials = normalize_batch(tokens)
-        n = len(tokens)
-        results: List[Any] = [None] * n
-        parsed: List[Optional[ParsedJWS]] = [None] * n
-        for i, t in enumerate(tokens):
-            out = _prep_one(t)
-            if isinstance(out, Exception):
-                results[i] = out
-            else:
-                parsed[i] = out
+        pb = nb.prepare_batch_arrays(tokens)
+        results: List[Any] = [None] * pb.n
+        ok = pb.status == 0
+        for i in np.nonzero(~ok)[0].tolist():
+            results[i] = pb.error(i)
         for i, sp in specials.items():
             # normalization verdicts outrank the ""-sentinel's prep error
             if isinstance(sp, Exception):
@@ -297,91 +299,81 @@ class GPUBatchKeySet(KeySet):
                     results[i] = e
 
         pending: List[tuple] = []       # (chunk, m, device outs, finish)
-        by_alg: Dict[str, List[int]] = {}
-        for i, p in enumerate(parsed):
-            if p is not None:
-                by_alg.setdefault(p.alg, []).append(i)
+        alg_ids = {name: k for k, name in enumerate(nb.ALG_NAMES)}
+
+        def family(alg: str) -> np.ndarray:
+            return np.nonzero(ok & (pb.alg_id == alg_ids[alg]))[0]
+
         # post-quantum first: the deepest device programs go on the
         # stream before the cheaper families
         for pset in sorted(self._mldsa_tables):
-            if pset in by_alg:
-                self._run_mldsa_packed(pset, np.asarray(by_alg[pset]),
-                                       parsed, pending)
+            idx = _mldsa_alg_indices(pb, ok, pset)
+            if len(idx):
+                self._run_mldsa_packed(pset, idx, pb, pending)
         for alg, crv in _ES.items():
-            if crv in self._ec_tables and alg in by_alg:
-                self._run_ec_packed(alg, np.asarray(by_alg[alg]), parsed,
-                                    pending)
-        if self._ed_table is not None and algs.EdDSA in by_alg:
-            self._run_ed_packed(np.asarray(by_alg[algs.EdDSA]), parsed,
-                                pending)
+            idx = family(alg)
+            if crv in self._ec_tables and len(idx):
+                self._run_ec_packed(alg, idx, pb, pending)
+        idx = family(algs.EdDSA)
+        if self._ed_table is not None and len(idx):
+            self._run_ed_packed(idx, pb, pending)
         if self._rsa_tables:
-            for kind, family in (("rs", _RS), ("ps", _PS)):
-                for alg, hash_name in family.items():
-                    if alg in by_alg:
-                        self._run_rsa_packed(
-                            kind, hash_name, np.asarray(by_alg[alg]),
-                            parsed, pending)
+            for kind, fam in (("rs", _RS), ("ps", _PS)):
+                for alg, hash_name in fam.items():
+                    idx = family(alg)
+                    if len(idx):
+                        self._run_rsa_packed(kind, hash_name, idx, pb,
+                                             pending)
             for alg in _PS_UNPORTED:
-                for j in by_alg.get(alg, ()):
+                for j in family(alg).tolist():
                     results[j] = UnsupportedAlgError(
                         f"{alg} is not ported to GPUBatchKeySet yet")
+        return dict(pb=pb, ok=ok, results=results, pending=pending)
 
-        for chunk, m, outs, finish in pending:
-            finish(chunk, [o.cpu().numpy()[:m] for o in outs], parsed,
-                   results)
-
+    def _collect_batch(self, state: dict) -> List[Any]:
+        """Phase 2: claims parse while the device drains, the syncs,
+        the verdicts, the trial path."""
+        pb, ok, results = state["pb"], state["ok"], state["results"]
+        pb.prefetch_claims(np.nonzero(ok)[0])
+        for chunk, m, outs, finish in state["pending"]:
+            finish(chunk, [o.cpu().numpy()[:m] for o in outs], pb, results)
         # no unique key candidate, or no table for the family: the trial
         # path on the host oracle
-        for j in range(n):
-            if parsed[j] is not None and results[j] is None:
-                results[j] = self._verify_one_parsed(parsed[j])
+        for j in np.nonzero(ok)[0].tolist():
+            if results[j] is None:
+                results[j] = self._verify_one_parsed(pb.parsed(j))
         return results
 
     @staticmethod
-    def _finish(chunk, okv, parsed, results) -> None:
+    def _finish(chunk, okv, pb, results) -> None:
         for j, good in zip(chunk.tolist(), np.asarray(okv).tolist()):
             if good:
                 try:
-                    results[j] = parsed[j].claims()
+                    results[j] = pb.claims(j)
                 except MalformedTokenError as e:
                     results[j] = e
             else:
                 results[j] = InvalidSignatureError(_REJECT)
 
-    def _finish_ok(self, chunk, arrs, parsed, results) -> None:
+    def _finish_ok(self, chunk, arrs, pb, results) -> None:
         """The finish of a path whose one device output is the verdict."""
-        self._finish(chunk, arrs[0], parsed, results)
+        self._finish(chunk, arrs[0], pb, results)
 
-    def _rows(self, idx, parsed, kid_to_row: Dict[str, int],
+    @staticmethod
+    def _rows(idx, pb, kid_to_row: Dict[str, int],
               n_keys: int) -> np.ndarray:
         """Key row per token: -1 no kid, -2 unknown kid; a family of one
         key takes kid-less tokens (their only candidate)."""
-        rows = np.empty(len(idx), np.int64)
-        for k, j in enumerate(idx.tolist()):
-            kid = parsed[j].kid
-            rows[k] = -1 if kid is None else kid_to_row.get(kid, -2)
+        rows = pb.kid_rows(idx, kid_to_row)
         if n_keys == 1:
             rows = np.where(rows == -1, 0, rows)
         return rows
 
-    def _records(self, chunk, parsed, width: int, pad: int, hash_name):
-        m = len(chunk)
-        sigs = [parsed[j].signature for j in chunk.tolist()]
-        sig_mat = np.zeros((pad, width), np.uint8)
-        sig_mat[:m] = _byte_matrix(sigs, width)
-        sig_lens = np.zeros(pad, np.int64)
-        sig_lens[:m] = [len(s) for s in sigs]
-        hash_mat = np.zeros((pad, 64), np.uint8)
-        hash_mat[:m] = _byte_matrix(
-            [hashlib.new(hash_name, parsed[j].signing_input).digest()
-             for j in chunk.tolist()], 64)
-        return sig_mat, sig_lens, hash_mat
-
     def _run_rsa_packed(self, kind: str, hash_name: str, idx: np.ndarray,
-                        parsed, pending: list) -> None:
+                        pb, pending: list) -> None:
         """RS* (``kind`` "rs") or PS* ("ps") tokens in packed chunks per
         RSA class."""
-        rows = self._rows(idx, parsed, self._kid_rsa_row, self._n_rsa_keys)
+        rows = self._rows(idx, pb, self._kid_rsa_row, self._n_rsa_keys)
         fast = rows >= 0
         idx, rows = idx[fast], rows[fast]
         h_len = gpursa.HASH_LEN[hash_name]
@@ -391,51 +383,37 @@ class GPUBatchKeySet(KeySet):
                 continue
             cls_idx = idx[sel]
             cls_rows = rows[sel] % _RSA_CLS_STRIDE
-            width = 2 * table.k
-            chunk_n = _chunk_tokens(width + h_len + gpursa.RS_REC_EXTRA)
+            chunk_n = _chunk_tokens(2 * table.k + h_len
+                                    + gpursa.RS_REC_EXTRA)
             for lo in range(0, len(cls_idx), chunk_n):
                 chunk = cls_idx[lo: lo + chunk_n]
-                m = len(chunk)
-                pad = _pad_size(m, chunk_n)
-                sig_mat, sig_lens, hash_mat = self._records(
-                    chunk, parsed, width, pad, hash_name)
-                key_idx = np.zeros(pad, np.int64)
-                key_idx[:m] = cls_rows[lo: lo + chunk_n]
-                rec = gpursa.rs_packed_records(table, sig_mat, sig_lens,
-                                               hash_mat, hash_name, key_idx,
-                                               kind)
+                rec = rsa_records(pb, table, kind, hash_name, chunk,
+                                  cls_rows[lo: lo + chunk_n],
+                                  _pad_size(len(chunk), chunk_n))
                 verify = (gpursa.verify_rs_packed_pending if kind == "rs"
                           else gpursa.verify_ps_packed_pending)
                 ok = verify(table, rec, hash_name)
-                pending.append((chunk, m, [ok], self._finish_ok))
+                pending.append((chunk, len(chunk), [ok], self._finish_ok))
 
-    def _run_ec_packed(self, alg: str, idx: np.ndarray, parsed,
+    def _run_ec_packed(self, alg: str, idx: np.ndarray, pb,
                        pending: list) -> None:
         crv = _ES[alg]
         table = self._ec_tables[crv]
-        hash_name = algs.HASH_FOR_ALG[alg]
-        hash_len = gpursa.HASH_LEN[hash_name]
-        rows = self._rows(idx, parsed, self._kid_ec_row[crv],
-                          len(table.keys))
+        hash_len = gpursa.HASH_LEN[algs.HASH_FOR_ALG[alg]]
+        rows = self._rows(idx, pb, self._kid_ec_row[crv], len(table.keys))
         fast = rows >= 0
         idx, rows = idx[fast], rows[fast]
         cb = table.coord_bytes
-        width = 2 * cb
-        chunk_n = _chunk_tokens(width + hash_len + gpuec.ES_REC_EXTRA)
+        chunk_n = _chunk_tokens(2 * cb + hash_len + gpuec.ES_REC_EXTRA)
         for lo in range(0, len(idx), chunk_n):
             chunk = idx[lo: lo + chunk_n]
             crows = rows[lo: lo + chunk_n]
             m = len(chunk)
-            pad = _pad_size(m, chunk_n)
-            sig_mat, sig_lens, hash_mat = self._records(
-                chunk, parsed, width, pad, hash_name)
-            key_idx = np.zeros(pad, np.int64)
-            key_idx[:m] = crows
-            rec = gpuec.es_packed_records(table, sig_mat, sig_lens,
-                                          hash_mat, hash_len, key_idx)
+            rec = es_records(pb, table, chunk, crows, hash_len,
+                             _pad_size(m, chunk_n))
             ok, deg = gpuec.verify_es_packed_pending(table, rec, hash_len)
 
-            def finish(chunk, arrs, parsed, results, rec=rec, crows=crows,
+            def finish(chunk, arrs, pb, results, rec=rec, crows=crows,
                        table=table):
                 okv = np.array(arrs[0])
                 for j in np.nonzero(arrs[1])[0]:
@@ -443,17 +421,16 @@ class GPUBatchKeySet(KeySet):
                     okv[j] = gpuec._py_verify_one(
                         table, int(crows[j]), rec[j, :2 * cb].tobytes(),
                         rec[j, 2 * cb:2 * cb + hash_len].tobytes())
-                self._finish(chunk, okv, parsed, results)
+                self._finish(chunk, okv, pb, results)
 
             pending.append((chunk, m, [ok, deg], finish))
 
-    def _run_ed_packed(self, idx: np.ndarray, parsed,
-                       pending: list) -> None:
+    def _run_ed_packed(self, idx: np.ndarray, pb, pending: list) -> None:
         """EdDSA tokens in packed chunks (``_chunk_tokens(64 + 32 + 2)``:
         32,768 tokens), padded to a power of two ≥ 128 with empty
         signatures on key row 0."""
         table = self._ed_table
-        rows = self._rows(idx, parsed, self._kid_ed_row, len(table.keys))
+        rows = self._rows(idx, pb, self._kid_ed_row, len(table.keys))
         fast = rows >= 0
         idx, rows = idx[fast], rows[fast]
         chunk_n = _chunk_tokens(64 + 32 + gpued.ED_REC_EXTRA)
@@ -462,8 +439,8 @@ class GPUBatchKeySet(KeySet):
             m = len(chunk)
             pad = _pad_size(m, chunk_n)
             fill = pad - m
-            sigs = [parsed[j].signature for j in chunk.tolist()]
-            msgs = [parsed[j].signing_input for j in chunk.tolist()]
+            sigs = [pb.signature(j) for j in chunk.tolist()]
+            msgs = [pb.signing_input(j) for j in chunk.tolist()]
             key_idx = np.zeros(pad, np.int64)
             key_idx[:m] = rows[lo: lo + chunk_n]
             rec = gpued.ed_packed_records(table, sigs + [b""] * fill,
@@ -471,7 +448,7 @@ class GPUBatchKeySet(KeySet):
             ok = gpued.verify_ed_packed_pending(table, rec)
             pending.append((chunk, m, [ok], self._finish_ok))
 
-    def _run_mldsa_packed(self, pset: str, idx: np.ndarray, parsed,
+    def _run_mldsa_packed(self, pset: str, idx: np.ndarray, pb,
                           pending: list) -> None:
         """One ML-DSA parameter set through the fused engine, in chunks
         of ``_chunk_tokens(bpt // 2)`` (1,024 tokens for every set) with
@@ -480,7 +457,7 @@ class GPUBatchKeySet(KeySet):
         one key of the set take the trial path."""
         table = self._mldsa_tables[pset]
         p = table.params
-        rows = self._rows(idx, parsed, self._kid_mldsa_row[pset],
+        rows = self._rows(idx, pb, self._kid_mldsa_row[pset],
                           len(table.keys))
         fast = rows >= 0
         idx, rows = idx[fast], rows[fast]
@@ -493,13 +470,13 @@ class GPUBatchKeySet(KeySet):
             m = len(chunk)
             pad = _pad_size(m, chunk_n)
             fin = gpumldsa.verify_mldsa_fused_pending(
-                table, [parsed[j].signature for j in chunk.tolist()],
-                [parsed[j].signing_input for j in chunk.tolist()],
+                table, [pb.signature(j) for j in chunk.tolist()],
+                [pb.signing_input(j) for j in chunk.tolist()],
                 rows[lo: lo + chunk_n], pad=pad)
 
-            def finish(chunk, arrs, parsed, results, fin=fin):
+            def finish(chunk, arrs, pb, results, fin=fin):
                 okv = fin.verdicts(arrs)
                 self.deg_reverified += fin.reverified
-                self._finish(chunk, okv, parsed, results)
+                self._finish(chunk, okv, pb, results)
 
             pending.append((chunk, m, fin.outs, finish))

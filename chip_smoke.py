@@ -8,8 +8,10 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases (any failure exits non-zero; none is caught):
 
 1. the card's name and power limit (nvidia-smi), then the build of
-   every kernel from ``cap_tpu_torch/gpu/csrc`` with nvcc for sm_90a,
-   one nvcc a source, all in parallel;
+   every kernel from ``cap_tpu_torch/gpu/csrc`` with nvcc for sm_90a
+   and of the host prep from ``cap_tpu_torch/runtime/native`` with g++
+   (the prep library and the claims extension), one compiler a
+   target, all in parallel;
 2. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (23+23 RNS channels, 65,536 lanes: one
    32,768-token ES or EdDSA chunk with both ladder chains; redc and
@@ -33,10 +35,19 @@ Phases (any failure exits non-zero; none is caught):
    batch of 65,536 RS256/ES256 tokens tiled from 1,024 unique signed
    tokens, a seeded 1/8 share tampered, and a few tokens of each
    rejection class — through ``GPUBatchKeySet(jwks).verify_batch``;
+   first the card host's native prep of the whole batch held against
+   ``jwt.jose.parse_jws`` and ``hashlib`` on every token, and one
+   chunk's records of each family against the numpy builders; then
    every verdict checked, the unique tokens cross-checked on the
    pure-integer oracle, the kernels' launch counters zeroed before one
-   run and read after it, verifies/s timed after a warm-up. Each ES
-   chunk runs the whole-ladder kernel once and redc 11 times, madd
+   run and read after it, verifies/s timed after a warm-up, one warm
+   batch split by phase ("batch breakdown": native prep, the rest of
+   the dispatch, claims prefetch, syncs and finishes, trial path), one
+   timed from its dispatch's end to the device's drain and one whose
+   collect phase runs under cProfile ("collect profile"), the
+   native prep and the claims prefetch timed alone ("host prep",
+   "claims prefetch") and each engine's records and device time. Each
+   ES chunk runs the whole-ladder kernel once and redc 11 times, madd
    never;
 4. the config-3 path (BASELINE.json's third configuration) the same
    way (the oracle cross-check on 256 of the unique tokens): 8 P-256
@@ -973,6 +984,163 @@ def counters():
             "intt": (cuda_ntt, "intt_launches")}
 
 
+def family_idx(pb, alg: str):
+    """Indices of the tokens of a PreparedBatch that parsed with
+    ``alg`` (an interned classical alg, or an ML-DSA set by its raw
+    bytes), as the keyset buckets them."""
+    import numpy as np
+
+    from cap_tpu_torch.jwt.gpu_keyset import _mldsa_alg_indices
+    from cap_tpu_torch.runtime.native_binding import ALG_NAMES
+
+    ok = pb.status == 0
+    if alg in ALG_NAMES:
+        return np.nonzero(ok & (pb.alg_id == ALG_NAMES.index(alg)))[0]
+    return _mldsa_alg_indices(pb, ok, alg)
+
+
+def prep_phase(name, ks, tokens, engines):
+    """The card host's native prep of a path's whole batch against the
+    port's strict parser (``jwt.jose.parse_jws``) and ``hashlib``: the
+    status class, alg, kid, signature, payload and digest of every
+    token. Then one chunk's records of each packed family (RS, PS, ES:
+    the native packer against the numpy builders
+    ``rs_packed_records``/``es_packed_records`` on parse_jws's bytes
+    and hashlib's digests; EdDSA: k against hashlib's SHA-512 mod L).
+    ML-DSA has no record packer (its host decode is ``_FusedPrep``)."""
+    import hashlib
+
+    import numpy as np
+
+    from cap_tpu_torch.gpu import ec as gpuec
+    from cap_tpu_torch.gpu import ed25519 as gpued
+    from cap_tpu_torch.gpu import rsa as gpursa
+    from cap_tpu_torch.jwt import algs, gpu_keyset
+    from cap_tpu_torch.jwt.jose import parse_jws
+    from cap_tpu_torch.runtime.native_binding import (
+        ALG_NAMES,
+        prepare_batch_arrays,
+    )
+
+    t0 = time.perf_counter()
+    pb = prepare_batch_arrays(tokens)
+    parsed = []
+    bad = []
+    for i, tok in enumerate(tokens):
+        try:
+            p = parse_jws(tok)
+        except Exception as e:  # noqa: BLE001 - compared below
+            parsed.append(None)
+            if pb.status[i] == 0 or \
+                    type(pb.error(i)).__name__ != type(e).__name__:
+                bad.append((i, "status", type(e).__name__))
+            continue
+        parsed.append(p)
+        if pb.status[i] != 0:
+            bad.append((i, "status", str(pb.error(i))))
+            continue
+        # the native prep hashes by the ten interned algs' family
+        digest = (hashlib.new(algs.HASH_FOR_ALG[p.alg],
+                              p.signing_input).digest()
+                  if p.alg in ALG_NAMES and p.alg != algs.EdDSA else b"")
+        got = (pb.alg(i), pb.kid(i), pb.signature(i), pb.payload_bytes(i),
+               pb.signing_input(i), pb.parsed(i).digest())
+        want = (p.alg, p.kid, p.signature, p.payload, p.signing_input,
+                digest)
+        if got != want:
+            bad.append((i, "fields", p.alg))
+    assert not bad, f"{name}: native prep differs on {len(bad)} tokens, " \
+        f"first {bad[:3]}"
+    n_ok = int((pb.status == 0).sum())
+    log(f"prep {name}: {len(tokens)} tokens, native prep equal to "
+        f"parse_jws + hashlib on every one ({n_ok} parsed, "
+        f"{len(tokens) - n_ok} rejected with the same class) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def chunk_of(idx, kid_to_row, n_keys, rec_width):
+        rows = ks._rows(idx, pb, kid_to_row, n_keys)
+        keep = rows >= 0
+        n = gpu_keyset._chunk_tokens(rec_width)
+        idx, rows = idx[keep][:n], rows[keep][:n]
+        return idx, rows, gpu_keyset._pad_size(len(idx), n)
+
+    def numpy_inputs(idx, rows, width, hash_name, pad):
+        m = len(idx)
+        sig_mat = np.zeros((pad, width), np.uint8)
+        sig_lens = np.zeros(pad, np.int64)
+        hash_mat = np.zeros((pad, 64), np.uint8)
+        key_idx = np.zeros(pad, np.int64)
+        for r, j in enumerate(idx.tolist()):
+            sig = parsed[j].signature
+            sig_mat[r, :min(len(sig), width)] = np.frombuffer(
+                sig[:width], np.uint8)
+            sig_lens[r] = len(sig)
+            dig = hashlib.new(hash_name, parsed[j].signing_input).digest()
+            hash_mat[r, :len(dig)] = np.frombuffer(dig, np.uint8)
+        key_idx[:m] = rows
+        return sig_mat, sig_lens, hash_mat, key_idx
+
+    for alg in engines:
+        idx = family_idx(pb, alg)
+        if alg in ("RS256", "PS256"):
+            kind = "rs" if alg == "RS256" else "ps"
+            table = ks._rsa_tables[0]
+            hash_name = algs.HASH_FOR_ALG[alg]
+            h_len = gpursa.HASH_LEN[hash_name]
+            idx, rows, pad = chunk_of(idx, ks._kid_rsa_row, ks._n_rsa_keys,
+                                      2 * table.k + h_len + 2)
+            got = gpu_keyset.rsa_records(pb, table, kind, hash_name, idx,
+                                         rows, pad)
+            sig_mat, sig_lens, hash_mat, key_idx = numpy_inputs(
+                idx, rows, 2 * table.k, hash_name, pad)
+            want = gpursa.rs_packed_records(table, sig_mat, sig_lens,
+                                            hash_mat, hash_name, key_idx,
+                                            kind)
+        elif alg in ("ES256", "ES384"):
+            crv = gpu_keyset._ES[alg]
+            table = ks._ec_tables[crv]
+            hash_name = algs.HASH_FOR_ALG[alg]
+            h_len = gpursa.HASH_LEN[hash_name]
+            width = 2 * table.coord_bytes
+            idx, rows, pad = chunk_of(idx, ks._kid_ec_row[crv],
+                                      len(table.keys), width + h_len + 2)
+            got = gpu_keyset.es_records(pb, table, idx, rows, h_len, pad)
+            sig_mat, sig_lens, hash_mat, key_idx = numpy_inputs(
+                idx, rows, width, hash_name, pad)
+            want = gpuec.es_packed_records(table, sig_mat, sig_lens,
+                                           hash_mat, h_len, key_idx)
+        elif alg == "EdDSA":
+            table = ks._ed_table
+            idx, rows, pad = chunk_of(idx, ks._kid_ed_row, len(table.keys),
+                                      64 + 32 + 2)
+            fill = pad - len(idx)
+            key_idx = np.zeros(pad, np.int64)
+            key_idx[:len(idx)] = rows
+            got = gpued.ed_packed_records(
+                table, [pb.signature(j) for j in idx.tolist()] + [b""] * fill,
+                [pb.signing_input(j) for j in idx.tolist()] + [b""] * fill,
+                key_idx)
+            want = got.copy()
+            want[:, 64:96] = 0
+            for r, j in enumerate(idx.tolist()):
+                sig = parsed[j].signature
+                if len(sig) != 64:
+                    continue
+                h = hashlib.sha512(sig[:32] + table.key_bytes[rows[r]]
+                                   + parsed[j].signing_input).digest()
+                k = int.from_bytes(h, "little") % gpued.L_ORDER
+                want[r, 64:96] = np.frombuffer(k.to_bytes(32, "little"),
+                                               np.uint8)
+        else:
+            continue
+        ndiff = int((got != want).any(axis=1).sum())
+        assert got.shape == want.shape and ndiff == 0, \
+            f"{name} {alg}: {ndiff} record rows differ from the numpy builder"
+        log(f"prep {name} {alg}: one chunk's records ({len(idx)} tokens, "
+            f"{pad} rows of {got.shape[1]} bytes) byte-equal to the numpy "
+            f"builder")
+
+
 def drive_path(records, name, jwks, tokens, expected, families, engines,
                **ks_opts):
     """One path through ``GPUBatchKeySet(jwks, **ks_opts).verify_batch``:
@@ -985,15 +1153,17 @@ def drive_path(records, name, jwks, tokens, expected, families, engines,
     verdicts, the best verifies/s and the profiled device ms."""
     import torch
 
-    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet, _prep_one
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.runtime.native_binding import prepare_batch_arrays
 
     ks = GPUBatchKeySet(jwks, **ks_opts)
-    parsed = [_prep_one(t) for t in tokens]
+    prep_phase(name, ks, tokens, engines)
+    pb = prepare_batch_arrays(tokens)
     want, n_chunks, fams = {}, 0, []
     for alg, prefix, chunk, per_chunk in families:
-        kids = {j.kid for j in jwks if j.kid and j.kid.startswith(prefix)}
-        n_fam = sum(not isinstance(p, Exception) and p.alg == alg
-                    and p.kid in kids for p in parsed)
+        kids = {j.kid: 0 for j in jwks if j.kid and j.kid.startswith(prefix)}
+        idx = family_idx(pb, alg)
+        n_fam = int((pb.kid_rows(idx, kids) >= 0).sum())
         chunks = (n_fam + chunk - 1) // chunk
         n_chunks += chunks
         for k, per in per_chunk.items():
@@ -1032,6 +1202,7 @@ def drive_path(records, name, jwks, tokens, expected, families, engines,
     log(f"{name} path warm: {len(tokens)} tokens in "
         f"{', '.join(f'{t:.3f}' for t in times)} s; best "
         f"{vps:.0f} verifies/s")
+    batch_breakdown(ks, tokens)
     engine_times(ks, tokens, engines)
     device_ms = profile_batch(ks, tokens, best)
     return dict(ks=ks, results=results, vps=vps, device_ms=device_ms)
@@ -1342,14 +1513,103 @@ def profile_batch(ks, tokens, wall_s: float):
     return total_ms
 
 
+def batch_breakdown(ks, tokens):
+    """One warm batch split by phase on the host clock (each phase
+    ends where the next starts; the card syncs inside them): the
+    native prep, the rest of the dispatch (bucketing, key rows, record
+    packing, queueing, and the ES and Ed chunks' host ``pow`` waits),
+    the claims prefetch, the syncs with the finishes, and the trial
+    path."""
+    import torch
+
+    from cap_tpu_torch.runtime import native_binding as nb
+
+    spans = {}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spans[name] = spans.get(name, 0.0) + \
+                    time.perf_counter() - t0
+                spans[name + " calls"] = spans.get(name + " calls", 0) + 1
+        return call
+
+    prep, prefetch = nb.prepare_batch_arrays, nb.PreparedBatch.prefetch_claims
+    nb.prepare_batch_arrays = timed("prep", prep)
+    nb.PreparedBatch.prefetch_claims = timed("prefetch", prefetch)
+    for name in ("_dispatch_batch", "_collect_batch", "_verify_one_parsed"):
+        setattr(ks, name, timed(name, getattr(ks, name)))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ks.verify_batch(tokens)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        nb.prepare_batch_arrays = prep
+        nb.PreparedBatch.prefetch_claims = prefetch
+        for name in ("_dispatch_batch", "_collect_batch",
+                     "_verify_one_parsed"):
+            delattr(ks, name)
+    trial = spans.get("_verify_one_parsed", 0.0)
+    ms = {"prep": spans["prep"],
+          "dispatch rest": spans["_dispatch_batch"] - spans["prep"],
+          "claims prefetch": spans["prefetch"],
+          "syncs + finishes": spans["_collect_batch"] - spans["prefetch"]
+          - trial,
+          "trial path": trial}
+    log(f"batch breakdown: {total * 1e3:.1f} ms = "
+        + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in ms.items())
+        + f" ms ({spans.get('_verify_one_parsed calls', 0)} tokens on the "
+        f"trial path)")
+
+    # one more batch, the device drained right after the dispatch: how
+    # long the queued work outlives the host's queueing of it
+    dispatch = ks._dispatch_batch
+    drain = []
+
+    def dispatch_then_drain(tokens):
+        state = dispatch(tokens)
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        drain.append(time.perf_counter() - t0)
+        return state
+
+    ks._dispatch_batch = dispatch_then_drain
+    try:
+        ks.verify_batch(tokens)
+    finally:
+        del ks._dispatch_batch
+    log(f"device drain after the dispatch: {drain[0] * 1e3:.1f} ms (one "
+        f"more warm batch, synchronized right after its dispatch)")
+
+    # and one with its collect phase under cProfile: where the host
+    # time after the dispatch goes, function by function
+    import cProfile
+    import pstats
+
+    state = ks._dispatch_batch(tokens)
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.runcall(ks._collect_batch, state)
+    stats = pstats.Stats(prof)
+    top = sorted(stats.stats.items(), key=lambda kv: kv[1][2],
+                 reverse=True)[:6]
+    log("collect profile (cProfile, own time): " + "; ".join(
+        f"{fn[2]} ({os.path.basename(fn[0])}:{fn[1]}) {tt * 1e3:.1f} ms "
+        f"in {nc} calls" for fn, (_, nc, tt, _, _) in top))
+
+
 def engine_times(ks, tokens, engines):
     """Record packing and device time of each named packed path (host
     prep excluded), with the count of tokens each one packed: the
     engines' share of the batch."""
-    import numpy as np
     import torch
 
-    from cap_tpu_torch.jwt.gpu_keyset import _prep_one
+    from cap_tpu_torch.runtime.native_binding import prepare_batch_arrays
 
     runners = {
         "RS256": lambda *a: ks._run_rsa_packed("rs", "sha256", *a),
@@ -1361,18 +1621,24 @@ def engine_times(ks, tokens, engines):
         "ML-DSA-65": lambda *a: ks._run_mldsa_packed("ML-DSA-65", *a),
     }
     t0 = time.perf_counter()
-    parsed = [_prep_one(t) for t in tokens]
+    pb = prepare_batch_arrays(tokens)
     dt = time.perf_counter() - t0
-    log(f"host prep: {len(tokens)} tokens parsed in {dt * 1e3:.1f} ms "
-        f"({dt / len(tokens) * 1e6:.2f} µs/token)")
+    log(f"host prep: {len(tokens)} tokens prepared (native parse and "
+        f"SHA-2) in {dt * 1e3:.1f} ms ({dt / len(tokens) * 1e6:.2f} "
+        f"µs/token)")
+    ok = (pb.status == 0).nonzero()[0]
+    t0 = time.perf_counter()
+    pb.prefetch_claims(ok)
+    dt = time.perf_counter() - t0
+    log(f"claims prefetch: {len(ok)} payloads parsed in {dt * 1e3:.1f} ms "
+        f"({dt / max(1, len(ok)) * 1e6:.2f} µs/token)")
     for alg in engines:
-        idx = np.asarray([i for i, p in enumerate(parsed)
-                          if not isinstance(p, Exception) and p.alg == alg
-                          and p.kid is not None])
+        idx = family_idx(pb, alg)
+        idx = idx[pb.kid_len[idx] != -1]
         pending = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        runners[alg](idx, parsed, pending)
+        runners[alg](idx, pb, pending)
         outs = [o.cpu() for _, _, o_list, _ in pending for o in o_list]
         dt = time.perf_counter() - t0
         packed = sum(m for _, m, _, _ in pending)
@@ -1403,10 +1669,11 @@ def main() -> int:
     log(f"card: {card}")
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s for "
-        f"{', '.join(_build.KERNELS)} (parallel nvcc: "
+    log(f"build: {time.perf_counter() - t0:.1f} s for the kernels "
+        f"{', '.join(_build.KERNELS)} (nvcc) and the host prep "
+        f"{', '.join(_build.HOST_TARGETS)} (g++), all in parallel: "
         + ", ".join(f"{n} {info['seconds']:.1f} s"
-                    for n, info in _build.BUILD_LOG.items()) + ")")
+                    for n, info in _build.BUILD_LOG.items()))
     ptxas = {}
     for name, info in sorted(_build.BUILD_LOG.items()):
         ptxas.update(ptxas_kernels(info["ptxas"]))

@@ -302,3 +302,102 @@ def test_es384_and_es512_are_refused_per_token(alg, crv):
         tt.sign_jwt(other, alg, {"sub": "y"}, kid="other", rng=rng)])
     assert out == [{"sub": "x"}, {"sub": "y"}]
     assert sorted(ks._ec_tables) == sorted(["P-256", crv])
+
+
+def test_one_native_prep_call_and_no_python_parse(batch, monkeypatch):
+    """A batch takes one ``cap_prepare_batch`` call: no token goes
+    through the strict Python parser, a base64url decode, json.loads of
+    its claims or a host hash (the packed path and the prep rejections;
+    the claims parse natively)."""
+    import hashlib as hl
+
+    from cap_tpu_torch.jwt import gpu_keyset, jose
+    from cap_tpu_torch.runtime import native_binding as nb
+
+    labels, tokens, _, port, ks = batch
+    keep = {"valid-rs", "valid-es", "tampered", "port-signed", "r-zero",
+            "s-zero", "s-ge-n", "r-ge-n", "wrong-length", "rs-s-ge-n",
+            "crit", "segments", "bad-b64", "header-not-object",
+            "header-no-alg", "alg-none-unsigned", "alg-none-signed"}
+    pick = [i for i, lab in enumerate(labels) if lab in keep]
+    calls = []
+
+    def refuse(name):
+        def f(*a, **k):
+            calls.append(name)
+            raise AssertionError(f"{name} called on the batch path")
+        return f
+
+    for mod, name in ((jose, "parse_jws"), (jose, "parse_compact"),
+                      (jose, "b64url_decode"), (gpu_keyset, "parse_jws"),
+                      (nb, "_loads_claims"), (hl, "new"), (hl, "sha256"),
+                      (hl, "sha384"), (hl, "sha512")):
+        monkeypatch.setattr(mod, name, refuse(name))
+    before = nb.prepare_calls
+    out = ks.verify_batch([tokens[i] for i in pick])
+    monkeypatch.undo()
+    assert nb.prepare_calls - before == 1 and not calls
+    assert all(_same(o, port[i]) for o, i in zip(out, pick))
+    assert sum(isinstance(o, dict) for o in out) == 18
+
+
+@pytest.mark.parametrize("how", ["missing", "fails"])
+def test_a_failed_host_build_raises(tmp_path, monkeypatch, how):
+    """The batch prep has no Python fallback: with no g++ on the PATH,
+    or a source that does not compile, into an empty build directory,
+    ``verify_batch`` raises and builds nothing."""
+    from cap_tpu_torch import _build
+    from cap_tpu_torch.runtime import native_binding as nb
+
+    rng = random.Random(6)
+    key = tt.generate_ec_key(rng)
+    ks = GPUBatchKeySet([t_jwk.JWK(key.public_key(), kid="k")],
+                        device="cpu")
+    token = tt.sign_jwt(key, algs.ES256, {"sub": "x"}, kid="k", rng=rng)
+    build = tmp_path / "build"
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(nb, "_LIB", None)
+    if how == "missing":
+        monkeypatch.setenv("PATH", str(tmp_path))
+        match = "g\\+\\+ not found"
+    else:
+        src = tmp_path / "src"
+        src.mkdir()
+        for f in ("jose_native.cpp", "claims_ext.cpp", "claims_tape.h"):
+            (src / f).write_text("this is not C++\n")
+        monkeypatch.setattr(_build, "HOST_SRC", src)
+        match = "the build failed for jose"
+    with pytest.raises(RuntimeError, match=match):
+        ks.verify_batch([token])
+    assert not list(build.glob("*.so"))
+
+
+def test_entries_not_str_or_not_ascii_as_the_jax_keyset():
+    """A non-ASCII character is a byte no segment accepts: its token is
+    rejected, with the JAX keyset's class and message. An entry that
+    is not a str raises TypeError for the whole batch, in both keysets
+    (the JAX keyset's join of the batch; ROADMAP §C)."""
+    rng = random.Random(7)
+    key = tt.generate_ec_key(rng)
+    doc = {"keys": [t_jwk.serialize_public_key(key.public_key(), kid="k")]}
+    good = tt.sign_jwt(key, algs.ES256, {"sub": "x"}, kid="k", rng=rng)
+    h, p, s = good.split(".")
+    tokens = [f"{h}.{p}.{s}é", f"é{h}.{p}.{s}", f"{h}.{p}☃.{s}",
+              f"{h}.{p}.{s[:-1]}\U0001f600", "é", "é.é.é",
+              f"{h}.é.{p}.{s}",
+              json.dumps({"protected": h, "payload": p + "é",
+                          "signature": s})]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CAP_TPU_RNS", "1")
+        jks = TPUBatchKeySet(j_jwk.parse_jwks(doc))
+    tks = GPUBatchKeySet(t_jwk.parse_jwks(doc), device="cpu")
+    ref, port = jks.verify_batch(tokens), tks.verify_batch(tokens)
+    assert all(isinstance(r, Exception) for r in ref)
+    assert [(type(r).__name__, str(r)) for r in ref] == \
+        [(type(p).__name__, str(p)) for p in port]
+    for bad in ([good, None], [good.encode()], [7, good]):
+        with pytest.raises(TypeError):
+            jks.verify_batch(bad)
+        with pytest.raises(TypeError):
+            tks.verify_batch(bad)

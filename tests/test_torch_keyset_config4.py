@@ -223,3 +223,55 @@ def test_ps384_and_ps512_are_refused_per_token(batch, alg):
     out = ks.verify_batch([tokens[0], tok])
     assert out[0]["sub"] == "u0"
     assert isinstance(out[1], UnsupportedAlgError)
+
+
+def test_ed_records_equal_the_reference(monkeypatch):
+    """The records the keyset packs for an EdDSA chunk (k from one
+    native SHA-512 call) equal the JAX package's ``ed_packed_records``
+    on the same signatures, messages and key rows: right and wrong
+    lengths, an undecodable key, padding rows."""
+    import numpy as np
+    from cryptography.hazmat.primitives.asymmetric.ed25519 import (
+        Ed25519PublicKey,
+    )
+
+    from cap_tpu.tpu import ed25519 as j_ed
+
+    rng = random.Random(43)
+    privs = [tt.generate_ed25519_key(rng) for _ in range(2)]
+    jwks = [t_jwk.JWK(p.public_key(), kid=f"ed-{i}")
+            for i, p in enumerate(privs)]
+    jwks.append(t_jwk.JWK(ed.HostEd25519PublicKey(BAD_KEY), kid="ed-bad"))
+    tokens, want_rows = [], []
+    for j in range(10):
+        tok = tt.sign_jwt(privs[j % 2], algs.EdDSA, {"sub": f"u{j}"},
+                          kid=f"ed-{j % 2}")
+        sig = _sig(tok)
+        tokens.append(_with_sig(tok, [sig, sig[:63], sig + b"\0"][j % 3]))
+        want_rows.append(j % 2)
+    tokens.append(tt.sign_jwt(privs[0], algs.EdDSA, {"sub": "b"},
+                              kid="ed-bad"))
+    want_rows.append(2)
+    ks = GPUBatchKeySet(jwks, device="cpu")
+    seen = []
+    verify = ed.verify_ed_packed_pending
+
+    def capture(table, rec):
+        seen.append((table, rec))
+        return verify(table, rec)
+
+    monkeypatch.setattr(ed, "verify_ed_packed_pending", capture)
+    out = ks.verify_batch(tokens)
+    assert [isinstance(o, dict) for o in out] == \
+        [j % 3 == 0 for j in range(10)] + [False]
+    (table, rec), = seen
+    pad = rec.shape[0]
+    assert pad == 128
+    fill = pad - len(tokens)
+    sigs = [_sig(t) for t in tokens] + [b""] * fill
+    msgs = [t.rsplit(".", 1)[0].encode() for t in tokens] + [b""] * fill
+    rows = np.asarray(want_rows + [0] * fill, np.int32)
+    j_table = j_ed.Ed25519KeyTable(
+        [Ed25519PublicKey.from_public_bytes(k) for k in table.key_bytes])
+    want = np.asarray(j_ed.ed_packed_records(j_table, sigs, msgs, rows))
+    assert rec.dtype == want.dtype and rec.tobytes() == want.tobytes()

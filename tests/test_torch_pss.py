@@ -25,9 +25,17 @@ from cap_tpu_torch.gpu import limbs as t_limbs  # noqa: E402
 from cap_tpu_torch.gpu import rns as t_rns  # noqa: E402
 from cap_tpu_torch.gpu import rsa as t_rsa  # noqa: E402
 from cap_tpu_torch.gpu import sha256 as t_sha  # noqa: E402
-from cap_tpu_torch.jwt.gpu_keyset import _byte_matrix  # noqa: E402
 from cap_tpu_torch.jwt.jose import b64url_decode  # noqa: E402
 from cap_tpu_torch.jwt.verify import pss_check_em  # noqa: E402
+
+
+def _byte_matrix(rows, width):
+    """Left-aligned [len(rows), width] u8 matrix, zero-padded."""
+    out = np.zeros((len(rows), width), np.uint8)
+    for i, r in enumerate(rows):
+        b = r[:width]
+        out[i, :len(b)] = np.frombuffer(b, np.uint8)
+    return out
 
 
 @pytest.fixture(autouse=True, scope="module")

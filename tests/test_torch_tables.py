@@ -19,9 +19,17 @@ from cap_tpu_torch.gpu import ec as t_ec  # noqa: E402
 from cap_tpu_torch.gpu import ec_rns as t_ec_rns  # noqa: E402
 from cap_tpu_torch.gpu import rns as t_rns  # noqa: E402
 from cap_tpu_torch.gpu import rsa as t_rsa  # noqa: E402
-from cap_tpu_torch.jwt.gpu_keyset import _byte_matrix  # noqa: E402
 
 BASE_KEYS = ("m", "m_f", "inv_f", "inv_Mi")
+
+
+def _byte_matrix(rows, width):
+    """Left-aligned [len(rows), width] u8 matrix, zero-padded."""
+    out = np.zeros((len(rows), width), np.uint8)
+    for i, r in enumerate(rows):
+        b = r[:width]
+        out[i, :len(b)] = np.frombuffer(b, np.uint8)
+    return out
 
 
 @pytest.fixture(autouse=True, scope="module")
