@@ -15,7 +15,10 @@ compute on the same constants:
   (the JAX package's [rows, I_A + I_B] planes; the port keeps them
   transposed);
 - ``MLDSAKeyTable``: ``a_mont`` and ``t1_mont`` (uint32 in the JAX
-  package, int32 here; Montgomery-form values in [0, q)).
+  package, int32 here; Montgomery-form values in [0, q));
+- ``SLHDSAKeyTable``: ``pk_seed_l`` and ``pk_root_l`` (interleaved
+  Keccak lanes, uint32 in the JAX package, the same bit patterns as
+  int32 here).
 
 Every array must have the shape of the table it replaces and hold
 integers (floats only where the port keeps floats).
@@ -35,6 +38,7 @@ from .gpu.mldsa import PARAMS as MLDSA_PARAMS
 from .gpu.mldsa import MLDSAKeyTable
 from .gpu.rns import RNSKeyTable
 from .gpu.rsa import RSAKeyTable
+from .gpu.slhdsa import SLHDSAKeyTable
 
 _CTX_SCALARS = ("Amod_B", "Bmod_A", "invA_B")
 _FIELD_ARRAYS = ("sig_c", "p_B", "cp_A", "cp_B")
@@ -149,3 +153,19 @@ def mldsa_key_table(parameter_set: str, keys: Sequence, a_mont, t1_mont,
         if arr.size and (arr.min() < 0 or arr.max() >= Q):
             raise ValueError(f"{name}: entries outside [0, q)")
     return MLDSAKeyTable(parameter_set, keys, device, a_mont=a, t1_mont=t)
+
+
+def slhdsa_key_table(parameter_set: str, keys: Sequence, pk_seed_l,
+                     pk_root_l, device="cuda") -> SLHDSAKeyTable:
+    """An ``SLHDSAKeyTable`` of ``keys`` (``SLHDSAPublicKey``s of one
+    parameter set) whose lanes are the JAX table's ``pk_seed_l`` and
+    ``pk_root_l`` ([nk, 2, 2] uint32 words)."""
+    shape = (len(keys), 2, 2)
+    lanes = []
+    for name, a in (("pk_seed_l", pk_seed_l), ("pk_root_l", pk_root_l)):
+        a = _like(np.zeros(shape, np.int64), a, name)
+        if a.size and (a.min() < 0 or a.max() >= 1 << 32):
+            raise ValueError(f"{name}: entries outside [0, 2^32)")
+        lanes.append(a.astype(np.uint32))
+    return SLHDSAKeyTable(parameter_set, keys, device, pk_seed_l=lanes[0],
+                          pk_root_l=lanes[1])

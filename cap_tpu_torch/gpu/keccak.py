@@ -263,6 +263,14 @@ def _to_int32(w: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``, uint32 lanes as their int32 bit
+    patterns (the layout of every state here)."""
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.as_tensor(a).to(device)
+
+
 def f1600_plain(state: torch.Tensor) -> torch.Tensor:
     """Keccak-f[1600] on int32 [..., 25, 2] interleaved states."""
     consts = _round_consts(state.device)

@@ -738,12 +738,6 @@ class _FusedPrep:
             ct.view("<u8").reshape(pad, p.lam // 32))
 
 
-def _to_device(a: np.ndarray, device) -> torch.Tensor:
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
-    return torch.as_tensor(a).to(device)
-
-
 class FusedPending:
     """One chunk queued on the device: ``outs`` holds the (accept,
     exhausted) bit vectors (empty when no lane decoded); calling it
@@ -792,7 +786,7 @@ def verify_mldsa_fused_pending(table: MLDSAKeyTable,
     if not prep.valid.any():
         return FusedPending(table, prep, pad, [])
     dev = table.device
-    put = [_to_device(a, dev) for a in (
+    put = [_kk.to_device(a, dev) for a in (
         prep.mu_blocks, prep.mu_nblk, prep.ct_block, prep.ct_cmp, prep.z,
         prep.h, prep.key_idx, prep.valid, _W1_PAD[table.parameter_set])]
     outs = _fused_core(table.a_mont, table.t1_mont, *put,

@@ -1,13 +1,14 @@
-"""Batched RS* (PKCS#1 v1.5) and PS256 (PSS) verification in PyTorch.
+"""Batched RS* (PKCS#1 v1.5) and PS* (PSS) verification in PyTorch.
 
 The port of the JAX package's packed RS*/PS* paths, RNS branch: per
 chunk one u8 record matrix [sig ‖ digest ‖ flag ‖ key row] goes to the
 device; the signature bytes become 16-bit limbs there. RS*: the
 expected encoded message EM is built there from the digest, and
 ``rns._rns_verify_core`` checks s^65537 ≡ EM (mod n) entirely in RNS.
-PS256: ``rns._rns_modexp_em_core`` returns s^65537 mod n as limbs (CRT
+PS*: ``rns._rns_modexp_em_core`` returns s^65537 mod n as limbs (CRT
 reconstruction), and the whole EMSA-PSS-VERIFY with its SHA-256
-(``gpu.sha256``) runs on the device. Only an [N] bool returns.
+(``gpu.sha256``) or SHA-384/512 (``gpu.sha512``) runs on the device.
+Only an [N] bool returns.
 
 The RS REDC runs on per-token key constants and stays plain torch
 ops (the JAX package computes it outside any Pallas kernel too), with
@@ -178,7 +179,7 @@ def verify_rs_packed_pending(table: RSAKeyTable, rec: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# PS256: device-side EMSA-PSS-VERIFY
+# PS*: device-side EMSA-PSS-VERIFY (SHA-256/384/512)
 # ---------------------------------------------------------------------------
 
 def _limbs_to_bytes(limbs: torch.Tensor) -> torch.Tensor:
@@ -205,6 +206,21 @@ def _vshift_left(mat: torch.Tensor, sh: torch.Tensor,
     return x
 
 
+def _pss_hash_fns(hash_name: str):
+    """(fixed_fn, var_fn, h_len) for the device PSS hashing."""
+    if hash_name == "sha256":
+        from . import sha256 as S
+
+        return S.sha256_fixed, S.sha256_var, 32
+    from . import sha512 as S
+
+    if hash_name == "sha384":
+        return S.sha384_fixed, S.sha384_var, 48
+    if hash_name == "sha512":
+        return S.sha512_fixed, S.sha512_var, 64
+    raise ValueError(f"unsupported PSS hash {hash_name!r}")
+
+
 def _pss_verify_device(em_bytes: torch.Tensor, mhash: torch.Tensor,
                        mod_bits: torch.Tensor, width: int,
                        hash_name: str) -> torch.Tensor:
@@ -213,18 +229,13 @@ def _pss_verify_device(em_bytes: torch.Tensor, mhash: torch.Tensor,
     em_bytes: [N, width] big-endian EM integer bytes (width = 2k);
     mhash: [N, h_len] u8; mod_bits: [N] per-token modulus bits. The
     MGF1 blocks (all of them in one batched hash) and H' run through
-    ``gpu.sha256``; every per-token offset is a ``_vshift_left``. Every
+    ``gpu.sha256`` or ``gpu.sha512`` (:func:`_pss_hash_fns`); every
+    per-token offset is a ``_vshift_left``. Every
     structural rejection of the host check (``jwt.verify.pss_check_em``:
     short emLen, missing 0xBC, nonzero leading bits or bytes, bad
     PS/0x01 separator, H' mismatch) gives the same verdict.
     """
-    if hash_name != "sha256":
-        raise NotImplementedError(
-            f"PSS with {hash_name} needs the SHA-512 engine, which "
-            f"cap_tpu_torch does not have yet")
-    from .sha256 import sha256_fixed, sha256_var
-
-    h_len = HASH_LEN[hash_name]
+    sha_fixed, sha_var, h_len = _pss_hash_fns(hash_name)
     n = em_bytes.shape[0]
     dev = em_bytes.device
     em_bits = mod_bits.to(torch.int64) - 1
@@ -251,7 +262,7 @@ def _pss_verify_device(em_bytes: torch.Tensor, mhash: torch.Tensor,
     top_ok = (unused == 0) | \
         ((masked_db[:, 0].to(torch.int64) >> (8 - unused)) == 0)
 
-    # MGF1(H, dbLen): byte j = SHA-256(H ‖ be32(j // h_len))[j % h_len];
+    # MGF1(H, dbLen): byte j = Hash(H ‖ be32(j // h_len))[j % h_len];
     # all counters hash as one batch of [n_ctr·N] single blocks
     n_ctr = (db_max + h_len - 1) // h_len
     seeds = torch.zeros((n_ctr, n, h_len + 4), dtype=torch.uint8,
@@ -260,7 +271,7 @@ def _pss_verify_device(em_bytes: torch.Tensor, mhash: torch.Tensor,
     ctr = torch.arange(n_ctr, device=dev)
     seeds[:, :, h_len + 2] = (ctr >> 8).to(torch.uint8)[:, None]
     seeds[:, :, h_len + 3] = (ctr & 0xFF).to(torch.uint8)[:, None]
-    mask = sha256_fixed(seeds.reshape(n_ctr * n, h_len + 4))
+    mask = sha_fixed(seeds.reshape(n_ctr * n, h_len + 4))
     mask = mask.reshape(n_ctr, n, h_len).permute(1, 0, 2).reshape(
         n, n_ctr * h_len)[:, :db_max]
     db = masked_db ^ torch.where(in_db, mask, 0)
@@ -282,7 +293,7 @@ def _pss_verify_device(em_bytes: torch.Tensor, mhash: torch.Tensor,
     mprime = torch.zeros((n, mp_max), dtype=torch.uint8, device=dev)
     mprime[:, 8:8 + h_len] = mhash[:, :h_len]
     mprime[:, 8 + h_len:] = salt
-    hprime = sha256_var(mprime, 8 + h_len + salt_len, mp_max)
+    hprime = sha_var(mprime, 8 + h_len + salt_len, mp_max)
 
     h_ok = (hprime == h_mat).all(dim=1)
     return (lead_ok & len_ok & trailer_ok & top_ok & sep_ok & h_ok

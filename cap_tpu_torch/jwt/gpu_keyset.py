@@ -2,20 +2,22 @@
 
 The port of the JAX package's ``TPUBatchKeySet`` packed path for the
 north-star workload (RS256 + ES256 over a multi-key JWKS), ES384 and
-ES512 (P-384 and P-521 keys), the PS256 + EdDSA workload and
-ML-DSA-44/65/87 (AKP keys). A batch runs in two phases, as the JAX
-keyset's ``_dispatch_batch`` and ``_collect_batch`` do:
+ES512 (P-384 and P-521 keys), PS256/PS384/PS512, EdDSA, ML-DSA-44/65/87
+and SLH-DSA-SHAKE-128s/128f (AKP keys). A batch runs in two phases, as
+the JAX keyset's ``_dispatch_batch`` and ``_collect_batch`` do:
 
 1. dispatch: JSON-form normalization, then one native prep call
    (``runtime.native_binding.prepare_batch_arrays``: the strict
    compact parse, the header's alg and kid, SHA-2 of the signing
-   input); families bucketed by alg id (ML-DSA sets by the raw alg
-   bytes), kid → key row per distinct kid. Tokens with a unique key
-   go to the packed paths, in chunks sized and padded as the JAX
-   keyset does, the post-quantum family first: ML-DSA-* to
-   ``gpu.mldsa`` (the fused engine: μ, SampleInBall, the NTT network
-   and the c̃ compare on the device), RS* and PS256 to ``gpu.rsa``
-   (PS256 with the device EMSA-PSS check), ES256/ES384/ES512 to
+   input); families bucketed by alg id (the ML-DSA and SLH-DSA sets
+   by the raw alg bytes), kid → key row per distinct kid.
+   Tokens with a unique key go to the packed paths, in chunks sized
+   and padded as the JAX keyset does, the post-quantum families first:
+   SLH-DSA-SHAKE-* to ``gpu.slhdsa`` (host decode, then the whole hash
+   forest on the Keccak kernel), ML-DSA-* to ``gpu.mldsa`` (the fused
+   engine: μ, SampleInBall, the NTT network and the c̃ compare on the
+   device), RS* and PS* to ``gpu.rsa`` (PS* with the device EMSA-PSS
+   check over SHA-256, SHA-384 or SHA-512), ES256/ES384/ES512 to
    ``gpu.ec`` (P-256/P-384/P-521; the ladder runs as one whole-ladder
    launch a chunk), EdDSA to ``gpu.ed25519`` (k = SHA-512(R‖A‖M) by
    one native hash call a chunk). RS, PS and ES records come from the
@@ -36,11 +38,9 @@ Results are one claims dict or one exception per token, with the JAX
 keyset's exception classes and messages. An entry that is not a
 ``str`` raises ``TypeError`` for the whole batch, as in the JAX keyset.
 
-Not ported yet (ROADMAP): PS384/PS512 (their tokens get a per-token
-``UnsupportedAlgError``), SLH-DSA (its AKP keys do not parse), the
-two-phase ML-DSA arm (host μ/c̃ around the device NTT), key classes of
-more than 255 keys (RSA, EC and Ed25519 alike), hot key swaps,
-async/stream entry points, telemetry.
+Not ported yet (ROADMAP): the two-phase ML-DSA arm (host μ/c̃ around
+the device NTT), key classes of more than 255 keys (RSA, EC and
+Ed25519 alike), hot key swaps, async/stream entry points, telemetry.
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ from ..gpu import ec as gpuec
 from ..gpu import ed25519 as gpued
 from ..gpu import mldsa as gpumldsa
 from ..gpu import rsa as gpursa
+from ..gpu import slhdsa as gpuslh
 from ..gpu.limbs import nlimbs_for_bits
 from ..runtime import native_binding as nb
 from . import algs
@@ -69,8 +70,7 @@ from .keyset import KeySet
 from .verify import key_matches_alg, verify_parsed
 
 _RS = {algs.RS256: "sha256", algs.RS384: "sha384", algs.RS512: "sha512"}
-_PS = {algs.PS256: "sha256"}        # PSS with the device SHA-256
-_PS_UNPORTED = (algs.PS384, algs.PS512)
+_PS = {algs.PS256: "sha256", algs.PS384: "sha384", algs.PS512: "sha512"}
 _ES = {algs.ES256: "P-256", algs.ES384: "P-384", algs.ES512: "P-521"}
 
 _MIN_BUCKET = 128
@@ -91,7 +91,8 @@ def _pad_size(n: int, max_chunk: int) -> int:
 
 
 def _mldsa_alg_indices(pb, ok: np.ndarray, name: str) -> np.ndarray:
-    """Token indices whose protected alg is the ML-DSA set ``name``.
+    """Token indices whose protected alg is the ML-DSA or SLH-DSA set
+    ``name``.
 
     The native prep interns only the ten classical alg names
     (``ALG_NAMES``); any other alg has ``alg_id`` -1 and its raw bytes,
@@ -145,7 +146,8 @@ def es_records(pb, table, chunk: np.ndarray, crows: np.ndarray,
 class GPUBatchKeySet(KeySet):
     """KeySet whose batch path runs on the GPU verify engine.
 
-    ``jwks``: JWKs of this package (RSA, EC, Ed25519 and ML-DSA keys).
+    ``jwks``: JWKs of this package (RSA, EC, Ed25519, ML-DSA and SLH-DSA
+    keys).
     ``device``: where the engine runs, ``"cuda"`` by default; raises
     when CUDA is absent.
     ``device="cpu"`` runs the plain PyTorch versions of every kernel.
@@ -173,6 +175,8 @@ class GPUBatchKeySet(KeySet):
         # one table per ML-DSA parameter set (alg name = set name)
         mldsa_keys: Dict[str, list] = {}
         self._mldsa_rows: Dict[str, Dict[int, int]] = {}
+        slhdsa_keys: Dict[str, list] = {}
+        self._slhdsa_rows: Dict[str, Dict[int, int]] = {}
         for i, jwk in enumerate(self._jwks):
             key = jwk.key
             if isinstance(key, RSAPublicKey):
@@ -199,6 +203,11 @@ class GPUBatchKeySet(KeySet):
                 rows = self._mldsa_rows.setdefault(pset, {})
                 rows[i] = len(mldsa_keys.setdefault(pset, []))
                 mldsa_keys[pset].append(key)
+            elif isinstance(key, gpuslh.SLHDSAPublicKey):
+                pset = key.parameter_set
+                rows = self._slhdsa_rows.setdefault(pset, {})
+                rows[i] = len(slhdsa_keys.setdefault(pset, []))
+                slhdsa_keys[pset].append(key)
             else:
                 raise UnsupportedAlgError(
                     f"key type {type(key).__name__} is not supported by "
@@ -218,6 +227,9 @@ class GPUBatchKeySet(KeySet):
         self._mldsa_tables = {
             pset: gpumldsa.MLDSAKeyTable(pset, keys, device)
             for pset, keys in mldsa_keys.items()}
+        self._slhdsa_tables = {
+            pset: gpuslh.SLHDSAKeyTable(pset, keys, device)
+            for pset, keys in slhdsa_keys.items()}
 
         self._by_kid: Dict[str, List[int]] = {}
         for i, jwk in enumerate(self._jwks):
@@ -230,6 +242,8 @@ class GPUBatchKeySet(KeySet):
         self._kid_ed_row: Dict[str, int] = {}
         self._kid_mldsa_row: Dict[str, Dict[str, int]] = {
             p: {} for p in self._mldsa_rows}
+        self._kid_slhdsa_row: Dict[str, Dict[str, int]] = {
+            p: {} for p in self._slhdsa_rows}
         for kid, idxs in self._by_kid.items():
             if len(idxs) != 1:
                 continue
@@ -244,6 +258,9 @@ class GPUBatchKeySet(KeySet):
             for pset, rows in self._mldsa_rows.items():
                 if i in rows:
                     self._kid_mldsa_row[pset][kid] = rows[i]
+            for pset, rows in self._slhdsa_rows.items():
+                if i in rows:
+                    self._kid_slhdsa_row[pset][kid] = rows[i]
 
     # -- single-token path (host oracle) -----------------------------------
 
@@ -304,8 +321,13 @@ class GPUBatchKeySet(KeySet):
         def family(alg: str) -> np.ndarray:
             return np.nonzero(ok & (pb.alg_id == alg_ids[alg]))[0]
 
-        # post-quantum first: the deepest device programs go on the
-        # stream before the cheaper families
+        # post-quantum first: the deepest device programs (the SLH-DSA
+        # hash forest, then the ML-DSA NTT network) go on the stream
+        # before the cheaper families
+        for pset in sorted(self._slhdsa_tables):
+            idx = _mldsa_alg_indices(pb, ok, pset)
+            if len(idx):
+                self._run_slhdsa_packed(pset, idx, pb, pending)
         for pset in sorted(self._mldsa_tables):
             idx = _mldsa_alg_indices(pb, ok, pset)
             if len(idx):
@@ -324,10 +346,6 @@ class GPUBatchKeySet(KeySet):
                     if len(idx):
                         self._run_rsa_packed(kind, hash_name, idx, pb,
                                              pending)
-            for alg in _PS_UNPORTED:
-                for j in family(alg).tolist():
-                    results[j] = UnsupportedAlgError(
-                        f"{alg} is not ported to GPUBatchKeySet yet")
         return dict(pb=pb, ok=ok, results=results, pending=pending)
 
     def _collect_batch(self, state: dict) -> List[Any]:
@@ -480,3 +498,34 @@ class GPUBatchKeySet(KeySet):
                 self._finish(chunk, okv, pb, results)
 
             pending.append((chunk, m, fin.outs, finish))
+
+    def _run_slhdsa_packed(self, pset: str, idx: np.ndarray, pb,
+                           pending: list) -> None:
+        """One SLH-DSA parameter set: the host decode of each chunk at
+        dispatch, its whole hash forest queued on the device, the
+        verdict bits at the sync. Chunks of ``_chunk_tokens(bpt // 2)``
+        (1,024 tokens for both sets) with bpt the per-token device bytes
+        of the JAX keyset's budget, padded to a power of two with a
+        16-row floor (not ``_MIN_BUCKET``: an SLH-DSA row is hundreds of
+        classical rows' device work). Tokens whose kid does not name
+        one key of the set take the trial path."""
+        table = self._slhdsa_tables[pset]
+        p = table.params
+        rows = self._rows(idx, pb, self._kid_slhdsa_row[pset],
+                          len(table.keys))
+        fast = rows >= 0
+        idx, rows = idx[fast], rows[fast]
+        # the signature's hash values plus the precomputed 32-byte ADRS
+        # words as interleaved lanes
+        bpt = p.sig_size + 32 * (p.k * (p.a + 1) + 1
+                                 + p.d * (p.wlen + p.hp + 1))
+        chunk_n = _chunk_tokens(max(1, bpt // 2))
+        for lo in range(0, len(idx), chunk_n):
+            chunk = idx[lo: lo + chunk_n]
+            m = len(chunk)
+            ok = gpuslh.verify_slhdsa_pending(
+                table, [pb.signature(j) for j in chunk.tolist()],
+                [pb.signing_input(j) for j in chunk.tolist()],
+                rows[lo: lo + chunk_n],
+                pad=min(gpuslh.pad_rows(m), chunk_n))
+            pending.append((chunk, m, [ok], self._finish_ok))

@@ -4,10 +4,12 @@ The port needs no OpenSSL: RSA keys (kty=RSA: n, e) become
 :class:`RSAPublicKey`, EC keys (kty=EC: crv, x, y on P-256/P-384/
 P-521) become :class:`HostECPublicKey` after an explicit on-curve
 check, Ed25519 keys (kty=OKP, crv=Ed25519) become
-:class:`HostEd25519PublicKey`, and ML-DSA keys (kty=AKP with an
-``ML-DSA-*`` alg) become :class:`MLDSAPublicKey`, with the JAX
-parser's checks and messages. AKP keys of SLH-DSA and x5c-only keys
-raise ``UnsupportedAlgError``: those families are not ported yet.
+:class:`HostEd25519PublicKey`, ML-DSA keys (kty=AKP with an
+``ML-DSA-*`` alg) become :class:`MLDSAPublicKey` and SLH-DSA keys
+(kty=AKP with an ``SLH-DSA-SHAKE-128s``/``-128f`` alg)
+:class:`SLHDSAPublicKey`, with the JAX parser's checks and messages.
+JWKs that carry x5c raise ``UnsupportedAlgError``: certificate chains
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from ..errors import InvalidJWKSError, UnsupportedAlgError
 from ..gpu.ec import _CURVE_INTS, HostECPublicKey
 from ..gpu.ed25519 import HostEd25519PublicKey
 from ..gpu.mldsa import MLDSA_ALGS, MLDSAPublicKey
-from . import algs
+from ..gpu.slhdsa import SLHDSA_ALGS, SLHDSAPublicKey
 from .jose import b64url_decode, b64url_encode
 
 _COORD_BYTES = {"P-256": 32, "P-384": 48, "P-521": 66}
@@ -88,25 +90,25 @@ def _parse_okp(data: Dict[str, Any]) -> HostEd25519PublicKey:
         raise InvalidJWKSError(f"invalid Ed25519 jwk: {err}") from err
 
 
-def _parse_akp(data: Dict[str, Any]) -> MLDSAPublicKey:
-    """kty=AKP: the parameter set rides the required alg member and the
-    public key is the FIPS 204 pk encoding in ``pub``
-    (draft-ietf-cose-dilithium's JOSE serialization)."""
+def _parse_akp(data: Dict[str, Any]):
+    """kty=AKP (ML-DSA / SLH-DSA): the parameter set rides the required
+    alg member and the public key is the FIPS 204/205 pk encoding in
+    ``pub`` (draft-ietf-cose-dilithium / draft-ietf-cose-sphincs-plus
+    JOSE serialization)."""
     alg = data.get("alg")
-    if alg in algs.SLHDSA_ALGORITHMS:
-        raise UnsupportedAlgError(
-            f"AKP jwk alg {alg!r} (SLH-DSA) is not supported by "
-            f"cap_tpu_torch yet")
-    if alg not in MLDSA_ALGS:
+    if alg in MLDSA_ALGS:
+        key_cls = MLDSAPublicKey
+    elif alg in SLHDSA_ALGS:
+        key_cls = SLHDSAPublicKey
+    else:
         raise InvalidJWKSError(
             f"AKP jwk requires alg in "
-            f"{sorted(MLDSA_ALGS) + sorted(algs.SLHDSA_ALGORITHMS)}, "
-            f"got {alg!r}")
+            f"{sorted(MLDSA_ALGS) + sorted(SLHDSA_ALGS)}, got {alg!r}")
     raw = data.get("pub")
     if not isinstance(raw, str):
         raise InvalidJWKSError("AKP jwk missing field 'pub'")
     try:
-        return MLDSAPublicKey(alg, b64url_decode(raw))
+        return key_cls(alg, b64url_decode(raw))
     except ValueError as err:
         raise InvalidJWKSError(f"invalid AKP jwk: {err}") from err
 
@@ -181,7 +183,7 @@ def serialize_public_key(key, kid: Optional[str] = None,
     elif isinstance(key, HostEd25519PublicKey):
         out.update({"kty": "OKP", "crv": "Ed25519",
                     "x": b64url_encode(key.raw)})
-    elif isinstance(key, MLDSAPublicKey):
+    elif isinstance(key, (MLDSAPublicKey, SLHDSAPublicKey)):
         out.update({"kty": "AKP", "alg": key.parameter_set,
                     "pub": b64url_encode(key.pk)})
     else:

@@ -1,5 +1,5 @@
-"""Single-token RS*/PS*/ES*/EdDSA/ML-DSA signature verification over
-host integers.
+"""Single-token RS*/PS*/ES*/EdDSA/ML-DSA/SLH-DSA signature verification
+over host integers.
 
 The oracle of the GPU keyset's trial path: tokens without a unique key
 candidate (no kid with several keys, an ambiguous or unknown kid) are
@@ -11,7 +11,8 @@ compare; PS* is ``pow`` and EMSA-PSS-VERIFY with salt auto-recovery
 :func:`~cap_tpu_torch.gpu.ed25519.py_ed25519_verify`, with the device
 ladder's semantics (the JAX keyset's trial path asks OpenSSL, which
 differs on two kinds of non-canonical key, ROADMAP §C); ML-DSA-* is
-:func:`~cap_tpu_torch.gpu.mldsa.py_verify`.
+:func:`~cap_tpu_torch.gpu.mldsa.py_verify` and SLH-DSA-SHAKE-* is
+:func:`~cap_tpu_torch.gpu.slhdsa.py_verify`.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from ..errors import InvalidSignatureError, UnsupportedAlgError
 from ..gpu.ec import HostECPublicKey, curve, py_ecdsa_verify
 from ..gpu.ed25519 import HostEd25519PublicKey, py_ed25519_verify
 from ..gpu.mldsa import py_verify as mldsa_py_verify
+from ..gpu.slhdsa import py_verify as slhdsa_py_verify
 from ..gpu.rsa import DIGEST_INFO_PREFIX, HASH_LEN
 from . import algs
 from .jose import ParsedJWS
@@ -165,7 +167,7 @@ def verify_parsed(parsed: ParsedJWS, key) -> None:
 
     Raises InvalidSignatureError on any mismatch (wrong key, tampered
     content, malformed signature encoding, wrong curve/key type), and
-    UnsupportedAlgError for algs this port cannot verify (SLH-DSA).
+    UnsupportedAlgError for an alg outside ``algs.SUPPORTED_ALGORITHMS``.
     """
     alg = parsed.alg
     if alg not in algs.SUPPORTED_ALGORITHMS:
@@ -190,4 +192,8 @@ def verify_parsed(parsed: ParsedJWS, key) -> None:
                                parsed.signing_input):
             raise InvalidSignatureError("signature verification failed")
         return None
-    raise UnsupportedAlgError(f"{alg} is not ported to cap_tpu_torch yet")
+    # SLH-DSA: the only non-root reject gate is the signature length;
+    # everything else lands in the root compare
+    if not slhdsa_py_verify(key, parsed.signature, parsed.signing_input):
+        raise InvalidSignatureError("signature verification failed")
+    return None

@@ -1,5 +1,5 @@
 """Fixtures without OpenSSL: seeded keys, JWT signing, the north-star,
-PS256 + EdDSA and ML-DSA workloads.
+PS256 + EdDSA, PS384 + PS512, ML-DSA and SLH-DSA workloads.
 
 Everything here is pure Python integers over ``random.Random(seed)``:
 RSA keys by Miller–Rabin, PKCS#1 v1.5 and PSS signatures by CRT
@@ -8,7 +8,9 @@ Ed25519 keys and RFC 8032 signatures from 32-byte seeds
 (:func:`~cap_tpu_torch.gpu.ed25519.ed25519_sign`; deterministic, so
 byte-equal to any other RFC 8032 signer), ML-DSA keys from 32-byte
 seeds ξ and the deterministic FIPS 204 signer
-(:func:`~cap_tpu_torch.gpu.mldsa.keygen`). Signing exists ONLY to
+(:func:`~cap_tpu_torch.gpu.mldsa.keygen`), SLH-DSA keys from 32-byte
+seeds and the deterministic FIPS 205 signer
+(:func:`~cap_tpu_torch.gpu.slhdsa.keygen`). Signing exists ONLY to
 produce fixtures; nothing here is constant-time or fit for real keys.
 """
 
@@ -28,6 +30,8 @@ from .gpu.mldsa import PARAMS as MLDSA_PARAMS
 from .gpu.mldsa import keygen as mldsa_keygen
 from .gpu.mldsa import sig_decode, sig_encode
 from .gpu.rsa import HASH_LEN
+from .gpu.slhdsa import PARAMS as SLHDSA_PARAMS
+from .gpu.slhdsa import keygen as slhdsa_keygen
 from .jwt import algs
 from .jwt.jose import b64url_encode
 from .jwt.jwk import JWK, RSAPublicKey, serialize_public_key
@@ -174,14 +178,15 @@ def sign_jwt(priv, alg: str, claims: Dict[str, Any],
              extra_headers: Optional[Dict[str, Any]] = None,
              rng: Optional[random.Random] = None,
              salt_len: Union[int, str, None] = None) -> str:
-    """Sign ``claims`` into a compact JWS (RS*, PS*, ES*, EdDSA or
-    ML-DSA-*, the last with an ``MLDSAPrivateKey`` of its set). ES*
+    """Sign ``claims`` into a compact JWS (RS*, PS*, ES*, EdDSA, ML-DSA-*
+    or SLH-DSA-SHAKE-*, the last two with a private key of their set
+    from ``gpu.mldsa.keygen`` or ``gpu.slhdsa.keygen``). ES*
     draws its nonce and PS* its salt from ``rng`` (seeded fixtures stay
     reproducible); ``salt_len`` is the PSS salt's length: the hash's
     length by default, any int, or "max"."""
     si = signing_input(alg, claims, kid, extra_headers)
     rng = rng if rng is not None else random.Random()
-    if alg == algs.EdDSA or alg in algs.MLDSA_ALGORITHMS:
+    if alg == algs.EdDSA or alg in algs.PQ_ALGORITHMS:
         return si.decode("ascii") + "." + b64url_encode(priv.sign(si))
     hash_name = algs.HASH_FOR_ALG[alg]
     digest = hashlib.new(hash_name, si).digest()
@@ -315,6 +320,28 @@ def config4_fixtures(n_unique: int, seed: int = 0
     return jwks, tokens, signers
 
 
+def ps512_fixtures(n_unique: int, seed: int = 0
+                   ) -> Tuple[List[JWK], List[str], list]:
+    """The PS384 + PS512 workload: a JWKS of 8 RSA-2048 keys (kids ps-i)
+    and ``n_unique`` unique tokens signed round-robin over 16 signers,
+    PS384 then PS512 under each key (PSS salts of the hash's length).
+    Returns (jwks, tokens, signers) with signers [(private key, alg,
+    kid)]: unique token u signs with signers[u % 16], PS512 at
+    u % 16 ≥ 8."""
+    rng = random.Random(seed)
+    privs = [generate_rsa_key(rng) for _ in range(8)]
+    jwks = [JWK(p.public_key(), kid=f"ps-{i}") for i, p in enumerate(privs)]
+    signers = [(p, alg, f"ps-{i}") for alg in (algs.PS384, algs.PS512)
+               for i, p in enumerate(privs)]
+    base = default_claims()
+    tokens = []
+    for j in range(n_unique):
+        priv, alg, kid = signers[j % len(signers)]
+        claims = dict(base, sub=f"user-{j:08d}", jti=f"tok-{j:012d}")
+        tokens.append(sign_jwt(priv, alg, claims, kid=kid, rng=rng))
+    return jwks, tokens, signers
+
+
 def mldsa_fixtures(n_unique: int, seed: int = 0
                    ) -> Tuple[List[JWK], List[str], list]:
     """The ML-DSA workload: a JWKS of 8 ML-DSA-44 keys (kids
@@ -373,6 +400,55 @@ def mldsa_bad_signatures(sig: bytes, parameter_set: str
             ("hint-order", sig[:-tail] + bytes(hints)),
             ("hint-count", bytes(count)),
             ("z-range", sig_encode(c_tilde, z, h, p))]
+
+
+def slhdsa_fixtures(n_unique_f: int, n_unique_s: int, seed: int = 0
+                    ) -> Tuple[List[JWK], List[str], list]:
+    """The SLH-DSA workload: a JWKS of 8 SLH-DSA-SHAKE-128f keys (kids
+    slh128f-i) and 8 SLH-DSA-SHAKE-128s keys (kids slh128s-i), AKP keys
+    from seeded 32-byte seeds, ``n_unique_f`` unique 128f tokens and
+    ``n_unique_s`` unique 128s tokens, each set's signed round-robin
+    over its keys (a 128s signature takes seconds of pure Python).
+    Returns (jwks, tokens, signers): the 128f tokens first, signers
+    [(private key, alg, kid)] with the 128f keys at 0..7 and the 128s
+    keys at 8..15; token u of a set signs with its set's signer u % 8."""
+    rng = random.Random(seed)
+    jwks, signers = [], []
+    for alg, tag in ((algs.SLHDSA128F, "slh128f"),
+                     (algs.SLHDSA128S, "slh128s")):
+        for i in range(8):
+            priv, pub = slhdsa_keygen(alg, rng.randbytes(32))
+            jwks.append(JWK(pub, kid=f"{tag}-{i}"))
+            signers.append((priv, alg, f"{tag}-{i}"))
+    base = default_claims()
+    tokens = []
+    for off, n in ((0, n_unique_f), (8, n_unique_s)):
+        for j in range(n):
+            priv, alg, kid = signers[off + j % 8]
+            claims = dict(base, sub=f"user-{off + j:08d}",
+                          jti=f"tok-{off}-{j:010d}")
+            tokens.append(sign_jwt(priv, alg, claims, kid=kid))
+    return jwks, tokens, signers
+
+
+def slhdsa_bad_signatures(sig: bytes, parameter_set: str
+                          ) -> List[Tuple[str, bytes]]:
+    """The SLH-DSA rejection classes made from one valid signature, as
+    (label, signature), the JAX package's mutation sweep: a bit of the
+    randomizer R flipped, a FORS byte flipped, one byte short and one
+    long, a hypertree byte flipped. (Its last class, a changed message,
+    is the caller's: another payload under the same signature.)"""
+    p = SLHDSA_PARAMS[parameter_set]
+
+    def flip(at: int, bits: int) -> bytes:
+        b = bytearray(sig)
+        b[at] ^= bits
+        return bytes(b)
+
+    return [("r-bit", flip(3, 0x08)),
+            ("fors-byte", flip(p.n + 131, 0x20)),
+            ("short", sig[:-1]), ("long", sig + b"\0"),
+            ("hypertree-byte", flip(len(sig) - 54, 0xFF))]
 
 
 def ladder_inputs(c, n_windows: int, m: int, n_keys: int, rng,

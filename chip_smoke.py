@@ -67,7 +67,25 @@ Phases (any failure exits non-zero; none is caught):
    never; then one more batch with the keccak, ntt and intt wrappers
    hooked, every input they were handed replayed through the plain
    versions ([1024, 25, 2] states; [1024, l, 256], [1024, 256] and
-   [1024, k, 256] rows), and both timed at each of those shapes.
+   [1024, k, 256] rows), and both timed at each of those shapes;
+7. the ps-sha512 path the same way: 8 RSA-2048 keys, 65,536 tokens half
+   PS384 and half PS512 tiled from 1,024 unique ones, the 1/8 tampered
+   share, three tokens of each PS rejection class of config-4 under
+   each hash, no kernel launched (the PS engine is PyTorch); before the
+   batch, the device SHA-384/512 against hashlib at every length 0–300
+   (0–111 for the one-block form) and on one chunk's MGF1 seeds and M'
+   inputs of each hash, captured where the engine hashes them, timed
+   by CUDA events;
+8. the pq-slhdsa path the same way: 8 SLH-DSA-SHAKE-128f and 8
+   SLH-DSA-SHAKE-128s AKP keys, 2,048 tokens half under each set tiled
+   from 64 unique 128f and 8 unique 128s tokens, the 1/8 tampered
+   share, three tokens of each SLH-DSA rejection class under each set,
+   a kid-less token of each set, an unknown kid and a 128f alg over a
+   128s kid; keccak launched 518 times a 128f chunk and 219 times a
+   128s chunk, no other kernel; then one more batch with the keccak
+   wrapper hooked, every input replayed through the plain version
+   ([1024, 33 | 14 | 35, 25, 2] and [1024, 25, 2] states) and both
+   timed at each shape.
 
 The line before the last is the per-kernel JSON record; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -89,6 +107,20 @@ N_UNIQUE = 1024
 # the pure-Python signer's fixture time near half a minute.
 N_PQ_TOKENS = 16384
 N_PQ_UNIQUE = 256
+# pq-slhdsa: the host decode of an SLH-DSA token (per-token Python, as
+# in the JAX package) costs milliseconds, so the cell runs 2,048 tokens,
+# half under each set; a 128s signature takes seconds of pure Python,
+# so 8 unique 128s tokens (one a key) beside 64 unique 128f tokens.
+N_SLH_TOKENS = 2048
+N_SLH_UNIQUE_F = 64
+N_SLH_UNIQUE_S = 8
+SLH_F = "SLH-DSA-SHAKE-128f"
+SLH_S = "SLH-DSA-SHAKE-128s"
+# keccak launches of one SLH-DSA chunk (gpu/slhdsa.py chunk_launches):
+# 128f (k = 33, a = 6, d = 22, h' = 3): 1 FORS leaf + 6 folds + 5 T_k
+# blocks, then 22 x (15 chain steps + 5 T_len blocks + 3 XMSS folds);
+# 128s (k = 14, a = 12, d = 7, h' = 9): 1 + 12 + 3, then 7 x (15 + 5 + 9)
+SLH_LAUNCHES = {SLH_F: 518, SLH_S: 219}
 KERNEL_LANES = 65536
 # H100 SXM peaks at 700 W. HBM: 3.35 TB/s (NVIDIA data sheet). INT32:
 # Hopper issues 64 int32 multiply-adds per SM per clock (CUDA C++
@@ -765,21 +797,22 @@ def ntt_phase(records, rng):
                              plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
 
 
-def capture_wrapper_calls(ks, tokens):
-    """One batch through ``ks.verify_batch`` with the keccak, ntt and
-    intt wrappers hooked: [(kernel, input, output)] for every call,
-    copies of the tensors as the path made them."""
+def hook_wrapper_calls(ks, tokens, names, check):
+    """One batch through ``ks.verify_batch`` with the kernel wrappers
+    ``names`` (of keccak, ntt, intt) hooked: ``check(name, input,
+    output)`` runs on every call as the path makes it, before the path
+    goes on (so no call's tensors need be kept)."""
     from cap_tpu_torch.gpu import cuda_keccak, cuda_ntt
 
     hooks = {"keccak": (cuda_keccak, "f1600"), "ntt": (cuda_ntt, "ntt"),
              "intt": (cuda_ntt, "intt")}
+    hooks = {k: hooks[k] for k in names}
     wrappers = {k: getattr(mod, attr) for k, (mod, attr) in hooks.items()}
-    calls = []
 
     def hooked(name):
         def call(x):
             out = wrappers[name](x)
-            calls.append((name, x.clone(), out.clone()))
+            check(name, x, out)
             return out
         return call
 
@@ -790,16 +823,15 @@ def capture_wrapper_calls(ks, tokens):
     finally:
         for k, (mod, attr) in hooks.items():
             setattr(mod, attr, wrappers[k])
-    return calls
 
 
-def path_shape_phase(records, ks, tokens):
-    """keccak, ntt and intt at the shapes the pq-mldsa path gives them:
-    every input one batch handed the three wrappers, the path's kernel
-    output held against the plain version on it (every state or row
-    equal), then, on the first input of each shape, the kernel's device
-    time a launch (profiler), and one wrapper call and one plain call
-    (CUDA events)."""
+def path_shape_phase(records, ks, tokens, path,
+                     names=("keccak", "ntt", "intt")):
+    """The kernels ``names`` at the shapes the path gives them: every
+    input one batch handed their wrappers, the path's kernel output held
+    against the plain version on it (every state or row equal), then, on
+    the first input of each shape, the kernel's device time a launch
+    (profiler), and one wrapper call and one plain call (CUDA events)."""
     import torch
 
     from cap_tpu_torch.gpu import cuda_keccak, cuda_ntt, keccak, ntt
@@ -810,16 +842,19 @@ def path_shape_phase(records, ks, tokens):
     kernel_keys = {"keccak": "keccak_kernel", "ntt": "ntt_fwd_kernel",
                    "intt": "intt_kernel"}
     shapes = {}
-    for name, x, out in capture_wrapper_calls(ks, tokens):
+
+    def check(name, x, out):
         width, unit = fns[name][2:]
         n = x.numel() // width
         err, ndiff = word_diff(out.reshape(n, width),
                                fns[name][1](x).reshape(n, width))
         assert err == 0 and ndiff == 0, \
             f"{name} at {list(x.shape)} disagrees on {ndiff} {unit}"
-        first = shapes.setdefault((name, tuple(x.shape)), [x, 0])
+        first = shapes.setdefault((name, tuple(x.shape)), [x.clone(), 0])
         first[1] += 1
-    assert {k for k, _ in shapes} == set(fns), sorted(shapes)
+
+    hook_wrapper_calls(ks, tokens, names, check)
+    assert {k for k, _ in shapes} == set(names), sorted(shapes)
     for (name, shape), (x, calls) in sorted(shapes.items(),
                                             key=lambda kv: kv[0]):
         kern, plain, width, unit = fns[name]
@@ -829,14 +864,15 @@ def path_shape_phase(records, ks, tokens):
         ms_p = cuda_ms(lambda: plain(x), 3)
         torch.cuda.synchronize()
         b_ms, b_by = mldsa_bound(name, n)
-        log(f"kernel {name} at the path's shape {list(shape)}: {n} {unit}, "
-            f"{calls} call(s) in one batch, every one equal to the plain "
-            f"version; kernel {ms_k:.4f} ms (by {by}; one wrapper call "
-            f"{ms_call:.4f} ms), plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by})")
+        log(f"kernel {name} at the {path} path's shape {list(shape)}: {n} "
+            f"{unit}, {calls} call(s) in one batch, every one equal to the "
+            f"plain version; kernel {ms_k:.4f} ms (by {by}; one wrapper "
+            f"call {ms_call:.4f} ms), plain {ms_p:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
         records[name].setdefault("path_shapes", []).append(dict(
-            shape=list(shape), calls=calls, max_abs_err=0, ms=ms_k, by=by,
-            call_ms=ms_call, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by))
+            path=path, shape=list(shape), calls=calls, max_abs_err=0,
+            ms=ms_k, by=by, call_ms=ms_call, plain_ms=ms_p, bound_ms=b_ms,
+            bound_by=b_by))
 
 
 # -- main path --------------------------------------------------------------
@@ -1082,7 +1118,7 @@ def prep_phase(name, ks, tokens, engines):
 
     for alg in engines:
         idx = family_idx(pb, alg)
-        if alg in ("RS256", "PS256"):
+        if alg in ("RS256", "PS256", "PS384", "PS512"):
             kind = "rs" if alg == "RS256" else "ps"
             table = ks._rsa_tables[0]
             hash_name = algs.HASH_FOR_ALG[alg]
@@ -1477,7 +1513,235 @@ def mldsa_path(records):
                      [("ML-DSA-44", "mldsa44-", 1024, per_chunk),
                       ("ML-DSA-65", "mldsa65-", 1024, per_chunk)],
                      ("ML-DSA-44", "ML-DSA-65"))
-    path_shape_phase(records, run["ks"], tokens)
+    path_shape_phase(records, run["ks"], tokens, "pq-mldsa")
+
+
+def sha512_phase(ks, tokens):
+    """The device SHA-384/512 (``gpu/sha512.py``, plain PyTorch) on the
+    card: every length 0–300 (``*_var``) and 0–111 (``*_fixed``)
+    against hashlib, then the MGF1 seeds and M' inputs of one chunk of
+    each hash, captured where the PS engine hashes them, word-equal to
+    hashlib row by row; each captured call timed by CUDA events beside
+    hashlib on the host."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from cap_tpu_torch.gpu import sha512
+    from cap_tpu_torch.gpu import rsa as gpursa
+    from cap_tpu_torch.jwt import gpu_keyset
+    from cap_tpu_torch.runtime.native_binding import prepare_batch_arrays
+
+    rng = np.random.default_rng(SEED + 8)
+    dev = ks.device
+    for name in ("sha384", "sha512"):
+        fixed = getattr(sha512, f"{name}_fixed")
+        var = getattr(sha512, f"{name}_var")
+        lens = np.arange(301)
+        buf = np.zeros((301, 300), np.uint8)
+        for i, n in enumerate(lens):
+            buf[i, :n] = rng.integers(0, 256, n)
+        got = var(torch.from_numpy(buf).to(dev),
+                  torch.from_numpy(lens).to(dev), 300).cpu().numpy()
+        bad = [int(n) for i, n in enumerate(lens) if got[i].tobytes() !=
+               hashlib.new(name, buf[i, :n].tobytes()).digest()]
+        for n in range(112):
+            msgs = rng.integers(0, 256, (4, n), dtype=np.uint8)
+            out = fixed(torch.from_numpy(msgs).to(dev)).cpu().numpy()
+            if [o.tobytes() for o in out] != \
+                    [hashlib.new(name, m.tobytes()).digest() for m in msgs]:
+                bad.append(("fixed", n))
+        assert not bad, f"{name} differs from hashlib at {bad[:5]}"
+        log(f"sha {name}: device {name}_var at every length 0-300 and "
+            f"{name}_fixed at every length 0-111 equal to hashlib")
+
+    pb = prepare_batch_arrays(tokens)
+    table = ks._rsa_tables[0]
+    calls = []
+
+    def hooked(fn_name, fn):
+        def call(*a):
+            out = fn(*a)
+            calls.append((fn_name, fn, [x.clone() if hasattr(x, "clone")
+                                        else x for x in a], out.clone()))
+            return out
+        return call
+
+    for alg, name in (("PS384", "sha384"), ("PS512", "sha512")):
+        h_len = gpursa.HASH_LEN[name]
+        chunk_n = gpu_keyset._chunk_tokens(2 * table.k + h_len + 2)
+        idx = family_idx(pb, alg)
+        idx = idx[ks._rows(idx, pb, ks._kid_rsa_row, ks._n_rsa_keys) >= 0]
+        originals = {f: getattr(sha512, f) for f in
+                     (f"{name}_fixed", f"{name}_var")}
+        calls.clear()
+        try:
+            for f, fn in originals.items():
+                setattr(sha512, f, hooked(f, fn))
+            pending = []
+            ks._run_rsa_packed("ps", name, idx[:chunk_n], pb, pending)
+            torch.cuda.synchronize()
+        finally:
+            for f, fn in originals.items():
+                setattr(sha512, f, fn)
+        assert sorted(c[0] for c in calls) == sorted(originals), calls
+        for fn_name, fn, args, out in calls:
+            x = args[0].cpu().numpy()
+            lens = (args[1].cpu().numpy() if len(args) > 1
+                    else np.full(len(x), x.shape[1]))
+            t0 = time.perf_counter()
+            want = [hashlib.new(name, row[:n].tobytes()).digest()
+                    for row, n in zip(x, lens)]
+            host_ms = (time.perf_counter() - t0) * 1e3
+            got = out.cpu().numpy()
+            ndiff = sum(g.tobytes() != w for g, w in zip(got, want))
+            assert ndiff == 0, f"{fn_name}: {ndiff} rows differ from hashlib"
+            ms = cuda_ms(lambda: fn(*args), 3)
+            log(f"sha {fn_name} at one {alg} chunk's "
+                f"{'MGF1 seeds' if len(args) == 1 else 'M-prime inputs'} "
+                f"{list(x.shape)}: every row equal to hashlib; device "
+                f"{ms:.2f} ms (CUDA events), hashlib on the host "
+                f"{host_ms:.2f} ms")
+
+
+def build_ps512(rng):
+    """(jwks, uniq, tampered, tokens, expected) for the PS384 + PS512
+    batch: 8 RSA-2048 keys (ps-i), 65,536 tokens tiled from 1,024 unique
+    ones (half PS384, half PS512), the 1/8 tampered share, and three
+    tokens of each PS rejection class of config-4 (salt 0 and max salt
+    accepted; bad trailer, no separator, top bits, one byte short
+    rejected) under each hash, each in place of a token of its own hash
+    (unique token u signs with signers[u % 16]: PS512 at u % 16 ≥ 8)."""
+    import hashlib
+
+    from cap_tpu_torch import testing as tt
+
+    t0 = time.perf_counter()
+    jwks, uniq, signers = tt.ps512_fixtures(N_UNIQUE, seed=SEED + 6)
+    log(f"fixtures: 8 RSA-2048 keys, {N_UNIQUE} signed PS384/PS512 tokens "
+        f"in {time.perf_counter() - t0:.1f} s")
+    tokens, expected, tampered = tile(rng, uniq)
+    specials = []                  # (token, expected, is PS512)
+    for off in (0, 8):
+        priv, alg, kid = signers[off]
+        hash_name = {"PS384": "sha384", "PS512": "sha512"}[alg]
+        h_len = len(hashlib.new(hash_name).digest())
+        claims = tt.default_claims(sub=f"special-{alg}")
+        si = tt.signing_input(alg, claims, kid)
+        em = tt.pss_em(hashlib.new(hash_name, si).digest(),
+                       priv.n.bit_length() - 1, hash_name,
+                       rng.randbytes(h_len))
+        no_sep = bytearray(em)
+        no_sep[len(em) - h_len - 1 - h_len - 1] ^= 0x01
+        top = bytearray(em)
+        top[0] = 0x80 | (top[0] & 0x0F)
+        tok = tt.sign_jwt(priv, alg, claims, kid=kid, rng=rng)
+        is512 = off == 8
+        for sub, salt in ((f"salt-0-{alg}", 0), (f"salt-max-{alg}", "max")):
+            specials.append((tt.sign_jwt(priv, alg, dict(claims, sub=sub),
+                                         kid=kid, rng=rng, salt_len=salt),
+                             sub, is512))
+        specials += [
+            (tt.sign_em(priv, si, em[:-1] + b"\xbd"), REJECT, is512),
+            (tt.sign_em(priv, si, bytes(no_sep)), REJECT, is512),
+            (tt.sign_em(priv, si, bytes(top)), REJECT, is512),
+            (with_sig(tok, unb64(tok.split(".")[2])[:-1]), REJECT, is512)]
+    stride = N_TOKENS // (3 * len(specials) + 1) // 16 * 16
+    for k, (tok, exp, is512) in enumerate(specials):
+        for rep in range(3):
+            pos = (k * 3 + rep) * stride + (8 if is512 else 0)
+            tokens[pos] = tok
+            expected[pos] = exp
+    return jwks, uniq, tampered, tokens, expected
+
+
+def ps512_path(records):
+    """The ps-sha512 cell: PS384 and PS512 through the PS engine with the
+    device SHA-384/512. No kernel of the port runs on it (the RNS modexp
+    and the PSS check are PyTorch, as in the JAX package)."""
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+
+    rng = random.Random(SEED + 6)
+    jwks, uniq, tampered, tokens, expected = build_ps512(rng)
+    oracle_check(jwks, uniq, tampered)
+    sha512_phase(GPUBatchKeySet(jwks), tokens)
+    drive_path(records, "ps-sha512", jwks, tokens, expected,
+               [("PS384", "ps-", 16384, {}), ("PS512", "ps-", 8192, {})],
+               ("PS384", "PS512"))
+
+
+def build_slhdsa(rng):
+    """(jwks, uniq, tampered, tokens, expected) for the pq-slhdsa batch:
+    8 SLH-DSA-SHAKE-128f (slh128f-i) and 8 SLH-DSA-SHAKE-128s
+    (slh128s-i) AKP keys, 2,048 tokens alternating between the sets,
+    each set's tiled from its unique tokens (64 128f, 8 128s) with the
+    1/8 tampered share, and three tokens of each rejection class under
+    each set (an R bit, a FORS byte, one byte short and one long, a
+    hypertree byte, another payload under the signature), a kid-less
+    token of each set (the trial path over its 8 keys: accepted), an
+    outsider's 128f token under an unknown kid, and a 128f alg over a
+    128s kid; each in place of a token of its own set (128s at odd
+    positions)."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu import slhdsa
+
+    t0 = time.perf_counter()
+    jwks, uniq, signers = tt.slhdsa_fixtures(N_SLH_UNIQUE_F, N_SLH_UNIQUE_S,
+                                             seed=SEED + 7)
+    log(f"fixtures: 8 {SLH_F} + 8 {SLH_S} keys, {N_SLH_UNIQUE_F} + "
+        f"{N_SLH_UNIQUE_S} signed tokens in "
+        f"{time.perf_counter() - t0:.1f} s")
+    uniq_f, uniq_s = uniq[:N_SLH_UNIQUE_F], uniq[N_SLH_UNIQUE_F:]
+    half = N_SLH_TOKENS // 2
+    tok_f, exp_f, tamp_f = tile(rng, uniq_f, half)
+    tok_s, exp_s, tamp_s = tile(rng, uniq_s, half)
+    tokens = [t for pair in zip(tok_f, tok_s) for t in pair]
+    expected = [e for pair in zip(exp_f, exp_s) for e in pair]
+    claims = tt.default_claims(sub="special")
+    specials = []                  # (token, expected, is 128s)
+    for own, other, off in ((uniq_f[0], uniq_f[8], 0),
+                            (uniq_s[0], uniq_s[1], 8)):
+        priv, alg, kid = signers[off]
+        is_s = off == 8
+        h, _, s = own.split(".")
+        for _, bad in tt.slhdsa_bad_signatures(unb64(s), alg):
+            specials.append((with_sig(own, bad), REJECT, is_s))
+        specials.append((f"{h}.{other.split('.')[1]}.{s}", REJECT, is_s))
+        sub = f"no-kid-{alg}"
+        specials.append((tt.sign_jwt(priv, alg, dict(claims, sub=sub)), sub,
+                         is_s))
+    outsider, _ = slhdsa.keygen(SLH_F, bytes([7]) * 32)
+    specials.append((tt.sign_jwt(outsider, SLH_F, claims, kid="nobody"),
+                     REJECT, False))
+    specials.append((tt.sign_jwt(signers[0][0], SLH_F, claims,
+                                 kid=signers[8][2]), REJECT, False))
+    stride = N_SLH_TOKENS // (3 * len(specials) + 1) // 2 * 2
+    for k, (tok, exp, is_s) in enumerate(specials):
+        for rep in range(3):
+            pos = (k * 3 + rep) * stride + (1 if is_s else 0)
+            tokens[pos] = tok
+            expected[pos] = exp
+    return jwks, uniq, tamp_f + tamp_s, tokens, expected
+
+
+def slhdsa_path(records):
+    """The pq-slhdsa cell: one chunk of each set, keccak launched 518
+    times a 128f chunk and 219 times a 128s chunk, no other kernel;
+    then every keccak input of one batch replayed through the plain
+    version and timed at each shape."""
+    from cap_tpu_torch.gpu import slhdsa
+
+    for pset, n in SLH_LAUNCHES.items():
+        assert slhdsa.chunk_launches(slhdsa.PARAMS[pset]) == n, pset
+    rng = random.Random(SEED + 7)
+    jwks, uniq, tampered, tokens, expected = build_slhdsa(rng)
+    oracle_check(jwks, uniq, tampered)
+    run = drive_path(records, "pq-slhdsa", jwks, tokens, expected,
+                     [(pset, f"slh128{pset[-1]}-", 1024, {"keccak": n})
+                      for pset, n in SLH_LAUNCHES.items()],
+                     (SLH_F, SLH_S))
+    path_shape_phase(records, run["ks"], tokens, "pq-slhdsa", ("keccak",))
 
 
 def dev_us(e) -> float:
@@ -1614,11 +1878,15 @@ def engine_times(ks, tokens, engines):
     runners = {
         "RS256": lambda *a: ks._run_rsa_packed("rs", "sha256", *a),
         "PS256": lambda *a: ks._run_rsa_packed("ps", "sha256", *a),
+        "PS384": lambda *a: ks._run_rsa_packed("ps", "sha384", *a),
+        "PS512": lambda *a: ks._run_rsa_packed("ps", "sha512", *a),
         "ES256": lambda *a: ks._run_ec_packed("ES256", *a),
         "ES384": lambda *a: ks._run_ec_packed("ES384", *a),
         "EdDSA": ks._run_ed_packed,
         "ML-DSA-44": lambda *a: ks._run_mldsa_packed("ML-DSA-44", *a),
         "ML-DSA-65": lambda *a: ks._run_mldsa_packed("ML-DSA-65", *a),
+        SLH_F: lambda *a: ks._run_slhdsa_packed(SLH_F, *a),
+        SLH_S: lambda *a: ks._run_slhdsa_packed(SLH_S, *a),
     }
     t0 = time.perf_counter()
     pb = prepare_batch_arrays(tokens)
@@ -1689,6 +1957,8 @@ def main() -> int:
     config3_path(records)
     config4_path(records)
     mldsa_path(records)
+    ps512_path(records)
+    slhdsa_path(records)
 
     kernels = [
         dict(name="redc", route="cuda",

@@ -1,8 +1,10 @@
 """The CUDA kernels on the card: ragged lane counts against the plain
-versions, the launch counters, the wrappers' refusals, and the keyset
-on the card against the keyset on the CPU (RS256 + ES256, ES256 +
-ES384 and ES512 with either ladder, PS256 + EdDSA, ML-DSA-44 +
-ML-DSA-65, and ML-DSA-87).
+versions (keccak also at the SLH-DSA path's [m, 35 | 33 | 14] state
+counts), the launch counters, the wrappers' refusals, the device
+SHA-384/512 against hashlib, the SLH-DSA engine against its CPU path,
+and the keyset on the card against the keyset on the CPU (RS256 +
+ES256, ES256 + ES384 and ES512 with either ladder, PS256 + EdDSA,
+ML-DSA-44 + ML-DSA-65, ML-DSA-87, and PS384 + PS512 + SLH-DSA).
 
 Marked ``cuda``: without a card each test skips. On the card's machine
 (no jax there, so without the suite's conftest):
@@ -551,6 +553,139 @@ def test_mldsa_keyset_on_the_card_matches_the_plain_path(dev, sets,
     assert (cuda_keccak.launches - before[0],
             cuda_ntt.ntt_launches - before[1],
             cuda_ntt.intt_launches - before[2]) == launches
+    on_cpu = GPUBatchKeySet(jwks, device="cpu").verify_batch(batch)
+    assert [repr(x) if isinstance(x, Exception) else x for x in on_card] \
+        == [repr(x) if isinstance(x, Exception) else x for x in on_cpu]
+    assert sum(isinstance(x, dict) for x in on_card) == len(tokens)
+
+
+@pytest.mark.parametrize("name", ["sha384", "sha512"])
+def test_sha384_sha512_on_the_card_match_hashlib(dev, name):
+    """The device SHA-384/512 on CUDA tensors (int64 words whose adds
+    wrap modulo 2^64) equal to hashlib at every length 0–300 (``*_var``)
+    and 0–111 (``*_fixed``)."""
+    import hashlib
+
+    from cap_tpu_torch.gpu import sha512
+
+    fixed = getattr(sha512, f"{name}_fixed")
+    var = getattr(sha512, f"{name}_var")
+    rng = np.random.default_rng(401)
+    lens = np.arange(301)
+    buf = np.zeros((301, 300), np.uint8)
+    for i, n in enumerate(lens):
+        buf[i, :n] = rng.integers(0, 256, n)
+    buf[300] = 0xFF
+    got = var(torch.from_numpy(buf).to(dev), torch.from_numpy(lens).to(dev),
+              300).cpu().numpy()
+    assert [g.tobytes() for g in got] == \
+        [hashlib.new(name, buf[i, :n].tobytes()).digest()
+         for i, n in enumerate(lens)]
+    for n in range(112):
+        msgs = rng.integers(0, 256, (4, n), dtype=np.uint8)
+        got = fixed(torch.from_numpy(msgs).to(dev)).cpu().numpy()
+        assert [g.tobytes() for g in got] == \
+            [hashlib.new(name, m.tobytes()).digest() for m in msgs], n
+
+
+# the SLH-DSA path's state counts: 35 chains and 33 (128f) or 14 (128s)
+# FORS trees a token, at ragged token counts
+@pytest.mark.parametrize("m", [1, 3, 17, 1000])
+@pytest.mark.parametrize("width", [35, 33, 14])
+def test_keccak_kernel_matches_plain_at_the_slhdsa_shapes(dev, m, width):
+    rng = np.random.default_rng(500 + m + width)
+    words = rng.integers(0, 2 ** 32, (m, width, 25, 2), dtype=np.uint64)
+    words[0, 0] = 0
+    words[-1, -1] = 2 ** 32 - 1
+    s = torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(dev)
+    before = cuda_keccak.launches
+    got = cuda_keccak.f1600(s)
+    want = keccak.f1600_plain(s)
+    torch.cuda.synchronize()
+    assert cuda_keccak.launches == before + 1
+    assert got.shape == s.shape and torch.equal(got, want)
+
+
+def _kat_slhdsa(pset):
+    """(key, signatures, messages, expected) from the pinned KAT file."""
+    import json
+    import os
+
+    from cap_tpu_torch.gpu import slhdsa
+    from cap_tpu_torch.jwt.jose import b64url_decode
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "slhdsa_kat.json")
+    with open(path) as f:
+        kat = json.load(f)
+    jwk = [k for k in kat["keys"]["keys"] if k["alg"] == pset][0]
+    vecs = [v for v in kat["vectors"] if v["alg"] == pset]
+    return (slhdsa.SLHDSAPublicKey(pset, b64url_decode(jwk["pub"])),
+            [b64url_decode(v["signature_b64"]) for v in vecs],
+            [b64url_decode(v["message_b64"]) for v in vecs],
+            [v["testPassed"] for v in vecs])
+
+
+@pytest.mark.parametrize("pset,launches", [("SLH-DSA-SHAKE-128f", 518),
+                                           ("SLH-DSA-SHAKE-128s", 219)])
+def test_slhdsa_engine_on_the_card_matches_the_cpu_path(dev, pset,
+                                                        launches):
+    """The KAT signatures (wrong lengths among them) through the engine
+    on the card, one chunk of 16 rows, against the plain path on the
+    CPU and the KAT verdicts; the chunk's keccak launches."""
+    from cap_tpu_torch.gpu import slhdsa
+
+    key, sigs, msgs, want = _kat_slhdsa(pset)
+    rows = np.zeros(len(sigs), np.int32)
+    before = cuda_keccak.launches
+    on_card = slhdsa.verify_slhdsa_batch(
+        slhdsa.SLHDSAKeyTable(pset, [key], device=dev), sigs, msgs, rows)
+    assert cuda_keccak.launches - before == launches == \
+        slhdsa.chunk_launches(slhdsa.PARAMS[pset])
+    on_cpu = slhdsa.verify_slhdsa_batch(
+        slhdsa.SLHDSAKeyTable(pset, [key], device="cpu"), sigs, msgs, rows)
+    assert on_card.tolist() == on_cpu.tolist() == want
+
+
+def test_ps384_ps512_and_slhdsa_keysets_on_the_card_match_the_plain_path(
+        dev):
+    """PS384 + PS512 over two RSA-2048 keys (no kernel launch: the PS
+    engine is PyTorch) and SLH-DSA-SHAKE-128f over the KAT key and a
+    seeded one (one chunk, 518 keccak launches), with tampered tokens,
+    against the plain path on the CPU."""
+    import random
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu import slhdsa
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.jwt.jwk import JWK
+
+    rng = random.Random(8)
+    jwks, tokens, signers = tt.ps512_fixtures(16, seed=8)
+    jwks = jwks[:2]
+    tokens = [t for t, s in zip(tokens, signers) if s[2] in ("ps-0", "ps-1")]
+    key, _, _, _ = _kat_slhdsa("SLH-DSA-SHAKE-128f")
+    priv, pub = slhdsa.keygen("SLH-DSA-SHAKE-128f", bytes([9]) * 32)
+    jwks += [JWK(key, kid="kat"), JWK(pub, kid="slh-1")]
+    tokens += [tt.sign_jwt(priv, "SLH-DSA-SHAKE-128f",
+                           tt.default_claims(sub=f"slh-{j}"), kid="slh-1")
+               for j in range(2)]
+    bad = [t[:-4] + ("AAAA" if t[-4:] != "AAAA" else "BBBB")
+           for t in rng.sample(tokens, 4)]
+    batch = tokens + bad + ["a.b"]
+    card_ks = GPUBatchKeySet(jwks)
+    counters = [(m, a) for m, a in ((cuda_keccak, "launches"),
+                                    (cuda_ntt, "ntt_launches"),
+                                    (cuda_ntt, "intt_launches"),
+                                    (cuda_redc, "launches"),
+                                    (cuda_madd, "launches"),
+                                    (cuda_ladder, "launches"),
+                                    (cuda_edw, "launches"))]
+    before = [getattr(m, a) for m, a in counters]
+    on_card = card_ks.verify_batch(batch)
+    torch.cuda.synchronize()
+    assert [getattr(m, a) - b for (m, a), b in zip(counters, before)] == \
+        [518, 0, 0, 0, 0, 0, 0]
     on_cpu = GPUBatchKeySet(jwks, device="cpu").verify_batch(batch)
     assert [repr(x) if isinstance(x, Exception) else x for x in on_card] \
         == [repr(x) if isinstance(x, Exception) else x for x in on_cpu]

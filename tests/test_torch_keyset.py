@@ -266,23 +266,34 @@ def test_degenerate_lanes_reverify_on_the_oracle(batch):
     assert all(_same(r, p) for r, p in got.values())
 
 
-def test_ps256_is_refused_per_token():
-    """PS256 is on the packed path now (its signature under an RS256
-    header, and the reverse, are rejected); PS384 still needs the
-    SHA-512 device engine and is refused one token at a time."""
+def test_ps256_is_refused_per_token(monkeypatch):
+    """PS256 and PS384 are on the packed path now: their tokens (and a
+    PS256 header over an RS256 signature) get verdicts bit-equal to the
+    JAX keyset's, beside an RS256 token (PS512:
+    ``test_torch_keyset_config4.py``). (The name dates from when the
+    keyset refused PS384; it is kept so the test's history stays
+    one.)"""
     rng = random.Random(3)
     key = tt.generate_rsa_key(rng)
-    ks = GPUBatchKeySet([t_jwk.JWK(key.public_key(), kid="k")],
-                        device="cpu")
+    doc = {"keys": [t_jwk.serialize_public_key(key.public_key(), kid="k")]}
+    ks = GPUBatchKeySet(t_jwk.parse_jwks(doc), device="cpu")
     rs = tt.sign_jwt(key, algs.RS256, {"sub": "x"}, kid="k")
-    ps = tt.sign_jwt(key, algs.PS256, {"sub": "y"}, kid="k", rng=rng)
     h = _b64(b'{"alg":"PS256","kid":"k"}')
-    out = ks.verify_batch([rs, ps, h + "." + rs.split(".", 1)[1],
-                           tt.sign_jwt(key, algs.PS384, {"sub": "z"},
-                                       kid="k", rng=rng)])
-    assert out[0] == {"sub": "x"} and out[1] == {"sub": "y"}
-    assert type(out[2]).__name__ == "InvalidSignatureError"
-    assert isinstance(out[3], UnsupportedAlgError)
+    tokens = [rs, tt.sign_jwt(key, algs.PS256, {"sub": "y"}, kid="k",
+                              rng=rng),
+              h + "." + rs.split(".", 1)[1]]
+    good = tt.sign_jwt(key, algs.PS384, {"sub": "z"}, kid="k", rng=rng)
+    bad = bytearray(_sig(good))
+    bad[7] ^= 0x40
+    tokens += [good, _with_sig(good, bytes(bad))]
+    out = ks.verify_batch(tokens)
+    monkeypatch.setenv("CAP_TPU_RNS", "1")
+    ref = TPUBatchKeySet(j_jwk.parse_jwks(doc)).verify_batch(tokens)
+    assert all(_same(r, p) for r, p in zip(ref, out))
+    assert [o.get("sub") if isinstance(o, dict) else type(o).__name__
+            for o in out] == ["x", "y", "InvalidSignatureError", "z",
+                              "InvalidSignatureError"]
+    assert not any(isinstance(o, UnsupportedAlgError) for o in out)
 
 
 @pytest.mark.parametrize("alg,crv", [("ES384", "P-384"), ("ES512", "P-521")])

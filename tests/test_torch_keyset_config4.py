@@ -213,16 +213,53 @@ def test_port_signed_tokens_verify_under_jax(batch):
 
 @pytest.mark.parametrize("alg", ["PS384", "PS512"])
 def test_ps384_and_ps512_are_refused_per_token(batch, alg):
-    """PS384/PS512 need the SHA-512 device engine, not ported yet: their
-    tokens are refused one by one, and the batch's other tokens still
-    verify."""
+    """PS384/PS512 run on the packed path with the device SHA-384/512:
+    under a JWKS of an OpenSSL key and the port's key, honest tokens
+    (salts of the hash's length, 0 and max), a tampered one, crafted
+    EMs (bad trailer, no separator, top bits) and a short signature get
+    verdicts bit-equal to the JAX keyset's, beside a PS256 token. (The
+    name dates from when the keyset refused them; it is kept so the
+    test's history stays one.)"""
     _, tokens, _, _, (p_rsa, _) = batch
-    ks = GPUBatchKeySet([t_jwk.JWK(p_rsa.public_key(), kid="ps-0")],
-                        device="cpu")
-    tok = tt.sign_jwt(p_rsa, alg, {"sub": "x"}, kid="ps-0")
-    out = ks.verify_batch([tokens[0], tok])
-    assert out[0]["sub"] == "u0"
-    assert isinstance(out[1], UnsupportedAlgError)
+    rng = random.Random(42)
+    hash_name = algs.HASH_FOR_ALG[alg]
+    h_len = len(hashlib.new(hash_name).digest())
+    j_rsa = jt.generate_keys(alg)[0]
+    doc = {"keys": [t_jwk.serialize_public_key(p_rsa.public_key(),
+                                               kid="ps-0"),
+                    j_jwk.serialize_public_key(j_rsa.public_key(),
+                                               kid="jx")]}
+    claims = jt.default_claims(now=1_700_000_000)
+    toks = [tokens[0]]
+    for j, salt in enumerate((None, 0, "max")):
+        toks.append(tt.sign_jwt(p_rsa, alg, dict(claims, sub=f"s{j}"),
+                                kid="ps-0", rng=rng, salt_len=salt))
+    toks.append(jt.sign_jwt(j_rsa, alg, dict(claims, sub="jx"), kid="jx"))
+    bad = bytearray(_sig(toks[1]))
+    bad[9] ^= 0x02
+    toks.append(_with_sig(toks[1], bytes(bad)))
+    si = tt.signing_input(alg, dict(claims, sub="crafted"), "ps-0")
+    em_bits = p_rsa.n.bit_length() - 1
+    em = tt.pss_em(hashlib.new(hash_name, si).digest(), em_bits, hash_name,
+                   rng.randbytes(h_len))
+    no_sep = bytearray(em)
+    no_sep[len(em) - h_len - 1 - h_len - 1] ^= 0x01
+    top = bytearray(em)
+    top[0] = 0x80 | (top[0] & 0x0F)
+    toks += [tt.sign_em(p_rsa, si, em),
+             tt.sign_em(p_rsa, si, em[:-1] + b"\xbd"),
+             tt.sign_em(p_rsa, si, bytes(no_sep)),
+             tt.sign_em(p_rsa, si, bytes(top)),
+             _with_sig(toks[1], _sig(toks[1])[:-1])]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CAP_TPU_RNS", "1")
+        ref = TPUBatchKeySet(j_jwk.parse_jwks(doc)).verify_batch(toks)
+    out = GPUBatchKeySet(t_jwk.parse_jwks(doc), device="cpu") \
+        .verify_batch(toks)
+    assert all(_same(r, p) for r, p in zip(ref, out))
+    assert [isinstance(o, dict) for o in out] == \
+        [True] * 5 + [False] + [True] + [False] * 4
+    assert not any(isinstance(o, UnsupportedAlgError) for o in out)
 
 
 def test_ed_records_equal_the_reference(monkeypatch):

@@ -20,7 +20,6 @@ from cap_tpu.tpu import mldsa as J
 
 from cap_tpu_torch import convert
 from cap_tpu_torch.errors import CapError as TCapError
-from cap_tpu_torch.errors import UnsupportedAlgError
 from cap_tpu_torch.gpu import mldsa as T
 from cap_tpu_torch.jwt import jwk as t_jwk
 
@@ -239,6 +238,27 @@ def test_akp_jwk_errors_match_jax(data):
 
 
 def test_akp_slh_dsa_keys_are_not_ported():
-    with pytest.raises(UnsupportedAlgError, match="SLH-DSA"):
-        t_jwk.parse_jwk({"kty": "AKP", "alg": "SLH-DSA-SHAKE-128s",
-                         "pub": "A" * 43})
+    """SLH-DSA AKP JWKs parse into the key of their set, as in the JAX
+    parser, and a bad set name keeps its ``InvalidJWKSError``. (The
+    name dates from when the port refused these keys; it is kept so the
+    test's history stays one.)"""
+    from cap_tpu.tpu import slhdsa as j_slh
+
+    from cap_tpu_torch.gpu import slhdsa as t_slh
+
+    for pset in ("SLH-DSA-SHAKE-128s", "SLH-DSA-SHAKE-128f"):
+        data = {"kty": "AKP", "alg": pset, "pub": "A" * 43}
+        key = t_jwk.parse_jwk(dict(data)).key
+        ref = j_jwk.parse_jwk(dict(data)).key
+        assert isinstance(key, t_slh.SLHDSAPublicKey)
+        assert isinstance(ref, j_slh.SLHDSAPublicKey)
+        assert (key.parameter_set, key.pk) == (pset, bytes(32)) == \
+            (ref.parameter_set, ref.pk)
+    data = {"kty": "AKP", "alg": "SLH-DSA-SHAKE-256s", "pub": "A" * 43}
+    with pytest.raises(JCapError) as ref_err:
+        j_jwk.parse_jwk(dict(data))
+    with pytest.raises(TCapError) as err:
+        t_jwk.parse_jwk(dict(data))
+    assert type(err.value).__name__ == type(ref_err.value).__name__ == \
+        "InvalidJWKSError"
+    assert str(err.value) == str(ref_err.value)

@@ -1,8 +1,9 @@
-"""The port's PS256 engine against the JAX package's and the host:
+"""The port's PS* engine against the JAX package's and the host:
 SHA-256 (``sha256_fixed``/``sha256_var``) against hashlib and the JAX
 engines at lengths 0–300, the RNS modexp to limbs against ``pow``, the
-device EMSA-PSS check against the JAX one and the host
-``pss_check_em`` on crafted EMs, and the packed PS256 verdicts."""
+device EMSA-PSS check over SHA-256, SHA-384 and SHA-512 against the
+JAX one and the host ``pss_check_em`` on crafted EMs, and the packed
+PS256, PS384 and PS512 verdicts."""
 
 import hashlib
 import random
@@ -104,26 +105,28 @@ def test_rns_modexp_em_core_matches_pow(key):
         [pow(v, 65537, key.n) for v in s_ints]
 
 
-def _crafted_ems(key):
+def _crafted_ems(key, hash_name="sha256"):
     """(label, EM bytes as a 2k-wide big-endian integer, mHash, mod bits,
-    host verdict) for every structural case of EMSA-PSS-VERIFY."""
+    host verdict) for every structural case of EMSA-PSS-VERIFY. The
+    label "salt-32" names the salt of the hash's length."""
     rng = random.Random(3)
     bits = key.n.bit_length()
-    mh = hashlib.sha256(b"message").digest()
+    h_len = t_rsa.HASH_LEN[hash_name]
+    mh = hashlib.new(hash_name, b"message").digest()
     out = []
 
     def add(label, em, mod_bits=bits, m_hash=mh):
         out.append((label, em, m_hash, mod_bits))
 
-    em = tt.pss_em(mh, bits - 1, "sha256", rng.randbytes(32))
+    em = tt.pss_em(mh, bits - 1, hash_name, rng.randbytes(h_len))
     add("salt-32", em)
-    add("salt-0", tt.pss_em(mh, bits - 1, "sha256", b""))
-    add("salt-max", tt.pss_em(mh, bits - 1, "sha256",
-                              rng.randbytes((bits + 6) // 8 - 34)))
-    add("wrong-hash", em, m_hash=hashlib.sha256(b"other").digest())
+    add("salt-0", tt.pss_em(mh, bits - 1, hash_name, b""))
+    add("salt-max", tt.pss_em(mh, bits - 1, hash_name,
+                              rng.randbytes((bits + 6) // 8 - h_len - 2)))
+    add("wrong-hash", em, m_hash=hashlib.new(hash_name, b"other").digest())
     add("bad-trailer", em[:-1] + b"\xcc")
     sep = bytearray(em)
-    sep[256 - 32 - 1 - 32 - 1] ^= 0x01
+    sep[256 - h_len - 1 - h_len - 1] ^= 0x01
     add("no-separator", bytes(sep))
     ps = bytearray(em)
     ps[5] ^= 0x40
@@ -131,7 +134,7 @@ def _crafted_ems(key):
     top = bytearray(em)
     top[0] |= 0x80
     add("top-bit", bytes(top))
-    em_short = tt.pss_em(mh, bits - 4, "sha256", rng.randbytes(20))
+    em_short = tt.pss_em(mh, bits - 4, hash_name, rng.randbytes(20))
     add("em-bits-2044", b"\0" + em_short, mod_bits=bits - 3)
     add("em-bits-2044-top", b"\0" + bytes([em_short[0] | 0x10])
         + em_short[1:], mod_bits=bits - 3)
@@ -140,17 +143,29 @@ def _crafted_ems(key):
     rows = []
     for label, em_, m_hash, mod_bits in out:
         wide = bytes(width - len(em_)) + em_
-        host = pss_check_em(wide, m_hash, mod_bits - 1, "sha256")
+        host = pss_check_em(wide, m_hash, mod_bits - 1, hash_name)
         rows.append((label, wide, m_hash, mod_bits, host))
     lead = bytearray(rows[0][1])
     lead[0] = 1
     rows.append(("leading-byte", bytes(lead), mh, bits,
-                 pss_check_em(bytes(lead), mh, bits - 1, "sha256")))
+                 pss_check_em(bytes(lead), mh, bits - 1, hash_name)))
     return rows
 
 
 def test_pss_verify_device_matches_jax_and_host(key):
-    rows = _crafted_ems(key)
+    _pss_device_case(key, "sha256")
+
+
+@pytest.mark.parametrize("hash_name", ["sha384", "sha512"])
+def test_pss_verify_device_sha384_sha512_matches_jax_and_host(key,
+                                                              hash_name):
+    """The same crafted EMs under SHA-384 and SHA-512: MGF1 and H' on
+    ``gpu.sha512``, verdicts equal to the JAX engine's and the host's."""
+    _pss_device_case(key, hash_name)
+
+
+def _pss_device_case(key, hash_name):
+    rows = _crafted_ems(key, hash_name)
     em = np.stack([np.frombuffer(r[1], np.uint8) for r in rows])
     mh = np.stack([np.frombuffer(r[2], np.uint8) for r in rows])
     mod_bits = np.asarray([r[3] for r in rows], np.int64)
@@ -158,10 +173,10 @@ def test_pss_verify_device_matches_jax_and_host(key):
     got = t_rsa._pss_verify_device(torch.from_numpy(em),
                                    torch.from_numpy(mh),
                                    torch.from_numpy(mod_bits), em.shape[1],
-                                   "sha256").tolist()
+                                   hash_name).tolist()
     want = np.asarray(j_rsa._pss_verify_device(
         jnp.asarray(em), jnp.asarray(mh), jnp.asarray(mod_bits),
-        width=em.shape[1], hash_name="sha256")).tolist()
+        width=em.shape[1], hash_name=hash_name)).tolist()
     assert got == want == host
     assert dict(zip([r[0] for r in rows], got)) == {
         "salt-32": True, "salt-0": True, "salt-max": True,
@@ -175,19 +190,32 @@ def test_ps256_packed_verdicts_equal_jax(key, monkeypatch):
     """One 128-token PS256 chunk: honest (salts 32, 0, max), tampered,
     crafted-EM and wrong-length signatures, through both packed
     engines on the same records."""
+    _packed_case(key, algs.PS256, monkeypatch)
+
+
+@pytest.mark.parametrize("alg", ["PS384", "PS512"])
+def test_ps384_ps512_packed_verdicts_equal_jax(key, monkeypatch, alg):
+    """The same chunk under PS384 and PS512 (salts of the hash's length,
+    0 and max)."""
+    _packed_case(key, alg, monkeypatch)
+
+
+def _packed_case(key, alg, monkeypatch):
     rng = random.Random(4)
-    si = tt.signing_input(algs.PS256, {"sub": "x"}, "k")
-    digest = hashlib.sha256(si).digest()
+    hash_name = algs.HASH_FOR_ALG[alg]
+    h_len = t_rsa.HASH_LEN[hash_name]
+    si = tt.signing_input(alg, {"sub": "x"}, "k")
+    digest = hashlib.new(hash_name, si).digest()
     sigs = []
     for salt in (None, 0, "max"):
-        tok = tt.sign_jwt(key, algs.PS256, {"sub": "x"}, kid="k", rng=rng,
+        tok = tt.sign_jwt(key, alg, {"sub": "x"}, kid="k", rng=rng,
                           salt_len=salt)
         sigs.append(_sig(tok))
     bad = bytearray(sigs[0])
     bad[100] ^= 2
     sigs.append(bytes(bad))
-    em = tt.pss_em(digest, key.n.bit_length() - 1, "sha256",
-                   rng.randbytes(32))
+    em = tt.pss_em(digest, key.n.bit_length() - 1, hash_name,
+                   rng.randbytes(h_len))
     sigs.append(_sig(tt.sign_em(key, si, em[:-1] + b"\x00")))
     sigs.append(sigs[0][:-1])
     expect = [True, True, True, False, False, False]
@@ -195,22 +223,22 @@ def test_ps256_packed_verdicts_equal_jax(key, monkeypatch):
     sigs += [b""] * (n - len(sigs))
     lens = np.asarray([len(s) for s in sigs])
     hash_mat = np.zeros((n, 64), np.uint8)
-    hash_mat[:, :32] = np.frombuffer(digest, np.uint8)
+    hash_mat[:, :h_len] = np.frombuffer(digest, np.uint8)
     key_idx = np.zeros(n, np.int64)
 
     table = t_rsa.RSAKeyTable([(key.n, 65537)], device="cpu")
     rec = t_rsa.rs_packed_records(table, _byte_matrix(sigs, 2 * table.k),
-                                  lens, hash_mat, "sha256", key_idx, "ps")
-    got = t_rsa.verify_ps_packed_pending(table, rec, "sha256").tolist()
+                                  lens, hash_mat, hash_name, key_idx, "ps")
+    got = t_rsa.verify_ps_packed_pending(table, rec, hash_name).tolist()
 
     monkeypatch.setenv("CAP_TPU_RNS", "1")
     j_table = j_rsa.RSAKeyTable([(key.n, 65537)])
     j_rec = j_rsa.rs_packed_records(j_table, _byte_matrix(sigs, 2 * table.k),
-                                    lens, hash_mat, "sha256",
+                                    lens, hash_mat, hash_name,
                                     key_idx.astype(np.int32))
-    j_rec[:, 2 * table.k + 32] = (lens == 256).astype(np.uint8)
+    j_rec[:, 2 * table.k + h_len] = (lens == 256).astype(np.uint8)
     assert np.array_equal(rec, j_rec)
     want = np.asarray(j_rsa.verify_ps_packed_pending(j_table, j_rec,
-                                                     "sha256")).tolist()
+                                                     hash_name)).tolist()
     assert got == want
     assert got[:6] == expect and not any(got[6:])
