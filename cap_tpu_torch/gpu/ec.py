@@ -291,11 +291,61 @@ def py_ecdsa_verify(cp: CurveParams, qx: int, qy: int, sig_raw: bytes,
     w = pow(s, -1, cp.n)
     u1 = (e * w) % cp.n
     u2 = (r * w) % cp.n
-    R = cp.affine_add(scalar_mult(cp, u1, (cp.gx, cp.gy)),
-                      scalar_mult(cp, u2, (qx, qy)))
+    R = _shamir(cp, u1, u2, (qx, qy))
     if R is None:
         return False
     return R[0] % cp.n == r
+
+
+def _shamir(cp: CurveParams, u1: int, u2: int,
+            Q: Tuple[int, int]) -> Optional[Tuple[int, int]]:
+    """u1·G + u2·Q (affine, None for infinity) by one joint
+    double-and-add over Jacobian coordinates (a = -3), adding the affine
+    G, Q or G + Q each step: the oracle's one modular inversion is the
+    final one."""
+    p = cp.p
+    G = (cp.gx, cp.gy)
+    table = {1: G, 2: Q, 3: cp.affine_add(G, Q)}
+    X = Y = Z = 0                      # Z == 0: the point at infinity
+    for i in range(max(u1.bit_length(), u2.bit_length()) - 1, -1, -1):
+        if Z:                          # dbl-2001-b
+            delta = Z * Z % p
+            gamma = Y * Y % p
+            beta = X * gamma % p
+            alpha = 3 * (X - delta) * (X + delta) % p
+            X, Z = (alpha * alpha - 8 * beta) % p, ((Y + Z) ** 2 - gamma
+                                                  - delta) % p
+            Y = (alpha * (4 * beta - X) - 8 * gamma * gamma) % p
+        pt = table[(u1 >> i & 1) | (u2 >> i & 1) << 1] \
+            if (u1 >> i | u2 >> i) & 1 else None
+        if pt is None:
+            continue
+        x2, y2 = pt
+        if not Z:
+            X, Y, Z = x2, y2, 1
+            continue
+        zz = Z * Z % p                 # mixed add, Jacobian + affine
+        h = (x2 * zz - X) % p
+        rr = (y2 * zz * Z - Y) % p
+        if h == 0:
+            if rr:
+                X = Y = Z = 0          # P + (-P)
+                continue
+            X, Y = x2, y2              # P + P: double the affine point
+            lam = (3 * X * X - 3) * pow(2 * Y, -1, p) % p
+            x3 = (lam * lam - 2 * X) % p
+            X, Y, Z = x3, (lam * (X - x3) - Y) % p, 1
+            continue
+        hh = h * h % p
+        hhh = h * hh % p
+        v = X * hh % p
+        X3 = (rr * rr - hhh - 2 * v) % p
+        Y = (rr * (v - X3) - Y * hhh) % p
+        X, Z = X3, Z * h % p
+    if not Z:
+        return None
+    zi = pow(Z, -1, p)
+    return X * zi * zi % p, Y * zi * zi * zi % p
 
 
 def _py_verify_one(table: ECKeyTable, row: int, sig_raw: bytes,

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from . import limbs as L
-from .bignum import compare_ge
+from .bignum import compare_ge, mont_params
 from .rns import (
     RNSKeyTable,
     RNSUnsupportedKey,
@@ -84,14 +84,18 @@ class RSAKeyTable:
         """public_numbers: list of (n_int, e_int)."""
         self.n_ints = [n for n, _ in public_numbers]
         self.e_ints = [e for _, e in public_numbers]
+        need = L.nlimbs_for_bits(max(n.bit_length() for n in self.n_ints))
+        self.k = max(need + 1, 8)
+        for n in self.n_ints:
+            # the JAX table's Montgomery set-up, whose refusal of an even
+            # modulus comes before any other
+            mont_params(n, self.k)
         if any(e != 65537 for e in self.e_ints):
             raise NotImplementedError(
                 "RSA keys with e != 65537 need the limb engine, which "
                 "cap_tpu_torch does not have yet")
         self.sizes_bytes = [(n.bit_length() + 7) // 8 for n in self.n_ints]
         self.mod_bits = [n.bit_length() for n in self.n_ints]
-        need = L.nlimbs_for_bits(max(n.bit_length() for n in self.n_ints))
-        self.k = max(need + 1, 8)
         self.device = torch.device(device)
         nbits = max(n.bit_length() for n in self.n_ints)
         nbits = ((nbits + 255) // 256) * 256

@@ -1,22 +1,33 @@
 """JWK (RFC 7517/7518) parse and serialize, as pure-integer keys.
 
 The port needs no OpenSSL: RSA keys (kty=RSA: n, e) become
-:class:`RSAPublicKey`, EC keys (kty=EC: crv, x, y on P-256/P-384/
-P-521) become :class:`HostECPublicKey` after an explicit on-curve
-check, Ed25519 keys (kty=OKP, crv=Ed25519) become
-:class:`HostEd25519PublicKey`, ML-DSA keys (kty=AKP with an
-``ML-DSA-*`` alg) become :class:`MLDSAPublicKey` and SLH-DSA keys
-(kty=AKP with an ``SLH-DSA-SHAKE-128s``/``-128f`` alg)
-:class:`SLHDSAPublicKey`, with the JAX parser's checks and messages.
-JWKs that carry x5c raise ``UnsupportedAlgError``: certificate chains
-are not ported yet.
+:class:`RSAPublicKey` after the reference's checks on n and e, EC keys
+(kty=EC: crv, x, y on P-256/P-384/P-521) become
+:class:`HostECPublicKey` after an explicit on-curve check, Ed25519 keys
+(kty=OKP, crv=Ed25519) become :class:`HostEd25519PublicKey`, ML-DSA
+keys (kty=AKP with an ``ML-DSA-*`` alg) become :class:`MLDSAPublicKey`
+and SLH-DSA keys (kty=AKP with an ``SLH-DSA-SHAKE-128s``/``-128f``
+alg) :class:`SLHDSAPublicKey`, with the JAX parser's checks and
+messages.
+
+``x5c`` certificate chains (RFC 7517 §4.7) are read as the JAX parser
+reads them, branch for branch, over the port's own DER reader
+(:mod:`.x509`): every entry must decode and parse as a certificate,
+the leaf's key is the only key used, a JWK without parameters takes
+that key, and a JWK with both must have them agree. An AKP key ignores
+``x5c``. Where the JAX parser lets ``cryptography``'s own exceptions
+escape unwrapped, the port raises ``InvalidJWKSError``; where it lets
+a builtin ``ValueError`` from the leaf's key escape, so does the port
+(ROADMAP §C).
 """
 
 from __future__ import annotations
 
+import base64
+import binascii
 from typing import Any, Dict, List, Optional
 
-from ..errors import InvalidJWKSError, UnsupportedAlgError
+from ..errors import InvalidJWKSError
 from ..gpu.ec import _CURVE_INTS, HostECPublicKey
 from ..gpu.ed25519 import HostEd25519PublicKey
 from ..gpu.mldsa import MLDSA_ALGS, MLDSAPublicKey
@@ -75,12 +86,26 @@ def _parse_ec_host(data: Dict[str, Any], crv: str) -> HostECPublicKey:
     return HostECPublicKey(crv, x, y)
 
 
+def _parse_rsa(data: Dict[str, Any]) -> RSAPublicKey:
+    """RSA key from n and e, with the checks of ``cryptography``'s
+    ``RSAPublicNumbers.public_key()`` in its order and words."""
+    n = _b64_uint(data, "n")
+    e = _b64_uint(data, "e")
+    if n < 3:
+        msg = "n must be >= 3."
+    elif e < 3 or e >= n:
+        msg = "e must be >= 3 and < n."
+    elif e & 1 == 0:
+        msg = "e must be odd."
+    else:
+        return RSAPublicKey(n, e)
+    raise InvalidJWKSError(f"invalid RSA jwk: {msg}")
+
+
 def _parse_okp(data: Dict[str, Any]) -> HostEd25519PublicKey:
     """Ed25519 key from its raw 32 bytes. Bytes that do not decode to a
     curve point are accepted, as OpenSSL's raw import accepts them; the
     key's tokens then never verify."""
-    if data.get("crv") != "Ed25519":
-        raise InvalidJWKSError(f"unsupported OKP curve {data.get('crv')!r}")
     raw = data.get("x")
     if not isinstance(raw, str):
         raise InvalidJWKSError("jwk missing field 'x'")
@@ -118,29 +143,113 @@ def _meta(data: Dict[str, Any], field: str) -> Optional[str]:
     return v if isinstance(v, str) else None
 
 
+def _x5c_public_key(data: Dict[str, Any]):
+    """The leaf certificate's key, or None when the JWK has no x5c.
+
+    Each entry is standard base64 (not base64url) of a DER certificate,
+    and every entry must parse, though only the first one's key is
+    used: a present but invalid chain is an error, never truncated.
+    """
+    from . import x509
+
+    x5c = data.get("x5c")
+    if x5c is None:
+        return None
+    if not isinstance(x5c, list) or not x5c or not all(
+            isinstance(c, str) for c in x5c):
+        raise InvalidJWKSError("jwk x5c must be a non-empty string array")
+    certs = []
+    for i, entry in enumerate(x5c):
+        try:
+            der = base64.b64decode(entry, validate=True)
+            certs.append(x509.load_der_x509_certificate(der))
+        except (binascii.Error, ValueError, x509.InvalidVersion) as err:
+            raise InvalidJWKSError(
+                f"invalid x5c certificate at index {i}: {err}") from err
+    try:
+        # a builtin ValueError escapes, as in the JAX parser
+        key = certs[0].public_key()
+    except x509.UnsupportedAlgorithm as err:
+        raise InvalidJWKSError(
+            f"x5c certificate carries an unsupported key type: {err}") from err
+    if _kind(key) is None:
+        raise InvalidJWKSError(
+            "x5c certificate carries an unsupported key type")
+    return key
+
+
+def _kind(key) -> Optional[str]:
+    """The JWK kty a key belongs to, or None for one no kty holds."""
+    from .x509 import OtherPublicKey
+
+    if isinstance(key, RSAPublicKey):
+        return "RSA"
+    if isinstance(key, HostECPublicKey) or (
+            isinstance(key, OtherPublicKey) and key.kind == "EC"):
+        return "EC"
+    if isinstance(key, HostEd25519PublicKey):
+        return "OKP"
+    return None
+
+
+def _keys_equal(a, b) -> bool:
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, RSAPublicKey):
+        return (a.n, a.e) == (b.n, b.e)
+    if isinstance(a, HostEd25519PublicKey):
+        return a.raw == b.raw
+    na, nb = a.public_numbers(), b.public_numbers()
+    return (a.curve_name, na.x, na.y) == (b.curve_name, nb.x, nb.y)
+
+
 def parse_jwk(data: Dict[str, Any]) -> JWK:
     """Parse one JWK dict into a JWK with a pure-integer public key."""
-    if data.get("x5c") is not None:
-        raise UnsupportedAlgError(
-            "x5c certificate chains are not supported by cap_tpu_torch yet")
     kty = data.get("kty")
+    if kty == "AKP":
+        return JWK(_parse_akp(data), kid=_meta(data, "kid"),
+                   alg=_meta(data, "alg"), use=_meta(data, "use"))
+    cert_key = _x5c_public_key(data)
+    key = None
+    # parameters are gated on presence, not type: malformed ones reject,
+    # never defer to the chain
     if kty == "RSA":
-        n = _b64_uint(data, "n")
-        e = _b64_uint(data, "e")
-        if n < 3 or n % 2 == 0 or e < 3 or e % 2 == 0:
-            raise InvalidJWKSError("invalid RSA jwk: bad modulus or exponent")
-        key = RSAPublicKey(n, e)
+        if "n" in data or "e" in data or cert_key is None:
+            key = _parse_rsa(data)
     elif kty == "EC":
         crv = data.get("crv")
-        if crv not in _COORD_BYTES:
+        if "x" in data or "y" in data or cert_key is None:
+            if crv not in _COORD_BYTES:
+                raise InvalidJWKSError(f"unsupported EC curve {crv!r}")
+            key = _parse_ec_host(data, crv)
+        elif crv is not None and crv not in _COORD_BYTES:
             raise InvalidJWKSError(f"unsupported EC curve {crv!r}")
-        key = _parse_ec_host(data, crv)
     elif kty == "OKP":
-        key = _parse_okp(data)
-    elif kty == "AKP":
-        key = _parse_akp(data)
+        if data.get("crv") != "Ed25519":
+            raise InvalidJWKSError(
+                f"unsupported OKP curve {data.get('crv')!r}")
+        if "x" in data or cert_key is None:
+            key = _parse_okp(data)
     else:
         raise InvalidJWKSError(f"unsupported jwk kty {kty!r}")
+
+    if cert_key is not None:
+        if _kind(cert_key) != kty:
+            raise InvalidJWKSError(
+                "x5c certificate key type does not match jwk kty")
+        if kty == "EC":
+            if cert_key.curve_name not in _COORD_BYTES:
+                raise InvalidJWKSError(
+                    f"unsupported EC curve {cert_key.curve_name!r} in x5c")
+            declared = data.get("crv")
+            if declared is not None and declared != cert_key.curve_name:
+                raise InvalidJWKSError(
+                    "jwk crv does not match x5c certificate curve")
+        if key is None:
+            key = cert_key          # material arrived only via x5c
+        elif not _keys_equal(key, cert_key):
+            raise InvalidJWKSError(
+                "jwk parameters do not match x5c certificate key")
     return JWK(key, kid=_meta(data, "kid"), alg=_meta(data, "alg"),
                use=_meta(data, "use"))
 

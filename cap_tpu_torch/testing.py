@@ -1,5 +1,7 @@
 """Fixtures without OpenSSL: seeded keys, JWT signing, the north-star,
-PS256 + EdDSA, PS384 + PS512, ML-DSA and SLH-DSA workloads.
+PS256 + EdDSA, PS384 + PS512, ML-DSA and SLH-DSA workloads, x5c JWKs
+(a minimal DER certificate writer), SPKI and PKCS#1 PEMs, and loopback
+JWKS and OIDC discovery servers.
 
 Everything here is pure Python integers over ``random.Random(seed)``:
 RSA keys by Miller–Rabin, PKCS#1 v1.5 and PSS signatures by CRT
@@ -16,10 +18,12 @@ produce fixtures; nothing here is constant-time or fit for real keys.
 
 from __future__ import annotations
 
+import base64
 import hashlib
 import json
 import math
 import random
+from contextlib import contextmanager
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -499,3 +503,213 @@ def jwks_document(jwks: List[JWK]) -> Dict[str, Any]:
     """``{"keys": [...]}`` for a list of JWKs."""
     return {"keys": [serialize_public_key(j.key, kid=j.kid, alg=j.alg)
                      for j in jwks]}
+
+
+# ---------------------------------------------------------------------------
+# DER certificates and PEM keys
+# ---------------------------------------------------------------------------
+
+def _der(tag: int, body: bytes) -> bytes:
+    n = len(body)
+    if n < 0x80:
+        return bytes([tag, n]) + body
+    ln = n.to_bytes((n.bit_length() + 7) // 8, "big")
+    return bytes([tag, 0x80 | len(ln)]) + ln + body
+
+
+def _der_seq(*parts: bytes) -> bytes:
+    return _der(0x30, b"".join(parts))
+
+
+def _der_uint(v: int) -> bytes:
+    return _der(0x02, v.to_bytes(v.bit_length() // 8 + 1, "big"))
+
+
+def _der_oid(dotted: str) -> bytes:
+    arcs = [int(a) for a in dotted.split(".")]
+    out = bytearray()
+    for v in [40 * arcs[0] + arcs[1]] + arcs[2:]:
+        chunk = [v & 0x7F]
+        v >>= 7
+        while v:
+            chunk.append(0x80 | (v & 0x7F))
+            v >>= 7
+        out += bytes(reversed(chunk))
+    return _der(0x06, bytes(out))
+
+
+_CURVE_OIDS = {"P-256": "1.2.840.10045.3.1.7", "P-384": "1.3.132.0.34",
+               "P-521": "1.3.132.0.35"}
+
+
+def spki_der(pub) -> bytes:
+    """The DER SubjectPublicKeyInfo of an RSA, EC or Ed25519 key."""
+    if isinstance(pub, RSAPublicKey):
+        alg = _der_seq(_der_oid("1.2.840.113549.1.1.1"), b"\x05\x00")
+        key = _der_seq(_der_uint(pub.n), _der_uint(pub.e))
+    elif isinstance(pub, HostECPublicKey):
+        alg = _der_seq(_der_oid("1.2.840.10045.2.1"),
+                       _der_oid(_CURVE_OIDS[pub.curve_name]))
+        size = curve(pub.curve_name).coord_bytes
+        nums = pub.public_numbers()
+        key = (b"\x04" + nums.x.to_bytes(size, "big")
+               + nums.y.to_bytes(size, "big"))
+    elif isinstance(pub, HostEd25519PublicKey):
+        alg = _der_seq(_der_oid("1.3.101.112"))
+        key = pub.raw
+    else:
+        raise ValueError(f"no SPKI for {type(pub).__name__}")
+    return _der_seq(alg, _der(0x03, b"\x00" + key))
+
+
+def _pem(label: str, der: bytes) -> str:
+    b64 = base64.b64encode(der).decode("ascii")
+    lines = [b64[i:i + 64] for i in range(0, len(b64), 64)]
+    return (f"-----BEGIN {label}-----\n" + "\n".join(lines)
+            + f"\n-----END {label}-----\n")
+
+
+def spki_pem(pub) -> str:
+    """A ``PUBLIC KEY`` PEM block (SubjectPublicKeyInfo)."""
+    return _pem("PUBLIC KEY", spki_der(pub))
+
+
+def pkcs1_pem(pub: RSAPublicKey) -> str:
+    """An ``RSA PUBLIC KEY`` PEM block (PKCS#1 RSAPublicKey)."""
+    return _pem("RSA PUBLIC KEY",
+                _der_seq(_der_uint(pub.n), _der_uint(pub.e)))
+
+
+def _utc_time(t: int) -> bytes:
+    import time
+
+    return _der(0x17, time.strftime("%y%m%d%H%M%SZ",
+                                    time.gmtime(t)).encode("ascii"))
+
+
+def certificate_der(priv, rng: Optional[random.Random] = None) -> bytes:
+    """A self-signed v3 certificate of ``priv``'s public key, valid from
+    five minutes before the fixtures' clock (``default_claims``) to a day
+    after it, signed with sha256WithRSAEncryption, ecdsa-with-SHA256 or
+    Ed25519 by the port's integer signers; CN=cap-tpu-x5c as issuer and
+    subject."""
+    rng = rng if rng is not None else random.Random()
+    pub = priv.public_key()
+    if isinstance(priv, RSAPrivateKey):
+        sig_alg = _der_seq(_der_oid("1.2.840.113549.1.1.11"), b"\x05\x00")
+    elif isinstance(priv, ECPrivateKey):
+        sig_alg = _der_seq(_der_oid("1.2.840.10045.4.3.2"))
+    else:
+        sig_alg = _der_seq(_der_oid("1.3.101.112"))
+    name = _der_seq(_der(0x31, _der_seq(
+        _der_oid("2.5.4.3"), _der(0x0C, b"cap-tpu-x5c"))))
+    tbs = _der_seq(
+        _der(0xA0, _der_uint(2)),
+        _der_uint(rng.getrandbits(159) | 1 << 150),
+        sig_alg, name,
+        _der_seq(_utc_time(1_700_000_000 - 300),
+                 _utc_time(1_700_000_000 + 86400)),
+        name, spki_der(pub))
+    if isinstance(priv, RSAPrivateKey):
+        k = (priv.n.bit_length() + 7) // 8
+        em = pkcs1v15_em(hashlib.sha256(tbs).digest(), "sha256", k)
+        sig = priv.raw_sign(int.from_bytes(em, "big")).to_bytes(k, "big")
+    elif isinstance(priv, ECPrivateKey):
+        cp = curve(priv.crv)
+        e = int.from_bytes(hashlib.sha256(tbs).digest(), "big")
+        while True:
+            try:
+                r, s_ = host_ecdsa_sign(priv.crv, priv.d, e,
+                                        rng.randrange(1, cp.n))
+                break
+            except ValueError:
+                continue
+        sig = _der_seq(_der_uint(r), _der_uint(s_))
+    else:
+        sig = priv.sign(tbs)
+    return _der_seq(tbs, sig_alg, _der(0x03, b"\x00" + sig))
+
+
+def x5c_jwk(priv, kid: Optional[str] = None, include_params: bool = False,
+            rng: Optional[random.Random] = None) -> Dict[str, Any]:
+    """A JWK whose key rides an ``x5c`` self-signed certificate
+    (:func:`certificate_der`). Without ``include_params`` the n/e or
+    x/y members are dropped, so the chain is the only key material."""
+    der = certificate_der(priv, rng)
+    jwk = serialize_public_key(priv.public_key(), kid=kid)
+    jwk["x5c"] = [base64.b64encode(der).decode("ascii")]
+    if not include_params:
+        for field in ("n", "e", "x", "y"):
+            jwk.pop(field, None)
+    return jwk
+
+
+# ---------------------------------------------------------------------------
+# Loopback servers
+# ---------------------------------------------------------------------------
+
+@contextmanager
+def _serve(state: Dict[str, Any], routes):
+    """A loopback HTTP server answering GET by ``routes(path, base)`` →
+    (status, JSON-able body); every GET increments ``state["fetches"]``.
+    Yields (base URL, server)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    state.setdefault("fetches", 0)
+    base = []
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            state["fetches"] += 1
+            status, doc = routes(self.path, base[0])
+            body = json.dumps(doc).encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    base.append(f"http://127.0.0.1:{srv.server_address[1]}")
+    threading.Thread(target=srv.serve_forever, kwargs={"poll_interval": 0.05},
+                     daemon=True).start()
+    try:
+        yield base[0], srv
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+@contextmanager
+def jwks_test_server(state: Dict[str, Any]):
+    """Serve ``{"keys": state["keys"]}`` over loopback HTTP, as the JAX
+    package's fixture does: mutate ``state["keys"]`` between requests to
+    rotate; every GET increments ``state["fetches"]``. Yields
+    ``(url, server)``."""
+    with _serve(state, lambda path, base: (200, {"keys": state["keys"]})
+                ) as (base, srv):
+        yield base + "/jwks", srv
+
+
+@contextmanager
+def discovery_test_server(state: Dict[str, Any]):
+    """An issuer on loopback HTTP: ``/.well-known/openid-configuration``
+    answers ``{"issuer": <base URL>, "jwks_uri": <base URL>/jwks}`` (the
+    in-process IdP's discovery document; ``state["discovery"]``, when
+    set, is served in its place) and ``/jwks`` answers
+    ``{"keys": state["keys"]}``. Every GET increments
+    ``state["fetches"]``. Yields ``(issuer, server)``."""
+    def routes(path, base):
+        if path == "/.well-known/openid-configuration":
+            return 200, state.get("discovery",
+                                  {"issuer": base, "jwks_uri": base + "/jwks"})
+        if path == "/jwks":
+            return 200, {"keys": state["keys"]}
+        return 404, {"error": "not found"}
+
+    with _serve(state, routes) as served:
+        yield served

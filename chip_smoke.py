@@ -49,18 +49,32 @@ Phases (any failure exits non-zero; none is caught):
    "claims prefetch") and each engine's records and device time. Each
    ES chunk runs the whole-ladder kernel once and redc 11 times, madd
    never;
-4. the config-3 path (BASELINE.json's third configuration) the same
+4. the validator path, on the north-star's keys and batch: 4 RSA and
+   4 P-256 keys served as x5c-only JWKs (rs-0 with its parameters
+   too) behind a loopback OIDC discovery document, loaded through
+   ``new_oidc_discovery_keyset(issuer).keys()`` and held equal to the
+   originals; ``Validator(GPUBatchKeySet(keys)).validate_batch`` on the
+   65,536 tokens with 224 more tiled in (32 of each claims rejection
+   class), every verdict checked, its launches equal to
+   ``verify_batch``'s (1 ladder + 11 redc an ES chunk); a 4,096-token
+   slice with only RS256 allowed (every verifying ES256 token gets
+   ``UnsupportedAlgError``); validate_batch and verify_batch timed in
+   turns and the claims loop alone; then every unique token held
+   against the single-token Validators over the JSONWebKeySet and over
+   a StaticKeySet of SPKI and PKCS#1 PEMs (same class, equal claims),
+   in one spawned process a host core;
+5. the config-3 path (BASELINE.json's third configuration) the same
    way (the oracle cross-check on 256 of the unique tokens): 8 P-256
    and 8 P-384 keys, 65,536 ES256/ES384 tokens, the ES rejection
    classes, one chunk of each curve, each one ladder launch; then
    every whole-ladder input of one batch, captured at the wrapper,
    replayed through the plain version and timed at that shape;
-5. the PS256 + EdDSA path (BASELINE.json's fourth configuration) the
+6. the PS256 + EdDSA path (BASELINE.json's fourth configuration) the
    same way: 8 RSA-2048 and 8 Ed25519 keys plus one Ed25519 key that
    does not decode, 65,536 PS256/EdDSA tokens, the EdDSA and PS256
    rejection classes, edw launched 32 times and redc 3 times per
    EdDSA chunk, madd never;
-6. the pq-mldsa path the same way: 8 ML-DSA-44 and 8 ML-DSA-65 AKP
+7. the pq-mldsa path the same way: 8 ML-DSA-44 and 8 ML-DSA-65 AKP
    keys, 16,384 tokens half under each set tiled from 256 unique ones,
    the ML-DSA rejection classes, keccak launched 14 times, ntt twice
    and intt once per ML-DSA chunk of 1,024 tokens, madd, edw and redc
@@ -68,7 +82,7 @@ Phases (any failure exits non-zero; none is caught):
    hooked, every input they were handed replayed through the plain
    versions ([1024, 25, 2] states; [1024, l, 256], [1024, 256] and
    [1024, k, 256] rows), and both timed at each of those shapes;
-7. the ps-sha512 path the same way: 8 RSA-2048 keys, 65,536 tokens half
+8. the ps-sha512 path the same way: 8 RSA-2048 keys, 65,536 tokens half
    PS384 and half PS512 tiled from 1,024 unique ones, the 1/8 tampered
    share, three tokens of each PS rejection class of config-4 under
    each hash, no kernel launched (the PS engine is PyTorch); before the
@@ -76,7 +90,7 @@ Phases (any failure exits non-zero; none is caught):
    (0–111 for the one-block form) and on one chunk's MGF1 seeds and M'
    inputs of each hash, captured where the engine hashes them, timed
    by CUDA events;
-8. the pq-slhdsa path the same way: 8 SLH-DSA-SHAKE-128f and 8
+9. the pq-slhdsa path the same way: 8 SLH-DSA-SHAKE-128f and 8
    SLH-DSA-SHAKE-128s AKP keys, 2,048 tokens half under each set tiled
    from 64 unique 128f and 8 unique 128s tokens, the 1/8 tampered
    share, three tokens of each SLH-DSA rejection class under each set,
@@ -920,9 +934,11 @@ def tile(rng, uniq, n_tokens=N_TOKENS):
 
 
 def build_batch(rng):
-    """(jwks, tokens, expected) for the north-star batch. expected[i]
-    is the sub claim of an accepted token, or the exception class name
-    (with its message where it is fixed)."""
+    """(jwks, unique tokens, tampered tokens, tokens, expected, signers)
+    for the north-star batch. expected[i] is the sub claim of an
+    accepted token, or the exception class name with its message;
+    signers [(private key, alg, kid)] as ``testing.headline_fixtures``
+    gives them."""
     from cap_tpu_torch import testing as tt
     from cap_tpu_torch.gpu.ec import curve
     from cap_tpu_torch.jwt import algs
@@ -961,7 +977,7 @@ def build_batch(rng):
             pos = (k * 3 + rep) * stride + 17
             tokens[pos] = tok
             expected[pos] = exp
-    return jwks, uniq, tampered, tokens, expected
+    return jwks, uniq, tampered, tokens, expected, signers
 
 
 def oracle_check(jwks, uniq, tampered):
@@ -1250,12 +1266,314 @@ ES_LAUNCHES = {"ladder": 1, "redc": 11}
 
 
 def main_path(records):
+    """The north-star path; returns its fixtures for the validator path."""
     rng = random.Random(SEED)
-    jwks, uniq, tampered, tokens, expected = build_batch(rng)
+    jwks, uniq, tampered, tokens, expected, signers = build_batch(rng)
     oracle_check(jwks, uniq, tampered)
     drive_path(records, "north-star", jwks, tokens, expected,
                [("ES256", "es-", 32768, ES_LAUNCHES)],
                ("RS256", "ES256"))
+    return dict(jwks=jwks, tokens=tokens, expected=expected,
+                signers=signers)
+
+
+# the validator path's clock: the fixtures' iat/nbf plus a minute
+VALIDATOR_NOW = 1_700_000_060
+CLAIMS_CLASSES = {
+    "expired": (dict(exp=1_699_990_000), (
+        "ExpiredTokenError",
+        "invalid expiration time (exp) claim: token is expired")),
+    "not yet valid": (dict(nbf=1_700_007_200), (
+        "InvalidNotBeforeError",
+        "invalid not before (nbf) claim: token not yet valid")),
+    "issued in the future": (dict(iat=1_700_007_200, nbf=1_700_000_000), (
+        "InvalidIssuedAtError",
+        "invalid issued at (iat) claim: token issued in the future")),
+    "no iat, exp or nbf": (dict(iat=None, nbf=None, exp=None), (
+        "MissingClaimError",
+        "no issued at (iat), not before (nbf), or expiration time (exp) "
+        "claims in token")),
+    "wrong iss": (dict(iss="https://evil.example/"), (
+        "InvalidIssuerError", "invalid issuer (iss) claim")),
+    "wrong aud": (dict(aud=["someone-else"]), (
+        "InvalidAudienceError",
+        "audience claim does not match any expected audience")),
+    "aud not a string": (dict(aud=[7]), (
+        "MalformedTokenError",
+        "claim 'aud' is not a string or string array")),
+}
+
+
+def _verdict(v):
+    """A verdict as comparable data: the claims dict, or (class, text)."""
+    return v if isinstance(v, dict) else (type(v).__name__, str(v))
+
+
+_CHECKERS = None
+
+
+def _checkers_init(repo, issuer, pems, expected):
+    """Worker set-up for the unique-token cross-check: the single-token
+    Validators over a JSONWebKeySet loaded by discovery and over a
+    StaticKeySet of the PEMs; ``expected`` the Expected fields, with
+    ``now`` a number."""
+    global _CHECKERS
+    sys.path.insert(0, repo)
+    from cap_tpu_torch.jwt import (
+        Expected,
+        StaticKeySet,
+        Validator,
+        new_oidc_discovery_keyset,
+        parse_public_key_pem,
+    )
+
+    now = expected["now"]
+    _CHECKERS = (Validator(new_oidc_discovery_keyset(issuer)),
+                 Validator(StaticKeySet([parse_public_key_pem(p)
+                                         for p in pems])),
+                 Expected(**dict(expected, now=lambda: now)))
+
+
+def _check_tokens(tokens):
+    """[(JSONWebKeySet verdict, StaticKeySet verdict)] of tokens."""
+    jv, sv, expected = _CHECKERS
+    out = []
+    for tok in tokens:
+        pair = []
+        for v in (jv, sv):
+            try:
+                pair.append(_verdict(v.validate(tok, expected)))
+            except Exception as e:  # noqa: BLE001 - compared by the caller
+                pair.append(_verdict(e))
+        out.append(tuple(pair))
+    return out
+
+
+class _FixedKeySet:
+    """A keyset whose batch verdicts are given: times the claims loop of
+    ``Validator.validate_batch`` alone."""
+
+    def __init__(self, results):
+        self.results = results
+
+    def verify_batch(self, tokens):
+        return self.results
+
+
+def validator_path(records, north):
+    """``Validator.validate_batch`` over ``GPUBatchKeySet`` on the card,
+    its keys served as x5c JWKs behind a loopback discovery document.
+
+    The north-star's 16 keys (4 RSA and 4 P-256 of them x5c-only JWKs,
+    one with both its parameters and its chain) load through
+    ``new_oidc_discovery_keyset(issuer).keys()`` and must equal the
+    originals; the north-star's 65,536 tokens, with a few hundred more
+    signed by its keys tiled in (every claims rejection class), go
+    through ``validate_batch`` and every verdict is checked, then a
+    4,096-token slice with only RS256 allowed. Each unique token's
+    verdict is held against the single-token Validators over the
+    JSONWebKeySet and over a StaticKeySet of SPKI and PKCS#1 PEMs (in
+    one spawned process a host core). validate_batch must launch exactly
+    what verify_batch launches."""
+    import multiprocessing
+
+    import torch
+
+    from cap_tpu_torch import errors
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt import (
+        Expected,
+        GPUBatchKeySet,
+        Validator,
+        new_oidc_discovery_keyset,
+    )
+    from cap_tpu_torch.jwt.jose import peek_alg
+    from cap_tpu_torch.jwt.jwk import RSAPublicKey, serialize_public_key
+    from cap_tpu_torch.runtime.native_binding import prepare_batch_arrays
+
+    t_phase = time.perf_counter()
+    rng = random.Random(SEED + 11)
+    jwks = north["jwks"]
+    signers = north["signers"]
+    priv_of = {kid: priv for priv, _, kid in signers}
+
+    # serve the keys: x5c-only JWKs for rs-0..3 and es-0..3, rs-0 with
+    # its parameters too
+    doc = []
+    for j in jwks:
+        x5c = j.kid[3:] in ("0", "1", "2", "3")
+        doc.append(tt.x5c_jwk(priv_of[j.kid], kid=j.kid, rng=rng,
+                              include_params=j.kid == "rs-0")
+                   if x5c else serialize_public_key(j.key, kid=j.kid))
+    pems = [tt.pkcs1_pem(j.key) if isinstance(j.key, RSAPublicKey)
+            and int(j.kid[3:]) % 2 else tt.spki_pem(j.key) for j in jwks]
+    state = {"keys": doc}
+
+    def same_key(a, b):
+        if isinstance(a, RSAPublicKey):
+            return isinstance(b, RSAPublicKey) and (a.n, a.e) == (b.n, b.e)
+        na, nb = a.public_numbers(), b.public_numbers()
+        return (a.curve_name, na.x, na.y) == (b.curve_name, nb.x, nb.y)
+
+    # a few hundred tokens per claims class, signed by the north-star keys
+    base = tt.default_claims()
+    extra, extra_exp = [], []
+    for label, (change, verdict) in CLAIMS_CLASSES.items():
+        for k, (priv, alg, kid) in enumerate(signers * 2):
+            claims = {key: v for key, v in dict(
+                base, sub=f"claims-{label}-{k}", **change).items()
+                if v is not None}
+            extra.append(tt.sign_jwt(priv, alg, claims, kid=kid, rng=rng))
+            extra_exp.append(verdict)
+    tokens = list(north["tokens"])
+    expected = list(north["expected"])
+    taken = {i for i, e in enumerate(expected) if isinstance(e, tuple)
+             and e != REJECT}
+    stride = len(tokens) // len(extra)
+    pos = stride // 2
+    for tok, exp in zip(extra, extra_exp):
+        while pos in taken:
+            pos += 1
+        tokens[pos], expected[pos] = tok, exp
+        pos += stride
+    t_fix = time.perf_counter() - t_phase
+    fields = dict(issuer="https://example.com/", audiences=["client-id"],
+                  signing_algorithms=["RS256", "ES256"], now=VALIDATOR_NOW)
+    exp_args = dict(fields, now=lambda: VALIDATOR_NOW)
+
+    with tt.discovery_test_server(state) as (issuer, _srv):
+        t0 = time.perf_counter()
+        loaded = new_oidc_discovery_keyset(issuer).keys()
+        assert [j.kid for j in loaded] == [j.kid for j in jwks]
+        assert all(same_key(a.key, b.key) for a, b in zip(loaded, jwks)), \
+            "keys loaded through discovery differ from the originals"
+        t_load = time.perf_counter() - t0
+        log(f"validator: {len(jwks)} keys ({sum('x5c' in d for d in doc)} "
+            f"as x5c JWKs, rs-0 with its parameters too) loaded through "
+            f"new_oidc_discovery_keyset on loopback, equal to the "
+            f"originals ({state['fetches']} fetches, {t_load:.2f} s); "
+            f"{len(extra)} claims-class tokens signed and tiled in "
+            f"({t_fix:.1f} s)")
+
+        ks = GPUBatchKeySet(loaded)
+        validator = Validator(ks)
+        ctr = counters()
+        for mod, attr in ctr.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        results = validator.validate_batch(tokens, Expected(**exp_args))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {k: getattr(mod, attr) for k, (mod, attr) in ctr.items()}
+        check_verdicts(results, expected)
+        for mod, attr in ctr.values():
+            setattr(mod, attr, 0)
+        verified = ks.verify_batch(tokens)
+        torch.cuda.synchronize()
+        verify_launches = {k: getattr(mod, attr)
+                           for k, (mod, attr) in ctr.items()}
+        pb = prepare_batch_arrays(tokens)
+        n_es = int((pb.kid_rows(family_idx(pb, "ES256"),
+                                {f"es-{i}": 0 for i in range(8)}) >= 0).sum())
+        chunks = (n_es + 32767) // 32768
+        want = {k: ES_LAUNCHES.get(k, 0) * chunks for k in ctr}
+        assert launches == verify_launches == want, \
+            (launches, verify_launches, want)
+        for k, count in launches.items():
+            rec = records[k]
+            rec["launches"] = rec.get("launches", 0) + count
+            rec.setdefault("launches_by_path", {})["validator"] = count
+        log(f"validator path: {len(tokens)} tokens through "
+            f"Validator(GPUBatchKeySet).validate_batch, every verdict as "
+            f"expected (each claims class {2 * len(signers)} times); "
+            f"launches {launches}, equal to verify_batch's ({chunks} ES "
+            f"chunk(s)); first run {first_s:.2f} s")
+
+        # RS256 only: every ES256 token that verifies gets
+        # UnsupportedAlgError
+        sl_tokens, sl_expected = tokens[:4096], []
+        for tok, exp, ver in zip(sl_tokens, expected, verified):
+            try:
+                alg = peek_alg(tok)
+            except Exception:  # noqa: BLE001 - keeps its verdict
+                alg = None
+            if alg == "ES256" and isinstance(ver, dict):
+                exp = ("UnsupportedAlgError",
+                       "token signed with unexpected algorithm")
+            sl_expected.append(exp)
+        sl = validator.validate_batch(
+            sl_tokens, Expected(**dict(exp_args,
+                                       signing_algorithms=["RS256"])))
+        check_verdicts(sl, sl_expected)
+        n_alg = sum(isinstance(v, tuple) and v[0] == "UnsupportedAlgError"
+                    for v in sl_expected)
+        log(f"validator path, RS256 only: {len(sl_tokens)} tokens, every "
+            f"verdict as expected ({n_alg} ES256 tokens refused with "
+            f"UnsupportedAlgError)")
+
+        # verifies/s of validate_batch against verify_batch, in turns
+        t_val, t_ver = [], []
+        for _ in range(3):
+            for fn, acc in ((lambda: validator.validate_batch(
+                    tokens, Expected(**exp_args)), t_val),
+                    (lambda: ks.verify_batch(tokens), t_ver)):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                acc.append(time.perf_counter() - t0)
+        fixed = Validator(_FixedKeySet(verified))
+        t_claims = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fixed.validate_batch(tokens, Expected(**exp_args))
+            t_claims.append(time.perf_counter() - t0)
+        card = card_line()
+        log(f"validator path warm ({card}): validate_batch "
+            f"{', '.join(f'{t:.3f}' for t in t_val)} s, best "
+            f"{len(tokens) / min(t_val):.0f} verifies/s; verify_batch "
+            f"{', '.join(f'{t:.3f}' for t in t_ver)} s, best "
+            f"{len(tokens) / min(t_ver):.0f} verifies/s; claims loop "
+            f"alone {min(t_claims) / len(tokens) * 1e6:.2f} µs/token "
+            f"(best of {', '.join(f'{t:.3f}' for t in t_claims)} s)")
+
+        # every unique token against the single-token Validators
+        first = {}
+        for i, tok in enumerate(tokens):
+            first.setdefault(tok, i)
+        uniq = list(first)
+        n_proc = len(os.sched_getaffinity(0))
+        t0 = time.perf_counter()
+        with multiprocessing.get_context("spawn").Pool(
+                n_proc, _checkers_init,
+                (os.path.dirname(os.path.abspath(__file__)), issuer, pems,
+                 fields)) as pool:
+            parts = pool.map_async(_check_tokens,
+                                   [uniq[k::4 * n_proc]
+                                    for k in range(4 * n_proc)]).get(600)
+        singles = {}
+        for k, part in enumerate(parts):
+            for tok, pair in zip(uniq[k::4 * n_proc], part):
+                singles[tok] = pair
+        bad = []
+        for tok in uniq:
+            batch = _verdict(results[first[tok]])
+            for single in singles[tok]:
+                if isinstance(batch, dict) or isinstance(single, dict):
+                    ok = batch == single
+                else:
+                    # a kid no key has is UnknownKeyIDError on the
+                    # JSONWebKeySet, a subclass of the batch's class
+                    ok = issubclass(getattr(errors, single[0]),
+                                    getattr(errors, batch[0]))
+                if not ok:
+                    bad.append((first[tok], batch, single))
+        assert not bad, f"{len(bad)} unique tokens differ, first {bad[:3]}"
+        log(f"validator path: {len(uniq)} unique tokens, each verdict "
+            f"equal to Validator(JSONWebKeySet).validate and to "
+            f"Validator(StaticKeySet of {len(pems)} SPKI/PKCS#1 PEMs)"
+            f".validate (same class, equal claims) in "
+            f"{time.perf_counter() - t0:.1f} s on {n_proc} processes")
+    log(f"validator path: phase {time.perf_counter() - t_phase:.1f} s")
 
 
 BAD_ED_KEY = (2).to_bytes(32, "little")     # y = 2: not on the curve
@@ -1953,7 +2271,8 @@ def main() -> int:
     kernel_phase(records)
     wide_phase(records)
     ladder_phase(records)
-    main_path(records)
+    north = main_path(records)
+    validator_path(records, north)
     config3_path(records)
     config4_path(records)
     mldsa_path(records)

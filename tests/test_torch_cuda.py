@@ -2,9 +2,11 @@
 versions (keccak also at the SLH-DSA path's [m, 35 | 33 | 14] state
 counts), the launch counters, the wrappers' refusals, the device
 SHA-384/512 against hashlib, the SLH-DSA engine against its CPU path,
-and the keyset on the card against the keyset on the CPU (RS256 +
+the keyset on the card against the keyset on the CPU (RS256 +
 ES256, ES256 + ES384 and ES512 with either ladder, PS256 + EdDSA,
-ML-DSA-44 + ML-DSA-65, ML-DSA-87, and PS384 + PS512 + SLH-DSA).
+ML-DSA-44 + ML-DSA-65, ML-DSA-87, and PS384 + PS512 + SLH-DSA), and
+``Validator.validate_batch`` over the card keyset against the CPU, with
+an x5c JWKS loaded through discovery.
 
 Marked ``cuda``: without a card each test skips. On the card's machine
 (no jax there, so without the suite's conftest):
@@ -690,3 +692,108 @@ def test_ps384_ps512_and_slhdsa_keysets_on_the_card_match_the_plain_path(
     assert [repr(x) if isinstance(x, Exception) else x for x in on_card] \
         == [repr(x) if isinstance(x, Exception) else x for x in on_cpu]
     assert sum(isinstance(x, dict) for x in on_card) == len(tokens)
+
+
+def _claims_tokens(signers, rng):
+    """Tokens of every claims rejection class, signed by ``signers``."""
+    from cap_tpu_torch import testing as tt
+
+    now = 1_700_000_000
+    changes = [{}, dict(exp=now - 3600), dict(nbf=now + 7200),
+               dict(iat=now + 7200, nbf=now - 10),
+               dict(iat=None, nbf=None, exp=None),
+               dict(iss="https://evil.example/"), dict(aud=["other"]),
+               dict(aud=[7]), dict(aud="client-id")]
+    out = []
+    for change in changes:
+        for priv, alg, kid in signers:
+            claims = {k: v for k, v in dict(tt.default_claims(now=now),
+                                            **change).items()
+                      if v is not None}
+            out.append(tt.sign_jwt(priv, alg, claims, kid=kid, rng=rng))
+    return out
+
+
+def _verdicts(results):
+    return [r if isinstance(r, dict) else (type(r).__name__, str(r))
+            for r in results]
+
+
+def test_validator_over_the_card_keyset_matches_the_plain_path(dev):
+    """Validator.validate_batch over GPUBatchKeySet on the card equals the
+    same over the plain path, on RS256 + ES256 tokens of every claims
+    rejection class, with both alg lists; it launches what verify_batch
+    launches."""
+    import random
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt import Expected, GPUBatchKeySet, Validator
+
+    jwks, tokens, signers = tt.headline_fixtures(32, seed=7)
+    rng = random.Random(7)
+    batch = tokens + _claims_tokens(signers[::3], rng) + ["a.b"]
+    card_ks = GPUBatchKeySet(jwks)
+    cpu_ks = GPUBatchKeySet(jwks, device="cpu")
+    for algs in (["RS256", "ES256"], ["RS256"]):
+        expected = Expected(issuer="https://example.com/",
+                            audiences=["client-id"],
+                            signing_algorithms=algs,
+                            now=lambda: 1_700_000_060)
+        cuda_ladder.launches = cuda_redc.launches = 0
+        on_card = Validator(card_ks).validate_batch(batch, expected)
+        launched = (cuda_ladder.launches, cuda_redc.launches)
+        cuda_ladder.launches = cuda_redc.launches = 0
+        card_ks.verify_batch(batch)
+        assert launched == (cuda_ladder.launches, cuda_redc.launches) \
+            == (1, 11)
+        on_cpu = Validator(cpu_ks).validate_batch(batch, expected)
+        assert _verdicts(on_card) == _verdicts(on_cpu)
+        kinds = {type(r).__name__ for r in on_card}
+        assert {"dict", "ExpiredTokenError", "InvalidNotBeforeError",
+                "InvalidIssuedAtError", "MissingClaimError",
+                "InvalidIssuerError", "InvalidAudienceError",
+                "MalformedTokenError"} <= kinds
+        assert ("UnsupportedAlgError" in kinds) == (algs == ["RS256"])
+
+
+def test_x5c_jwks_through_discovery_on_the_card(dev):
+    """x5c-only JWKs (and one with parameters and chain) served behind a
+    loopback discovery document, loaded by JSONWebKeySet: equal to the
+    originals; the card keyset built from them validates as the plain
+    path does and as the single-token Validator over the JSONWebKeySet."""
+    import random
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt import (
+        Expected,
+        GPUBatchKeySet,
+        Validator,
+        new_oidc_discovery_keyset,
+    )
+
+    jwks, tokens, signers = tt.headline_fixtures(32, seed=9)
+    rng = random.Random(9)
+    doc = [tt.x5c_jwk(priv, kid=kid, rng=rng, include_params=kid == "es-0")
+           for priv, _, kid in signers]
+    batch = tokens + _claims_tokens(signers[1::4], rng)
+    expected = Expected(issuer="https://example.com/",
+                        audiences=["client-id"],
+                        signing_algorithms=["RS256", "ES256"],
+                        now=lambda: 1_700_000_060)
+    with tt.discovery_test_server({"keys": doc}) as (issuer, _srv):
+        remote = new_oidc_discovery_keyset(issuer)
+        loaded = remote.keys()
+        assert [tt.serialize_public_key(j.key, kid=j.kid) for j in loaded] \
+            == [tt.serialize_public_key(j.key, kid=j.kid) for j in jwks]
+        on_card = Validator(GPUBatchKeySet(loaded)).validate_batch(
+            batch, expected)
+        on_cpu = Validator(GPUBatchKeySet(loaded, device="cpu")) \
+            .validate_batch(batch, expected)
+        single = []
+        for tok in batch:
+            try:
+                single.append(Validator(remote).validate(tok, expected))
+            except Exception as e:  # noqa: BLE001 - compared below
+                single.append(e)
+    assert _verdicts(on_card) == _verdicts(on_cpu) == _verdicts(single)
+    assert sum(isinstance(r, dict) for r in on_card) == len(tokens) + 8

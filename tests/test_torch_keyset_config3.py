@@ -255,3 +255,27 @@ def test_config3_fixtures():
     jwks, tokens, _ = tt.es512_fixtures(2, seed=2)
     assert [j.kid for j in jwks] == ["es512-0", "es512-1"]
     assert all(parse_jws(t).alg == algs.ES512 for t in tokens)
+
+
+@pytest.mark.parametrize("crv", ["P-256", "P-384", "P-521"])
+def test_oracle_joint_ladder_equals_the_affine_sum(crv):
+    """The oracle's u1·G + u2·Q (one Jacobian double-and-add) equals the
+    affine double-and-add sum, on seeded scalars and keys and where the
+    running sum meets the added point (doubling) or its negative
+    (infinity), Q = ±G, and zero scalars."""
+    from cap_tpu_torch.gpu import ec
+
+    cp = curve(crv)
+    G = (cp.gx, cp.gy)
+    neg = (cp.gx, (-cp.gy) % cp.p)
+    two_g = scalar_mult(cp, 2, G)
+    rng = random.Random(3)
+    cases = [(2, 1, two_g), (2, 1, (two_g[0], (-two_g[1]) % cp.p)),
+             (1, 1, G), (1, 1, neg), (0, 5, G), (7, 0, G), (0, 0, G),
+             (5, 5, neg), (cp.n - 1, 1, G)]
+    for _ in range(40):
+        Q = scalar_mult(cp, rng.randrange(1, cp.n), G)
+        cases.append((rng.randrange(cp.n), rng.randrange(cp.n), Q))
+    for u1, u2, Q in cases:
+        want = cp.affine_add(scalar_mult(cp, u1, G), scalar_mult(cp, u2, Q))
+        assert ec._shamir(cp, u1, u2, Q) == want, (u1, u2)
