@@ -1,11 +1,12 @@
 """Batched big-number arithmetic on int64 limb tensors.
 
-The port of the JAX package's limb engine for the ES* scalar work
-(range checks, s⁻¹, u1/u2): little-endian base-2^16 limbs, limb-first
-[K, N], every limb a 16-bit value held in int64 so limb products and
-column sums never wrap. Carries and borrows resolve in fixed depth —
-one ripple pass, then a Kogge-Stone carry-lookahead over the limb axis
-— so no step depends on the data.
+The port of the JAX package's limb engine: the ES* scalar work (range
+checks, s⁻¹, u1/u2) and the RSA modexps of keys the RNS engine does
+not take (``modexp_65537``, ``modexp_vare``). Little-endian base-2^16
+limbs, limb-first [K, N], every limb a 16-bit value held in int64 so
+limb products and column sums never wrap. Carries and borrows resolve
+in fixed depth — one ripple pass, then a Kogge-Stone carry-lookahead
+over the limb axis — so no step depends on the data.
 """
 
 from __future__ import annotations
@@ -103,6 +104,69 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, n: torch.Tensor,
     t = s[k:]                                 # [K+1, N]; value < 2n
     n_pad = torch.cat([n, torch.zeros_like(n[:1])], dim=0)
     return sub_where(t, n_pad, compare_ge(t, n_pad))[:k]
+
+
+def mont_sqr(a: torch.Tensor, n: torch.Tensor,
+             nprime: torch.Tensor) -> torch.Tensor:
+    return mont_mul(a, a, n, nprime)
+
+
+def mont_mul_lazy(a: torch.Tensor, b: torch.Tensor, n: torch.Tensor,
+                  nprime: torch.Tensor) -> torch.Tensor:
+    """Montgomery product WITHOUT the conditional subtract.
+
+    Requires R = 2^(16K) ≥ 4n (one spare limb beyond the modulus). For
+    inputs < 2n the output (ab + mn)/R stays < 2n, so a whole modexp
+    chain runs with no compare and one final reduction canonicalizes.
+    """
+    k = a.shape[0]
+    t_full = mul(a, b)                        # [2K+1, N]
+    m = mul(t_full[:k], nprime)[:k]
+    s = carry_normalize(t_full + mul(m, n))   # low K limbs exactly 0
+    return s[k: 2 * k]
+
+
+def _one_limbs(s: torch.Tensor) -> torch.Tensor:
+    one = torch.zeros_like(s)
+    one[0] = 1
+    return one
+
+
+def modexp_65537(s: torch.Tensor, n: torch.Tensor, nprime: torch.Tensor,
+                 r2: torch.Tensor) -> torch.Tensor:
+    """s^65537 mod n for the whole batch, [K, N] canonical limbs.
+
+    s, n, nprime, r2: [K, N]; r2 = R² mod n per token; R ≥ 4n (the key
+    table's spare limb). 19 subtraction-free Montgomery products
+    (domain entry, 16 squarings, ·s, domain exit), then one
+    canonicalizing conditional subtract.
+    """
+    s_m = mont_mul_lazy(s, r2, n, nprime)
+    x = s_m
+    for _ in range(16):
+        x = mont_mul_lazy(x, x, n, nprime)
+    x = mont_mul_lazy(x, s_m, n, nprime)
+    x = mont_mul_lazy(x, _one_limbs(s), n, nprime)   # leave domain; ≤ n
+    return sub_where(x, n, compare_ge(x, n))
+
+
+def modexp_vare(s: torch.Tensor, e: torch.Tensor, n: torch.Tensor,
+                nprime: torch.Tensor, r2: torch.Tensor,
+                one_mont: torch.Tensor, ebits: int) -> torch.Tensor:
+    """s^e mod n with per-token exponents below 2^32, [K, N] limbs.
+
+    e: [N] int64; ``ebits`` the widest exponent's bit length. A
+    left-to-right ladder over ``ebits`` bits from ``one_mont`` (R mod
+    n), every step a square and a multiply with a per-token select.
+    """
+    s_m = mont_mul(s, r2, n, nprime)
+    x = one_mont
+    for i in range(ebits):
+        x = mont_sqr(x, n, nprime)
+        mult = mont_mul(x, s_m, n, nprime)
+        bit = ((e >> (ebits - 1 - i)) & 1).bool()
+        x = torch.where(bit[None, :], mult, x)
+    return mont_mul(x, _one_limbs(s), n, nprime)
 
 
 def batch_mont_inverse(x_m: torch.Tensor, n1: torch.Tensor,

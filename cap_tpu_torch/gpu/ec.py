@@ -19,7 +19,7 @@ absent.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -110,84 +110,73 @@ class CurveParams:
         y3 = (lam * (x1 - x3) - y1) % p
         return x3, y3
 
-    def window_multiples(self, point: Tuple[int, int], w_bits: int,
-                         n_windows: int) -> Tuple[list, list]:
-        """All d·2^{w·i}·point (d ∈ [1, 2^w−1], i ∈ [0, n_windows)) as
-        affine int lists, row order i·(2^w−1) + (d−1).
+    def window_multiples_many(self, points: Sequence[Tuple[int, int]],
+                              w_bits: int, n_windows: int) -> list:
+        """All d·2^{w·i}·point (d ∈ [1, 2^w−1], i ∈ [0, n_windows)) of
+        every point, as [(X, Y)] affine int lists in row order
+        i·(2^w−1) + (d−1).
 
-        The chain runs in Jacobian coordinates and ONE batched
-        Montgomery-trick inversion converts every row to affine. Never
-        hits infinity: d·2^{w·i} < 2^{w·n_windows + w} is never ≡ 0
-        mod n for the prime-order points used here.
+        Affine throughout, every point's windows side by side: the
+        window bases by w doublings each, then the chains d·B = (d−1)·B
+        + B, each step's divisions over all points and windows sharing
+        one inversion (Montgomery's trick). Never hits infinity or a
+        same-x pair: d·2^{w·i} < 2^{w·n_windows} is never ≡ 0 or ±1 mod
+        n apart from d = 1, for the prime-order points used here.
         """
         p = self.p
         per = (1 << w_bits) - 1
-        rows = n_windows * per
-        JX = [0] * rows
-        JY = [0] * rows
-        JZ = [0] * rows
-        bx, by = point
-
-        def jdouble(X1, Y1, Z1):
-            # dbl-2001-b (a = -3)
-            delta = Z1 * Z1 % p
-            gamma = Y1 * Y1 % p
-            beta = X1 * gamma % p
-            alpha = 3 * (X1 - delta) * (X1 + delta) % p
-            X3 = (alpha * alpha - 8 * beta) % p
-            Z3 = ((Y1 + Z1) ** 2 - gamma - delta) % p
-            Y3 = (alpha * (4 * beta - X3) - 8 * gamma * gamma) % p
-            return X3, Y3, Z3
-
-        def jmadd(X1, Y1, Z1, x2, y2):
-            # madd-2004-hmv (Z2 = 1); the points are distinct and
-            # nonzero here, so h ≠ 0.
-            z1z1 = Z1 * Z1 % p
-            u2 = x2 * z1z1 % p
-            s2 = y2 * Z1 % p * z1z1 % p
-            h = (u2 - X1) % p
-            hh = h * h % p
-            i4 = 4 * hh % p
-            j = h * i4 % p
-            r = 2 * (s2 - Y1) % p
-            v = X1 * i4 % p
-            X3 = (r * r - j - 2 * v) % p
-            Y3 = (r * (v - X3) - 2 * Y1 * j) % p
-            Z3 = ((Z1 + h) ** 2 - z1z1 - hh) % p
-            return X3, Y3, Z3
-
-        for i in range(n_windows):
-            base_row = i * per
-            JX[base_row], JY[base_row], JZ[base_row] = bx, by, 1
-            if per > 1:
-                X, Y, Z = jdouble(bx, by, 1)         # d = 2
-                JX[base_row + 1], JY[base_row + 1], JZ[base_row + 1] = \
-                    X, Y, Z
-                for d in range(3, per + 1):
-                    X, Y, Z = jmadd(X, Y, Z, bx, by)
-                    r = base_row + d - 1
-                    JX[r], JY[r], JZ[r] = X, Y, Z
-            # advance base by 2^w for the next window
-            BX, BY, BZ = bx, by, 1
+        m = len(points)
+        # lane j·n_windows + i: window i of point j
+        bx = [0] * (m * n_windows)
+        by = [0] * (m * n_windows)
+        bx[::n_windows] = [pt[0] for pt in points]
+        by[::n_windows] = [pt[1] for pt in points]
+        cx, cy = bx[::n_windows], by[::n_windows]
+        for i in range(1, n_windows):
             for _ in range(w_bits):
-                BX, BY, BZ = jdouble(BX, BY, BZ)
-            zi = pow(BZ, -1, p)
-            zi2 = zi * zi % p
-            bx, by = BX * zi2 % p, BY * zi2 % p * zi % p
+                inv = batch_inverse([2 * y for y in cy], p)
+                for j in range(m):
+                    x, y = cx[j], cy[j]
+                    lam = (3 * x * x - 3) * inv[j] % p
+                    cx[j] = (lam * lam - 2 * x) % p
+                    cy[j] = (lam * (x - cx[j]) - y) % p
+            bx[i::n_windows], by[i::n_windows] = cx, cy
+        out_x = [[0] * (n_windows * per) for _ in range(m)]
+        out_y = [[0] * (n_windows * per) for _ in range(m)]
+        lanes = m * n_windows
+        cx, cy = bx[:], by[:]
+        for d in range(1, per + 1):
+            if d == 2:                       # 2·B: the tangent
+                num = [(3 * x * x - 3) % p for x in cx]
+                inv = batch_inverse([2 * y for y in cy], p)
+            elif d > 2:                      # (d−1)·B + B: the chord
+                num = [b - c for b, c in zip(by, cy)]
+                inv = batch_inverse([b - c for b, c in zip(bx, cx)], p)
+            if d > 1:
+                for k in range(lanes):
+                    lam = num[k] * inv[k] % p
+                    x3 = (lam * lam - cx[k] - bx[k]) % p
+                    cy[k] = (lam * (cx[k] - x3) - cy[k]) % p
+                    cx[k] = x3
+            for j in range(m):
+                lo = j * n_windows
+                out_x[j][d - 1::per] = cx[lo:lo + n_windows]
+                out_y[j][d - 1::per] = cy[lo:lo + n_windows]
+        return list(zip(out_x, out_y))
 
-        pref = [1] * (rows + 1)
-        for r in range(rows):
-            pref[r + 1] = pref[r] * JZ[r] % p
-        inv = pow(pref[rows], -1, p)
-        X_out = [0] * rows
-        Y_out = [0] * rows
-        for r in range(rows - 1, -1, -1):
-            zi = pref[r] * inv % p       # = JZ[r]^-1
-            inv = inv * JZ[r] % p
-            zi2 = zi * zi % p
-            X_out[r] = JX[r] * zi2 % p
-            Y_out[r] = JY[r] * zi2 % p * zi % p
-        return X_out, Y_out
+
+def batch_inverse(vals: Sequence[int], p: int) -> List[int]:
+    """Every v⁻¹ mod p (no v ≡ 0) by one inversion and 3 products a value
+    (Montgomery's trick)."""
+    pref = [1] * (len(vals) + 1)
+    for i, v in enumerate(vals):
+        pref[i + 1] = pref[i] * v % p
+    inv = pow(pref[-1], -1, p)
+    out = [0] * len(vals)
+    for i in range(len(vals) - 1, -1, -1):
+        out[i] = pref[i] * inv % p
+        inv = inv * vals[i] % p
+    return out
 
 
 _CURVES_CACHE: Dict[str, CurveParams] = {}
@@ -351,7 +340,9 @@ def _shamir(cp: CurveParams, u1: int, u2: int,
 def _py_verify_one(table: ECKeyTable, row: int, sig_raw: bytes,
                    digest: bytes) -> bool:
     """Table-row wrapper over :func:`py_ecdsa_verify` (the oracle for
-    lanes the device flags degenerate)."""
+    lanes the device flags degenerate): the JAX package's
+    ``_cpu_verify_one`` for a table without OpenSSL keys behind its
+    rows, the only kind this port builds."""
     nums = table.keys[row].public_numbers()
     return py_ecdsa_verify(table.curve, nums.x, nums.y, sig_raw, digest)
 
@@ -399,19 +390,25 @@ def _ec_prep(sig_bytes: torch.Tensor, dig: torch.Tensor, k: int):
     return r, s, L.bytes_to_limbs_device(e_mat)
 
 
-def _es_packed_rns_impl(packed: torch.Tensor, table: ECKeyTable,
-                        hlen: int):
+def _es_verify(sig: torch.Tensor, dig: torch.Tensor, flags: torch.Tensor,
+               idx: torch.Tensor, table: ECKeyTable):
     from . import ec_rns
 
+    cp = table.curve
+    r, s, e = _ec_prep(sig, dig, k=cp.k)
+    ok, deg = ec_rns._ecdsa_rns_core(r, s, e, idx, table.rns(), cp)
+    return ok & flags, deg & flags
+
+
+def _es_packed_rns_impl(packed: torch.Tensor, table: ECKeyTable,
+                        hlen: int):
     cp = table.curve
     cb = cp.coord_bytes
     sig = packed[:, :2 * cb]
     dig = packed[:, 2 * cb:2 * cb + hlen]
     flags = packed[:, 2 * cb + hlen] != 0
     idx = packed[:, 2 * cb + hlen + 1].to(torch.int64)
-    r, s, e = _ec_prep(sig, dig, k=cp.k)
-    ok, deg = ec_rns._ecdsa_rns_core(r, s, e, idx, table.rns(), cp)
-    return ok & flags, deg & flags
+    return _es_verify(sig, dig, flags, idx, table)
 
 
 def verify_es_packed_pending(table: ECKeyTable, rec: np.ndarray,
@@ -424,3 +421,36 @@ def verify_es_packed_pending(table: ECKeyTable, rec: np.ndarray,
     """
     dev = torch.from_numpy(np.ascontiguousarray(rec)).to(table.device)
     return _es_packed_rns_impl(dev, table, hash_len)
+
+
+def verify_ecdsa_arrays_pending(table: ECKeyTable, sig_mat: np.ndarray,
+                                sig_lens: np.ndarray, hash_mat: np.ndarray,
+                                hash_len: int, key_idx: np.ndarray):
+    """Queue one ES* chunk given as arrays (key classes of more than 255
+    keys); returns the device ([P] ok, [P] deg) bool tensors, P the
+    token count padded to a power of two ≥ 128 (padding rows False).
+
+    sig_mat: [N, ≥ 2·cb] left-aligned JOSE r ‖ s; sig_lens: [N];
+    hash_mat: [N, ≥ hash_len] digests; key_idx: [N] table rows of any
+    size. The same engine as the packed path (one whole-ladder launch,
+    then redc); lanes flagged deg must be re-verified on
+    :func:`_py_verify_one` by the caller after the sync.
+    """
+    cb = table.curve.coord_bytes
+    n_tok = sig_mat.shape[0]
+    n_pad = 128
+    while n_pad < n_tok:
+        n_pad *= 2
+    len_ok = np.zeros(n_pad, bool)
+    len_ok[:n_tok] = sig_lens == 2 * cb
+    sig = np.zeros((n_pad, 2 * cb), np.uint8)
+    sig[:n_tok] = np.where(len_ok[:n_tok, None], sig_mat[:, :2 * cb], 0)
+    dig = np.zeros((n_pad, hash_len), np.uint8)
+    dig[:n_tok] = hash_mat[:, :hash_len]
+    idx = np.zeros(n_pad, np.int64)
+    idx[:n_tok] = key_idx
+    dev = table.device
+    return _es_verify(torch.from_numpy(sig).to(dev),
+                      torch.from_numpy(dig).to(dev),
+                      torch.from_numpy(len_ok).to(dev),
+                      torch.from_numpy(idx).to(dev), table)

@@ -398,12 +398,18 @@ class ECRNSKeyTable:
         per = (1 << c.w_bits) - 1
         nw = c.n_windows
         iap = packed_cols(c)
-        parts = [_g_packed_np(crv)]
-        for key in keys:
-            nums = key.public_numbers()
-            rx, ry = _window_residue_rows(c, (nums.x, nums.y))
-            parts.append((_pack_residue_rows(c, rx),
-                          _pack_residue_rows(c, ry)))
+        # one window table a distinct key (a JWKS may list a key under
+        # several kids), all built together
+        pts = [(k.public_numbers().x, k.public_numbers().y) for k in keys]
+        uniq = list(dict.fromkeys(pts))
+        packed = {}
+        for g in range(0, len(uniq), _TABLE_GROUP):
+            group = uniq[g:g + _TABLE_GROUP]
+            for pt, (rx, ry) in zip(group,
+                                    _window_residue_rows_many(c, group)):
+                packed[pt] = (_pack_residue_rows(c, rx),
+                              _pack_residue_rows(c, ry))
+        parts = [_g_packed_np(crv)] + [packed[pt] for pt in pts]
         # [slots, W, per, iap] → window-major [W, slots, per, iap]
         tx = np.stack([px.reshape(nw, per, iap) for px, _ in parts])
         ty = np.stack([py.reshape(nw, per, iap) for _, py in parts])
@@ -440,17 +446,25 @@ def _residue_matrix(c: ECRNSContext, vals: List[int]) -> np.ndarray:
     return (acc.astype(np.int64) % ms[None, :]).astype(np.int32)
 
 
+_TABLE_GROUP = 32     # keys whose window chains share their inversions
+
+
+def _window_residue_rows_many(c: ECRNSContext, points) -> list:
+    """Host: the w-bit window table of each point as A-domain residues,
+    [(rx, ry)] (row i·(2^w−1) + (d−1) holds d·2^{w·i}·point)."""
+    p = c.cp.p
+    a_mod = c.A.prod % p
+    return [(_residue_matrix(c, [x * a_mod % p for x in X]),
+             _residue_matrix(c, [y * a_mod % p for y in Y]))
+            for X, Y in c.cp.window_multiples_many(points, c.w_bits,
+                                                   c.n_windows)]
+
+
 def _window_residue_rows(c: ECRNSContext, point) -> Tuple[np.ndarray,
                                                           np.ndarray]:
     """Host: w-bit window table of d·2^{w·i}·point as A-domain residues
     (row i·(2^w−1) + (d−1) holds d·2^{w·i}·point)."""
-    cp = c.cp
-    p = cp.p
-    a_mod = c.A.prod % p
-    X, Y = cp.window_multiples(point, c.w_bits, c.n_windows)
-    rx = _residue_matrix(c, [x * a_mod % p for x in X])
-    ry = _residue_matrix(c, [y * a_mod % p for y in Y])
-    return rx, ry
+    return _window_residue_rows_many(c, [point])[0]
 
 
 _G_PACKED_NP: Dict[str, tuple] = {}

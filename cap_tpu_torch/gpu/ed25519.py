@@ -262,26 +262,21 @@ class Ed25519KeyTable:
 ED_REC_EXTRA = 2          # trailing bytes per record: flags, key row
 
 
-def ed_packed_records(table: Ed25519KeyTable, sigs: Sequence[bytes],
-                      msgs: Sequence[bytes],
-                      key_idx: np.ndarray) -> np.ndarray:
-    """Host: packed [N, 64 + 32 + 2] u8 records for one EdDSA chunk.
-
-    Row layout: signature R‖S (64) ‖ k = SHA-512(R‖A‖M) mod L as 32
-    little-endian bytes ‖ validity flag u8 (length ok AND key decodes)
-    ‖ key row u8. The k hash is host work (variable-length input), one
+def _ed_records(table: Ed25519KeyTable, sigs: Sequence[bytes],
+                msgs: Sequence[bytes], key_idx: np.ndarray,
+                width: int) -> np.ndarray:
+    """Host: [N, width ≥ 97] u8 rows, zero past byte 96: R‖S (64) ‖
+    k = SHA-512(R‖A‖M) mod L as 32 little-endian bytes ‖ validity flag
+    u8 (length ok AND key decodes). The k hash is host work (variable-length input), one
     native ``sha_batch`` call a chunk; everything after it runs on the
-    device.
-    """
+    device."""
     from ..runtime.native_binding import sha_batch
 
-    n = len(sigs)
-    rec = np.zeros((n, 64 + 32 + ED_REC_EXTRA), np.uint8)
+    rec = np.zeros((len(sigs), width), np.uint8)
     chunks: List[bytes] = []
     live: List[int] = []
     for j, sg in enumerate(sigs):
         row = int(key_idx[j])
-        rec[j, 97] = row
         if len(sg) == 64:
             rec[j, :64] = np.frombuffer(sg, np.uint8)
             rec[j, 96] = not table.invalid[row]
@@ -290,6 +285,16 @@ def ed_packed_records(table: Ed25519KeyTable, sigs: Sequence[bytes],
     for j, h in zip(live, sha_batch(chunks, 512)):
         kk = int.from_bytes(h, "little") % L_ORDER
         rec[j, 64:96] = np.frombuffer(kk.to_bytes(32, "little"), np.uint8)
+    return rec
+
+
+def ed_packed_records(table: Ed25519KeyTable, sigs: Sequence[bytes],
+                      msgs: Sequence[bytes],
+                      key_idx: np.ndarray) -> np.ndarray:
+    """Host: packed [N, 64 + 32 + 2] u8 records for one EdDSA chunk:
+    the rows of :func:`_ed_records` ‖ key row u8."""
+    rec = _ed_records(table, sigs, msgs, key_idx, 96 + ED_REC_EXTRA)
+    rec[:, 97] = np.asarray(key_idx).astype(np.uint8)
     return rec
 
 
@@ -313,13 +318,14 @@ def _ed_packed_unpack(packed: torch.Tensor):
     return s, kk, yr, sign_r, idx, flags
 
 
-def _ed_packed_rns_impl(packed: torch.Tensor,
-                        table: Ed25519KeyTable) -> torch.Tensor:
+def _ed_verify(packed: torch.Tensor, idx: torch.Tensor,
+               table: Ed25519KeyTable) -> torch.Tensor:
+    """Records (the key row byte unread) and their [N] key rows → [N]
+    bool."""
     from . import ed25519_rns
 
-    s, kk, yr, sign_r, idx, flags = _ed_packed_unpack(packed)
-    ok = ed25519_rns._ed25519_rns_core(s, kk, yr, sign_r, idx,
-                                       table.rns())
+    s, kk, yr, sign_r, _, flags = _ed_packed_unpack(packed)
+    ok = ed25519_rns._ed25519_rns_core(s, kk, yr, sign_r, idx, table.rns())
     return ok & flags
 
 
@@ -329,4 +335,30 @@ def verify_ed_packed_pending(table: Ed25519KeyTable,
     device [N] bool. N must be a power of two ≥ 128 (the batch
     inverse's tree); padding rows compute on key row 0."""
     dev = torch.from_numpy(np.ascontiguousarray(rec)).to(table.device)
-    return _ed_packed_rns_impl(dev, table)
+    return _ed_verify(dev, dev[:, 97].to(torch.int64), table)
+
+
+def verify_ed25519_batch_pending(table: Ed25519KeyTable,
+                                 sigs: Sequence[bytes],
+                                 msgs: Sequence[bytes],
+                                 key_idx: np.ndarray) -> torch.Tensor:
+    """Queue one EdDSA chunk given as lists (key classes of more than
+    255 keys); returns the device [P] bool, P the token count padded to
+    a power of two ≥ 128 (padding rows on key row 0, False).
+
+    sigs: raw JOSE signatures (R ‖ S); msgs: signing inputs; key_idx:
+    [N] table rows of any size. The same engine as the packed path (32
+    edw launches, then redc); the rows go as an int64 tensor beside the
+    records of :func:`_ed_records` (their key row byte left 0).
+    """
+    n_tok = len(sigs)
+    pad = 128
+    while pad < n_tok:
+        pad *= 2
+    rows = np.zeros(pad, np.int64)
+    rows[:n_tok] = key_idx
+    rec = np.zeros((pad, 96 + ED_REC_EXTRA), np.uint8)
+    rec[:n_tok] = _ed_records(table, sigs, msgs, rows, 96 + ED_REC_EXTRA)
+    dev = table.device
+    return _ed_verify(torch.from_numpy(rec).to(dev),
+                      torch.from_numpy(rows).to(dev), table)

@@ -149,12 +149,16 @@ def _window_triple_residue_rows(c: Ed25519RNSContext,
             pts.append(acc)
         base = ext_add(acc, base)                 # 2^8 · base
     am = c.a_mod_p
-    vals: list = [[], [], []]
+    d2 = 2 * D_CONST % P
+    xs, xa, ya = [], [], []
     for x, y in normalize(pts):
-        vals[0].append((y - x) % P * am % P)
-        vals[1].append((y + x) % P * am % P)
-        vals[2].append(2 * D_CONST * x % P * y % P * am % P)
-    return np.stack([_residue_matrix(c, v) for v in vals])
+        xs.append(x)
+        xa.append(x * am % P)
+        ya.append(y * am % P)
+    return np.stack([
+        _residue_matrix(c, [(v - u) % P for u, v in zip(xa, ya)]),
+        _residue_matrix(c, [(v + u) % P for u, v in zip(xa, ya)]),
+        _residue_matrix(c, [x * v % P * d2 % P for x, v in zip(xs, ya)])])
 
 
 _B_TABLE_RNS: Optional[tuple] = None
@@ -187,10 +191,13 @@ class Ed25519RNSKeyTable:
         self.nk = len(keys_decoded)
         self.tb = tb if tb is not None else b_table_rns()
         if tna is None:
-            parts = [_window_triple_residue_rows(
-                self.ctx, _IDENTITY if a is None else ((P - a[0]) % P, a[1]))
-                for a in keys_decoded]
-            tna = tuple(np.concatenate([q[t] for q in parts], axis=1)
+            # −A of each key (the identity for one that does not decode),
+            # one table a distinct point
+            pts = [_IDENTITY if a is None else ((P - a[0]) % P, a[1])
+                   for a in keys_decoded]
+            rows = {pt: _window_triple_residue_rows(self.ctx, pt)
+                    for pt in dict.fromkeys(pts)}
+            tna = tuple(np.concatenate([rows[pt][t] for pt in pts], axis=1)
                         for t in range(3))
         self.tna = tna
         self._dev: Dict[torch.device, torch.Tensor] = {}

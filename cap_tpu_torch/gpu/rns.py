@@ -202,8 +202,9 @@ def context(nbits: int, k_limbs: int) -> RNSContext:
 class RNSUnsupportedKey(ValueError):
     """A modulus shares a factor with an RNS base prime (or is even).
 
-    Impossible for well-formed RSA keys; the JAX package sends such
-    keys to its limb engine, which this port does not have yet.
+    Impossible for well-formed RSA keys (and raised too for a modulus
+    wider than the prime pool's bases); ``rsa.RSAKeyTable`` sends such
+    a class to the limb engine, as the JAX package does.
     """
 
 
@@ -574,3 +575,24 @@ def _rns_verify_core(ctx: RNSContext, s_limbs, expected_limbs,
         ok = ok | (xB == shifted).all(dim=0)
         shifted = _mod_fix(shifted + n_B, cc.mB, cc.invB_f)
     return ok
+
+
+def modexp_em_device(ctx: RNSContext, table: RNSKeyTable,
+                     s_limbs: torch.Tensor, idx: torch.Tensor,
+                     n_limbs: torch.Tensor) -> torch.Tensor:
+    """[K, N] canonical limbs of s^65537 mod n (the PSS EM) for the
+    tokens' key rows ``idx``; ``n_limbs`` the gathered moduli [K, N]."""
+    sig_c, n_B, a2_A, a2_B = table.device_tables(s_limbs.device)
+    return _rns_modexp_em_core(ctx, s_limbs.shape[0] + 1, s_limbs,
+                               sig_c[idx].T, n_B[idx].T, a2_A[idx].T,
+                               a2_B[idx].T, n_limbs)
+
+
+def verify_em_equals_device(ctx: RNSContext, table: RNSKeyTable,
+                            s_limbs: torch.Tensor,
+                            expected_limbs: torch.Tensor,
+                            idx: torch.Tensor) -> torch.Tensor:
+    """[N] bool: s^65537 mod n == expected, for the key rows ``idx``."""
+    sig_c, n_B, a2_A, a2_B = table.device_tables(s_limbs.device)
+    return _rns_verify_core(ctx, s_limbs, expected_limbs, sig_c[idx].T,
+                            n_B[idx].T, a2_A[idx].T, a2_B[idx].T)

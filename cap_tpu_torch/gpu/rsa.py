@@ -1,22 +1,30 @@
 """Batched RS* (PKCS#1 v1.5) and PS* (PSS) verification in PyTorch.
 
-The port of the JAX package's packed RS*/PS* paths, RNS branch: per
-chunk one u8 record matrix [sig ‖ digest ‖ flag ‖ key row] goes to the
-device; the signature bytes become 16-bit limbs there. RS*: the
-expected encoded message EM is built there from the digest, and
-``rns._rns_verify_core`` checks s^65537 ≡ EM (mod n) entirely in RNS.
-PS*: ``rns._rns_modexp_em_core`` returns s^65537 mod n as limbs (CRT
-reconstruction), and the whole EMSA-PSS-VERIFY with its SHA-256
-(``gpu.sha256``) or SHA-384/512 (``gpu.sha512``) runs on the device.
-Only an [N] bool returns.
+The port of the JAX package's RS*/PS* paths. Packed: per chunk one u8
+record matrix [sig ‖ digest ‖ flag ‖ key row] goes to the device; the
+signature bytes become 16-bit limbs there. Arrays (key classes of
+more than 255 keys, whose row does not fit the record's byte): the
+right-aligned signatures, digests and int64 key rows go separately.
 
-The RS REDC runs on per-token key constants and stays plain torch
-ops (the JAX package computes it outside any Pallas kernel too), with
-its extension products as float32 ``torch.matmul``.
+Each key class takes one of two engines, as in the JAX package:
 
-Keys must have e = 65537 and RNS-compatible moduli; the JAX package
-sends other keys to its limb engine, which this port does not have
-yet, so building a table for them raises ``NotImplementedError``.
+- RNS, for a class whose keys all have e = 65537 and an
+  RNS-compatible modulus. RS*: the expected encoded message EM is
+  built on the device from the digest, and ``rns._rns_verify_core``
+  checks s^65537 ≡ EM (mod n) entirely in RNS. PS*:
+  ``rns._rns_modexp_em_core`` returns s^65537 mod n as limbs (CRT
+  reconstruction). Its REDC runs on per-token key constants as plain
+  torch ops (the JAX package computes it outside any Pallas kernel
+  too), with its extension products as float32 ``torch.matmul``.
+- limbs, for every other class (``bignum.modexp_65537`` when every e
+  is 65537 but a modulus shares a factor with an RNS prime or is too
+  wide for the prime pool; ``bignum.modexp_vare`` over the class's
+  widest exponent otherwise), plain torch ops too.
+
+PS* runs the whole EMSA-PSS-VERIFY with its SHA-256 (``gpu.sha256``)
+or SHA-384/512 (``gpu.sha512``) on the device, on either engine and
+path (the JAX package's arrays path checks the EM on the host; the
+verdicts are the same). Only an [N] bool returns.
 """
 
 from __future__ import annotations
@@ -27,13 +35,13 @@ import numpy as np
 import torch
 
 from . import limbs as L
-from .bignum import compare_ge, mont_params
+from .bignum import compare_ge, modexp_65537, modexp_vare, mont_params
 from .rns import (
     RNSKeyTable,
     RNSUnsupportedKey,
-    _rns_modexp_em_core,
-    _rns_verify_core,
     context,
+    modexp_em_device,
+    verify_em_equals_device,
 )
 
 # ASN.1 DigestInfo prefixes (RFC 8017 §9.2 notes).
@@ -76,38 +84,36 @@ class RSAKeyTable:
     """The RSA public keys of one limb-width class on a device.
 
     All keys pad to a common limb count K (one spare limb beyond the
-    widest modulus, at least 8: the JAX package's rule), so one record
-    layout serves the class. ``rtab`` holds the per-key RNS constants.
+    widest modulus, at least 8: the JAX package's rule, so the limb
+    engine's lazy Montgomery chain has R ≥ 4n), so one record layout
+    serves the class. The limb tables hold n, N' = −n⁻¹ mod R, R² mod n
+    and R mod n per key; ``e_arr`` the exponents as uint32, so an
+    exponent of 2^32 or more raises ``OverflowError`` here, as in the
+    JAX table. ``ctx``/``rtab`` are the RNS context and per-key
+    constants, or None where the class runs on limbs (an exponent other
+    than 65537, or a modulus the RNS bases cannot take).
     """
 
     def __init__(self, public_numbers: Sequence, device="cuda"):
         """public_numbers: list of (n_int, e_int)."""
         self.n_ints = [n for n, _ in public_numbers]
         self.e_ints = [e for _, e in public_numbers]
-        need = L.nlimbs_for_bits(max(n.bit_length() for n in self.n_ints))
-        self.k = max(need + 1, 8)
-        for n in self.n_ints:
-            # the JAX table's Montgomery set-up, whose refusal of an even
-            # modulus comes before any other
-            mont_params(n, self.k)
-        if any(e != 65537 for e in self.e_ints):
-            raise NotImplementedError(
-                "RSA keys with e != 65537 need the limb engine, which "
-                "cap_tpu_torch does not have yet")
         self.sizes_bytes = [(n.bit_length() + 7) // 8 for n in self.n_ints]
         self.mod_bits = [n.bit_length() for n in self.n_ints]
+        need = L.nlimbs_for_bits(max(self.mod_bits))
+        self.k = max(need + 1, 8)
+        tabs = np.empty((4, len(self.n_ints), self.k), np.int64)
+        for i, n in enumerate(self.n_ints):
+            # mont_params refuses an even modulus before any other check
+            for t, v in enumerate((n,) + mont_params(n, self.k)):
+                tabs[t, i] = L.int_to_limbs(v, self.k)
+        self.e_arr = np.asarray(self.e_ints, np.uint32)
+        self.all_f4 = all(e == 65537 for e in self.e_ints)
+        self.max_ebits = max(e.bit_length() for e in self.e_ints)
         self.device = torch.device(device)
-        nbits = max(n.bit_length() for n in self.n_ints)
-        nbits = ((nbits + 255) // 256) * 256
-        try:
-            self.ctx = context(nbits, self.k)
-            self.rtab = RNSKeyTable(self.ctx, self.n_ints)
-        except RNSUnsupportedKey as e:
-            raise NotImplementedError(
-                f"{e}: such keys need the limb engine, which "
-                f"cap_tpu_torch does not have yet") from e
-        n_tab = np.stack([L.int_to_limbs(n, self.k) for n in self.n_ints])
-        self.n_tab = torch.as_tensor(n_tab.astype(np.int64),
+        self.n_tab, self.np_tab, self.r2_tab, self.one_tab = (
+            torch.as_tensor(t, device=self.device) for t in tabs)
+        self.e_dev = torch.as_tensor(self.e_arr.astype(np.int64),
                                      device=self.device)
         self.sizes_dev = torch.as_tensor(self.sizes_bytes,
                                          dtype=torch.int64,
@@ -115,6 +121,58 @@ class RSAKeyTable:
         self.mod_bits_dev = torch.as_tensor(self.mod_bits,
                                             dtype=torch.int64,
                                             device=self.device)
+        self.ctx = self.rtab = None
+        if self.all_f4:
+            nbits = ((max(self.mod_bits) + 255) // 256) * 256
+            try:
+                ctx = context(nbits, self.k)
+                self.rtab = RNSKeyTable(ctx, self.n_ints)
+                self.ctx = ctx
+            except RNSUnsupportedKey:
+                pass                     # the class runs on limbs
+
+
+def modexp_for_table(table: RSAKeyTable, s_limbs: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+    """s^e mod n on the limb engine, [K, N] canonical limbs.
+
+    s_limbs: [K, N] signature integers; idx: [N] key rows (int64 on the
+    table's device). ``modexp_65537`` when every key of the class has
+    e = 65537, else ``modexp_vare`` over the class's widest exponent.
+    """
+    n = table.n_tab[idx].T
+    nprime = table.np_tab[idx].T
+    r2 = table.r2_tab[idx].T
+    if table.all_f4:
+        return modexp_65537(s_limbs, n, nprime, r2)
+    return modexp_vare(s_limbs, table.e_dev[idx], n, nprime, r2,
+                       table.one_tab[idx].T, table.max_ebits)
+
+
+def s_in_range_mask(table: RSAKeyTable, s_limbs: torch.Tensor,
+                    idx: torch.Tensor) -> torch.Tensor:
+    """[N] bool: signature integer s < n (RFC 8017 step 1)."""
+    return ~compare_ge(s_limbs, table.n_tab[idx].T)
+
+
+def _rs_em_ok(table: RSAKeyTable, s_limbs: torch.Tensor,
+              expected: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[N] bool: s^e mod n == the expected EM, on the class's engine."""
+    if table.ctx is not None:
+        return verify_em_equals_device(table.ctx, table.rtab, s_limbs,
+                                       expected, idx)
+    return (modexp_for_table(table, s_limbs, idx) == expected).all(dim=0)
+
+
+def _ps_em(table: RSAKeyTable, s_limbs: torch.Tensor,
+           idx: torch.Tensor) -> torch.Tensor:
+    """s^e mod n as [N, 2K] big-endian bytes, on the class's engine."""
+    if table.ctx is not None:
+        em = modexp_em_device(table.ctx, table.rtab, s_limbs, idx,
+                              table.n_tab[idx].T)
+    else:
+        em = modexp_for_table(table, s_limbs, idx)
+    return _limbs_to_bytes(em)
 
 
 def rs_packed_records(table: RSAKeyTable, sig_mat: np.ndarray,
@@ -161,17 +219,12 @@ def _rs_packed_unpack(packed: torch.Tensor, k: int, h_len: int):
     return s_limbs, dig, flags, idx
 
 
-def _rs_packed_rns_impl(packed: torch.Tensor, table: RSAKeyTable,
-                        hash_name: str) -> torch.Tensor:
-    s_limbs, dig, flags, idx = _rs_packed_unpack(packed, table.k,
-                                                 HASH_LEN[hash_name])
+def _rs_verify(s_limbs, dig, flags, idx, table: RSAKeyTable,
+               hash_name: str) -> torch.Tensor:
     expected = _expected_em_device(dig, table.sizes_dev[idx], table.k,
                                    hash_name)
-    in_range = ~compare_ge(s_limbs, table.n_tab[idx].T)
-    sig_c, n_B, a2_A, a2_B = table.rtab.device_tables(packed.device)
-    ok = _rns_verify_core(table.ctx, s_limbs, expected, sig_c[idx].T,
-                          n_B[idx].T, a2_A[idx].T, a2_B[idx].T)
-    return ok & in_range & flags
+    return (_rs_em_ok(table, s_limbs, expected, idx)
+            & s_in_range_mask(table, s_limbs, idx) & flags)
 
 
 def verify_rs_packed_pending(table: RSAKeyTable, rec: np.ndarray,
@@ -179,7 +232,9 @@ def verify_rs_packed_pending(table: RSAKeyTable, rec: np.ndarray,
     """Queue one packed RS* chunk on the table's device; returns the
     device [N] bool (materialized by the caller's one sync)."""
     dev = torch.from_numpy(np.ascontiguousarray(rec)).to(table.device)
-    return _rs_packed_rns_impl(dev, table, hash_name)
+    s_limbs, dig, flags, idx = _rs_packed_unpack(dev, table.k,
+                                                 HASH_LEN[hash_name])
+    return _rs_verify(s_limbs, dig, flags, idx, table, hash_name)
 
 
 # ---------------------------------------------------------------------------
@@ -304,19 +359,12 @@ def _pss_verify_device(em_bytes: torch.Tensor, mhash: torch.Tensor,
             & (db_len > 0))
 
 
-def _ps_packed_rns_impl(packed: torch.Tensor, table: RSAKeyTable,
-                        hash_name: str) -> torch.Tensor:
-    s_limbs, dig, flags, idx = _rs_packed_unpack(packed, table.k,
-                                                 HASH_LEN[hash_name])
-    n_g = table.n_tab[idx].T
-    in_range = ~compare_ge(s_limbs, n_g)
-    sig_c, n_B, a2_A, a2_B = table.rtab.device_tables(packed.device)
-    em = _rns_modexp_em_core(table.ctx, table.k + 1, s_limbs, sig_c[idx].T,
-                             n_B[idx].T, a2_A[idx].T, a2_B[idx].T, n_g)
-    ok = _pss_verify_device(_limbs_to_bytes(em), dig,
+def _ps_verify(s_limbs, dig, flags, idx, table: RSAKeyTable,
+               hash_name: str) -> torch.Tensor:
+    ok = _pss_verify_device(_ps_em(table, s_limbs, idx), dig,
                             table.mod_bits_dev[idx], 2 * table.k,
                             hash_name)
-    return ok & in_range & flags
+    return ok & s_in_range_mask(table, s_limbs, idx) & flags
 
 
 def verify_ps_packed_pending(table: RSAKeyTable, rec: np.ndarray,
@@ -325,4 +373,61 @@ def verify_ps_packed_pending(table: RSAKeyTable, rec: np.ndarray,
     kind "ps") on the table's device; returns the device [N] bool. The
     EM never leaves the device."""
     dev = torch.from_numpy(np.ascontiguousarray(rec)).to(table.device)
-    return _ps_packed_rns_impl(dev, table, hash_name)
+    s_limbs, dig, flags, idx = _rs_packed_unpack(dev, table.k,
+                                                 HASH_LEN[hash_name])
+    return _ps_verify(s_limbs, dig, flags, idx, table, hash_name)
+
+
+# ---------------------------------------------------------------------------
+# Arrays dispatch: key classes of more than 255 keys
+# ---------------------------------------------------------------------------
+
+def _arrays_inputs(table: RSAKeyTable, sig_mat: np.ndarray,
+                   sig_lens: np.ndarray, hash_mat: np.ndarray,
+                   hash_name: str, key_idx: np.ndarray):
+    """Host arrays → (s_limbs, dig, idx) on the table's device and the
+    host [N] bool of signatures of the key's length."""
+    sizes = np.asarray(table.sizes_bytes, np.int64)[key_idx]
+    len_ok = sig_lens == sizes
+    aligned = L.right_align_bytes(
+        np.where(len_ok[:, None], sig_mat, 0), np.where(len_ok, sig_lens, 0),
+        2 * table.k)
+    dev = table.device
+    s_limbs = L.bytes_to_limbs_device(torch.from_numpy(aligned).to(dev))
+    dig = torch.from_numpy(np.ascontiguousarray(
+        hash_mat[:, :HASH_LEN[hash_name]])).to(dev)
+    idx = torch.as_tensor(np.asarray(key_idx, np.int64), device=dev)
+    return s_limbs, dig, idx, len_ok
+
+
+def verify_pkcs1v15_arrays_pending(table: RSAKeyTable, sig_mat: np.ndarray,
+                                   sig_lens: np.ndarray,
+                                   hash_mat: np.ndarray, hash_name: str,
+                                   key_idx: np.ndarray) -> torch.Tensor:
+    """Queue one RS* chunk given as arrays; returns the device [N] bool.
+
+    sig_mat: [N, W ≤ 2k] left-aligned signature bytes; sig_lens: [N];
+    hash_mat: [N, ≥ hlen] digests; key_idx: [N] table rows of any size.
+    Signatures not of the key's length, and keys too short for
+    PKCS#1 v1.5 with the hash, verify False.
+    """
+    s_limbs, dig, idx, len_ok = _arrays_inputs(
+        table, sig_mat, sig_lens, hash_mat, hash_name, key_idx)
+    sizes = np.asarray(table.sizes_bytes, np.int64)[key_idx]
+    flags = len_ok & (sizes >= len(DIGEST_INFO_PREFIX[hash_name])
+                      + HASH_LEN[hash_name] + 11)
+    return _rs_verify(s_limbs, dig, torch.as_tensor(flags, device=idx.device),
+                      idx, table, hash_name)
+
+
+def verify_pss_arrays_pending(table: RSAKeyTable, sig_mat: np.ndarray,
+                              sig_lens: np.ndarray, hash_mat: np.ndarray,
+                              hash_name: str,
+                              key_idx: np.ndarray) -> torch.Tensor:
+    """Queue one PS* chunk given as arrays (as
+    :func:`verify_pkcs1v15_arrays_pending`); the EMSA-PSS check runs on
+    the device, so only the [N] bool returns."""
+    s_limbs, dig, idx, len_ok = _arrays_inputs(
+        table, sig_mat, sig_lens, hash_mat, hash_name, key_idx)
+    return _ps_verify(s_limbs, dig, torch.as_tensor(len_ok, device=idx.device),
+                      idx, table, hash_name)

@@ -21,7 +21,11 @@ the JAX keyset's ``_dispatch_batch`` and ``_collect_batch`` do:
    ``gpu.ec`` (P-256/P-384/P-521; the ladder runs as one whole-ladder
    launch a chunk), EdDSA to ``gpu.ed25519`` (k = SHA-512(R‖A‖M) by
    one native hash call a chunk). RS, PS and ES records come from the
-   native record packer. Every chunk is queued on the device before
+   native record packer. A key class of more than 255 keys (one RSA
+   width, one curve, the Ed25519 keys) takes the arrays path instead,
+   as in the JAX keyset: the same engines, its key rows an int64
+   tensor beside the signatures and digests, since the record's key
+   row is one byte. Every chunk is queued on the device before
    any result is read, but each ES and EdDSA chunk waits once on the
    device while it is queued (the batch inverse's root is inverted by
    a host ``pow``, see ``gpu.bignum.batch_mont_inverse``);
@@ -39,8 +43,7 @@ keyset's exception classes and messages. An entry that is not a
 ``str`` raises ``TypeError`` for the whole batch, as in the JAX keyset.
 
 Not ported yet (ROADMAP): the two-phase ML-DSA arm (host μ/c̃ around
-the device NTT), key classes of more than 255 keys (RSA, EC and
-Ed25519 alike), hot key swaps, async/stream entry points, telemetry.
+the device NTT), hot key swaps, async/stream entry points, telemetry.
 """
 
 from __future__ import annotations
@@ -212,11 +215,6 @@ class GPUBatchKeySet(KeySet):
                 raise UnsupportedAlgError(
                     f"key type {type(key).__name__} is not supported by "
                     f"GPUBatchKeySet")
-        for keys in rsa_classes + list(self._ec_keys.values()) + [ed_keys]:
-            if len(keys) > _MAX_CLASS_KEYS:
-                raise NotImplementedError(
-                    f"a key class of {len(keys)} keys: classes of more "
-                    f"than {_MAX_CLASS_KEYS} keys are not ported yet")
         self._rsa_tables = [gpursa.RSAKeyTable(nums, device)
                             for nums in rsa_classes]
         self._n_rsa_keys = sum(len(c) for c in rsa_classes)
@@ -390,7 +388,8 @@ class GPUBatchKeySet(KeySet):
     def _run_rsa_packed(self, kind: str, hash_name: str, idx: np.ndarray,
                         pb, pending: list) -> None:
         """RS* (``kind`` "rs") or PS* ("ps") tokens in packed chunks per
-        RSA class."""
+        RSA class; a class of more than 255 keys gives each chunk to
+        ``gpu.rsa`` as arrays (the same chunks and finish)."""
         rows = self._rows(idx, pb, self._kid_rsa_row, self._n_rsa_keys)
         fast = rows >= 0
         idx, rows = idx[fast], rows[fast]
@@ -403,18 +402,51 @@ class GPUBatchKeySet(KeySet):
             cls_rows = rows[sel] % _RSA_CLS_STRIDE
             chunk_n = _chunk_tokens(2 * table.k + h_len
                                     + gpursa.RS_REC_EXTRA)
+            big = len(table.n_ints) > _MAX_CLASS_KEYS
             for lo in range(0, len(cls_idx), chunk_n):
                 chunk = cls_idx[lo: lo + chunk_n]
-                rec = rsa_records(pb, table, kind, hash_name, chunk,
-                                  cls_rows[lo: lo + chunk_n],
-                                  _pad_size(len(chunk), chunk_n))
-                verify = (gpursa.verify_rs_packed_pending if kind == "rs"
-                          else gpursa.verify_ps_packed_pending)
-                ok = verify(table, rec, hash_name)
+                crows = cls_rows[lo: lo + chunk_n]
+                pad = _pad_size(len(chunk), chunk_n)
+                if big:
+                    # the arrays path (_run_rsa_arrays in the JAX keyset)
+                    verify = (gpursa.verify_pkcs1v15_arrays_pending
+                              if kind == "rs"
+                              else gpursa.verify_pss_arrays_pending)
+                    sig_mat, sig_lens, hash_mat, key_idx = self._arrays(
+                        pb, chunk, crows, 2 * table.k, pad)
+                    ok = verify(table, sig_mat, sig_lens, hash_mat,
+                                hash_name, key_idx)
+                else:
+                    verify = (gpursa.verify_rs_packed_pending
+                              if kind == "rs"
+                              else gpursa.verify_ps_packed_pending)
+                    ok = verify(table, rsa_records(pb, table, kind,
+                                                   hash_name, chunk, crows,
+                                                   pad), hash_name)
                 pending.append((chunk, len(chunk), [ok], self._finish_ok))
+
+    @staticmethod
+    def _arrays(pb, chunk: np.ndarray, crows: np.ndarray, width: int,
+                pad: int):
+        """The arrays of one chunk padded to ``pad`` rows (zero
+        signatures on key row 0): (sig_mat, sig_lens, hash_mat, key_idx)
+        as the JAX keyset's arrays runners build them."""
+        m = len(chunk)
+        sig_mat = np.zeros((pad, width), np.uint8)
+        sig_mat[:m] = pb.sig_matrix(chunk, width)
+        sig_lens = np.zeros(pad, np.int64)
+        sig_lens[:m] = pb.sig_len[chunk]
+        hash_mat = np.zeros((pad, 64), np.uint8)
+        hash_mat[:m] = pb.digest[chunk]
+        key_idx = np.zeros(pad, np.int64)
+        key_idx[:m] = crows
+        return sig_mat, sig_lens, hash_mat, key_idx
 
     def _run_ec_packed(self, alg: str, idx: np.ndarray, pb,
                        pending: list) -> None:
+        """ES* tokens of one curve in packed chunks; a curve of more
+        than 255 keys gives each chunk to ``gpu.ec`` as arrays (the same
+        chunks, engine and finish)."""
         crv = _ES[alg]
         table = self._ec_tables[crv]
         hash_len = gpursa.HASH_LEN[algs.HASH_FOR_ALG[alg]]
@@ -423,22 +455,35 @@ class GPUBatchKeySet(KeySet):
         idx, rows = idx[fast], rows[fast]
         cb = table.coord_bytes
         chunk_n = _chunk_tokens(2 * cb + hash_len + gpuec.ES_REC_EXTRA)
+        big = len(table.keys) > _MAX_CLASS_KEYS
         for lo in range(0, len(idx), chunk_n):
             chunk = idx[lo: lo + chunk_n]
             crows = rows[lo: lo + chunk_n]
             m = len(chunk)
-            rec = es_records(pb, table, chunk, crows, hash_len,
-                             _pad_size(m, chunk_n))
-            ok, deg = gpuec.verify_es_packed_pending(table, rec, hash_len)
+            pad = _pad_size(m, chunk_n)
+            if big:
+                # the arrays path (_run_ec_arrays in the JAX keyset)
+                sig_mat, sig_lens, hash_mat, key_idx = self._arrays(
+                    pb, chunk, crows, 2 * cb, pad)
+                ok, deg = gpuec.verify_ecdsa_arrays_pending(
+                    table, sig_mat, sig_lens, hash_mat, hash_len, key_idx)
+                sig_of = sig_mat[:, :2 * cb]
+                dig_of = hash_mat[:, :hash_len]
+            else:
+                rec = es_records(pb, table, chunk, crows, hash_len, pad)
+                ok, deg = gpuec.verify_es_packed_pending(table, rec,
+                                                         hash_len)
+                sig_of = rec[:, :2 * cb]
+                dig_of = rec[:, 2 * cb:2 * cb + hash_len]
 
-            def finish(chunk, arrs, pb, results, rec=rec, crows=crows,
-                       table=table):
+            def finish(chunk, arrs, pb, results, sig_of=sig_of,
+                       dig_of=dig_of, crows=crows, table=table):
                 okv = np.array(arrs[0])
                 for j in np.nonzero(arrs[1])[0]:
                     self.deg_reverified += 1
                     okv[j] = gpuec._py_verify_one(
-                        table, int(crows[j]), rec[j, :2 * cb].tobytes(),
-                        rec[j, 2 * cb:2 * cb + hash_len].tobytes())
+                        table, int(crows[j]), sig_of[j].tobytes(),
+                        dig_of[j].tobytes())
                 self._finish(chunk, okv, pb, results)
 
             pending.append((chunk, m, [ok, deg], finish))
@@ -446,7 +491,8 @@ class GPUBatchKeySet(KeySet):
     def _run_ed_packed(self, idx: np.ndarray, pb, pending: list) -> None:
         """EdDSA tokens in packed chunks (``_chunk_tokens(64 + 32 + 2)``:
         32,768 tokens), padded to a power of two ≥ 128 with empty
-        signatures on key row 0."""
+        signatures on key row 0. More than 255 keys: the same chunks go
+        to ``gpu.ed25519`` as lists and int64 key rows."""
         table = self._ed_table
         rows = self._rows(idx, pb, self._kid_ed_row, len(table.keys))
         fast = rows >= 0
@@ -461,9 +507,15 @@ class GPUBatchKeySet(KeySet):
             msgs = [pb.signing_input(j) for j in chunk.tolist()]
             key_idx = np.zeros(pad, np.int64)
             key_idx[:m] = rows[lo: lo + chunk_n]
-            rec = gpued.ed_packed_records(table, sigs + [b""] * fill,
-                                          msgs + [b""] * fill, key_idx)
-            ok = gpued.verify_ed_packed_pending(table, rec)
+            sigs += [b""] * fill
+            msgs += [b""] * fill
+            if len(table.keys) > _MAX_CLASS_KEYS:
+                # the arrays path (_run_ed_arrays in the JAX keyset)
+                ok = gpued.verify_ed25519_batch_pending(table, sigs, msgs,
+                                                        key_idx)
+            else:
+                rec = gpued.ed_packed_records(table, sigs, msgs, key_idx)
+                ok = gpued.verify_ed_packed_pending(table, rec)
             pending.append((chunk, m, [ok], self._finish_ok))
 
     def _run_mldsa_packed(self, pset: str, idx: np.ndarray, pb,

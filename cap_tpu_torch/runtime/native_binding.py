@@ -249,6 +249,16 @@ class PreparedBatch:
             m, pad, width, h_len, out.ctypes.data_as(_U8P), 0)
         return out
 
+    def sig_matrix(self, idx: np.ndarray, width: int) -> np.ndarray:
+        """[len(idx), width] uint8: left-aligned raw signature bytes,
+        zero-padded at the tail (pair with sig_len)."""
+        cols = np.arange(width)[None, :]
+        offs = self.sig_off[idx][:, None] + cols
+        lens = self.sig_len[idx][:, None]
+        safe = np.minimum(offs, len(self.scratch) - 1)
+        mat = self.scratch[safe]
+        return np.where(cols < lens, mat, 0).astype(np.uint8)
+
     # -- per-token materialization ----------------------------------------
 
     def payload_bytes(self, i: int) -> bytes:

@@ -1,5 +1,6 @@
 """Fixtures without OpenSSL: seeded keys, JWT signing, the north-star,
-PS256 + EdDSA, PS384 + PS512, ML-DSA and SLH-DSA workloads, x5c JWKs
+PS256 + EdDSA, PS384 + PS512, ML-DSA, SLH-DSA, RS256/384/512 over
+2048/4096-bit keys, limb-engine RSA and 300-key JWKS workloads, x5c JWKs
 (a minimal DER certificate writer), SPKI and PKCS#1 PEMs, and loopback
 JWKS and OIDC discovery servers.
 
@@ -75,6 +76,64 @@ def _random_prime(bits: int, rng: random.Random, e: int) -> int:
             return cand
 
 
+_SIEVE_PRIMES = [p for p in range(3, 1 << 16)
+                 if all(p % q for q in range(2, int(p ** 0.5) + 1))]
+_SIEVE_SPAN = 4096
+
+
+def sieved_prime(bits: int, rng: random.Random,
+                 exponents: Tuple[int, ...] = (65537,)) -> int:
+    """A random ``bits``-bit prime p (its top two bits set) with p − 1
+    prime to every exponent of ``exponents`` (each a prime).
+
+    The cheaper search of the newer fixtures: from a random odd start,
+    the next 4,096 odd numbers are sieved by every odd prime below 2^16
+    at once, and only the survivors (about 1 in 10) get Miller–Rabin:
+    8 rounds (random candidates, so far below a 2^-100 error), whose
+    first witness ends a composite's test.
+    """
+    while True:
+        start = rng.getrandbits(bits) | (3 << (bits - 2)) | 1
+        alive = bytearray(b"\x01") * _SIEVE_SPAN
+        for q in _SIEVE_PRIMES:
+            # start + 2i ≡ 0 (mod q) at i ≡ −start · 2⁻¹
+            i0 = (-(start % q) * ((q + 1) // 2)) % q
+            alive[i0::q] = bytes(len(range(i0, _SIEVE_SPAN, q)))
+        for i in range(_SIEVE_SPAN):
+            cand = start + 2 * i
+            if cand.bit_length() != bits:
+                break
+            if alive[i] and all((cand - 1) % e for e in exponents) \
+                    and _probable_prime(cand, rng, rounds=8):
+                return cand
+
+
+def prime_pool(n: int, bits: int, rng: random.Random,
+               exponents: Tuple[int, ...] = (65537,)) -> List[int]:
+    """``n`` distinct primes of ``sieved_prime``."""
+    pool: List[int] = []
+    while len(pool) < n:
+        p = sieved_prime(bits, rng, exponents)
+        if p not in pool:
+            pool.append(p)
+    return pool
+
+
+def pool_rsa_keys(pool: List[int], count: int,
+                  exponents: Tuple[int, ...] = (65537,)
+                  ) -> List["RSAPrivateKey"]:
+    """``count`` RSA keys whose moduli are products of distinct pairs of
+    ``pool`` (C(len(pool), 2) at most), key j with exponent
+    ``exponents[j % len(exponents)]``: many distinct moduli, each a
+    valid key for signing and verification, from few prime searches."""
+    pairs = [(a, b) for i, a in enumerate(pool) for b in pool[i + 1:]]
+    if count > len(pairs):
+        raise ValueError(f"a pool of {len(pool)} primes makes "
+                         f"{len(pairs)} moduli, not {count}")
+    return [RSAPrivateKey(a, b, exponents[j % len(exponents)])
+            for j, (a, b) in enumerate(pairs[:count])]
+
+
 class RSAPrivateKey:
     """An RSA key pair over host integers (CRT form)."""
 
@@ -93,6 +152,45 @@ class RSAPrivateKey:
         s1 = pow(m, self.dp, self.p)
         s2 = pow(m, self.dq, self.q)
         return s2 + (self.qinv * (s1 - s2) % self.p) * self.q
+
+
+class MultiPrimeRSAKey:
+    """An RSA key pair whose modulus is a product of more than two primes
+    (RFC 8017 §3.1), signing by the CRT over every prime: to a verifier
+    a key like any other of its width, and far cheaper to make and to
+    sign with in pure Python than a two-prime key of 3,072 or 4,096
+    bits."""
+
+    def __init__(self, primes, e: int = 65537):
+        self.primes, self.e = list(primes), e
+        self.n = math.prod(self.primes)
+        self.d = pow(e, -1, math.lcm(*(p - 1 for p in self.primes)))
+
+    def public_key(self) -> RSAPublicKey:
+        return RSAPublicKey(self.n, self.e)
+
+    def raw_sign(self, m: int) -> int:
+        """m^d mod n by the CRT (Garner's recombination)."""
+        s, mod = 0, 1
+        for p in self.primes:
+            t = (pow(m, self.d % (p - 1), p) - s) * pow(mod, -1, p) % p
+            s, mod = s + mod * t, mod * p
+        return s
+
+
+def multiprime_rsa_keys(pool: List[int], count: int, n_primes: int,
+                        bits: int) -> List[MultiPrimeRSAKey]:
+    """``count`` e = 65537 keys, each modulus the product of a distinct
+    ``n_primes``-subset of ``pool`` that is exactly ``bits`` bits
+    wide."""
+    from itertools import combinations
+
+    keys = [MultiPrimeRSAKey(c) for c in combinations(pool, n_primes)
+            if math.prod(c).bit_length() == bits][:count]
+    if len(keys) < count:
+        raise ValueError(f"the pool makes {len(keys)} {bits}-bit moduli "
+                         f"of {n_primes} primes, not {count}")
+    return keys
 
 
 class ECPrivateKey:
@@ -235,6 +333,18 @@ def default_claims(now: int = 1_700_000_000, ttl: int = 86400,
     return claims
 
 
+def _sign_round_robin(signers, n_unique: int, rng) -> List[str]:
+    """``n_unique`` tokens, token j signed by signers[j % len(signers)]
+    over the fixture claims with its own sub and jti."""
+    base = default_claims()
+    tokens = []
+    for j in range(n_unique):
+        priv, alg, kid = signers[j % len(signers)]
+        claims = dict(base, sub=f"user-{j:08d}", jti=f"tok-{j:012d}")
+        tokens.append(sign_jwt(priv, alg, claims, kid=kid, rng=rng))
+    return tokens
+
+
 def headline_fixtures(n_unique: int, seed: int = 0
                       ) -> Tuple[List[JWK], List[str], list]:
     """The north-star workload: a JWKS of 8 RSA-2048 keys (kids rs-i)
@@ -252,13 +362,7 @@ def headline_fixtures(n_unique: int, seed: int = 0
         priv = generate_ec_key(rng)
         jwks.append(JWK(priv.public_key(), kid=f"es-{i}"))
         signers.append((priv, algs.ES256, f"es-{i}"))
-    base = default_claims()
-    tokens = []
-    for j in range(n_unique):
-        priv, alg, kid = signers[j % len(signers)]
-        claims = dict(base, sub=f"user-{j:08d}", jti=f"tok-{j:012d}")
-        tokens.append(sign_jwt(priv, alg, claims, kid=kid, rng=rng))
-    return jwks, tokens, signers
+    return jwks, _sign_round_robin(signers, n_unique, rng), signers
 
 
 def config3_fixtures(n_unique: int, seed: int = 0
@@ -289,13 +393,7 @@ def _ec_fixtures(families, n_keys: int, n_unique: int, seed: int):
             priv = generate_ec_key(rng, crv)
             jwks.append(JWK(priv.public_key(), kid=f"{tag}-{i}"))
             signers.append((priv, alg, f"{tag}-{i}"))
-    base = default_claims()
-    tokens = []
-    for j in range(n_unique):
-        priv, alg, kid = signers[j % len(signers)]
-        claims = dict(base, sub=f"user-{j:08d}", jti=f"tok-{j:012d}")
-        tokens.append(sign_jwt(priv, alg, claims, kid=kid, rng=rng))
-    return jwks, tokens, signers
+    return jwks, _sign_round_robin(signers, n_unique, rng), signers
 
 
 def config4_fixtures(n_unique: int, seed: int = 0
@@ -315,13 +413,7 @@ def config4_fixtures(n_unique: int, seed: int = 0
         priv = generate_ed25519_key(rng)
         jwks.append(JWK(priv.public_key(), kid=f"ed-{i}"))
         signers.append((priv, algs.EdDSA, f"ed-{i}"))
-    base = default_claims()
-    tokens = []
-    for j in range(n_unique):
-        priv, alg, kid = signers[j % len(signers)]
-        claims = dict(base, sub=f"user-{j:08d}", jti=f"tok-{j:012d}")
-        tokens.append(sign_jwt(priv, alg, claims, kid=kid, rng=rng))
-    return jwks, tokens, signers
+    return jwks, _sign_round_robin(signers, n_unique, rng), signers
 
 
 def ps512_fixtures(n_unique: int, seed: int = 0
@@ -337,13 +429,7 @@ def ps512_fixtures(n_unique: int, seed: int = 0
     jwks = [JWK(p.public_key(), kid=f"ps-{i}") for i, p in enumerate(privs)]
     signers = [(p, alg, f"ps-{i}") for alg in (algs.PS384, algs.PS512)
                for i, p in enumerate(privs)]
-    base = default_claims()
-    tokens = []
-    for j in range(n_unique):
-        priv, alg, kid = signers[j % len(signers)]
-        claims = dict(base, sub=f"user-{j:08d}", jti=f"tok-{j:012d}")
-        tokens.append(sign_jwt(priv, alg, claims, kid=kid, rng=rng))
-    return jwks, tokens, signers
+    return jwks, _sign_round_robin(signers, n_unique, rng), signers
 
 
 def mldsa_fixtures(n_unique: int, seed: int = 0
@@ -366,6 +452,99 @@ def mldsa_fixtures(n_unique: int, seed: int = 0
         priv, alg, kid = signers[j % len(signers)]
         claims = dict(base, sub=f"user-{j:08d}", jti=f"tok-{j:012d}")
         tokens.append(sign_jwt(priv, alg, claims, kid=kid))
+    return jwks, tokens, signers
+
+
+def config2_fixtures(n_unique: int, seed: int = 0
+                     ) -> Tuple[List[JWK], List[str], list]:
+    """BASELINE.json's second configuration, "RS256/RS384/RS512 mix,
+    2048/4096-bit keys, 8-key JWKS": 4 RSA-2048 keys (kids rs2k-i) and
+    4 RSA-4096 keys (kids rs4k-i), e = 65537, from one pool of 8 sieved
+    1,024-bit primes: the 2048-bit moduli products of pairs, the
+    4096-bit ones of four primes (``MultiPrimeRSAKey``); ``n_unique`` tokens
+    signed round-robin over 24 signers, RS256, RS384 then RS512 over
+    the 8 keys (token u signs with signers[u % 24]: alg (u % 24) // 8,
+    a 4096-bit key at u % 8 ≥ 4). Returns (jwks, tokens, signers)."""
+    rng = random.Random(seed)
+    pool = prime_pool(8, 1024, rng)
+    keys = [(k, f"rs2k-{i}") for i, k in enumerate(pool_rsa_keys(pool, 4))]
+    keys += [(k, f"rs4k-{i}")
+             for i, k in enumerate(multiprime_rsa_keys(pool, 4, 4, 4096))]
+    jwks = [JWK(k.public_key(), kid=kid) for k, kid in keys]
+    signers = [(k, alg, kid) for alg in (algs.RS256, algs.RS384, algs.RS512)
+               for k, kid in keys]
+    return jwks, _sign_round_robin(signers, n_unique, rng), signers
+
+
+LIMB_EXPONENTS = (3, 17, 65537, 2 ** 31 - 1)
+
+
+def rns_unsupported_key(bits: int, rng: random.Random):
+    """An e = 65537 key whose ``bits``-bit modulus is 4099 times sieved
+    primes of about 1,024 bits: 4099 is the smallest prime of the RNS
+    prime pool, so the key's class runs on the limb engine
+    (``RNSUnsupportedKey``)."""
+    n_big = max(1, round((bits - 12) / 1024))
+    size = (bits - 12) // n_big
+    big = [sieved_prime(size, rng) for _ in range(n_big)]
+    while math.prod(big).bit_length() + 12 != bits \
+            or (4099 * math.prod(big)).bit_length() != bits:
+        big[rng.randrange(n_big)] = sieved_prime(size, rng)
+    return MultiPrimeRSAKey([4099] + big)
+
+
+def rsalimb_fixtures(n_unique: int, seed: int = 0
+                     ) -> Tuple[List[JWK], List[str], list]:
+    """RSA keys the RNS engine does not take, beside P-256 keys: an
+    RSA-2048 class of e = 3, 17, 65537 and 2^31 − 1 keys (kids lim-i;
+    ``modexp_vare`` over 31 bits), an RSA-3072 class of e = 65537 keys
+    (three 1,024-bit primes a modulus) whose lim3k-0 modulus is 4099 ·
+    q (``modexp_65537`` on limbs), and
+    4 P-256 keys (es-i). ``n_unique`` tokens round-robin over 32
+    signers: RS256 then PS256 over the 8 RSA keys (token u at u % 32 <
+    16), ES256 over the P-256 keys (u % 32 ≥ 16). Returns (jwks,
+    tokens, signers)."""
+    rng = random.Random(seed)
+    vare = pool_rsa_keys(prime_pool(4, 1024, rng, LIMB_EXPONENTS), 4,
+                         LIMB_EXPONENTS)
+    f4 = [rns_unsupported_key(3072, rng)] + multiprime_rsa_keys(
+        prime_pool(5, 1024, rng), 3, 3, 3072)
+    rsa = [(k, f"lim-{i}") for i, k in enumerate(vare)] + \
+        [(k, f"lim3k-{i}") for i, k in enumerate(f4)]
+    ec = [(generate_ec_key(rng), f"es-{i}") for i in range(4)]
+    jwks = [JWK(k.public_key(), kid=kid) for k, kid in rsa + ec]
+    signers = ([(k, alg, kid) for alg in (algs.RS256, algs.PS256)
+                for k, kid in rsa]
+               + [(k, algs.ES256, kid) for k, kid in ec] * 4)
+    return jwks, _sign_round_robin(signers, n_unique, rng), signers
+
+
+def bigjwks_fixtures(n_unique: int, seed: int = 0, n_keys: int = 300
+                     ) -> Tuple[List[JWK], List[str], list]:
+    """A multi-tenant JWKS of ``n_keys`` RSA-2048 keys (kids brs-i; e =
+    65537, products of pairs from a pool of 25 sieved primes: C(25, 2) =
+    300 moduli), ``n_keys`` P-256 keys (bes-i) and ``n_keys`` Ed25519
+    keys (bed-i): each class more than the packed record's one-byte key
+    row holds. ``n_unique`` tokens: token u is RS256, ES256 or EdDSA by
+    u % 3, signed by row (u // 3) % n_keys of that family, so 3·n_keys
+    tokens reach every row. Returns (jwks, tokens, signers) with
+    signers [(private key, alg, kid)] in that order: family-major."""
+    rng = random.Random(seed)
+    pool = prime_pool(25, 1024, rng)
+    fams = [(algs.RS256, "brs", pool_rsa_keys(pool, n_keys)),
+            (algs.ES256, "bes", [generate_ec_key(rng)
+                                 for _ in range(n_keys)]),
+            (algs.EdDSA, "bed", [generate_ed25519_key(rng)
+                                 for _ in range(n_keys)])]
+    signers = [(k, alg, f"{tag}-{i}") for alg, tag, keys in fams
+               for i, k in enumerate(keys)]
+    jwks = [JWK(k.public_key(), kid=kid) for k, _, kid in signers]
+    base = default_claims()
+    tokens = []
+    for j in range(n_unique):
+        priv, alg, kid = signers[(j % 3) * n_keys + (j // 3) % n_keys]
+        claims = dict(base, sub=f"user-{j:08d}", jti=f"tok-{j:012d}")
+        tokens.append(sign_jwt(priv, alg, claims, kid=kid, rng=rng))
     return jwks, tokens, signers
 
 

@@ -99,10 +99,31 @@ Phases (any failure exits non-zero; none is caught):
    128s chunk, no other kernel; then one more batch with the keccak
    wrapper hooked, every input replayed through the plain version
    ([1024, 33 | 14 | 35, 25, 2] and [1024, 25, 2] states) and both
-   timed at each shape.
+   timed at each shape;
+10. the config-2 path (BASELINE.json's second configuration) the same
+   way: 4 RSA-2048 and 4 RSA-4096 keys, 65,536 tokens a third each
+   RS256, RS384 and RS512 over both widths, the RS rejection classes
+   under each width, a kid-less token and an unknown kid; the RNS
+   engine at two widths, no kernel launched;
+11. the rsa-limb path the same way: an RSA-2048 class of e = 3, 17,
+   65537 and 2^31 − 1 keys (``modexp_vare``), an RSA-3072 class with a
+   4099·q modulus (``modexp_65537`` on limbs) and 4 P-256 keys, 16,384
+   tokens half RS256/PS256 and half ES256 (one ES chunk: 1 ladder + 11
+   redc); then one full limb chunk a width (2048-bit vare at 16,384
+   tokens, 3072- and 4096-bit F4 at 8,192) timed by CUDA events with
+   its peak device memory, 64 lanes against ``pow``;
+12. the big-jwks path the same way: 300 RSA-2048, 300 P-256 and 300
+   Ed25519 keys, so every class takes the arrays path (int64 key
+   rows), 32,768 tokens a third each RS256, ES256 and EdDSA over all
+   300 rows, the rejection classes over rows above 255; one ES chunk
+   (1 ladder + 11 redc) and one EdDSA chunk (32 edw + 3 redc); then
+   every ladder, redc and edw input of one batch replayed through the
+   plain versions (key rows above 255 read) and the ladder and edw
+   timed at those shapes.
 
-The line before the last is the per-kernel JSON record; the last line
-is ``{"ok": true, "device": {...}}``.
+Each phase's seconds and the whole run's are logged ("phase …" and
+"chip_smoke: … s in all"). The line before the last is the per-kernel
+JSON record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -1055,11 +1076,13 @@ def prep_phase(name, ks, tokens, engines):
     """The card host's native prep of a path's whole batch against the
     port's strict parser (``jwt.jose.parse_jws``) and ``hashlib``: the
     status class, alg, kid, signature, payload and digest of every
-    token. Then one chunk's records of each packed family (RS, PS, ES:
-    the native packer against the numpy builders
+    token. Then one chunk's records of each packed family, per RSA
+    class (RS, PS, ES: the native packer against the numpy builders
     ``rs_packed_records``/``es_packed_records`` on parse_jws's bytes
-    and hashlib's digests; EdDSA: k against hashlib's SHA-512 mod L).
-    ML-DSA has no record packer (its host decode is ``_FusedPrep``)."""
+    and hashlib's digests; a class of more than 255 keys: its arrays,
+    ``GPUBatchKeySet._arrays``, against the same inputs; EdDSA: k
+    against hashlib's SHA-512 mod L). ML-DSA has no record packer (its
+    host decode is ``_FusedPrep``)."""
     import hashlib
 
     import numpy as np
@@ -1109,8 +1132,7 @@ def prep_phase(name, ks, tokens, engines):
         f"{len(tokens) - n_ok} rejected with the same class) in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def chunk_of(idx, kid_to_row, n_keys, rec_width):
-        rows = ks._rows(idx, pb, kid_to_row, n_keys)
+    def chunk_of(idx, rows, rec_width):
         keep = rows >= 0
         n = gpu_keyset._chunk_tokens(rec_width)
         idx, rows = idx[keep][:n], rows[keep][:n]
@@ -1132,46 +1154,68 @@ def prep_phase(name, ks, tokens, engines):
         key_idx[:m] = rows
         return sig_mat, sig_lens, hash_mat, key_idx
 
+    def as_rows(arrays):
+        # (sig_mat, sig_lens, hash_mat, key_idx) as one row a token
+        return np.concatenate([np.asarray(a).reshape(len(a), -1)
+                               .astype(np.int64) for a in arrays], axis=1)
+
+    checks = []
     for alg in engines:
         idx = family_idx(pb, alg)
-        if alg in ("RS256", "PS256", "PS384", "PS512"):
-            kind = "rs" if alg == "RS256" else "ps"
-            table = ks._rsa_tables[0]
+        if alg[:2] in ("RS", "PS"):
+            kind = alg[:2].lower()
             hash_name = algs.HASH_FOR_ALG[alg]
             h_len = gpursa.HASH_LEN[hash_name]
-            idx, rows, pad = chunk_of(idx, ks._kid_rsa_row, ks._n_rsa_keys,
-                                      2 * table.k + h_len + 2)
-            got = gpu_keyset.rsa_records(pb, table, kind, hash_name, idx,
-                                         rows, pad)
-            sig_mat, sig_lens, hash_mat, key_idx = numpy_inputs(
-                idx, rows, 2 * table.k, hash_name, pad)
-            want = gpursa.rs_packed_records(table, sig_mat, sig_lens,
-                                            hash_mat, hash_name, key_idx,
-                                            kind)
+            rows = ks._rows(idx, pb, ks._kid_rsa_row, ks._n_rsa_keys)
+            stride = gpu_keyset._RSA_CLS_STRIDE
+            for cls, table in enumerate(ks._rsa_tables):
+                crows = np.where((rows >= 0) & (rows // stride == cls),
+                                 rows % stride, -1)
+                cidx, crows, pad = chunk_of(idx, crows,
+                                            2 * table.k + h_len + 2)
+                if not len(cidx):
+                    continue
+                want = numpy_inputs(cidx, crows, 2 * table.k, hash_name, pad)
+                if len(table.n_ints) > gpu_keyset._MAX_CLASS_KEYS:
+                    got = as_rows(ks._arrays(pb, cidx, crows, 2 * table.k,
+                                             pad))
+                    want = as_rows(want)
+                else:
+                    got = gpu_keyset.rsa_records(pb, table, kind, hash_name,
+                                                 cidx, crows, pad)
+                    want = gpursa.rs_packed_records(table, *want[:3],
+                                                    hash_name, want[3], kind)
+                checks.append((f"{alg} class {cls}", cidx, pad, got, want))
         elif alg in ("ES256", "ES384"):
             crv = gpu_keyset._ES[alg]
             table = ks._ec_tables[crv]
             hash_name = algs.HASH_FOR_ALG[alg]
             h_len = gpursa.HASH_LEN[hash_name]
             width = 2 * table.coord_bytes
-            idx, rows, pad = chunk_of(idx, ks._kid_ec_row[crv],
-                                      len(table.keys), width + h_len + 2)
-            got = gpu_keyset.es_records(pb, table, idx, rows, h_len, pad)
-            sig_mat, sig_lens, hash_mat, key_idx = numpy_inputs(
-                idx, rows, width, hash_name, pad)
-            want = gpuec.es_packed_records(table, sig_mat, sig_lens,
-                                           hash_mat, h_len, key_idx)
+            rows = ks._rows(idx, pb, ks._kid_ec_row[crv], len(table.keys))
+            cidx, crows, pad = chunk_of(idx, rows, width + h_len + 2)
+            want = numpy_inputs(cidx, crows, width, hash_name, pad)
+            if len(table.keys) > gpu_keyset._MAX_CLASS_KEYS:
+                got = as_rows(ks._arrays(pb, cidx, crows, width, pad))
+                want = as_rows(want)
+            else:
+                got = gpu_keyset.es_records(pb, table, cidx, crows, h_len,
+                                            pad)
+                want = gpuec.es_packed_records(table, *want[:3], h_len,
+                                               want[3])
+            checks.append((alg, cidx, pad, got, want))
         elif alg == "EdDSA":
             table = ks._ed_table
-            idx, rows, pad = chunk_of(idx, ks._kid_ed_row, len(table.keys),
-                                      64 + 32 + 2)
+            rows = ks._rows(idx, pb, ks._kid_ed_row, len(table.keys))
+            idx, rows, pad = chunk_of(idx, rows, 64 + 32 + 2)
             fill = pad - len(idx)
             key_idx = np.zeros(pad, np.int64)
             key_idx[:len(idx)] = rows
-            got = gpued.ed_packed_records(
+            # the k column of the records both paths build
+            got = gpued._ed_records(
                 table, [pb.signature(j) for j in idx.tolist()] + [b""] * fill,
                 [pb.signing_input(j) for j in idx.tolist()] + [b""] * fill,
-                key_idx)
+                key_idx, 97)
             want = got.copy()
             want[:, 64:96] = 0
             for r, j in enumerate(idx.tolist()):
@@ -1183,13 +1227,14 @@ def prep_phase(name, ks, tokens, engines):
                 k = int.from_bytes(h, "little") % gpued.L_ORDER
                 want[r, 64:96] = np.frombuffer(k.to_bytes(32, "little"),
                                                np.uint8)
-        else:
-            continue
+            checks.append((alg, idx, pad, got, want))
+    for label, idx, pad, got, want in checks:
         ndiff = int((got != want).any(axis=1).sum())
         assert got.shape == want.shape and ndiff == 0, \
-            f"{name} {alg}: {ndiff} record rows differ from the numpy builder"
-        log(f"prep {name} {alg}: one chunk's records ({len(idx)} tokens, "
-            f"{pad} rows of {got.shape[1]} bytes) byte-equal to the numpy "
+            f"{name} {label}: {ndiff} record rows differ from the numpy " \
+            f"builder"
+        log(f"prep {name} {label}: one chunk's records ({len(idx)} tokens, "
+            f"{pad} rows of {got.shape[1]} columns) equal to the numpy "
             f"builder")
 
 
@@ -1231,8 +1276,10 @@ def drive_path(records, name, jwks, tokens, expected, families, engines,
     first_s = time.perf_counter() - t0
     launches = {k: getattr(mod, attr) for k, (mod, attr) in ctr.items()}
     check_verdicts(results, expected)
-    log(f"{name} path: {len(tokens)} tokens ({', '.join(fams)} on the "
-        f"packed path, {n_chunks} chunk(s)), every verdict as expected; "
+    on_path = (f"{', '.join(fams)} on the kernels' path, {n_chunks} "
+               f"chunk(s)") if fams else "no kernel on the path"
+    log(f"{name} path: {len(tokens)} tokens ({on_path}), every verdict "
+        f"as expected; "
         f"launches {launches}; flagged lanes re-verified on the "
         f"oracle: {ks.deg_reverified}; first run {first_s:.2f} s")
     for k, count in launches.items():
@@ -2062,6 +2109,368 @@ def slhdsa_path(records):
     path_shape_phase(records, run["ks"], tokens, "pq-slhdsa", ("keccak",))
 
 
+N_C2_TOKENS = N_TOKENS        # config-2: not cut
+N_LIMB_TOKENS = 16384         # rsa-limb: cut from 65,536
+N_BIG_TOKENS = 32768          # big-jwks: cut from 65,536
+N_BIG_KEYS = 300
+
+
+def place_specials(tokens, expected, specials):
+    """Three copies of each (token, expected) special at evenly spread
+    positions of the tiled batch."""
+    stride = len(tokens) // (3 * len(specials) + 1)
+    for k, (tok, exp) in enumerate(specials):
+        for rep in range(3):
+            pos = (k * 3 + rep) * stride + 17
+            tokens[pos] = tok
+            expected[pos] = exp
+
+
+def build_config2(rng):
+    """(jwks, uniq, tampered, tokens, expected) for BASELINE.json's
+    second configuration: 4 RSA-2048 (rs2k-i) and 4 RSA-4096 (rs4k-i)
+    keys, 65,536 RS256/RS384/RS512 tokens tiled from 1,024 unique ones
+    (``testing.config2_fixtures``), the 1/8 tampered share, and three
+    tokens of each rejection class under each width (a signature one
+    byte short, s = n, an RS384 header over an RS256 signature), a
+    kid-less RS512 token (the trial path: accepted) and an outsider's
+    RS256 token under an unknown kid."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt import algs
+
+    t0 = time.perf_counter()
+    jwks, uniq, signers = tt.config2_fixtures(N_UNIQUE, seed=SEED + 8)
+    log(f"fixtures: 4 RSA-2048 + 4 RSA-4096 keys, {N_UNIQUE} signed "
+        f"tokens in {time.perf_counter() - t0:.1f} s")
+    tokens, expected, tampered = tile(rng, uniq, N_C2_TOKENS)
+    claims = tt.default_claims(sub="special")
+    outsider = tt.pool_rsa_keys(tt.prime_pool(2, 1024, rng), 1)[0]
+    specials = []                      # (token, expected)
+    for u in (0, 4):                   # rs2k-0 and rs4k-0 under RS256
+        tok = uniq[u]
+        sig = unb64(tok.split(".")[2])
+        n = signers[u][0].n
+        h384 = b64(json.dumps({"alg": "RS384", "kid": signers[u][2]})
+                   .encode())
+        specials += [(with_sig(tok, sig[:-1]), REJECT),
+                     (with_sig(tok, n.to_bytes(len(sig), "big")), REJECT),
+                     (h384 + "." + tok.split(".", 1)[1], REJECT)]
+    specials += [
+        (tt.sign_jwt(signers[20][0], algs.RS512,
+                     dict(claims, sub="no-kid")), "no-kid"),
+        (tt.sign_jwt(outsider, algs.RS256, claims, kid="nobody"), REJECT)]
+    place_specials(tokens, expected, specials)
+    return jwks, uniq, tampered, tokens, expected
+
+
+def config2_path(records):
+    """The config-2 cell: two RSA classes (2048 and 4096 bits) on the RNS
+    engine under three hashes; no kernel of the port launches."""
+    rng = random.Random(SEED + 8)
+    jwks, uniq, tampered, tokens, expected = build_config2(rng)
+    oracle_check(jwks, uniq, tampered)
+    drive_path(records, "config-2", jwks, tokens, expected, [],
+               ("RS256", "RS384", "RS512"))
+
+
+def build_rsalimb(rng):
+    """(jwks, uniq, tampered, tokens, expected) for the rsa-limb batch:
+    ``testing.rsalimb_fixtures`` (an RSA-2048 class of e = 3, 17, 65537
+    and 2^31 − 1 keys, an RSA-3072 class of e = 65537 keys one of whose
+    moduli is 4099·q, 4 P-256 keys), 16,384 tokens tiled from 1,024
+    unique ones (half RS256 and PS256, half ES256), the 1/8 tampered
+    share, and three tokens of each rejection class: s = n and a
+    signature one byte short under each RSA class, a PS256 header over
+    an RS256 signature, a kid-less RS256 token under the e = 3 key (the
+    trial path: accepted) and an outsider's ES256 token under an
+    unknown kid."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt import algs
+
+    t0 = time.perf_counter()
+    jwks, uniq, signers = tt.rsalimb_fixtures(N_UNIQUE, seed=SEED + 9)
+    log(f"fixtures: RSA-2048 e = 3/17/65537/2^31-1, 4 RSA-3072 (one "
+        f"4099·q) + 4 P-256 keys, {N_UNIQUE} signed tokens in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens, expected, tampered = tile(rng, uniq, N_LIMB_TOKENS)
+    claims = tt.default_claims(sub="special")
+    specials = []
+    for u in (0, 4):                   # lim-0 (e = 3) and lim3k-0 (4099·q)
+        tok = uniq[u]
+        sig = unb64(tok.split(".")[2])
+        n = signers[u][0].n
+        hps = b64(json.dumps({"alg": "PS256", "kid": signers[u][2]})
+                  .encode())
+        specials += [(with_sig(tok, n.to_bytes(len(sig), "big")), REJECT),
+                     (with_sig(tok, sig[:-1]), REJECT),
+                     (hps + "." + tok.split(".", 1)[1], REJECT)]
+    specials += [
+        (tt.sign_jwt(signers[0][0], algs.RS256, dict(claims, sub="no-kid")),
+         "no-kid"),
+        (tt.sign_jwt(tt.generate_ec_key(rng), algs.ES256, claims,
+                     kid="nobody", rng=rng), REJECT)]
+    place_specials(tokens, expected, specials)
+    return jwks, uniq, tampered, tokens, expected
+
+
+def limb_phase():
+    """One limb-engine chunk at each width the paths give it, on random
+    odd moduli: ``modexp_vare`` over 31 exponent bits at 2048 bits
+    (16,384 tokens: the rsa-limb vare class's chunk), ``modexp_65537``
+    at 3072 bits (8,192: its F4 class's chunk) and at 4096 bits (8,192:
+    a 4096-bit class's chunk). Device ms by CUDA events and the peak of
+    ``torch.cuda.max_memory_allocated`` above what was allocated before;
+    64 lanes against ``pow``."""
+    import numpy as np
+    import torch
+
+    from cap_tpu_torch.gpu import limbs as L
+    from cap_tpu_torch.gpu import rsa as gpursa
+
+    rng = random.Random(SEED + 10)
+    for bits, chunk, exps in ((2048, 16384, (3, 17, 65537, 2 ** 31 - 1)),
+                              (3072, 8192, (65537,)),
+                              (4096, 8192, (65537,))):
+        nums = [(rng.getrandbits(bits) | (1 << (bits - 1)) | 1,
+                 exps[i % len(exps)]) for i in range(4)]
+        table = gpursa.RSAKeyTable(nums, device="cuda")
+        rows = [i % 4 for i in range(chunk)]
+        s_ints = [rng.randrange(nums[r][0]) for r in rows[:64]]
+        s = np.zeros((chunk, 2 * table.k), np.uint8)
+        s[:, 2 * table.k - bits // 8:] = np.frombuffer(
+            rng.randbytes(chunk * bits // 8), np.uint8).reshape(chunk, -1)
+        s[:, 2 * table.k - bits // 8] &= 0x3F       # s < n
+        for j, v in enumerate(s_ints):
+            s[j] = np.frombuffer(v.to_bytes(2 * table.k, "big"), np.uint8)
+        s_l = L.bytes_to_limbs_device(torch.from_numpy(s).cuda())
+        idx = torch.as_tensor(rows, device="cuda")
+        gpursa.modexp_for_table(table, s_l[:, :128], idx[:128])  # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: gpursa.modexp_for_table(table, s_l, idx), 1)
+        peak = torch.cuda.max_memory_allocated() - base
+        em = gpursa.modexp_for_table(table, s_l, idx)[:, :64].cpu().numpy()
+        for j, v in enumerate(s_ints):
+            n, e = nums[rows[j]]
+            assert L.limbs_to_int(em[:, j]) == pow(v, e, n), (bits, j)
+        name = "modexp_65537" if table.all_f4 else \
+            f"modexp_vare ({table.max_ebits} bits)"
+        log(f"limb chunk: {bits}-bit {name} over {chunk} tokens (K = "
+            f"{table.k} limbs): {ms:.1f} ms, peak {peak / 2 ** 30:.2f} GiB "
+            f"above {base / 2 ** 30:.2f} GiB; 64 lanes equal to pow")
+
+
+
+def rsalimb_path(records):
+    """The rsa-limb cell: RS256 and PS256 on the limb engine
+    (``modexp_vare`` for the 2048-bit class, ``modexp_65537`` for the
+    3072-bit one; no kernel) beside an ES256 chunk (1 ladder + 11
+    redc); then one limb chunk at each width timed and its peak memory
+    read."""
+    rng = random.Random(SEED + 9)
+    jwks, uniq, tampered, tokens, expected = build_rsalimb(rng)
+    oracle_check(jwks, uniq, tampered)
+    run = drive_path(records, "rsa-limb", jwks, tokens, expected,
+                     [("ES256", "es-", 32768, ES_LAUNCHES)],
+                     ("RS256", "PS256", "ES256"))
+    tables = run["ks"]._rsa_tables
+    assert [(t.all_f4, t.ctx is None, t.max_ebits) for t in tables] == \
+        [(False, True, 31), (True, True, 17)], \
+        [(t.all_f4, t.ctx, t.max_ebits) for t in tables]
+    limb_phase()
+
+
+def build_bigjwks(rng):
+    """(jwks, uniq, tampered, tokens, expected) for the big-jwks batch:
+    ``testing.bigjwks_fixtures`` (300 RSA-2048, 300 P-256 and 300
+    Ed25519 keys), 32,768 tokens tiled from 1,024 unique ones (a third
+    each RS256, ES256 and EdDSA, their kids over all 300 rows of each
+    class), the 1/8 tampered share, and three tokens of each rejection
+    class, each over a token of a row above 255: s = n and a signature
+    one byte short (RS256), r = 0, s ≥ n and one byte short (ES256),
+    S + L and one byte short (EdDSA); kid-less tokens of each family
+    signed by row 1 (the trial path over 300 keys: accepted) and an
+    outsider's RS256 token under an unknown kid."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu import ed25519 as ed
+    from cap_tpu_torch.gpu.ec import curve
+    from cap_tpu_torch.jwt import algs
+
+    t0 = time.perf_counter()
+    jwks, uniq, signers = tt.bigjwks_fixtures(N_UNIQUE, seed=SEED + 11,
+                                              n_keys=N_BIG_KEYS)
+    log(f"fixtures: {N_BIG_KEYS} RSA-2048 + {N_BIG_KEYS} P-256 + "
+        f"{N_BIG_KEYS} Ed25519 keys, {N_UNIQUE} signed tokens in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens, expected, tampered = tile(rng, uniq, N_BIG_TOKENS)
+    claims = tt.default_claims(sub="special")
+    n_p256 = curve("P-256").n
+    # unique token u = 3·r + f signs with row r of family f (u < 900)
+    rs, es, edt = uniq[3 * 280], uniq[3 * 290 + 1], uniq[3 * 299 + 2]
+    rs_sig, es_sig, ed_sig = (unb64(t.split(".")[2]) for t in (rs, es, edt))
+    s_plus_l = int.from_bytes(ed_sig[32:], "little") + ed.L_ORDER
+    outsider = tt.pool_rsa_keys(tt.prime_pool(2, 1024, rng), 1)[0]
+
+    def row1(f):
+        priv, alg, kid = signers[f * N_BIG_KEYS + 1]
+        return tt.sign_jwt(priv, alg, dict(claims, sub=f"no-kid-{alg}"),
+                           rng=rng)
+
+    specials = [                   # (token, expected)
+        (with_sig(rs, signers[280][0].n.to_bytes(256, "big")), REJECT),
+        (with_sig(rs, rs_sig[:-1]), REJECT),
+        (with_sig(es, bytes(32) + es_sig[32:]), REJECT),
+        (with_sig(es, es_sig[:32] + n_p256.to_bytes(32, "big")), REJECT),
+        (with_sig(es, es_sig[:-1]), REJECT),
+        (with_sig(edt, ed_sig[:32] + s_plus_l.to_bytes(32, "little")),
+         REJECT),
+        (with_sig(edt, ed_sig[:-1]), REJECT),
+        (row1(0), "no-kid-RS256"),
+        (row1(1), "no-kid-ES256"),
+        (row1(2), "no-kid-EdDSA"),
+        (tt.sign_jwt(outsider, algs.RS256, claims, kid="nobody"), REJECT),
+    ]
+    place_specials(tokens, expected, specials)
+    return jwks, uniq, tampered, tokens, expected
+
+
+def rns_path_replay(records, ks, tokens, path, want):
+    """Every ladder, redc and edw input of one batch, captured at the
+    wrappers as the path makes them (the redc default of every ec_rns
+    and ed25519_rns function swapped for the hook) and replayed through
+    the plain versions right away: outputs equal by value mod p on both
+    residue planes, the ladder's inf and deg equal. The calls of each
+    kernel must be ``want``; the widest key row the ladder and edw read
+    is logged. The ladder and edw are timed at the path's shape (CUDA
+    events, one call each)."""
+    import torch
+
+    from cap_tpu_torch.gpu import (
+        cuda_edw,
+        cuda_ladder,
+        cuda_redc,
+        ec_rns,
+        ed25519_rns,
+    )
+
+    real = dict(ladder=cuda_ladder.ladder, redc=cuda_redc.redc,
+                edw=cuda_edw.edw_window)
+    calls = dict.fromkeys(real, 0)
+    top_row = dict(ladder=-1, edw=-1)
+    first = {}
+
+    def planes(pair):
+        return [t.cpu().numpy() for t in pair]
+
+    def ladder(ctx, tab, d_all, base, win_stride):
+        out = real["ladder"](ctx, tab, d_all, base, win_stride)
+        ladder_compare(ctx, out, cuda_ladder.ladder_ref(
+            ctx, tab, d_all, base, win_stride), f"ladder at {path}")
+        per = (1 << ctx.w_bits) - 1
+        top_row["ladder"] = max(top_row["ladder"],
+                                int(base.max()) // per - 1)
+        first.setdefault("ladder", (ctx, tab, d_all.clone(), base.clone(),
+                                    win_stride))
+        calls["ladder"] += 1
+        return out
+
+    def redc(ctx, xA, xB):
+        out = real["redc"](ctx, xA, xB)
+        err, nd, split = max_err(ctx, planes(out), planes(
+            cuda_redc.redc_ref(ctx, xA, xB)))
+        assert err == 0 and split == 0, f"redc at {path}: {err}, {nd}"
+        calls["redc"] += 1
+        return out
+
+    def edw(ctx, X, Y, Z, T, tab, rows):
+        out = real["edw"](ctx, X, Y, Z, T, tab, rows)
+        for kk, pp in zip(out, cuda_edw.edw_window_ref(ctx, X, Y, Z, T, tab,
+                                                       rows)):
+            err, nd, split = max_err(ctx, planes(kk), planes(pp))
+            assert err == 0 and split == 0, f"edw at {path}: {err}, {nd}"
+        slot = ed25519_rns.NW8 * ed25519_rns.PER
+        top_row["edw"] = max(top_row["edw"], int(rows.max()) // slot - 1)
+        first.setdefault("edw", (ctx, X, Y, Z, T, tab, rows.clone()))
+        calls["edw"] += 1
+        return out
+
+    swapped = []
+    for mod in (ec_rns, ed25519_rns):
+        for fn in list(vars(mod).values()):
+            d = getattr(fn, "__defaults__", None)
+            if d and any(x is real["redc"] for x in d):
+                swapped.append((fn, d))
+                fn.__defaults__ = tuple(redc if x is real["redc"] else x
+                                        for x in d)
+    cuda_ladder.ladder, cuda_redc.redc, cuda_edw.edw_window = \
+        ladder, redc, edw
+    try:
+        ks.verify_batch(tokens)
+    finally:
+        cuda_ladder.ladder = real["ladder"]
+        cuda_redc.redc = real["redc"]
+        cuda_edw.edw_window = real["edw"]
+        for fn, d in swapped:
+            fn.__defaults__ = d
+    assert calls == want, (path, calls, want)
+    assert min(top_row.values()) > 255, top_row
+    ctx, tab, d_all, base, stride = first["ladder"]
+    ms_k = cuda_ms(lambda: real["ladder"](ctx, tab, d_all, base, stride), 1)
+    ms_p = cuda_ms(lambda: cuda_ladder.ladder_ref(ctx, tab, d_all, base,
+                                                  stride), 1)
+    w, m = d_all.shape
+    b_ms, b_by = ladder_bound(ctx, m, w)
+    records["ladder"].setdefault("path_shapes", []).append(dict(
+        path=path, shape=[w, m], table_rows=int(tab.shape[0]),
+        max_abs_err=0, ms=ms_k, by="events", plain_ms=ms_p, bound_ms=b_ms,
+        bound_by=b_by))
+    ectx, *args = first["edw"]
+    ms_e = cuda_ms(lambda: real["edw"](ectx, *args), 1)
+    ms_ep = cuda_ms(lambda: cuda_edw.edw_window_ref(ectx, *args), 1)
+    records["edw"].setdefault("path_shapes", []).append(dict(
+        path=path, lanes=int(args[-1].numel()),
+        table_rows=int(args[-2].shape[0]), max_abs_err=0, ms=ms_e,
+        by="events", plain_ms=ms_ep))
+    log(f"kernels at the {path} path's shapes: {calls['ladder']} ladder, "
+        f"{calls['redc']} redc and {calls['edw']} edw calls in one batch, "
+        f"every output equal to the plain version; key rows read up to "
+        f"{top_row['ladder']} (ladder) and {top_row['edw']} (edw); ladder "
+        f"{w} windows x {m} lanes over a {tab.shape[0]}-row table "
+        f"{ms_k:.3f} ms (plain {ms_p:.1f} ms, bound {b_ms:.4f} ms), edw "
+        f"{args[-1].numel()} lanes over a {args[-2].shape[0]}-row table "
+        f"{ms_e:.4f} ms (plain {ms_ep:.2f} ms)")
+
+
+def bigjwks_path(records):
+    """The big-jwks cell: every class of 300 keys, so RS256, ES256 and
+    EdDSA all take the arrays paths (int64 key rows); one ES chunk (1
+    ladder + 11 redc) and one EdDSA chunk (32 edw + 3 redc); then every
+    ladder, redc and edw input of one batch replayed through the plain
+    versions."""
+    import torch
+
+    rng = random.Random(SEED + 11)
+    jwks, uniq, tampered, tokens, expected = build_bigjwks(rng)
+    oracle_check(jwks, uniq, tampered)
+    run = drive_path(records, "big-jwks", jwks, tokens, expected,
+                     [("ES256", "bes-", 32768, ES_LAUNCHES),
+                      ("EdDSA", "bed-", 32768, {"edw": 32, "redc": 3})],
+                     ("RS256", "ES256", "EdDSA"))
+    ks = run["ks"]
+    ec_tab = ks._ec_tables["P-256"].rns().device_tab("cuda")
+    ed_tab = ks._ed_table.rns().device_tab("cuda")
+    log(f"big-jwks tables on the card: P-256 {ec_tab.shape[0]} rows x "
+        f"{ec_tab.shape[1]} words ({ec_tab.numel() * 4 / 2 ** 20:.0f} MiB), "
+        f"Ed25519 {ed_tab.shape[0]} x {ed_tab.shape[1]} "
+        f"({ed_tab.numel() * 4 / 2 ** 20:.0f} MiB); largest table offset "
+        f"{max(ec_tab.numel(), ed_tab.numel())} words (int32 range "
+        f"{2 ** 31 - 1}); card memory allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    rns_path_replay(records, ks, tokens, "big-jwks",
+                    dict(ladder=1, redc=14, edw=32))
+
+
 def dev_us(e) -> float:
     """Device µs of one profiler key average."""
     return getattr(e, "self_device_time_total",
@@ -2195,6 +2604,8 @@ def engine_times(ks, tokens, engines):
 
     runners = {
         "RS256": lambda *a: ks._run_rsa_packed("rs", "sha256", *a),
+        "RS384": lambda *a: ks._run_rsa_packed("rs", "sha384", *a),
+        "RS512": lambda *a: ks._run_rsa_packed("rs", "sha512", *a),
         "PS256": lambda *a: ks._run_rsa_packed("ps", "sha256", *a),
         "PS384": lambda *a: ks._run_rsa_packed("ps", "sha384", *a),
         "PS512": lambda *a: ks._run_rsa_packed("ps", "sha512", *a),
@@ -2251,6 +2662,7 @@ def main() -> int:
     sys.path.insert(0, here)
     from cap_tpu_torch import _build
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     t0 = time.perf_counter()
@@ -2268,16 +2680,29 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     records = {}
-    kernel_phase(records)
-    wide_phase(records)
-    ladder_phase(records)
-    north = main_path(records)
-    validator_path(records, north)
-    config3_path(records)
-    config4_path(records)
-    mldsa_path(records)
-    ps512_path(records)
-    slhdsa_path(records)
+    t_run = time.perf_counter()
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("kernels", kernel_phase, records)
+    timed("kernels at 34+33 and 45+45", wide_phase, records)
+    timed("ladder", ladder_phase, records)
+    north = timed("north-star", main_path, records)
+    timed("validator", validator_path, records, north)
+    timed("config-3", config3_path, records)
+    timed("config-4", config4_path, records)
+    timed("pq-mldsa", mldsa_path, records)
+    timed("ps-sha512", ps512_path, records)
+    timed("pq-slhdsa", slhdsa_path, records)
+    timed("config-2", config2_path, records)
+    timed("rsa-limb", rsalimb_path, records)
+    timed("big-jwks", bigjwks_path, records)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all "
+        f"({time.perf_counter() - t_run:.1f} s after the build)")
 
     kernels = [
         dict(name="redc", route="cuda",

@@ -4,9 +4,11 @@ counts), the launch counters, the wrappers' refusals, the device
 SHA-384/512 against hashlib, the SLH-DSA engine against its CPU path,
 the keyset on the card against the keyset on the CPU (RS256 +
 ES256, ES256 + ES384 and ES512 with either ladder, PS256 + EdDSA,
-ML-DSA-44 + ML-DSA-65, ML-DSA-87, and PS384 + PS512 + SLH-DSA), and
+ML-DSA-44 + ML-DSA-65, ML-DSA-87, PS384 + PS512 + SLH-DSA, and classes
+of 256 and 300 RSA, P-256 and Ed25519 keys on the arrays paths),
 ``Validator.validate_batch`` over the card keyset against the CPU, with
-an x5c JWKS loaded through discovery.
+an x5c JWKS loaded through discovery, and the limb engine's modexps
+against the CPU (a 9,216-bit modulus against the host oracle).
 
 Marked ``cuda``: without a card each test skips. On the card's machine
 (no jax there, so without the suite's conftest):
@@ -797,3 +799,131 @@ def test_x5c_jwks_through_discovery_on_the_card(dev):
                 single.append(e)
     assert _verdicts(on_card) == _verdicts(on_cpu) == _verdicts(single)
     assert sum(isinstance(r, dict) for r in on_card) == len(tokens) + 8
+
+
+@pytest.mark.parametrize("bits,exps", [(2048, (3, 17, 65537, 2 ** 31 - 1)),
+                                       (4096, (65537,))],
+                         ids=["2048-vare", "4096-65537"])
+def test_limb_modexps_on_the_card_match_the_cpu(dev, bits, exps):
+    """``modexp_vare`` (31 exponent bits) at 2048 bits and
+    ``modexp_65537`` at 4096 on the card, limb for limb equal to the
+    same calls on the CPU, s = 0, 1 and n − 1 among random s < n."""
+    import random
+
+    from cap_tpu_torch.gpu import limbs as L
+    from cap_tpu_torch.gpu import rsa as gpursa
+
+    rng = random.Random(bits)
+    nums = [(rng.getrandbits(bits) | (1 << (bits - 1)) | 1,
+             exps[i % len(exps)]) for i in range(4)]
+    rows = [i % 4 for i in range(256)]
+    s = [0, 1, nums[2][0] - 1] + [rng.randrange(nums[r][0])
+                                  for r in rows[3:]]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        table = gpursa.RSAKeyTable(nums, device=d)
+        s_l = torch.as_tensor(np.stack(
+            [L.int_to_limbs(v, table.k) for v in s], axis=1).astype(
+                np.int64), device=d)
+        idx = torch.as_tensor(rows, device=d)
+        outs.append(gpursa.modexp_for_table(table, s_l, idx).cpu())
+    assert torch.equal(outs[0], outs[1])
+    assert [L.limbs_to_int(outs[0][:, j].tolist()) for j in range(8)] == \
+        [pow(v, nums[r][1], nums[r][0]) for v, r in zip(s[:8], rows)]
+
+
+@pytest.mark.parametrize("n_keys", [256, 300])
+def test_arrays_keysets_on_the_card_match_the_plain_path(dev, n_keys,
+                                                         monkeypatch):
+    """Classes of ``n_keys`` RSA-2048, P-256 and Ed25519 keys (the arrays
+    paths): RS256, PS256, ES256 and EdDSA verdicts on the card equal to
+    the plain path's on the CPU, one ES chunk (1 ladder + 11 redc) and
+    one EdDSA chunk (32 edw + 3 redc); at 300 keys the ladder and edw
+    read key rows above 255. The EC and Ed25519 keys are 7 distinct
+    ones repeated by row (the tables are built once a distinct key)."""
+    import random
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.jwt.jwk import JWK
+
+    rng = random.Random(n_keys)
+    rsa = tt.pool_rsa_keys(tt.prime_pool(25, 1024, rng), n_keys)
+    ec = [tt.generate_ec_key(rng) for _ in range(7)]
+    ed = [tt.generate_ed25519_key(rng) for _ in range(7)]
+    jwks = ([JWK(k.public_key(), kid=f"r-{i}") for i, k in enumerate(rsa)]
+            + [JWK(ec[i % 7].public_key(), kid=f"e-{i}")
+               for i in range(n_keys)]
+            + [JWK(ed[i % 7].public_key(), kid=f"d-{i}")
+               for i in range(n_keys)])
+    rows = (0, 1, 254, 255, n_keys - 1) + ((256, 280) if n_keys > 256
+                                            else ())
+    batch = []
+    for r in rows:
+        batch += [tt.sign_jwt(rsa[r], "RS256", {"sub": f"rs-{r}"},
+                              kid=f"r-{r}"),
+                  tt.sign_jwt(rsa[r], "PS256", {"sub": f"ps-{r}"},
+                              kid=f"r-{r}", rng=rng),
+                  tt.sign_jwt(ec[r % 7], "ES256", {"sub": f"es-{r}"},
+                              kid=f"e-{r}", rng=rng),
+                  tt.sign_jwt(ed[r % 7], "EdDSA", {"sub": f"ed-{r}"},
+                              kid=f"d-{r}")]
+    bad = [t[:-4] + ("AAAA" if t[-4:] != "AAAA" else "BBBB")
+           for t in batch[:8]]
+    batch += bad + [tt.sign_jwt(ec[1], "ES256", {"sub": "x"}, kid="e-0",
+                                rng=rng)]
+    top = {"ladder": -1, "edw": -1}
+    ladder, edw = cuda_ladder.ladder, cuda_edw.edw_window
+
+    def ladder_rows(ctx, tab, d_all, base, win_stride):
+        top["ladder"] = int(base.max()) // ((1 << ctx.w_bits) - 1) - 1
+        return ladder(ctx, tab, d_all, base, win_stride)
+
+    def edw_rows(ctx, X, Y, Z, T, tab, rows):
+        slot = ed25519_rns.NW8 * ed25519_rns.PER
+        top["edw"] = max(top["edw"], int(rows.max()) // slot - 1)
+        return edw(ctx, X, Y, Z, T, tab, rows)
+
+    monkeypatch.setattr(cuda_ladder, "ladder", ladder_rows)
+    monkeypatch.setattr(cuda_edw, "edw_window", edw_rows)
+    card_ks = GPUBatchKeySet(jwks)
+    before = (cuda_ladder.launches, cuda_redc.launches, cuda_edw.launches)
+    on_card = card_ks.verify_batch(batch)
+    torch.cuda.synchronize()
+    assert (cuda_ladder.launches - before[0], cuda_redc.launches - before[1],
+            cuda_edw.launches - before[2]) == (1, 14, 32)
+    assert top == {"ladder": max(rows), "edw": max(rows)}
+    on_cpu = GPUBatchKeySet(jwks, device="cpu").verify_batch(batch)
+    assert [repr(x) if isinstance(x, Exception) else x for x in on_card] \
+        == [repr(x) if isinstance(x, Exception) else x for x in on_cpu]
+    assert sum(isinstance(x, dict) for x in on_card) == 4 * len(rows)
+
+
+def test_a_modulus_wider_than_the_rns_pool_on_the_card(dev):
+    """A modulus of nine 1,024-bit primes (over 9,200 bits): more than
+    the RNS prime pool takes (2·(nbits + 8) bits of 13-bit primes), so
+    its e = 65537 class runs ``modexp_65537`` on limbs; RS256, PS256 and
+    RS512 verdicts equal to the host oracle's (``jwt.verify``)."""
+    import random
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.jwt.jose import parse_jws
+    from cap_tpu_torch.jwt.jwk import JWK
+
+    rng = random.Random(9216)
+    key = tt.MultiPrimeRSAKey(tt.prime_pool(9, 1024, rng))
+    ks = GPUBatchKeySet([JWK(key.public_key(), kid="wide")])
+    (table,) = ks._rsa_tables
+    assert key.n.bit_length() > 9200
+    assert table.all_f4 and table.ctx is None
+    assert table.k == (key.n.bit_length() + 15) // 16 + 1
+    batch = [tt.sign_jwt(key, alg, {"sub": alg}, kid="wide", rng=rng)
+             for alg in ("RS256", "PS256", "RS512")]
+    batch.append(batch[0][:-4] + ("AAAA" if batch[0][-4:] != "AAAA"
+                                  else "BBBB"))
+    got = ks.verify_batch(batch)
+    want = [ks._verify_one_parsed(parse_jws(t)) for t in batch]
+    assert [repr(x) if isinstance(x, Exception) else x for x in got] == \
+        [repr(x) if isinstance(x, Exception) else x for x in want]
+    assert [isinstance(x, dict) for x in got] == [True, True, True, False]
