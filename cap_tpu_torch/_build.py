@@ -8,12 +8,14 @@ sources and flags so an edit rebuilds it. Libraries load with
 point returns ``cudaGetLastError()``. Nothing here includes PyTorch's
 headers, so a build takes seconds, not minutes.
 
-The host side's batch prep compiles with ``g++`` the same way, into
+The host side's native code compiles with ``g++`` the same way, into
 the same directory: ``jose`` (``runtime/native/jose_native.cpp``: the
-batch JOSE parse, SHA-2 and record packer, loaded with ``ctypes``) and
+batch JOSE parse, SHA-2 and record packer, loaded with ``ctypes``),
 ``claims`` (``runtime/native/claims_ext.cpp``: the ``_capclaims``
 CPython extension, built against the running interpreter's headers and
-named with its ABI suffix). No ``-march=native``: the SHA-NI path is
+named with its ABI suffix) and ``claims_rules``
+(``runtime/native/claims_validate.cpp``: the OIDC claims-rule engine,
+loaded with ``ctypes`` by ``oidc.claims_native``). No ``-march=native``: the SHA-NI path is
 chosen at run time, and the build directory may be shared by hosts.
 
 ``build_all()`` starts one compiler per target, all together, and
@@ -40,7 +42,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cap_tpu_torch"
 KERNELS = ("redc", "madd", "ladder", "edw", "keccak", "ntt")
 # g++ targets: name -> (the source compiled, the headers it includes)
 HOST_TARGETS = {"jose": ("jose_native.cpp", ()),
-                "claims": ("claims_ext.cpp", ("claims_tape.h",))}
+                "claims": ("claims_ext.cpp", ("claims_tape.h",)),
+                "claims_rules": ("claims_validate.cpp", ("claims_tape.h",))}
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-pthread", "-std=c++17")
 # the claims extension's module name (its PyInit__capclaims)
 CLAIMS_MODULE = "_capclaims"
@@ -145,7 +148,7 @@ def build_all(names: Sequence[str] = KERNELS + tuple(HOST_TARGETS)
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (built first if missing): a kernel
-    library or ``jose``."""
+    library, ``jose`` or ``claims_rules``."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

@@ -252,7 +252,8 @@ def host_ecdsa_sign(crv: str, d: int, e: int, k: int) -> Tuple[int, int]:
     unique per signature; nothing here is constant-time). Returns
     (r, s); raises if the chosen k yields r == 0 or s == 0."""
     cp = curve(crv)
-    R = scalar_mult(cp, k, (cp.gx, cp.gy))
+    # k·G by the oracle's Jacobian double-and-add (one inversion)
+    R = _shamir(cp, k, 0, (cp.gx, cp.gy))
     r = R[0] % cp.n
     s = pow(k, -1, cp.n) * (e + r * d) % cp.n
     if r == 0 or s == 0:

@@ -39,11 +39,16 @@ the JAX keyset's ``_dispatch_batch`` and ``_collect_batch`` do:
    as the JAX keyset's CPU fallback does.
 
 Results are one claims dict or one exception per token, with the JAX
-keyset's exception classes and messages. An entry that is not a
-``str`` raises ``TypeError`` for the whole batch, as in the JAX keyset.
+keyset's exception classes and messages. ``verify_batch_raw`` runs the
+same dispatch and launches and gives an accepted token's payload bytes
+in place of its dict: the collect checks that payloads are JSON objects
+(``PreparedBatch.payload_object_ok``) instead of parsing them. An entry
+that is not a ``str`` raises ``TypeError`` for the whole batch, as in
+the JAX keyset.
 
 Not ported yet (ROADMAP): the two-phase ML-DSA arm (host μ/c̃ around
-the device NTT), hot key swaps, async/stream entry points, telemetry.
+the device NTT), hot key swaps, the async and stream entry points,
+telemetry.
 """
 
 from __future__ import annotations
@@ -295,6 +300,15 @@ class GPUBatchKeySet(KeySet):
     def verify_batch(self, tokens: Sequence[str]) -> List[Any]:
         return self._collect_batch(self._dispatch_batch(tokens))
 
+    def verify_batch_raw(self, tokens: Sequence[str]) -> List[Any]:
+        """Like verify_batch, but a verified token yields its payload
+        bytes (the claims JSON the issuer signed) in place of its
+        dict. A verified signature over a payload that is not a JSON
+        object is rejected as in verify_batch."""
+        state = self._dispatch_batch(tokens)
+        state["raw"] = True
+        return self._collect_batch(state)
+
     def _dispatch_batch(self, tokens: Sequence[str]) -> dict:
         """Phase 1: prep, bucket, pack and queue every chunk."""
         tokens, specials = normalize_batch(tokens)
@@ -303,6 +317,9 @@ class GPUBatchKeySet(KeySet):
         ok = pb.status == 0
         for i in np.nonzero(~ok)[0].tolist():
             results[i] = pb.error(i)
+        # JSON-form tokens verified on the object path: their payloads,
+        # for the raw mode
+        special_payloads: Dict[int, bytes] = {}
         for i, sp in specials.items():
             # normalization verdicts outrank the ""-sentinel's prep error
             if isinstance(sp, Exception):
@@ -310,6 +327,7 @@ class GPUBatchKeySet(KeySet):
             else:
                 try:
                     results[i] = self._verify_parsed_trial(sp)
+                    special_payloads[i] = sp.payload
                 except Exception as e:  # noqa: BLE001 - per-token
                     results[i] = e
 
@@ -344,32 +362,54 @@ class GPUBatchKeySet(KeySet):
                     if len(idx):
                         self._run_rsa_packed(kind, hash_name, idx, pb,
                                              pending)
-        return dict(pb=pb, ok=ok, results=results, pending=pending)
+        return dict(pb=pb, ok=ok, results=results, pending=pending,
+                    special_payloads=special_payloads)
 
     def _collect_batch(self, state: dict) -> List[Any]:
-        """Phase 2: claims parse while the device drains, the syncs,
-        the verdicts, the trial path."""
+        """Phase 2: claims parse (raw mode: the object check) while the
+        device drains, the syncs, the verdicts, the trial path."""
         pb, ok, results = state["pb"], state["ok"], state["results"]
-        pb.prefetch_claims(np.nonzero(ok)[0])
+        raw = state.get("raw", False)
+        idx = np.nonzero(ok)[0]
+        if raw:
+            pb.raw_ok = np.zeros(pb.n, bool)
+            pb.raw_ok[idx] = pb.payload_object_ok(idx)
+        else:
+            pb.prefetch_claims(idx)
         for chunk, m, outs, finish in state["pending"]:
             finish(chunk, [o.cpu().numpy()[:m] for o in outs], pb, results)
         # no unique key candidate, or no table for the family: the trial
         # path on the host oracle
-        for j in np.nonzero(ok)[0].tolist():
+        for j in idx.tolist():
             if results[j] is None:
-                results[j] = self._verify_one_parsed(pb.parsed(j))
+                out = self._verify_one_parsed(pb.parsed(j))
+                if raw and not isinstance(out, Exception):
+                    # the oracle built the dict from these bytes
+                    out = pb.payload_bytes(j)
+                results[j] = out
+        if raw:
+            for i, pay in state["special_payloads"].items():
+                if not isinstance(results[i], Exception):
+                    results[i] = pay
         return results
 
     @staticmethod
     def _finish(chunk, okv, pb, results) -> None:
+        raw_ok = pb.raw_ok
         for j, good in zip(chunk.tolist(), np.asarray(okv).tolist()):
-            if good:
+            if not good:
+                results[j] = InvalidSignatureError(_REJECT)
+            elif raw_ok is not None and raw_ok[j]:
+                results[j] = pb.payload_bytes(j)
+            else:
+                # dict mode; or raw mode on a payload that is not an
+                # object, whose claims() raises the dict mode's error
                 try:
-                    results[j] = pb.claims(j)
+                    claims = pb.claims(j)
+                    results[j] = (claims if raw_ok is None
+                                  else pb.payload_bytes(j))
                 except MalformedTokenError as e:
                     results[j] = e
-            else:
-                results[j] = InvalidSignatureError(_REJECT)
 
     def _finish_ok(self, chunk, arrs, pb, results) -> None:
         """The finish of a path whose one device output is the verdict."""

@@ -11,7 +11,9 @@ and messages (``PreparedBatch.error``). ``sha_batch`` hashes byte
 strings in one call; ``PreparedBatch.prefetch_claims`` parses claim
 payloads with the GIL released, falling back to ``json.loads`` for
 anything outside the extension's envelope, so results are those of
-``json.loads``.
+``json.loads``. For the OIDC raw mode, ``PreparedBatch.payload_object_ok``
+checks that payloads are JSON objects without building a dict, and
+``registered_claims_from_payloads`` parses only the registered claims.
 
 Both libraries build with g++ at first use (``_build``); a build that
 fails raises. ``prepare_calls`` counts calls of ``cap_prepare_batch``.
@@ -141,6 +143,26 @@ def _loads_claims(raw: bytes):
         return MalformedTokenError(f"payload is not valid JSON: {e}")
 
 
+def registered_claims_from_payloads(payloads: Sequence[bytes]) -> List[Any]:
+    """[payload bytes] → per payload the claims for validation only: the
+    extension's registered-claims subset (iss, sub, aud, exp, nbf, iat,
+    nonce, azp, auth_time) as a dict, or, where it flags the payload,
+    the ``json.loads`` dict or its MalformedTokenError. The OIDC raw
+    mode reads only registered claims, so the subset decides as the
+    full parse would."""
+    scratch = np.frombuffer(b"".join(payloads) + b"\0", np.uint8)
+    lens = np.asarray([len(p) for p in payloads], np.int64)
+    offs = np.zeros(len(payloads), np.int64)
+    if len(payloads):
+        np.cumsum(lens[:-1], out=offs[1:])
+    parsed, n_bad = _build.load_claims().registered_batch(scratch, offs,
+                                                          lens)
+    if n_bad == 0:
+        return parsed
+    return [v if type(v) is dict else _loads_claims(payloads[i])
+            for i, v in enumerate(parsed)]
+
+
 class PreparedBatch:
     """Structure-of-arrays view of a prepared token batch.
 
@@ -154,7 +176,7 @@ class PreparedBatch:
     __slots__ = ("n", "status", "alg_id", "kid_mat", "kid_len", "sig_off",
                  "sig_len", "payload_off", "payload_len", "si_len", "digest",
                  "digest_len", "scratch", "blob", "tok_off", "alg_raw",
-                 "alg_len", "_claims_cache")
+                 "alg_len", "_claims_cache", "raw_ok")
 
     def __init__(self, n, status, alg_id, kid_mat, kid_len, sig_off, sig_len,
                  payload_off, payload_len, si_len, digest, digest_len,
@@ -177,6 +199,9 @@ class PreparedBatch:
         self.alg_raw = alg_raw          # [n, 32] uint8 (for unknown algs)
         self.alg_len = alg_len
         self._claims_cache: Dict[int, Any] = {}
+        # raw mode: [n] bool, the payload is a JSON object (set by the
+        # keyset's collect from payload_object_ok); None in dict mode
+        self.raw_ok: Optional[np.ndarray] = None
 
     # -- vectorized helpers -----------------------------------------------
 
@@ -264,6 +289,24 @@ class PreparedBatch:
     def payload_bytes(self, i: int) -> bytes:
         o, ln = int(self.payload_off[i]), int(self.payload_len[i])
         return self.scratch[o: o + ln].tobytes()
+
+    def payload_object_ok(self, indices) -> np.ndarray:
+        """[len(indices)] bool: the payload parses as a JSON object.
+
+        No dict is built: the extension's strict scan decides, and a
+        payload outside its envelope (status 3) is decided by
+        ``json.loads``, so the answer is the one the claims path
+        gives."""
+        idx = np.ascontiguousarray(indices, np.int64)
+        offs = np.ascontiguousarray(self.payload_off[idx], np.int64)
+        lens = np.ascontiguousarray(self.payload_len[idx], np.int64)
+        st = np.frombuffer(_build.load_claims().validate_batch(
+            self.scratch, offs, lens), np.uint8)
+        out = st == 0
+        for k in np.nonzero(st == 3)[0].tolist():
+            out[k] = not isinstance(_loads_claims(
+                self.payload_bytes(int(idx[k]))), MalformedTokenError)
+        return out
 
     def claims(self, i: int) -> Dict[str, Any]:
         """The claims dict of token ``i`` (from the prefetch cache when

@@ -1,8 +1,8 @@
 """Fixtures without OpenSSL: seeded keys, JWT signing, the north-star,
 PS256 + EdDSA, PS384 + PS512, ML-DSA, SLH-DSA, RS256/384/512 over
 2048/4096-bit keys, limb-engine RSA and 300-key JWKS workloads, x5c JWKs
-(a minimal DER certificate writer), SPKI and PKCS#1 PEMs, and loopback
-JWKS and OIDC discovery servers.
+(a minimal DER certificate writer), SPKI and PKCS#1 PEMs, a self-signed
+TLS CA (``generate_ca``), and loopback JWKS and OIDC discovery servers.
 
 Everything here is pure Python integers over ``random.Random(seed)``:
 RSA keys by Miller–Rabin, PKCS#1 v1.5 and PSS signatures by CRT
@@ -766,12 +766,18 @@ def _utc_time(t: int) -> bytes:
                                     time.gmtime(t)).encode("ascii"))
 
 
-def certificate_der(priv, rng: Optional[random.Random] = None) -> bytes:
-    """A self-signed v3 certificate of ``priv``'s public key, valid from
-    five minutes before the fixtures' clock (``default_claims``) to a day
-    after it, signed with sha256WithRSAEncryption, ecdsa-with-SHA256 or
-    Ed25519 by the port's integer signers; CN=cap-tpu-x5c as issuer and
-    subject."""
+def certificate_der(priv, rng: Optional[random.Random] = None,
+                    common_name: str = "cap-tpu-x5c",
+                    valid_from: int = 1_700_000_000 - 300,
+                    valid_to: int = 1_700_000_000 + 86400,
+                    extensions: Tuple[bytes, ...] = ()) -> bytes:
+    """A self-signed v3 certificate of ``priv``'s public key, signed
+    with sha256WithRSAEncryption, ecdsa-with-SHA256 or Ed25519 by the
+    port's integer signers; CN=``common_name`` as issuer and subject.
+    By default valid from five minutes before the fixtures' clock
+    (``default_claims``) to a day after it. ``extensions`` are DER
+    ``Extension`` values (:func:`der_extension`), written as the
+    ``[3]`` extensions block when there are any."""
     rng = rng if rng is not None else random.Random()
     pub = priv.public_key()
     if isinstance(priv, RSAPrivateKey):
@@ -781,14 +787,14 @@ def certificate_der(priv, rng: Optional[random.Random] = None) -> bytes:
     else:
         sig_alg = _der_seq(_der_oid("1.3.101.112"))
     name = _der_seq(_der(0x31, _der_seq(
-        _der_oid("2.5.4.3"), _der(0x0C, b"cap-tpu-x5c"))))
+        _der_oid("2.5.4.3"), _der(0x0C, common_name.encode("utf-8")))))
     tbs = _der_seq(
         _der(0xA0, _der_uint(2)),
         _der_uint(rng.getrandbits(159) | 1 << 150),
         sig_alg, name,
-        _der_seq(_utc_time(1_700_000_000 - 300),
-                 _utc_time(1_700_000_000 + 86400)),
-        name, spki_der(pub))
+        _der_seq(_utc_time(valid_from), _utc_time(valid_to)),
+        name, spki_der(pub),
+        *([_der(0xA3, _der_seq(*extensions))] if extensions else []))
     if isinstance(priv, RSAPrivateKey):
         k = (priv.n.bit_length() + 7) // 8
         em = pkcs1v15_em(hashlib.sha256(tbs).digest(), "sha256", k)
@@ -807,6 +813,54 @@ def certificate_der(priv, rng: Optional[random.Random] = None) -> bytes:
     else:
         sig = priv.sign(tbs)
     return _der_seq(tbs, sig_alg, _der(0x03, b"\x00" + sig))
+
+
+def der_extension(oid: str, value: bytes, critical: bool = False) -> bytes:
+    """One X.509 ``Extension``: the OID, the critical flag when set, and
+    the DER ``value`` wrapped in an OCTET STRING."""
+    return _der_seq(_der_oid(oid),
+                    *([_der(0x01, b"\xff")] if critical else []),
+                    _der(0x04, value))
+
+
+def ec_private_key_pem(priv: ECPrivateKey) -> str:
+    """The unencrypted PKCS#8 ``PRIVATE KEY`` PEM of an EC key (RFC 5915
+    ECPrivateKey with its public point, inside a PrivateKeyInfo)."""
+    size = curve(priv.crv).coord_bytes
+    nums = priv.public_key().public_numbers()
+    point = (b"\x04" + nums.x.to_bytes(size, "big")
+             + nums.y.to_bytes(size, "big"))
+    ec_key = _der_seq(_der_uint(1), _der(0x04, priv.d.to_bytes(size, "big")),
+                      _der(0xA1, _der(0x03, b"\x00" + point)))
+    info = _der_seq(_der_uint(0),
+                    _der_seq(_der_oid("1.2.840.10045.2.1"),
+                             _der_oid(_CURVE_OIDS[priv.crv])),
+                    _der(0x04, ec_key))
+    return _pem("PRIVATE KEY", info)
+
+
+def generate_ca(common_name: str = "cap-tpu-test-ca",
+                rng: Optional[random.Random] = None
+                ) -> Tuple[str, ECPrivateKey, str]:
+    """A self-signed P-256 CA for loopback TLS: (certificate PEM, private
+    key, PKCS#8 key PEM). Valid from five minutes ago for a day, with
+    ``basicConstraints`` CA:TRUE (critical) and a subjectAltName of
+    DNS ``localhost`` and IP ``127.0.0.1``, so Python's ``ssl`` serves
+    it (``load_cert_chain``) and verifies it as its own trust anchor
+    (``utils.http.ssl_context_for_ca``)."""
+    import time
+
+    rng = rng if rng is not None else random.Random()
+    key = generate_ec_key(rng, "P-256")
+    now = int(time.time())
+    san = _der_seq(_der(0x82, b"localhost"), _der(0x87, bytes([127, 0, 0, 1])))
+    der = certificate_der(
+        key, rng, common_name=common_name, valid_from=now - 300,
+        valid_to=now + 86400,
+        extensions=(der_extension("2.5.29.19", _der_seq(_der(0x01, b"\xff")),
+                                  critical=True),
+                    der_extension("2.5.29.17", san)))
+    return _pem("CERTIFICATE", der), key, ec_private_key_pem(key)
 
 
 def x5c_jwk(priv, kid: Optional[str] = None, include_params: bool = False,

@@ -1,1 +1,2 @@
-"""Host utilities: the pooled HTTP client of the CPU keysets."""
+"""Host utilities: the pooled HTTP client (GET and form POST), the
+redacting secret strings, base62 ids and string-list helpers."""

@@ -3,10 +3,11 @@ JAX package's ``utils/http.py``, as far as the keysets need it).
 
 A process-wide keep-alive connection pool keyed by (scheme, host,
 port, SSL context), so one TLS handshake serves discovery and every
-JWKS fetch when the server allows keep-alive; ``get``, ``get_json``
-and ``fetch_discovery`` (the issuer-equality check) over it. Left out
-of this copy: the telemetry counters and the conditional-GET (ETag)
-cache, which nothing in the port reads, and ``post_form``.
+JWKS fetch when the server allows keep-alive; ``get``, ``get_json``,
+``fetch_discovery`` (the issuer-equality check) and ``post_form`` (the
+OIDC token exchange) over it. Left out of this copy: the telemetry
+counters and the conditional-GET (ETag) cache, which nothing in the
+port reads.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import socket
 import ssl
 import threading
 from typing import Any, Dict, Optional, Tuple
-from urllib.parse import urlparse, urljoin
+from urllib.parse import urlencode, urljoin, urlparse
 
 from ..errors import InvalidCACertError, InvalidIssuerError
 
@@ -266,3 +267,15 @@ def fetch_discovery(issuer: str,
             f"oidc issuer did not match the issuer returned by provider, "
             f"expected {issuer!r} got {got!r}")
     return doc
+
+
+def post_form(url: str, fields: Dict[str, str],
+              ctx: Optional[ssl.SSLContext] = None,
+              headers: Optional[Dict[str, str]] = None,
+              timeout: float = 30.0) -> Tuple[int, bytes, Dict[str, str]]:
+    """POST application/x-www-form-urlencoded fields."""
+    data = urlencode(fields).encode("ascii")
+    hdrs = {"Content-Type": "application/x-www-form-urlencoded"}
+    hdrs.update(headers or {})
+    return _POOL.request("POST", url, body=data, headers=hdrs, ctx=ctx,
+                         timeout=timeout)

@@ -91,14 +91,14 @@ Phases (any failure exits non-zero; none is caught):
    inputs of each hash, captured where the engine hashes them, timed
    by CUDA events;
 9. the pq-slhdsa path the same way: 8 SLH-DSA-SHAKE-128f and 8
-   SLH-DSA-SHAKE-128s AKP keys, 2,048 tokens half under each set tiled
-   from 64 unique 128f and 8 unique 128s tokens, the 1/8 tampered
+   SLH-DSA-SHAKE-128s AKP keys, 512 tokens half under each set tiled
+   from 16 unique 128f and 2 unique 128s tokens, the 1/8 tampered
    share, three tokens of each SLH-DSA rejection class under each set,
    a kid-less token of each set, an unknown kid and a 128f alg over a
    128s kid; keccak launched 518 times a 128f chunk and 219 times a
    128s chunk, no other kernel; then one more batch with the keccak
    wrapper hooked, every input replayed through the plain version
-   ([1024, 33 | 14 | 35, 25, 2] and [1024, 25, 2] states) and both
+   ([256, 33 | 14 | 35, 25, 2] and [256, 25, 2] states) and both
    timed at each shape;
 10. the config-2 path (BASELINE.json's second configuration) the same
    way: 4 RSA-2048 and 4 RSA-4096 keys, 65,536 tokens a third each
@@ -119,7 +119,29 @@ Phases (any failure exits non-zero; none is caught):
    (1 ladder + 11 redc) and one EdDSA chunk (32 edw + 3 redc); then
    every ladder, redc and edw input of one batch replayed through the
    plain versions (key rows above 255 read) and the ladder and edw
-   timed at those shapes.
+   timed at those shapes;
+13. the oidc path (BASELINE.json's fifth configuration): the port's
+   ``oidc.testing.TestProvider`` on loopback TLS (its CA a pure-Python
+   P-256 certificate), mid-rotation with 4 P-256 keys and 1 RSA-2048
+   key in its JWKS; a ``Provider`` built through discovery over
+   ``GPUBatchKeySet`` of the JWKS at the discovered jwks_uri (keys
+   held equal to the IdP's); one code flow with PKCE (auth_url,
+   /authorize, exchange over post_form, verify_id_token, at_hash,
+   c_hash, userinfo) and one implicit flow through
+   ``callback.implicit``; then ``verify_id_token_batch`` on 100,000 ID
+   tokens tiled from 1,024 signed by the 4 ES256 keys (the 1/8
+   tampered share) with three tokens of each native status class,
+   fallback class and signature class, in dict and raw modes, every
+   verdict checked, the raw bytes the dict mode's payloads, both modes
+   launching what verify_batch launches (1 ladder + 11 redc an ES
+   chunk), the native-validated and fallback counts; a second request
+   with max_age over an 8,192-token slice (every accepted token to the
+   Python rules); the all-accepted slice (native rules take every
+   token); dict, raw and verify_batch_raw timed in turns and the
+   native rules call alone, one batch split by phase and one profiled
+   on the device; every unique token against the single-
+   token ``verify_id_token`` over the CPU JSONWebKeySet in spawned
+   processes.
 
 Each phase's seconds and the whole run's are logged ("phase …" and
 "chip_smoke: … s in all"). The line before the last is the per-kernel
@@ -143,12 +165,14 @@ N_UNIQUE = 1024
 N_PQ_TOKENS = 16384
 N_PQ_UNIQUE = 256
 # pq-slhdsa: the host decode of an SLH-DSA token (per-token Python, as
-# in the JAX package) costs milliseconds, so the cell runs 2,048 tokens,
-# half under each set; a 128s signature takes seconds of pure Python,
-# so 8 unique 128s tokens (one a key) beside 64 unique 128f tokens.
-N_SLH_TOKENS = 2048
-N_SLH_UNIQUE_F = 64
-N_SLH_UNIQUE_S = 8
+# in the JAX package) costs milliseconds, so the cell runs 512 tokens,
+# half under each set (one chunk a set); a 128s signature takes seconds
+# of pure Python, so 2 unique 128s tokens beside 16 unique 128f tokens
+# (the rejection classes need 2 and 9). Cut from 2,048 tokens and 64 + 8
+# unique ones to make room for the oidc path.
+N_SLH_TOKENS = 512
+N_SLH_UNIQUE_F = 16
+N_SLH_UNIQUE_S = 2
 SLH_F = "SLH-DSA-SHAKE-128f"
 SLH_S = "SLH-DSA-SHAKE-128s"
 # keccak launches of one SLH-DSA chunk (gpu/slhdsa.py chunk_launches):
@@ -2039,8 +2063,9 @@ def ps512_path(records):
 def build_slhdsa(rng):
     """(jwks, uniq, tampered, tokens, expected) for the pq-slhdsa batch:
     8 SLH-DSA-SHAKE-128f (slh128f-i) and 8 SLH-DSA-SHAKE-128s
-    (slh128s-i) AKP keys, 2,048 tokens alternating between the sets,
-    each set's tiled from its unique tokens (64 128f, 8 128s) with the
+    (slh128s-i) AKP keys, N_SLH_TOKENS tokens alternating between the
+    sets, each set's tiled from its unique tokens (N_SLH_UNIQUE_F 128f,
+    N_SLH_UNIQUE_S 128s) with the
     1/8 tampered share, and three tokens of each rejection class under
     each set (an R bit, a FORS byte, one byte short and one long, a
     hypertree byte, another payload under the signature), a kid-less
@@ -2471,6 +2496,570 @@ def bigjwks_path(records):
                     dict(ladder=1, redc=14, edw=32))
 
 
+# ---------------------------------------------------------------------------
+# the oidc path (BASELINE.json's fifth configuration)
+# ---------------------------------------------------------------------------
+
+N_OIDC_TOKENS = 100_000
+N_OIDC_UNIQUE = 1024
+N_OIDC_MAX_AGE = 8192         # the second request's slice (max_age)
+N_OIDC_GOOD_SLICE = 8192      # the all-accepted slice (counters)
+OIDC_NOW = 1_700_000_060      # the IdP's and the relying party's clock
+OIDC_REDIRECT = "https://rp.example/callback"
+OIDC_NONCE = "n-oidc-batch"
+OIDC_AUD2 = "svc-2"           # a second audience the request accepts
+
+
+def oidc_idp(rng):
+    """The port's TestProvider mid-rotation: it signs with es-0 and its
+    JWKS publishes 4 P-256 keys (es-0..3) and 1 RSA-2048 key (rs-0).
+    Returns (idp, signers [(private key, alg, kid)])."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt.jwk import serialize_public_key
+    from cap_tpu_torch.oidc.testing import TestProvider
+
+    signers = [(tt.generate_ec_key(rng), "ES256", f"es-{i}")
+               for i in range(4)]
+    signers.append((tt.generate_rsa_key(rng, 2048), "RS256", "rs-0"))
+
+    class RotatingIdP(TestProvider):
+        def jwks_document(self):
+            return {"keys": [serialize_public_key(priv.public_key(),
+                                                  kid=kid, alg=alg)
+                             for priv, alg, kid in signers]}
+
+    idp = RotatingIdP(rng=rng)
+    priv, alg, kid = signers[0]
+    idp.set_signing_keys(priv, priv.public_key(), alg, kid)
+    idp.set_now_func(lambda: OIDC_NOW)
+    return idp, signers
+
+
+def oidc_authorize(idp, url):
+    """GET the IdP's authorize URL as a browser would, without following
+    its redirect: (status, headers, body)."""
+    import http.client
+    import ssl
+    from urllib.parse import urlparse
+
+    u = urlparse(url)
+    conn = http.client.HTTPSConnection(
+        u.hostname, u.port,
+        context=ssl.create_default_context(cadata=idp.ca_cert()))
+    try:
+        conn.request("GET", u.path + "?" + u.query)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def sign_payload(priv, kid: str, payload: bytes, rng) -> str:
+    """An ES256 token over payload bytes given verbatim."""
+    import hashlib
+
+    from cap_tpu_torch.gpu.ec import curve, host_ecdsa_sign
+
+    si = b64(json.dumps({"alg": "ES256", "kid": kid}).encode()) + "." + \
+        b64(payload)
+    e = int.from_bytes(hashlib.sha256(si.encode()).digest(), "big")
+    r, s = host_ecdsa_sign("P-256", priv.d, e,
+                           rng.randrange(1, curve("P-256").n))
+    return si + "." + b64(r.to_bytes(32, "big") + s.to_bytes(32, "big"))
+
+
+def oidc_flows(idp, p, ks, signers, rng):
+    """One code flow with PKCE (auth_url, /authorize, exchange over
+    post_form, verify_id_token, at_hash, c_hash, userinfo) and one
+    implicit flow through ``callback.implicit``, on the Provider over
+    the card's keyset; each ID token also through
+    ``verify_id_token_batch`` on the card."""
+    import hashlib
+    import io
+    import re
+    from urllib.parse import parse_qs, urlencode, urlparse
+
+    from cap_tpu_torch import errors
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.oidc import IDToken, Request, S256Verifier, callback
+
+    now = lambda: float(OIDC_NOW)  # noqa: E731
+    v = S256Verifier()
+    req = Request(600, OIDC_REDIRECT, pkce_verifier=v, now_func=now)
+    idp.set_expected_auth_nonce(req.nonce())
+    idp.set_expected_code_verifier(v.verifier())
+    try:
+        status, headers, _ = oidc_authorize(idp, p.auth_url(req))
+        assert status == 302, status
+        q = parse_qs(urlparse(headers["Location"]).query)
+        code, state = q["code"][0], q["state"][0]
+        assert state == req.state()
+        token = p.exchange(req, state, code)
+    finally:
+        idp.expected_code_verifier = None
+    claims = p.verify_id_token(token.id_token(), req)
+    assert claims["nonce"] == req.nonce() and token.valid()
+    assert token.id_token().verify_access_token(token.access_token())
+    batch = p.verify_id_token_batch([token.id_token()], req)
+    assert batch == [claims], batch
+    # c_hash: the IdP issues none in the code flow, so one of its keys
+    # signs the same claims with the code's left-half hash
+    half = hashlib.sha256(code.encode()).digest()[:16]
+    priv, alg, kid = signers[1]
+    c_tok = IDToken(tt.sign_jwt(priv, alg, dict(claims, c_hash=b64(half)),
+                                kid=kid, rng=rng))
+    assert c_tok.verify_authorization_code(code) is True
+    try:
+        c_tok.verify_authorization_code("stolen-code")
+        raise AssertionError("c_hash accepted another code")
+    except errors.InvalidCodeHashError:
+        pass
+    assert p.verify_id_token(c_tok, req)["c_hash"] == b64(half)
+    info = p.userinfo(token.static_token_source(), idp.replay_subject)
+    assert info["sub"] == idp.replay_subject == claims["sub"]
+
+    ireq = Request(600, OIDC_REDIRECT, implicit_flow=True,
+                   implicit_access_token=True, now_func=now)
+    status, _, body = oidc_authorize(idp, p.auth_url(ireq))
+    assert status == 200, status
+    fields = dict(re.findall(r'name="([^"]+)" value="([^"]+)"',
+                             body.decode()))
+    got = {}
+
+    def success(state, token, environ):
+        got["token"] = token
+        return 200, [("Content-Type", "text/plain")], "ok"
+
+    def error(state, resp, err, environ):
+        return 401, [("Content-Type", "text/plain")], f"{resp} {err!r}"
+
+    app = callback.implicit(p, callback.SingleRequestReader(ireq), success,
+                            error)
+    form = urlencode(fields).encode()
+    seen = {}
+    out = b"".join(app({"REQUEST_METHOD": "POST", "QUERY_STRING": "",
+                        "CONTENT_LENGTH": str(len(form)),
+                        "wsgi.input": io.BytesIO(form)},
+                       lambda st, hd: seen.setdefault("status", st)))
+    assert seen["status"] == "200 OK" and out == b"ok", (seen, out)
+    itok = got["token"]
+    assert itok.id_token().verify_access_token(itok.access_token())
+    assert isinstance(p.verify_id_token_batch([itok.id_token()], ireq)[0],
+                      dict)
+    log(f"oidc flows: code flow with PKCE (authorize, exchange over "
+        f"post_form, verify_id_token, at_hash, c_hash, userinfo) and an "
+        f"implicit flow through callback.implicit, each ID token also "
+        f"through verify_id_token_batch on the card")
+
+
+def build_oidc(rng, idp, signers, client):
+    """(tokens, expected, expected_raw, n_fallback) for the oidc batch: N_OIDC_TOKENS ID tokens tiled from N_OIDC_UNIQUE
+    signed round-robin by the four ES256 keys (the 1/8 tampered share),
+    and three tokens of each native status class, each fallback class
+    and each signature rejection class. expected[i] is the sub of an
+    accepted token or (class, message); the raw mode's messages differ
+    from the dict mode's where the native rules keep a template
+    (``claims_native.status_error``)."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu.ec import curve
+
+    t0 = time.perf_counter()
+    iss = idp.issuer()
+    base = dict(iss=iss, aud=[client], iat=OIDC_NOW - 60,
+                nbf=OIDC_NOW - 60, exp=OIDC_NOW + 3600,
+                auth_time=OIDC_NOW - 60, nonce=OIDC_NONCE)
+    es = signers[:4]
+    uniq = []
+    for j in range(N_OIDC_UNIQUE):
+        priv, alg, kid = es[j % 4]
+        uniq.append(tt.sign_jwt(priv, alg, dict(base, sub=f"user-{j:05d}"),
+                                kid=kid, rng=rng))
+    tokens, expected, tampered = tile(rng, uniq, N_OIDC_TOKENS)
+    expected_raw = list(expected)
+
+    def sign(k, **over):
+        priv, alg, kid = signers[k]
+        claims = {key: v for key, v in dict(base, **over).items()
+                  if v is not None}
+        return tt.sign_jwt(priv, alg, claims, kid=kid, rng=rng)
+
+    now = float(OIDC_NOW)
+    aud_err = "InvalidAudienceError"
+    azp_err = "InvalidAuthorizedPartyError"
+    multi = ["svc-2", "svc-3"]
+    # (token, dict-mode verdict, raw-mode verdict)
+    status_classes = [
+        (sign(0, sub="x-exp", exp=None),
+         ("MissingClaimError", "id_token missing exp claim"), None),
+        (sign(1, sub="x-expired", exp=OIDC_NOW - 3600),
+         ("ExpiredTokenError", "token is expired"), None),
+        (sign(2, sub="x-nbf", nbf=OIDC_NOW + 3600),
+         ("InvalidNotBeforeError",
+          "current time before the nbf (not before) time"), None),
+        (sign(3, sub="x-iss", iss="https://evil.example/"),
+         ("InvalidIssuerError", "id token issued by a different provider"),
+         None),
+        (sign(4, sub="x-rs256"),
+         ("UnsupportedAlgError",
+          "id_token signed with unsupported algorithm 'RS256'"), None),
+        (sign(0, sub="x-nonce", nonce="another-nonce"),
+         ("InvalidNonceError", "invalid id_token nonce"), None),
+        (sign(1, sub="x-iat", iat=OIDC_NOW + 3600),
+         ("InvalidIssuedAtError", f"current time {now} before the iat "
+          f"(issued at) time {OIDC_NOW + 3600}"),
+         ("InvalidIssuedAtError",
+          f"current time {now} before the iat (issued at) time")),
+        (sign(2, sub="x-aud-int", aud=[client, 42]),
+         (aud_err, "aud claim contains a non-string value"), None),
+        (sign(3, sub="x-aud", aud=["someone-else"]),
+         (aud_err, "invalid id_token audiences"), None),
+        (sign(0, sub="x-multi", aud=multi),
+         (aud_err, f"multiple audiences ({multi}) and one of them is not "
+          f"equal client_id ({client})"),
+         (aud_err, f"multiple audiences and one of them is not equal "
+          f"client_id ({client})")),
+        (sign(1, sub="x-azp", azp="intruder"),
+         (azp_err, f"authorized party (intruder) is not equal client_id "
+          f"({client})"),
+         (azp_err, f"authorized party is not equal client_id ({client})")),
+    ]
+    escaped = json.dumps(dict(base, sub="fb-escaped"),
+                         separators=(",", ":")).replace('"iss"',
+                                                        '"i\\u0073s"')
+    fallback_classes = [
+        (sign_payload(signers[2][0], "es-2", escaped.encode(), rng),
+         "fb-escaped", None),
+        (sign(3, sub="fb-bool-exp", exp=True),
+         ("ExpiredTokenError", "token is expired"), None),
+        (sign(0, sub="fb-aud-object", aud={"weird": 1}),
+         (aud_err, "invalid id_token audiences"), None),
+    ]
+    es_tok = uniq[0]
+    es_sig = unb64(es_tok.split(".")[2])
+    n = curve("P-256").n
+    outsider = tt.generate_ec_key(rng)
+
+    def wrapped(msg):
+        return ("InvalidSignatureError",
+                f"failed to verify id token signature: {msg}")
+
+    sig_classes = [
+        (tt.sign_jwt(outsider, "ES256", dict(base, sub="x-outsider"),
+                     kid="nobody", rng=rng), REJECT, None),
+        (b64(b'{"alg":"none"}') + "." + b64(b'{"sub":"x"}') + ".",
+         wrapped("token must be signed"), None),
+        (with_sig(es_tok, b"\0" * 32 + es_sig[32:]), REJECT, None),
+        (with_sig(es_tok, es_sig[:32] + n.to_bytes(32, "big")), REJECT,
+         None),
+        (with_sig(es_tok, es_sig[:-1]), REJECT, None),
+        ("a.b", wrapped("compact JWS must have 3 segments"), None),
+        ("!!!." + es_tok.split(".", 1)[1],
+         wrapped("invalid base64url segment"), None),
+    ]
+    specials = status_classes + fallback_classes + sig_classes
+    stride = N_OIDC_TOKENS // (3 * len(specials) + 1)
+    for k, (tok, exp, exp_raw) in enumerate(specials):
+        for rep in range(3):
+            pos = (k * 3 + rep) * stride + 11
+            tokens[pos] = tok
+            expected[pos] = exp
+            expected_raw[pos] = exp if exp_raw is None else exp_raw
+    log(f"oidc fixtures: {N_OIDC_UNIQUE} ES256 ID tokens signed by 4 "
+        f"P-256 keys, {len(status_classes)} native status classes, "
+        f"{len(fallback_classes)} fallback classes and {len(sig_classes)} "
+        f"signature classes three times each, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return tokens, expected, expected_raw, 3 * len(fallback_classes)
+
+
+def check_oidc(results, expected, tokens, raw: bool):
+    """Every verdict as expected; in raw mode an accepted token's
+    result is exactly its payload bytes."""
+    bad = []
+    for i, (got, exp) in enumerate(zip(results, expected)):
+        if isinstance(exp, tuple):
+            ok = (type(got).__name__ == exp[0] and str(got) == exp[1])
+        elif raw:
+            ok = (isinstance(got, bytes)
+                  and got == unb64(tokens[i].split(".")[1])
+                  and json.loads(got).get("sub") == exp)
+        else:
+            ok = isinstance(got, dict) and got.get("sub") == exp
+        if not ok:
+            bad.append((i, exp, got))
+    assert not bad, f"{len(bad)} wrong verdicts, first: {bad[:3]}"
+
+
+_OIDC_CHECK = None
+
+
+def _oidc_check_init(repo, issuer, ca, client, secret, state, audiences):
+    """Worker set-up for the unique-token cross-check: a Provider over
+    the port's CPU JSONWebKeySet, built by discovery over the IdP's TLS,
+    and the batch's Request."""
+    global _OIDC_CHECK
+    sys.path.insert(0, repo)
+    from cap_tpu_torch.oidc import Config, Provider, Request
+
+    now = lambda: float(OIDC_NOW)  # noqa: E731
+    p = Provider(Config(issuer=issuer, client_id=client,
+                        client_secret=secret,
+                        supported_signing_algs=["ES256"],
+                        allowed_redirect_urls=[OIDC_REDIRECT],
+                        provider_ca=ca, now_func=now))
+    req = Request(3600, OIDC_REDIRECT, state=state, nonce=OIDC_NONCE,
+                  audiences=audiences, now_func=now)
+    _OIDC_CHECK = (p, req)
+
+
+def _oidc_check_tokens(tokens):
+    p, req = _OIDC_CHECK
+    out = []
+    for tok in tokens:
+        try:
+            out.append(_verdict(p.verify_id_token(tok, req)))
+        except Exception as e:  # noqa: BLE001 - compared by the caller
+            out.append(_verdict(e))
+    return out
+
+
+def oidc_path(records):
+    """BASELINE.json's fifth configuration on the card: the port's
+    TestProvider on loopback TLS, mid-rotation (4 P-256 keys and 1
+    RSA-2048 key in its JWKS); a Provider built through discovery over
+    ``GPUBatchKeySet`` of the JWKS fetched from the discovered
+    jwks_uri; one code flow with PKCE and one implicit flow; then
+    ``verify_id_token_batch`` on N_OIDC_TOKENS ID tokens in dict and raw
+    modes with every native status, fallback and signature class, a
+    second request with max_age over a slice, and the all-accepted
+    slice's counters. Both modes launch what ``verify_batch`` launches
+    (1 ladder + 11 redc an ES chunk); dict, raw and verify_batch_raw
+    are timed in turns, the native rules call alone, and one
+    verify_batch is split by phase and profiled on the device; each
+    unique token's verdict equals the single-token ``verify_id_token``
+    over the CPU JSONWebKeySet (in spawned processes)."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from cap_tpu_torch import errors
+    from cap_tpu_torch.jwt import GPUBatchKeySet
+    from cap_tpu_torch.jwt.jwk import RSAPublicKey, parse_jwks
+    from cap_tpu_torch.oidc import Config, Provider, Request, claims_native
+    from cap_tpu_torch.runtime.native_binding import (
+        ALG_NAMES,
+        prepare_batch_arrays,
+    )
+    from cap_tpu_torch.utils import http
+
+    t_phase = time.perf_counter()
+    rng = random.Random(SEED + 13)
+    idp, signers = oidc_idp(rng)
+    now = lambda: float(OIDC_NOW)  # noqa: E731
+    with idp:
+        client = idp.client_id
+        cfg = Config(issuer=idp.issuer(), client_id=client,
+                     client_secret=idp.client_secret,
+                     supported_signing_algs=["ES256"],
+                     allowed_redirect_urls=[OIDC_REDIRECT],
+                     provider_ca=idp.ca_cert(), now_func=now)
+        t0 = time.perf_counter()
+        discovered = Provider(cfg)
+        doc = http.get_json(discovered.jwks_uri,
+                            http.ssl_context_for_ca(idp.ca_cert()))
+        jwks = parse_jwks(doc)
+        assert [j.kid for j in jwks] == [s[2] for s in signers]
+        for j, (priv, _, _) in zip(jwks, signers):
+            want = priv.public_key()
+            if isinstance(want, RSAPublicKey):
+                assert (j.key.n, j.key.e) == (want.n, want.e)
+            else:
+                a, b = j.key.public_numbers(), want.public_numbers()
+                assert (j.key.curve_name, a.x, a.y) == \
+                    (want.curve_name, b.x, b.y)
+        ks = GPUBatchKeySet(jwks)
+        p = Provider(cfg, keyset=ks)
+        log(f"oidc: Provider through discovery at {idp.issuer()} (TLS, "
+            f"the port's pure-Python CA), GPUBatchKeySet of the "
+            f"{len(jwks)} keys at the discovered jwks_uri (4 P-256, 1 "
+            f"RSA-2048), equal to the IdP's ({time.perf_counter() - t0:.2f}"
+            f" s)")
+        oidc_flows(idp, p, ks, signers, rng)
+
+        tokens, expected, expected_raw, n_fb = build_oidc(rng, idp, signers,
+                                                          client)
+        req = Request(3600, OIDC_REDIRECT, state="st-oidc-batch",
+                      nonce=OIDC_NONCE, audiences=[client, OIDC_AUD2],
+                      now_func=now)
+
+        pb = prepare_batch_arrays(tokens)
+        n_es = int((pb.kid_rows(family_idx(pb, "ES256"),
+                                {f"es-{i}": 0 for i in range(4)})
+                    >= 0).sum())
+        chunks = (n_es + 32767) // 32768
+        ctr = counters()
+        want = {k: ES_LAUNCHES.get(k, 0) * chunks for k in ctr}
+
+        def launched(fn):
+            for mod, attr in ctr.values():
+                setattr(mod, attr, 0)
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, {k: getattr(mod, attr)
+                         for k, (mod, attr) in ctr.items()}, \
+                time.perf_counter() - t0
+
+        verified, l_ver, _ = launched(lambda: ks.verify_batch(tokens))
+        res_d, l_dict, s_dict = launched(
+            lambda: p.verify_id_token_batch(tokens, req))
+        claims_native.reset_counts()
+        res_r, l_raw, s_raw = launched(
+            lambda: p.verify_id_token_batch(tokens, req, raw=True))
+        n_val, n_fb_got = (claims_native.native_validated,
+                           claims_native.native_fallbacks)
+        _, l_vraw, _ = launched(lambda: ks.verify_batch_raw(tokens))
+        assert l_dict == l_raw == l_ver == l_vraw == want, \
+            (l_dict, l_raw, l_ver, l_vraw, want)
+        check_oidc(res_d, expected, tokens, raw=False)
+        check_oidc(res_r, expected_raw, tokens, raw=True)
+        for i, (d, r) in enumerate(zip(res_d, res_r)):
+            if isinstance(d, dict):
+                assert json.loads(r) == d, i
+            else:
+                assert type(d) is type(r), (i, d, r)
+        n_acc = sum(not isinstance(v, Exception) for v in verified)
+        assert n_val + n_fb_got == n_acc and n_fb_got == n_fb, \
+            (n_val, n_fb_got, n_acc, n_fb)
+        for k, count in l_dict.items():
+            rec = records[k]
+            rec["launches"] = rec.get("launches", 0) + count
+            rec.setdefault("launches_by_path", {})["oidc"] = count
+        log(f"oidc path: {len(tokens)} ID tokens ({n_es} ES256 on the "
+            f"kernels' path, {chunks} chunk(s)) through "
+            f"verify_id_token_batch, dict and raw modes, every verdict as "
+            f"expected, raw bytes the payloads of the dict mode's claims; "
+            f"launches {l_dict} in each mode, equal to verify_batch's and "
+            f"verify_batch_raw's; native rules decided {n_val} tokens, the "
+            f"Python rules {n_fb_got} (the fallback classes); first runs "
+            f"{s_dict:.2f} s (dict), {s_raw:.2f} s (raw)")
+
+        # the second request, with max_age: auth_time is the Python
+        # rules', so every accepted token falls back
+        ma_req = Request(3600, OIDC_REDIRECT, state="st-oidc-ma",
+                         nonce=OIDC_NONCE, audiences=[client, OIDC_AUD2],
+                         max_age=600, now_func=now)
+        sl = tokens[:N_OIDC_MAX_AGE]
+        claims_native.reset_counts()
+        ma = p.verify_id_token_batch(sl, ma_req, raw=True)
+        check_oidc(ma, expected_raw[:N_OIDC_MAX_AGE], sl, raw=True)
+        ma_acc = sum(isinstance(v, bytes) for v in ma)
+        assert claims_native.native_fallbacks >= ma_acc > 0, \
+            (claims_native.native_fallbacks, ma_acc)
+        check_oidc(p.verify_id_token_batch(sl, ma_req),
+                   expected[:N_OIDC_MAX_AGE], sl, raw=False)
+        log(f"oidc path, max_age request: {len(sl)} tokens, every verdict "
+            f"as expected in both modes; {ma_acc} accepted, all through "
+            f"the Python rules ({claims_native.native_fallbacks} "
+            f"fallbacks, {claims_native.native_validated} native rejects)")
+
+        # the all-accepted slice: the native rules take every token
+        good = [t for t, e in zip(tokens, expected)
+                if not isinstance(e, tuple)][:N_OIDC_GOOD_SLICE]
+        claims_native.reset_counts()
+        out = p.verify_id_token_batch(good, req, raw=True)
+        assert all(isinstance(v, bytes) for v in out)
+        assert (claims_native.native_validated,
+                claims_native.native_fallbacks) == (len(good), 0), \
+            (claims_native.native_validated, claims_native.native_fallbacks)
+        log(f"oidc path, all-accepted slice: {len(good)} tokens, native "
+            f"rules {claims_native.native_validated}, fallbacks "
+            f"{claims_native.native_fallbacks}")
+
+        # warm: dict, raw and verify_batch_raw alone, in turns
+        t_d, t_r, t_v = [], [], []
+        for _ in range(3):
+            for fn, acc in ((lambda: p.verify_id_token_batch(tokens, req),
+                             t_d),
+                            (lambda: p.verify_id_token_batch(tokens, req,
+                                                             raw=True), t_r),
+                            (lambda: ks.verify_batch_raw(tokens), t_v)):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                acc.append(time.perf_counter() - t0)
+        # the native rules call alone, on the accepted tokens' payloads
+        raws = ks.verify_batch_raw(tokens)
+        acc_idx = [i for i, v in enumerate(raws) if isinstance(v, bytes)]
+        payloads = [raws[i] for i in acc_idx]
+        es_id = ALG_NAMES.index("ES256")
+        alg_ok = (pb.alg_id[acc_idx] == es_id).astype(np.uint8)
+        blob = p._policy_blob(req)
+        t_rules = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            claims_native.validate_payloads(payloads, alg_ok, now(), blob)
+            t_rules.append(time.perf_counter() - t0)
+        card = card_line()
+        n = len(tokens)
+        vps = [n / min(t) for t in (t_d, t_r, t_v)]
+        log(f"oidc path warm ({card}): dict {', '.join(f'{t:.3f}' for t in t_d)}"
+            f" s, best {vps[0]:.0f} verifies/s; raw "
+            f"{', '.join(f'{t:.3f}' for t in t_r)} s, best {vps[1]:.0f} "
+            f"verifies/s; verify_batch_raw alone "
+            f"{', '.join(f'{t:.3f}' for t in t_v)} s, best {vps[2]:.0f} "
+            f"verifies/s; raw / verify_batch_raw {vps[1] / vps[2]:.3f}, "
+            f"dict / verify_batch_raw {vps[0] / vps[2]:.3f}; native rules "
+            f"alone {min(t_rules) / len(payloads) * 1e6:.3f} µs/token over "
+            f"{len(payloads)} payloads (best of "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in t_rules)} ms)")
+        batch_breakdown(ks, tokens)
+        profile_batch(ks, tokens, min(t_v))
+
+        # every unique token against the single-token verify_id_token
+        first = {}
+        for i, tok in enumerate(tokens):
+            first.setdefault(tok, i)
+        uniq_toks = list(first)
+        n_proc = len(os.sched_getaffinity(0))
+        t0 = time.perf_counter()
+        with multiprocessing.get_context("spawn").Pool(
+                n_proc, _oidc_check_init,
+                (os.path.dirname(os.path.abspath(__file__)), idp.issuer(),
+                 idp.ca_cert(), client, idp.client_secret, req.state(),
+                 req.audiences())) as pool:
+            parts = pool.map_async(
+                _oidc_check_tokens,
+                [uniq_toks[k::4 * n_proc] for k in range(4 * n_proc)]
+            ).get(600)
+        singles = {}
+        for k, part in enumerate(parts):
+            for tok, v in zip(uniq_toks[k::4 * n_proc], part):
+                singles[tok] = v
+        bad = []
+        for tok in uniq_toks:
+            batch = _verdict(res_d[first[tok]])
+            single = singles[tok]
+            if isinstance(batch, dict) or isinstance(single, dict):
+                ok = batch == single
+            elif batch[0] == "InvalidSignatureError":
+                # the prep's and parse_jws's parse messages differ; a
+                # kid no key has is UnknownKeyIDError, a subclass
+                ok = issubclass(getattr(errors, single[0]),
+                                errors.InvalidSignatureError)
+            else:
+                ok = batch == single
+            if not ok:
+                bad.append((first[tok], batch, single))
+        assert not bad, f"{len(bad)} unique tokens differ, first {bad[:3]}"
+        log(f"oidc path: {len(uniq_toks)} unique tokens, each verdict equal "
+            f"to Provider(JSONWebKeySet).verify_id_token's in "
+            f"{time.perf_counter() - t0:.1f} s on {n_proc} processes")
+    log(f"oidc path: phase {time.perf_counter() - t_phase:.1f} s "
+        f"({card_line()})")
+
+
 def dev_us(e) -> float:
     """Device µs of one profiler key average."""
     return getattr(e, "self_device_time_total",
@@ -2701,6 +3290,7 @@ def main() -> int:
     timed("config-2", config2_path, records)
     timed("rsa-limb", rsalimb_path, records)
     timed("big-jwks", bigjwks_path, records)
+    timed("oidc", oidc_path, records)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all "
         f"({time.perf_counter() - t_run:.1f} s after the build)")
 

@@ -7,8 +7,11 @@ ES256, ES256 + ES384 and ES512 with either ladder, PS256 + EdDSA,
 ML-DSA-44 + ML-DSA-65, ML-DSA-87, PS384 + PS512 + SLH-DSA, and classes
 of 256 and 300 RSA, P-256 and Ed25519 keys on the arrays paths),
 ``Validator.validate_batch`` over the card keyset against the CPU, with
-an x5c JWKS loaded through discovery, and the limb engine's modexps
-against the CPU (a 9,216-bit modulus against the host oracle).
+an x5c JWKS loaded through discovery, the limb engine's modexps
+against the CPU (a 9,216-bit modulus against the host oracle), and
+``verify_batch_raw`` and the OIDC ``Provider.verify_id_token_batch``
+(dict and raw modes, through discovery at the in-process TLS IdP)
+over the card keyset against the CPU.
 
 Marked ``cuda``: without a card each test skips. On the card's machine
 (no jax there, so without the suite's conftest):
@@ -927,3 +930,99 @@ def test_a_modulus_wider_than_the_rns_pool_on_the_card(dev):
     assert [repr(x) if isinstance(x, Exception) else x for x in got] == \
         [repr(x) if isinstance(x, Exception) else x for x in want]
     assert [isinstance(x, dict) for x in got] == [True, True, True, False]
+
+
+def _oidc_batch(n_good, rng):
+    """An OIDC rig on the port's TLS IdP: (idp, provider config
+    arguments, request nonce, tokens) with n_good ES256 ID tokens and
+    one of each native status, fallback and signature class."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.oidc.testing import TestProvider
+
+    idp = TestProvider(rng=rng).start()
+    priv, _, alg, kid = idp.signing_keys()
+    now = 1_700_000_060
+    base = dict(iss=idp.issuer(), aud=[idp.client_id], iat=now - 60,
+                nbf=now - 60, exp=now + 3600, nonce="n-card")
+
+    def sign(**over):
+        claims = {k: v for k, v in dict(base, **over).items()
+                  if v is not None}
+        return tt.sign_jwt(priv, alg, claims, kid=kid, rng=rng)
+
+    tokens = [sign(sub=f"u{j}") for j in range(n_good)]
+    tokens += [sign(exp=None), sign(exp=now - 1), sign(nbf=now + 600),
+               sign(iss="https://evil/"), sign(nonce="other"),
+               sign(iat=now + 600), sign(aud=[idp.client_id, 4]),
+               sign(aud=["x", "y"]), sign(azp="intruder"),
+               sign(exp=True), sign(aud={"o": 1}),
+               tokens[0][:-4] + ("AAAA" if tokens[0][-4:] != "AAAA"
+                                 else "BBBB"), "a.b"]
+    return idp, now, tokens
+
+
+def test_verify_batch_raw_on_the_card_matches_the_plain_path(dev):
+    """verify_batch_raw on the card: the plain path's bytes and errors,
+    and the launches of verify_batch (one ES chunk: 1 ladder + 11
+    redc)."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+
+    jwks, tokens, _ = tt.headline_fixtures(256, seed=13)
+    batch = tokens + [tokens[1][:-4] + "AAAA", "a.b"]
+    card_ks = GPUBatchKeySet(jwks)
+    launched = []
+    for fn in (card_ks.verify_batch, card_ks.verify_batch_raw):
+        cuda_ladder.launches = cuda_redc.launches = 0
+        fn(batch)
+        launched.append((cuda_ladder.launches, cuda_redc.launches))
+    assert launched == [(1, 11), (1, 11)]
+    on_card = card_ks.verify_batch_raw(batch)
+    on_cpu = GPUBatchKeySet(jwks, device="cpu").verify_batch_raw(batch)
+    assert [repr(x) if isinstance(x, Exception) else x for x in on_card] \
+        == [repr(x) if isinstance(x, Exception) else x for x in on_cpu]
+    assert sum(isinstance(x, bytes) for x in on_card) == len(tokens)
+
+
+@pytest.mark.parametrize("raw", [False, True], ids=["dict", "raw"])
+def test_oidc_batch_on_the_card_matches_the_plain_path(dev, raw):
+    """Provider.verify_id_token_batch over the card keyset, built
+    through discovery at the port's TLS IdP: every verdict equal to the
+    same call over the plain path, and the launches of verify_batch."""
+    import random
+
+    from cap_tpu_torch.jwt import GPUBatchKeySet
+    from cap_tpu_torch.jwt.jwk import parse_jwks
+    from cap_tpu_torch.oidc import Config, Provider, Request, claims_native
+    from cap_tpu_torch.utils import http
+
+    idp, now, tokens = _oidc_batch(300, random.Random(17))
+    try:
+        cfg = Config(issuer=idp.issuer(), client_id=idp.client_id,
+                     supported_signing_algs=["ES256"],
+                     provider_ca=idp.ca_cert(), now_func=lambda: now)
+        doc = http.get_json(Provider(cfg).jwks_uri,
+                            http.ssl_context_for_ca(idp.ca_cert()))
+        jwks = parse_jwks(doc)
+        req = Request(3600, "https://rp/cb", nonce="n-card",
+                      now_func=lambda: now)
+        card = Provider(cfg, keyset=GPUBatchKeySet(jwks))
+        cpu = Provider(cfg, keyset=GPUBatchKeySet(jwks, device="cpu"))
+        cuda_ladder.launches = cuda_redc.launches = 0
+        claims_native.reset_counts()
+        on_card = card.verify_id_token_batch(tokens, req, raw=raw)
+        assert (cuda_ladder.launches, cuda_redc.launches) == (1, 11)
+        counts = (claims_native.native_validated,
+                  claims_native.native_fallbacks)
+        on_cpu = cpu.verify_id_token_batch(tokens, req, raw=raw)
+    finally:
+        idp.stop()
+    assert [repr(x) if isinstance(x, Exception) else x for x in on_card] \
+        == [repr(x) if isinstance(x, Exception) else x for x in on_cpu]
+    kind = bytes if raw else dict
+    # the 300 and the container aud (no audiences asked for)
+    assert sum(isinstance(x, kind) for x in on_card) == 301
+    if raw:
+        # bool exp and container aud to the Python rules; the other
+        # nine classes rejected natively
+        assert counts == (300 + 9, 2)
