@@ -420,7 +420,10 @@ def verify_es_packed_pending(table: ECKeyTable, rec: np.ndarray,
     Degenerate-flagged tokens (deg True) must be re-verified on the
     pure-integer oracle by the caller after the sync.
     """
-    dev = torch.from_numpy(np.ascontiguousarray(rec)).to(table.device)
+    # the keyset hands over the card's chunks already on the device
+    dev = (rec if torch.is_tensor(rec)
+           else torch.from_numpy(np.ascontiguousarray(rec))).to(
+        table.device)
     return _es_packed_rns_impl(dev, table, hash_len)
 
 

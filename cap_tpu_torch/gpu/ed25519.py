@@ -334,7 +334,10 @@ def verify_ed_packed_pending(table: Ed25519KeyTable,
     """Queue one packed EdDSA chunk on the table's device; returns the
     device [N] bool. N must be a power of two ≥ 128 (the batch
     inverse's tree); padding rows compute on key row 0."""
-    dev = torch.from_numpy(np.ascontiguousarray(rec)).to(table.device)
+    # the keyset hands over the card's chunks already on the device
+    dev = (rec if torch.is_tensor(rec)
+           else torch.from_numpy(np.ascontiguousarray(rec))).to(
+        table.device)
     return _ed_verify(dev, dev[:, 97].to(torch.int64), table)
 
 

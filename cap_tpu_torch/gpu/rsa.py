@@ -231,7 +231,10 @@ def verify_rs_packed_pending(table: RSAKeyTable, rec: np.ndarray,
                              hash_name: str) -> torch.Tensor:
     """Queue one packed RS* chunk on the table's device; returns the
     device [N] bool (materialized by the caller's one sync)."""
-    dev = torch.from_numpy(np.ascontiguousarray(rec)).to(table.device)
+    # the keyset hands over the card's chunks already on the device
+    dev = (rec if torch.is_tensor(rec)
+           else torch.from_numpy(np.ascontiguousarray(rec))).to(
+        table.device)
     s_limbs, dig, flags, idx = _rs_packed_unpack(dev, table.k,
                                                  HASH_LEN[hash_name])
     return _rs_verify(s_limbs, dig, flags, idx, table, hash_name)
@@ -372,7 +375,10 @@ def verify_ps_packed_pending(table: RSAKeyTable, rec: np.ndarray,
     """Queue one packed PS* chunk (records of ``rs_packed_records`` with
     kind "ps") on the table's device; returns the device [N] bool. The
     EM never leaves the device."""
-    dev = torch.from_numpy(np.ascontiguousarray(rec)).to(table.device)
+    # the keyset hands over the card's chunks already on the device
+    dev = (rec if torch.is_tensor(rec)
+           else torch.from_numpy(np.ascontiguousarray(rec))).to(
+        table.device)
     s_limbs, dig, flags, idx = _rs_packed_unpack(dev, table.k,
                                                  HASH_LEN[hash_name])
     return _ps_verify(s_limbs, dig, flags, idx, table, hash_name)

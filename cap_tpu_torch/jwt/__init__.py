@@ -6,7 +6,8 @@
   :func:`new_oidc_discovery_keyset` (CPU, on the pure-integer oracle)
 - :class:`Validator` / :class:`Expected` claims engine
 - :func:`parse_public_key_pem`
-- the batched keyset on the card: :class:`GPUBatchKeySet`
+- the batched keyset on the card: :class:`GPUBatchKeySet`, and
+  :class:`GPURemoteKeySet` over a remote JWKS
 """
 
 from .algs import (
@@ -16,7 +17,7 @@ from .algs import (
     SUPPORTED_ALGORITHMS,
     supported_signing_algorithm,
 )
-from .gpu_keyset import GPUBatchKeySet
+from .gpu_keyset import GPUBatchKeySet, GPURemoteKeySet
 from .jose import (
     ParsedJWS, json_to_compact, parse_compact, parse_json, parse_jws,
 )
@@ -36,4 +37,5 @@ __all__ = [
     "json_to_compact", "parse_public_key_pem",
     "KeySet", "StaticKeySet", "JSONWebKeySet", "new_oidc_discovery_keyset",
     "DEFAULT_LEEWAY_SECONDS", "Expected", "Validator", "GPUBatchKeySet",
+    "GPURemoteKeySet",
 ]

@@ -31,6 +31,7 @@ import json
 import os
 import random
 import ssl
+import sys
 import tempfile
 import threading
 import time as _time
@@ -44,6 +45,15 @@ from ..jwt.jose import b64url_encode
 from ..jwt.jwk import serialize_public_key
 
 DEFAULT_EXPECTED_EXPIRY = 300.0
+
+
+class _Server(ThreadingHTTPServer):
+    def handle_error(self, request, client_address):
+        # the TLS handshake runs on the request's thread: a client that
+        # drops it (one that does not trust the CA) is not a server fault
+        if not isinstance(sys.exc_info()[1], (ssl.SSLError,
+                                               ConnectionError)):
+            super().handle_error(request, client_address)
 
 _EC_CURVE = {_algs.ES256: "P-256", _algs.ES384: "P-384",
              _algs.ES512: "P-521"}
@@ -124,6 +134,9 @@ class TestProvider:
             # HTTP/1.1 so clients exercise keep-alive connection reuse
             # (the pooled HTTP client).
             protocol_version = "HTTP/1.1"
+            # a stalled client (no handshake, no request) frees its
+            # thread after this long
+            timeout = captest.SERVER_TIMEOUT_S
 
             def do_GET(self):  # noqa: N802
                 provider._handle(self)
@@ -134,8 +147,7 @@ class TestProvider:
             def log_message(self, *args):
                 pass
 
-        self._server = ThreadingHTTPServer(
-            ("127.0.0.1", self._requested_port), Handler)
+        self._server = _Server(("127.0.0.1", self._requested_port), Handler)
         scheme = "http" if self._no_tls else "https"
         if not self._no_tls:
             ca_pem, key, key_pem = captest.generate_ca("cap-tpu-test-idp",
@@ -151,8 +163,12 @@ class TestProvider:
                 ctx.load_cert_chain(chain)
             finally:
                 os.unlink(chain)  # never leave key material on disk
+            # the handshake runs on the request's thread under the
+            # handler's timeout, not in the accept loop, where a client
+            # that never speaks would stall every request
             self._server.socket = ctx.wrap_socket(
-                self._server.socket, server_side=True)
+                self._server.socket, server_side=True,
+                do_handshake_on_connect=False)
         port = self._server.server_address[1]
         self.addr = f"{scheme}://127.0.0.1:{port}"
         self._thread = threading.Thread(
@@ -162,8 +178,7 @@ class TestProvider:
 
     def stop(self) -> None:
         if self._server is not None:
-            self._server.shutdown()
-            self._server.server_close()
+            captest.stop_server(self._server, self._thread)
             self._server = None
 
     def __enter__(self) -> "TestProvider":

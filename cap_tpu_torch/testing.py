@@ -881,6 +881,23 @@ def x5c_jwk(priv, kid: Optional[str] = None, include_params: bool = False,
 # Loopback servers
 # ---------------------------------------------------------------------------
 
+SERVER_TIMEOUT_S = 10.0
+
+
+def stop_server(srv, thread=None, timeout: float = SERVER_TIMEOUT_S) -> None:
+    """Stop a ``serve_forever`` server within bounded waits: its
+    shutdown (which waits for the serving loop to notice), the close of
+    its listening socket, then the serving thread's exit."""
+    import threading
+
+    stopper = threading.Thread(target=srv.shutdown, daemon=True)
+    stopper.start()
+    stopper.join(timeout)
+    srv.server_close()
+    if thread is not None:
+        thread.join(timeout)
+
+
 @contextmanager
 def _serve(state: Dict[str, Any], routes):
     """A loopback HTTP server answering GET by ``routes(path, base)`` →
@@ -893,6 +910,8 @@ def _serve(state: Dict[str, Any], routes):
     base = []
 
     class Handler(BaseHTTPRequestHandler):
+        timeout = SERVER_TIMEOUT_S      # a stalled client frees its thread
+
         def do_GET(self):
             state["fetches"] += 1
             status, doc = routes(self.path, base[0])
@@ -908,13 +927,13 @@ def _serve(state: Dict[str, Any], routes):
 
     srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
     base.append(f"http://127.0.0.1:{srv.server_address[1]}")
-    threading.Thread(target=srv.serve_forever, kwargs={"poll_interval": 0.05},
-                     daemon=True).start()
+    thread = threading.Thread(target=srv.serve_forever,
+                              kwargs={"poll_interval": 0.05}, daemon=True)
+    thread.start()
     try:
         yield base[0], srv
     finally:
-        srv.shutdown()
-        srv.server_close()
+        stop_server(srv, thread)
 
 
 @contextmanager

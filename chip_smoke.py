@@ -43,8 +43,7 @@ Phases (any failure exits non-zero; none is caught):
    run and read after it, verifies/s timed after a warm-up, one warm
    batch split by phase ("batch breakdown": native prep, the rest of
    the dispatch, claims prefetch, syncs and finishes, trial path), one
-   timed from its dispatch's end to the device's drain and one whose
-   collect phase runs under cProfile ("collect profile"), the
+   whose collect phase runs under cProfile ("collect profile"), the
    native prep and the claims prefetch timed alone ("host prep",
    "claims prefetch") and each engine's records and device time. Each
    ES chunk runs the whole-ladder kernel once and redc 11 times, madd
@@ -141,7 +140,24 @@ Phases (any failure exits non-zero; none is caught):
    native rules call alone, one batch split by phase and one profiled
    on the device; every unique token against the single-
    token ``verify_id_token`` over the CPU JSONWebKeySet in spawned
-   processes.
+   processes;
+14. the serve path: ``VerifyWorker(GPUBatchKeySet)`` on loopback (raw
+   claims, the async pipeline; the verdict cache and dedup off) takes
+   the north-star's 65,536 tokens as requests of 1 to 4,096 tokens
+   over 4 pipelined ``VerifyClient`` connections: every verdict as
+   expected and equal to ``verify_batch_raw``, the ladder launches
+   equal to the ES chunks the keyset counted (11 redc each),
+   verifies/s over the socket, p50/p99 request latency and the
+   device's idle share under the profiler ("serve path line"); then
+   the deployed defaults: a KEYS push mid-stream (rs-0 and es-0
+   dropped, a new RSA-2048 and P-256 key added, a 2 s grace), tokens
+   under the dropped kids accepted in the grace and rejected once the
+   keyset's retire counter moves (the grace's accepts too: the
+   verdict cache kept none of them), STATS at the new epoch, a request
+   replayed from the verdict cache with the keyset's token counter
+   unchanged; and ``python -m cap_tpu_torch.fleet.worker_main
+   --keyset jwks:<file>`` on the card: its ready line, one request,
+   SIGTERM, exit 0.
 
 Each phase's seconds and the whole run's are logged ("phase …" and
 "chip_smoke: … s in all"). The line before the last is the per-kernel
@@ -272,20 +288,19 @@ def kernel_ms(fn, reps: int, key: str):
     launch of the kernel is that time returned, by "events", and no
     table may read it as a launch's device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for i in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages() if key in e.key and dev_us(e)]
-        n = sum(e.count for e in evs)
+        evs = [v for name, v in device_events(prof).items()
+               if key in name and v[1]]
+        n = sum(c for c, _ in evs)
         if n:
-            return sum(dev_us(e) for e in evs) / n / 1e3, "profiler"
+            return sum(us for _, us in evs) / n / 1e3, "profiler"
         log(f"kernel_ms: no device time recorded for {key} (profile "
             f"{i + 1} of {PROFILE_TRIES})")
     log(f"kernel_ms: {key} timed by CUDA events: a call's host time, not "
@@ -1158,7 +1173,7 @@ def prep_phase(name, ks, tokens, engines):
 
     def chunk_of(idx, rows, rec_width):
         keep = rows >= 0
-        n = gpu_keyset._chunk_tokens(rec_width)
+        n = ks._chunk_tokens(rec_width)
         idx, rows = idx[keep][:n], rows[keep][:n]
         return idx, rows, gpu_keyset._pad_size(len(idx), n)
 
@@ -1262,12 +1277,19 @@ def prep_phase(name, ks, tokens, engines):
             f"builder")
 
 
+# warm batches a path; the paths whose batch takes more than 2 s
+# (config-4, pq-mldsa, ps-sha512, pq-slhdsa, rsa-limb, oidc) run two,
+# to keep the whole run within its time budget on a slow host
+WARM = 3
+WARM_SLOW = 2
+
+
 def drive_path(records, name, jwks, tokens, expected, families, engines,
-               **ks_opts):
+               warm=WARM, **ks_opts):
     """One path through ``GPUBatchKeySet(jwks, **ks_opts).verify_batch``:
     every launch counter zeroed just before the first run and read just
-    after it, every verdict checked, then three warm runs, the engines'
-    lines and the profile. ``families`` [(alg, kid prefix, chunk
+    after it, every verdict checked, then ``warm`` warm runs, the
+    engines' lines and the profile. ``families`` [(alg, kid prefix, chunk
     tokens, {kernel: launches per chunk})] name the tokens of the
     kernels' packed path and what each of their chunks launches; every
     other kernel must not launch. Returns the keyset, the first run's
@@ -1314,7 +1336,7 @@ def drive_path(records, name, jwks, tokens, expected, families, engines,
         rec.setdefault("launches_by_path", {})[name] = count
 
     times = []
-    for _ in range(3):
+    for _ in range(warm):
         t0 = time.perf_counter()
         again = ks.verify_batch(tokens)
         torch.cuda.synchronize()
@@ -1336,6 +1358,13 @@ def drive_path(records, name, jwks, tokens, expected, families, engines,
 ES_LAUNCHES = {"ladder": 1, "redc": 11}
 
 
+def es256_want(n_es: int, ctr):
+    """(chunks, launches) of one batch whose n_es ES256 tokens take the
+    kernels' path: chunks of 32,768 tokens, 1 ladder + 11 redc each."""
+    chunks = (n_es + 32767) // 32768
+    return chunks, {k: ES_LAUNCHES.get(k, 0) * chunks for k in ctr}
+
+
 def main_path(records):
     """The north-star path; returns its fixtures for the validator path."""
     rng = random.Random(SEED)
@@ -1344,7 +1373,7 @@ def main_path(records):
     drive_path(records, "north-star", jwks, tokens, expected,
                [("ES256", "es-", 32768, ES_LAUNCHES)],
                ("RS256", "ES256"))
-    return dict(jwks=jwks, tokens=tokens, expected=expected,
+    return dict(jwks=jwks, tokens=tokens, expected=expected, uniq=uniq,
                 signers=signers)
 
 
@@ -1529,27 +1558,30 @@ def validator_path(records, north):
         ks = GPUBatchKeySet(loaded)
         validator = Validator(ks)
         ctr = counters()
+        pb = prepare_batch_arrays(tokens)
+        n_es = int((pb.kid_rows(family_idx(pb, "ES256"),
+                                {f"es-{i}": 0 for i in range(8)}) >= 0).sum())
+        chunks, want = es256_want(n_es, ctr)
         for mod, attr in ctr.values():
             setattr(mod, attr, 0)
         t0 = time.perf_counter()
-        results = validator.validate_batch(tokens, Expected(**exp_args))
+        results, counted = telemetry_chunks(
+            lambda: validator.validate_batch(tokens, Expected(**exp_args)))
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = {k: getattr(mod, attr) for k, (mod, attr) in ctr.items()}
         check_verdicts(results, expected)
         for mod, attr in ctr.values():
             setattr(mod, attr, 0)
-        verified = ks.verify_batch(tokens)
+        verified, v_counted = telemetry_chunks(
+            lambda: ks.verify_batch(tokens))
         torch.cuda.synchronize()
         verify_launches = {k: getattr(mod, attr)
                            for k, (mod, attr) in ctr.items()}
-        pb = prepare_batch_arrays(tokens)
-        n_es = int((pb.kid_rows(family_idx(pb, "ES256"),
-                                {f"es-{i}": 0 for i in range(8)}) >= 0).sum())
-        chunks = (n_es + 32767) // 32768
-        want = {k: ES_LAUNCHES.get(k, 0) * chunks for k in ctr}
         assert launches == verify_launches == want, \
             (launches, verify_launches, want)
+        assert counted["es"] == v_counted["es"] == chunks, \
+            (counted, v_counted, chunks)
         for k, count in launches.items():
             rec = records[k]
             rec["launches"] = rec.get("launches", 0) + count
@@ -1558,7 +1590,8 @@ def validator_path(records, north):
             f"Validator(GPUBatchKeySet).validate_batch, every verdict as "
             f"expected (each claims class {2 * len(signers)} times); "
             f"launches {launches}, equal to verify_batch's ({chunks} ES "
-            f"chunk(s)); first run {first_s:.2f} s")
+            f"chunk(s), as the keyset counted them); first run "
+            f"{first_s:.2f} s")
 
         # RS256 only: every ES256 token that verifies gets
         # UnsupportedAlgError
@@ -1729,7 +1762,7 @@ def config4_path(records):
     oracle_check(jwks, uniq, tampered)
     drive_path(records, "config-4", jwks, tokens, expected,
                [("EdDSA", "ed-", 32768, {"edw": 32, "redc": 3})],
-               ("PS256", "EdDSA"))
+               ("PS256", "EdDSA"), warm=WARM_SLOW)
 
 
 def build_config3(rng):
@@ -1799,7 +1832,7 @@ def config3_path(records):
 
 def ladder_path_shapes(records, ks, tokens, n_calls: int):
     """Every whole-ladder input of one config-3 batch (``n_calls``: one
-    a chunk), captured at the wrapper and
+    a chunk, as the keyset counted them), captured at the wrapper and
     replayed through the plain version: X, Y, Z equal by value, inf and
     deg equal; each shape's kernel and plain times (CUDA events) and
     bound."""
@@ -1819,10 +1852,10 @@ def ladder_path_shapes(records, ks, tokens, n_calls: int):
 
     cuda_ladder.ladder = hooked
     try:
-        ks.verify_batch(tokens)
+        _, chunks = telemetry_chunks(lambda: ks.verify_batch(tokens))
     finally:
         cuda_ladder.ladder = kern
-    assert len(calls) == n_calls, len(calls)
+    assert len(calls) == chunks["es"] == n_calls, (len(calls), chunks)
     for ctx, tab, d_all, base, stride, o in calls:
         args = (tab, d_all, base, stride)
         out_k = ((o[0], o[1]), (o[2], o[3]), (o[4], o[5]), o[6], o[7])
@@ -1901,7 +1934,7 @@ def mldsa_path(records):
     run = drive_path(records, "pq-mldsa", jwks, tokens, expected,
                      [("ML-DSA-44", "mldsa44-", 1024, per_chunk),
                       ("ML-DSA-65", "mldsa65-", 1024, per_chunk)],
-                     ("ML-DSA-44", "ML-DSA-65"))
+                     ("ML-DSA-44", "ML-DSA-65"), warm=WARM_SLOW)
     path_shape_phase(records, run["ks"], tokens, "pq-mldsa")
 
 
@@ -1959,7 +1992,7 @@ def sha512_phase(ks, tokens):
 
     for alg, name in (("PS384", "sha384"), ("PS512", "sha512")):
         h_len = gpursa.HASH_LEN[name]
-        chunk_n = gpu_keyset._chunk_tokens(2 * table.k + h_len + 2)
+        chunk_n = ks._chunk_tokens(2 * table.k + h_len + 2)
         idx = family_idx(pb, alg)
         idx = idx[ks._rows(idx, pb, ks._kid_rsa_row, ks._n_rsa_keys) >= 0]
         originals = {f: getattr(sha512, f) for f in
@@ -2057,7 +2090,7 @@ def ps512_path(records):
     sha512_phase(GPUBatchKeySet(jwks), tokens)
     drive_path(records, "ps-sha512", jwks, tokens, expected,
                [("PS384", "ps-", 16384, {}), ("PS512", "ps-", 8192, {})],
-               ("PS384", "PS512"))
+               ("PS384", "PS512"), warm=WARM_SLOW)
 
 
 def build_slhdsa(rng):
@@ -2130,7 +2163,7 @@ def slhdsa_path(records):
     run = drive_path(records, "pq-slhdsa", jwks, tokens, expected,
                      [(pset, f"slh128{pset[-1]}-", 1024, {"keccak": n})
                       for pset, n in SLH_LAUNCHES.items()],
-                     (SLH_F, SLH_S))
+                     (SLH_F, SLH_S), warm=WARM_SLOW)
     path_shape_phase(records, run["ks"], tokens, "pq-slhdsa", ("keccak",))
 
 
@@ -2298,7 +2331,7 @@ def rsalimb_path(records):
     oracle_check(jwks, uniq, tampered)
     run = drive_path(records, "rsa-limb", jwks, tokens, expected,
                      [("ES256", "es-", 32768, ES_LAUNCHES)],
-                     ("RS256", "PS256", "ES256"))
+                     ("RS256", "PS256", "ES256"), warm=WARM_SLOW)
     tables = run["ks"]._rsa_tables
     assert [(t.all_f4, t.ctx is None, t.max_ebits) for t in tables] == \
         [(False, True, 31), (True, True, 17)], \
@@ -2360,14 +2393,29 @@ def build_bigjwks(rng):
     return jwks, uniq, tampered, tokens, expected
 
 
-def rns_path_replay(records, ks, tokens, path, want):
+def telemetry_chunks(fn):
+    """Run ``fn()`` with the telemetry recorder on: (its result, the
+    packed chunks the keyset dispatched by family, from its
+    ``device.<family>.lanes`` series)."""
+    from cap_tpu_torch import telemetry
+
+    with telemetry.recording() as rec:
+        out = fn()
+    summary = rec.summary()
+    return out, {k.split(".")[1]: int(v["count"]) for k, v in
+                 summary.items()
+                 if k.startswith("device.") and k.endswith(".lanes")}
+
+
+def rns_path_replay(records, ks, tokens, path, want, want_chunks):
     """Every ladder, redc and edw input of one batch, captured at the
     wrappers as the path makes them (the redc default of every ec_rns
     and ed25519_rns function swapped for the hook) and replayed through
     the plain versions right away: outputs equal by value mod p on both
     residue planes, the ladder's inf and deg equal. The calls of each
-    kernel must be ``want``; the widest key row the ladder and edw read
-    is logged. The ladder and edw are timed at the path's shape (CUDA
+    kernel must be ``want``, and the chunks the keyset counted by family
+    ``want_chunks``; the widest key row the ladder and edw read is
+    logged. The ladder and edw are timed at the path's shape (CUDA
     events, one call each)."""
     import torch
 
@@ -2431,14 +2479,16 @@ def rns_path_replay(records, ks, tokens, path, want):
     cuda_ladder.ladder, cuda_redc.redc, cuda_edw.edw_window = \
         ladder, redc, edw
     try:
-        ks.verify_batch(tokens)
+        _, chunks = telemetry_chunks(lambda: ks.verify_batch(tokens))
     finally:
         cuda_ladder.ladder = real["ladder"]
         cuda_redc.redc = real["redc"]
         cuda_edw.edw_window = real["edw"]
         for fn, d in swapped:
             fn.__defaults__ = d
-    assert calls == want, (path, calls, want)
+    assert calls == want and {f: chunks.get(f) for f in want_chunks} \
+        == want_chunks, \
+        (path, calls, want, chunks, want_chunks)
     assert min(top_row.values()) > 255, top_row
     ctx, tab, d_all, base, stride = first["ladder"]
     ms_k = cuda_ms(lambda: real["ladder"](ctx, tab, d_all, base, stride), 1)
@@ -2493,7 +2543,7 @@ def bigjwks_path(records):
         f"{2 ** 31 - 1}); card memory allocated "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     rns_path_replay(records, ks, tokens, "big-jwks",
-                    dict(ladder=1, redc=14, edw=32))
+                    dict(ladder=1, redc=14, edw=32), dict(es=1, ed=1))
 
 
 # ---------------------------------------------------------------------------
@@ -2897,16 +2947,17 @@ def oidc_path(records):
         n_es = int((pb.kid_rows(family_idx(pb, "ES256"),
                                 {f"es-{i}": 0 for i in range(4)})
                     >= 0).sum())
-        chunks = (n_es + 32767) // 32768
         ctr = counters()
-        want = {k: ES_LAUNCHES.get(k, 0) * chunks for k in ctr}
+        chunks, want = es256_want(n_es, ctr)
+        counted = []
 
         def launched(fn):
             for mod, attr in ctr.values():
                 setattr(mod, attr, 0)
             t0 = time.perf_counter()
-            out = fn()
+            out, per_family = telemetry_chunks(fn)
             torch.cuda.synchronize()
+            counted.append(per_family["es"])
             return out, {k: getattr(mod, attr)
                          for k, (mod, attr) in ctr.items()}, \
                 time.perf_counter() - t0
@@ -2922,6 +2973,7 @@ def oidc_path(records):
         _, l_vraw, _ = launched(lambda: ks.verify_batch_raw(tokens))
         assert l_dict == l_raw == l_ver == l_vraw == want, \
             (l_dict, l_raw, l_ver, l_vraw, want)
+        assert counted == [chunks] * 4, (counted, chunks)
         check_oidc(res_d, expected, tokens, raw=False)
         check_oidc(res_r, expected_raw, tokens, raw=True)
         for i, (d, r) in enumerate(zip(res_d, res_r)):
@@ -2941,7 +2993,8 @@ def oidc_path(records):
             f"verify_id_token_batch, dict and raw modes, every verdict as "
             f"expected, raw bytes the payloads of the dict mode's claims; "
             f"launches {l_dict} in each mode, equal to verify_batch's and "
-            f"verify_batch_raw's; native rules decided {n_val} tokens, the "
+            f"verify_batch_raw's, the chunks as the keyset counted them in "
+            f"each; native rules decided {n_val} tokens, the "
             f"Python rules {n_fb_got} (the fallback classes); first runs "
             f"{s_dict:.2f} s (dict), {s_raw:.2f} s (raw)")
 
@@ -2979,7 +3032,7 @@ def oidc_path(records):
 
         # warm: dict, raw and verify_batch_raw alone, in turns
         t_d, t_r, t_v = [], [], []
-        for _ in range(3):
+        for _ in range(WARM_SLOW):
             for fn, acc in ((lambda: p.verify_id_token_batch(tokens, req),
                              t_d),
                             (lambda: p.verify_id_token_batch(tokens, req,
@@ -3060,36 +3113,425 @@ def oidc_path(records):
         f"({card_line()})")
 
 
-def dev_us(e) -> float:
-    """Device µs of one profiler key average."""
-    return getattr(e, "self_device_time_total",
-                   getattr(e, "self_cuda_time_total", 0))
+# ---------------------------------------------------------------------------
+# the serve path: the verify worker on the card
+# ---------------------------------------------------------------------------
+
+SERVE_CONNS = 4
+SERVE_MAX_REQUEST = 4096
+SERVE_GRACE_S = 2.0
+# the traffic that flows while the KEYS push lands: small enough that
+# the grace-window request does not queue behind seconds of it
+SERVE_BACKGROUND = 8192
+SERVE_WAIT_S = 120.0
+# the requests replayed under the profiler for the device's busy share
+SERVE_PROFILED = 16384
+
+
+def spans_upto(spans, n_tokens: int) -> int:
+    """How many of the leading spans end within the first n_tokens (at
+    least one)."""
+    return max(1, sum(hi <= n_tokens for _, hi in spans))
+
+
+def serve_spans(rng, n_tokens: int):
+    """Request spans of 1 to SERVE_MAX_REQUEST tokens covering n_tokens."""
+    spans, lo = [], 0
+    while lo < n_tokens:
+        hi = min(n_tokens, lo + rng.randint(1, SERVE_MAX_REQUEST))
+        spans.append((lo, hi))
+        lo = hi
+    return spans
+
+
+def serve_traffic(addr, tokens, spans):
+    """The spans' requests over SERVE_CONNS VerifyClient connections,
+    each pipelined (4 requests in flight), all connections at once:
+    (per-token results with accepted payloads as bytes, request
+    latencies in s, wall s)."""
+    import threading
+
+    from cap_tpu_torch.serve.client import VerifyClient
+
+    results = [None] * len(tokens)
+    lat, errs = [], []
+
+    def run(mine):
+        try:
+            sent_at = []
+            with VerifyClient(*addr, timeout=SERVE_WAIT_S, raw=True) as c:
+                stream = c.verify_stream(
+                    (tokens[lo:hi] for lo, hi in mine), depth=4,
+                    sent_at=sent_at)
+                for i, ((lo, hi), out) in enumerate(zip(mine, stream)):
+                    lat.append(time.perf_counter() - sent_at[i])
+                    results[lo:hi] = out
+        except Exception as e:  # noqa: BLE001 - raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(spans[i::SERVE_CONNS],),
+                                daemon=True) for i in range(SERVE_CONNS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVE_WAIT_S)
+    wall = time.perf_counter() - t0
+    assert not errs and not any(t.is_alive() for t in threads), errs
+    return results, lat, wall
+
+
+def check_served(results, tokens, expected):
+    """Every verdict from the wire as expected: an accepted token's
+    payload bytes (its own payload segment, the expected sub), a
+    rejected token's "<class>: <message>"."""
+    bad = []
+    for i, (got, exp) in enumerate(zip(results, expected)):
+        if isinstance(exp, tuple):
+            ok = (isinstance(got, Exception)
+                  and str(got) == f"{exp[0]}: {exp[1]}")
+        else:
+            ok = (isinstance(got, bytes)
+                  and got == unb64(tokens[i].split(".")[1])
+                  and json.loads(got).get("sub") == exp)
+        if not ok:
+            bad.append((i, exp, got))
+    assert not bad, f"{len(bad)} wrong verdicts, first: {bad[:3]}"
+
+
+def wire_form(v):
+    """A verdict as the wire carries it: payload bytes or the error's
+    "<class>: <message>"."""
+    if isinstance(v, Exception):
+        return str(v) if type(v).__name__ == "RemoteVerifyError" else \
+            f"{type(v).__name__}: {v}"
+    return v
+
+
+def serve_keys_push(addr, doc, epoch: int) -> dict:
+    """One KEYS push on its own connection; the ack's JSON."""
+    import socket
+
+    from cap_tpu_torch.serve import protocol
+
+    with socket.create_connection(addr, timeout=SERVE_WAIT_S) as s:
+        protocol.send_keys_push(s, doc, epoch)
+        ftype, entries = protocol.recv_frame(s)
+    assert ftype == protocol.T_KEYS_ACK and entries[0][0] == 0, entries
+    return json.loads(entries[0][1])
+
+
+def serve_worker_main(jwks, tokens, expected):
+    """``python -m cap_tpu_torch.fleet.worker_main --keyset jwks:<file>``
+    on the card: its ready line, one request, SIGTERM, exit 0."""
+    import queue
+    import signal
+    import tempfile
+    import threading
+
+    from cap_tpu_torch.jwt.jwk import serialize_public_key
+    from cap_tpu_torch.serve.client import VerifyClient
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="cap-serve-")
+    path = os.path.join(tmp, "jwks.json")
+    with open(path, "w") as f:
+        json.dump({"keys": [serialize_public_key(j.key, kid=j.kid)
+                            for j in jwks]}, f)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cap_tpu_torch.fleet.worker_main",
+         "--keyset", f"jwks:{path}", "--drain-deadline-s", "30"],
+        cwd=here, env=dict(os.environ, PYTHONPATH=here),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    lines: "queue.Queue" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    try:
+        ready = lines.get(timeout=SERVE_WAIT_S)
+        boot_s = time.perf_counter() - t0
+        assert ready.startswith("CAP_FLEET_READY port="), ready
+        fields = dict(kv.split("=", 1) for kv in ready.split()[1:])
+        assert fields["pid"] == str(proc.pid), ready
+        with VerifyClient("127.0.0.1", int(fields["port"]),
+                          timeout=SERVE_WAIT_S, raw=True) as c:
+            got = c.verify_batch(tokens)
+        check_served(got, tokens, expected)
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        assert rc == 0, (rc, proc.stderr.read()[-2000:])
+        log(f"serve worker_main: {ready.strip()} after {boot_s:.1f} s; "
+            f"{len(tokens)} tokens verified as expected; SIGTERM drained "
+            f"and exited 0 in {time.perf_counter() - t1:.1f} s")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
+        os.unlink(path)
+        os.rmdir(tmp)
+
+
+def serve_path(records, north):
+    """The north-star's keys and tokens through the verify worker on
+    the card.
+
+    1. ``VerifyWorker(GPUBatchKeySet(jwks))`` on loopback, raw claims
+       and the async pipeline, the verdict cache and dedup off so every
+       token reaches the card: the 65,536-token batch as requests of 1
+       to 4,096 tokens over 4 pipelined ``VerifyClient`` connections,
+       every verdict as expected (payload bytes, or class and message)
+       and equal to ``verify_batch_raw``; the ladder launches equal to
+       the ES chunks the keyset counted, 11 redc each; verifies/s over
+       the socket, p50/p99 request latency, and the requests of the
+       first 16,384 tokens once more under the profiler for the
+       device's busy share;
+    2. the deployed defaults (verdict cache on, a 2 s KEYS grace): a
+       KEYS push mid-stream that drops rs-0 and es-0 and adds one new
+       RSA-2048 and one new P-256 key; tokens under the dropped kids
+       accepted inside the grace window and rejected after the keyset's
+       retire counter moves (the grace window's accepts replayed too:
+       the cache kept none), tokens under the new kids accepted, STATS
+       at the new epoch; one request replayed from the verdict cache
+       (the keyset's token counter does not grow);
+    3. ``python -m cap_tpu_torch.fleet.worker_main`` on the card.
+    """
+    import threading
+
+    import torch
+
+    from cap_tpu_torch import telemetry
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt import algs
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.jwt.jwk import serialize_public_key
+    from cap_tpu_torch.serve.client import VerifyClient
+    from cap_tpu_torch.serve.worker import VerifyWorker
+
+    rng = random.Random(SEED + 14)
+    jwks, tokens, expected = north["jwks"], north["tokens"], north["expected"]
+    spans = serve_spans(rng, len(tokens))
+    ks = GPUBatchKeySet(jwks)
+    ctr = counters()
+
+    # 1. every token to the card
+    worker = VerifyWorker(ks, vcache=False, dedup=False)
+    try:
+        serve_traffic(worker.address, tokens[:4096], [(0, 4096)])  # warm
+        with telemetry.recording() as rec:
+            for mod, attr in ctr.values():
+                setattr(mod, attr, 0)
+            results, lat, wall = serve_traffic(worker.address, tokens, spans)
+            torch.cuda.synchronize()
+            launches = {k: getattr(mod, attr)
+                        for k, (mod, attr) in ctr.items()}
+        chunks = int(rec.summary()["device.es.lanes"]["count"])
+        n_card = rec.counters()["verify_batch.tokens"]
+        flushes = rec.counters()["batcher.flushes"]
+        check_served(results, tokens, expected)
+        want = {k: ES_LAUNCHES.get(k, 0) * chunks for k in ctr}
+        assert launches == want and chunks > 0, (launches, want)
+        direct = ks.verify_batch_raw(tokens)
+        assert [wire_form(v) for v in results] == \
+            [wire_form(v) for v in direct], "served != verify_batch_raw"
+        for k, count in launches.items():
+            r = records[k]
+            r["launches"] = r.get("launches", 0) + count
+            r.setdefault("launches_by_path", {})["serve"] = count
+        lat.sort()
+        p50 = lat[len(lat) // 2] * 1e3
+        p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3
+        vps = len(tokens) / wall
+        # the device's busy share under the first SERVE_PROFILED tokens'
+        # requests
+        n_prof = spans_upto(spans, SERVE_PROFILED)
+        with device_profile() as prof:
+            _, _, prof_wall = serve_traffic(
+                worker.address, tokens[:spans[n_prof - 1][1]],
+                spans[:n_prof])
+            torch.cuda.synchronize()
+        busy_ms = sum(us for _, us in device_events(prof).values()) / 1e3
+    finally:
+        worker.close(deadline_s=SERVE_WAIT_S)
+    idle = (f"{100 - 100 * busy_ms / 1e3 / prof_wall:.1f}% "
+            f"({busy_ms:.1f} ms of device time in {prof_wall:.2f} s "
+            f"under the profiler)") if busy_ms else "not measured"
+    log(f"serve path: {len(tokens)} tokens as {len(spans)} requests of "
+        f"1-{SERVE_MAX_REQUEST} tokens over {SERVE_CONNS} pipelined "
+        f"connections, {flushes} batcher flushes, {n_card} tokens to the "
+        f"card; every verdict as expected and equal to verify_batch_raw; "
+        f"launches {launches} ({chunks} ES chunk(s) by the keyset's "
+        f"counter); observed host-to-device rate "
+        + (f"{ks._wire_bps / 1e9:.2f} GB/s" if ks._wire_bps
+           else "not measured") + " (the records' timed copies)")
+    log(f"serve path line: {vps:.0f} verifies/s over the socket "
+        f"({wall:.3f} s); request latency p50 {p50:.1f} ms, p99 "
+        f"{p99:.1f} ms; device idle {idle}; card: {card_line()}")
+    records.setdefault("serve", {}).update(
+        vps=vps, p50_ms=p50, p99_ms=p99, wall_s=wall,
+        device_busy_ms=busy_ms, profiled_wall_s=prof_wall)
+
+    # 2. the deployed defaults: the KEYS push mid-stream, the cache
+    signers = {kid: priv for priv, _, kid in north["signers"]}
+    new_rs, new_es = tt.generate_rsa_key(rng), tt.generate_ec_key(rng)
+    signers.update({"rs-new": new_rs, "es-new": new_es})
+
+    def signed(kid, n, tag, now=1_700_000_000):
+        alg = algs.RS256 if kid.startswith("rs") else algs.ES256
+        return [tt.sign_jwt(signers[kid], alg,
+                            tt.default_claims(now=now,
+                                              sub=f"{tag}-{kid}-{i}"),
+                            kid=kid, rng=rng) for i in range(n)]
+
+    # the grace window's tokens live (the cache keeps an accept only
+    # before its exp)
+    now = int(time.time())
+    during = signed("rs-0", 4, "during", now=now) \
+        + signed("es-0", 4, "during", now=now)
+    after = signed("rs-0", 4, "after") + signed("es-0", 4, "after")
+    fresh = signed("rs-new", 4, "new") + signed("es-new", 4, "new")
+    live = [t for k in ("rs-1", "rs-2", "es-1", "es-2")
+            for t in signed(k, 8, "live", now=now)]
+    keys = [serialize_public_key(j.key, kid=j.kid) for j in jwks
+            if j.kid not in ("rs-0", "es-0")]
+    keys += [serialize_public_key(new_rs.public_key(), kid="rs-new"),
+             serialize_public_key(new_es.public_key(), kid="es-new")]
+    sub = [json.loads(unb64(t.split(".")[1]))["sub"] for t in
+           during + after + fresh]
+
+    def subs(out):
+        return [json.loads(v)["sub"] if isinstance(v, bytes) else str(v)
+                for v in out]
+
+    worker = VerifyWorker(ks, keys_grace_s=SERVE_GRACE_S)
+    stream_errs = []
+
+    def background():
+        try:
+            serve_traffic(worker.address, tokens[:SERVE_BACKGROUND],
+                          serve_spans(rng, SERVE_BACKGROUND))
+        except Exception as e:  # noqa: BLE001 - raised below
+            stream_errs.append(e)
+
+    try:
+        with telemetry.recording() as rec:
+            epoch0 = ks.key_epoch
+            bg = threading.Thread(target=background, daemon=True)
+            bg.start()
+            t0 = time.perf_counter()
+            ack = serve_keys_push(worker.address, {"keys": keys},
+                                  epoch0 + 1)
+            swap_s = time.perf_counter() - t0
+            with VerifyClient(*worker.address, timeout=SERVE_WAIT_S,
+                              raw=True) as c:
+                got_during = subs(c.verify_batch(during + fresh))
+                during_s = time.perf_counter() - t0
+                in_grace = rec.counters().get("keyplane.grace_retired", 0)
+                bg.join(SERVE_WAIT_S)
+                assert not bg.is_alive() and not stream_errs, stream_errs
+                deadline = time.perf_counter() + SERVE_WAIT_S
+                while rec.counters().get("keyplane.grace_retired", 0) < 1:
+                    assert time.perf_counter() < deadline, \
+                        "grace never retired"
+                    time.sleep(0.05)
+                retire_s = time.perf_counter() - t0
+                # the grace window's accepts again, beside tokens never
+                # sent: the verdict cache kept none of them
+                got_after = subs(c.verify_batch(during + after + fresh))
+                stats = c.stats()
+                # the cache: one request twice; the second never reaches
+                # the keyset. Accepts are cached only while their exp is
+                # ahead of the clock (the north-star's expired in 2023),
+                # so the request is tokens signed now beside the
+                # north-star's rejected ones.
+                replay = live + [t for t, e in zip(tokens, expected)
+                                 if isinstance(e, tuple)][:256]
+                first = c.verify_batch(replay)
+                n0 = rec.counters()["verify_batch.tokens"]
+                second = c.verify_batch(replay)
+                n1 = rec.counters()["verify_batch.tokens"]
+                hits = rec.counters().get("vcache.hits", 0)
+    finally:
+        worker.close(deadline_s=SERVE_WAIT_S)
+    n = len(during)
+    assert ack == {"epoch": epoch0 + 1} and in_grace == 0, (ack, in_grace)
+    assert got_during == sub[:n] + sub[2 * n:], got_during
+    assert got_after == [f"InvalidSignatureError: {REJECT[1]}"] * 2 * n \
+        + sub[2 * n:], got_after
+    assert stats["key_epoch"] == ks.key_epoch == epoch0 + 1, stats
+    assert n1 == n0 and hits >= len(replay), (n0, n1, hits)
+    assert [wire_form(v) for v in first] == [wire_form(v) for v in second]
+    log(f"serve keys: KEYS push mid-stream (epoch {epoch0} -> "
+        f"{epoch0 + 1}, rs-0 and es-0 dropped, rs-new and es-new added) "
+        f"acked in {swap_s:.2f} s; {n} tokens under the dropped kids "
+        f"accepted in the {SERVE_GRACE_S} s grace (answered "
+        f"{during_s:.2f} s after the push), they and {n} more rejected "
+        f"after the keyset's retire counter moved ({retire_s:.2f} s after "
+        f"the push; the verdict cache on, holding none of the grace's "
+        f"accepts); {len(fresh)} under the new kids accepted; STATS at "
+        f"epoch {stats['key_epoch']}; a {len(replay)}-token request "
+        f"replayed from the verdict cache ({hits} hits, the keyset's "
+        f"token counter unchanged at {n1})")
+
+    # 3. the process entry point
+    probe = tokens[:64] + [t for t, e in zip(tokens, expected)
+                           if isinstance(e, tuple)][:8]
+    probe_exp = expected[:64] + [e for e in expected
+                                 if isinstance(e, tuple)][:8]
+    serve_worker_main(jwks, probe, probe_exp)
+
+
+def device_profile():
+    """A torch.profiler context over CUPTI that records the card's work
+    only (kernels, copies, fills), no host operator."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def device_events(prof) -> dict:
+    """{name: [launches, device µs]} of a finished ``device_profile``,
+    summed from its raw Kineto records: building the profiler's own
+    event objects costs tens of µs a record on the host, minutes over
+    this script's batches."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda or (hasattr(e, "is_user_annotation")
+                                       and e.is_user_annotation()):
+            continue
+        rec = out.setdefault(e.name(), [0, 0.0])
+        rec[0] += 1
+        rec[1] += e.duration_ns() / 1e3
+    return out
 
 
 def profile_batch(ks, tokens, wall_s: float):
     """Device time of one warm batch by kernel (torch.profiler over
     CUPTI) and its share of the best unprofiled wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         ks.verify_batch(tokens)
         torch.cuda.synchronize()
 
-    events = [e for e in prof.key_averages() if dev_us(e) > 0
-              and "CPU" not in str(getattr(e, "device_type", ""))]
-    total_ms = sum(dev_us(e) for e in events) / 1e3
+    events = device_events(prof)
+    total_ms = sum(us for _, us in events.values()) / 1e3
     if total_ms == 0:
         log("profile: no device time recorded (not measured)")
         return None
-    n_launch = sum(e.count for e in events)
+    n_launch = sum(n for n, _ in events.values())
     log(f"profile: {total_ms:.1f} ms of device time in {n_launch} kernel "
         f"launches in one batch, {100 * total_ms / 1e3 / wall_s:.1f}% of "
         f"the best wall time (device idle "
         f"{100 - 100 * total_ms / 1e3 / wall_s:.1f}%)")
-    for e in sorted(events, key=dev_us, reverse=True)[:10]:
-        log(f"  {dev_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:70]}")
+    for name, (n, us) in sorted(events.items(), key=lambda kv: kv[1][1],
+                                reverse=True)[:10]:
+        log(f"  {us / 1e3:9.2f} ms  {n:6d}x  {name[:70]}")
     return total_ms
 
 
@@ -3146,27 +3588,7 @@ def batch_breakdown(ks, tokens):
         + f" ms ({spans.get('_verify_one_parsed calls', 0)} tokens on the "
         f"trial path)")
 
-    # one more batch, the device drained right after the dispatch: how
-    # long the queued work outlives the host's queueing of it
-    dispatch = ks._dispatch_batch
-    drain = []
-
-    def dispatch_then_drain(tokens):
-        state = dispatch(tokens)
-        t0 = time.perf_counter()
-        torch.cuda.synchronize()
-        drain.append(time.perf_counter() - t0)
-        return state
-
-    ks._dispatch_batch = dispatch_then_drain
-    try:
-        ks.verify_batch(tokens)
-    finally:
-        del ks._dispatch_batch
-    log(f"device drain after the dispatch: {drain[0] * 1e3:.1f} ms (one "
-        f"more warm batch, synchronized right after its dispatch)")
-
-    # and one with its collect phase under cProfile: where the host
+    # one more with its collect phase under cProfile: where the host
     # time after the dispatch goes, function by function
     import cProfile
     import pstats
@@ -3291,6 +3713,7 @@ def main() -> int:
     timed("rsa-limb", rsalimb_path, records)
     timed("big-jwks", bigjwks_path, records)
     timed("oidc", oidc_path, records)
+    timed("serve", serve_path, records, north)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all "
         f"({time.perf_counter() - t_run:.1f} s after the build)")
 

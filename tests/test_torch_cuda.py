@@ -1026,3 +1026,91 @@ def test_oidc_batch_on_the_card_matches_the_plain_path(dev, raw):
         # bool exp and container aud to the Python rules; the other
         # nine classes rejected natively
         assert counts == (300 + 9, 2)
+
+
+def test_serve_worker_on_the_card_matches_the_plain_path(dev):
+    """VerifyWorker over GPUBatchKeySet on the card, pipelined over two
+    connections with the async pipeline and raw claims: every response
+    frame equal to a worker's over the keyset on the CPU; the ladder
+    launches equal the ES chunks the keyset counted, 11 redc each; a
+    KEYS push swaps the card's tables."""
+    import socket
+    import struct
+
+    from cap_tpu_torch import telemetry
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.jwt.jwk import serialize_public_key
+    from cap_tpu_torch.serve import protocol
+    from cap_tpu_torch.serve.worker import VerifyWorker
+
+    jwks, tokens, _ = tt.headline_fixtures(128, seed=17)
+    batch = tokens + [tokens[3][:-4] + "AAAA", "a.b"]
+
+    class Sink:
+        data = b""
+
+        def sendall(self, b):
+            self.data += b
+
+    def request(toks, **kw):
+        s = Sink()
+        protocol.send_request(s, toks, **kw)
+        return s.data
+
+    def read_frame(sock):
+        buf = b""
+
+        def take(n):
+            nonlocal buf
+            out = b""
+            while len(out) < n:
+                got = sock.recv(n - len(out))
+                assert got
+                out += got
+            buf += out
+            return out
+
+        _, ftype, count = struct.unpack("<IBI", take(9))
+        for _ in range(count):
+            take(struct.unpack("<BI", take(5))[1])
+        if ftype >= protocol.T_VERIFY_REQ_CRC:
+            take(4)
+        return buf
+
+    reqs = [[request(batch[i:i + 40], crc=bool(i % 80))
+             for i in range(0, len(batch), 40)], [request(batch)]]
+
+    def drive(worker):
+        out = []
+        for frames in reqs:
+            with socket.create_connection(worker.address, timeout=60) as s:
+                for f in frames:
+                    s.sendall(f)
+                out.append([read_frame(s) for _ in frames])
+        return out
+
+    card_ks = GPUBatchKeySet(jwks)
+    workers = [VerifyWorker(card_ks, vcache=False, max_wait_ms=20.0),
+               VerifyWorker(GPUBatchKeySet(jwks, device="cpu"),
+                            vcache=False, max_wait_ms=20.0)]
+    try:
+        with telemetry.recording() as rec:
+            cuda_ladder.launches = cuda_redc.launches = 0
+            on_card = drive(workers[0])
+            torch.cuda.synchronize()
+            launches = (cuda_ladder.launches, cuda_redc.launches)
+        chunks = int(rec.summary()["device.es.lanes"]["count"])
+        assert launches == (chunks, 11 * chunks) and chunks >= 1
+        # a batch whose record copies are timed (1 MB and more): the
+        # link's rate, not the batch's
+        card_ks.verify_batch((tokens * 128)[:16384])
+        assert card_ks._wire_bps > 1e8
+        assert on_card == drive(workers[1])
+        doc = {"keys": [serialize_public_key(j.key, kid=j.kid)
+                        for j in jwks]}
+        assert workers[0].apply_keys(doc, 7) == 7
+        assert card_ks.key_epoch == 7
+    finally:
+        for w in workers:
+            w.close(deadline_s=60)

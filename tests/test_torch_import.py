@@ -36,6 +36,41 @@ def test_no_jax_or_cap_tpu_import(path):
     assert not roots & {"jax", "jaxlib", "cap_tpu"}, (path, roots)
 
 
+def _env_reads(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Attribute)
+                and node.attr in ("environ", "environb", "getenv",
+                                  "getenvb", "putenv")
+                and isinstance(node.value, ast.Name)
+                and node.value.id == "os"):
+            yield node.lineno
+        elif (isinstance(node, ast.ImportFrom) and node.module == "os"
+              and any(a.name in ("environ", "environb", "getenv",
+                                 "getenvb") for a in node.names)):
+            yield node.lineno
+
+
+@pytest.mark.parametrize(
+    "path", sorted(p for p in PKG.rglob("*.py") if p.name != "_build.py"),
+    ids=lambda p: str(p.relative_to(REPO)))
+def test_no_environment_reads(path):
+    """Knobs are arguments: no module but the build's toolchain lookup
+    reads the environment."""
+    assert not list(_env_reads(path)), path
+
+
+def test_serve_modules_are_covered():
+    for name in ("cap_tpu_torch.telemetry", "cap_tpu_torch.obs.decision",
+                 "cap_tpu_torch.obs.occupancy", "cap_tpu_torch.serve",
+                 "cap_tpu_torch.serve.protocol", "cap_tpu_torch.serve.drr",
+                 "cap_tpu_torch.serve.admission",
+                 "cap_tpu_torch.serve.vcache", "cap_tpu_torch.serve.batcher",
+                 "cap_tpu_torch.serve.client", "cap_tpu_torch.serve.worker",
+                 "cap_tpu_torch.fleet.worker_main"):
+        assert name in MODULES, name
+
+
 def test_imports_with_jax_blocked():
     """Every module imports in a fresh interpreter where ``import jax``
     and ``import cap_tpu`` fail."""
