@@ -13,9 +13,15 @@ the same directory: ``jose`` (``runtime/native/jose_native.cpp``: the
 batch JOSE parse, SHA-2 and record packer, loaded with ``ctypes``),
 ``claims`` (``runtime/native/claims_ext.cpp``: the ``_capclaims``
 CPython extension, built against the running interpreter's headers and
-named with its ABI suffix) and ``claims_rules``
+named with its ABI suffix), ``claims_rules``
 (``runtime/native/claims_validate.cpp``: the OIDC claims-rule engine,
-loaded with ``ctypes`` by ``oidc.claims_native``). No ``-march=native``: the SHA-NI path is
+loaded with ``ctypes`` by ``oidc.claims_native``), ``serve`` (the
+native serve chain of ``serve.native_serve``: ``serve_native.cpp``, the
+telemetry plane ``telemetry_native.cpp`` and the shared-memory rings
+``shm_ring.cpp``, linked with ``jose_native.cpp`` for the readers'
+``sha2::sha256``) and ``client`` (``serve/native/client_native.cpp``,
+the C client of ``serve.native_client``). A target's name hashes every
+source and header it compiles. No ``-march=native``: the SHA-NI path is
 chosen at run time, and the build directory may be shared by hosts.
 
 ``build_all()`` starts one compiler per target, all together, and
@@ -38,12 +44,20 @@ from typing import Any, Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "gpu" / "csrc"
 HOST_SRC = Path(__file__).resolve().parent / "runtime" / "native"
+CLIENT_SRC = Path(__file__).resolve().parent / "serve" / "native"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cap_tpu_torch"
 KERNELS = ("redc", "madd", "ladder", "edw", "keccak", "ntt")
-# g++ targets: name -> (the source compiled, the headers it includes)
-HOST_TARGETS = {"jose": ("jose_native.cpp", ()),
-                "claims": ("claims_ext.cpp", ("claims_tape.h",)),
-                "claims_rules": ("claims_validate.cpp", ("claims_tape.h",))}
+# g++ targets: name -> (the sources compiled into one library, the
+# headers they include), in HOST_SRC (``client``'s in CLIENT_SRC)
+HOST_TARGETS = {
+    "jose": (("jose_native.cpp",), ()),
+    "claims": (("claims_ext.cpp",), ("claims_tape.h",)),
+    "claims_rules": (("claims_validate.cpp",), ("claims_tape.h",)),
+    "serve": (("jose_native.cpp", "serve_native.cpp",
+               "telemetry_native.cpp", "shm_ring.cpp"),
+              ("cvb1_wire.h", "shm_ring.h", "telemetry_native.h")),
+    "client": (("client_native.cpp",), ()),
+}
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-pthread", "-std=c++17")
 # the claims extension's module name (its PyInit__capclaims)
 CLAIMS_MODULE = "_capclaims"
@@ -83,6 +97,10 @@ def _gxx() -> str:
                        "build the cap_tpu_torch batch prep")
 
 
+def _host_dir(name: str) -> Path:
+    return CLIENT_SRC if name == "client" else HOST_SRC
+
+
 def _host_flags(name: str) -> tuple:
     if name == "claims":
         return HOST_FLAGS + ("-I" + sysconfig.get_paths()["include"],)
@@ -91,12 +109,12 @@ def _host_flags(name: str) -> tuple:
 
 def _target(name: str) -> Path:
     if name in HOST_TARGETS:
-        src, headers = HOST_TARGETS[name]
-        flags, files = _host_flags(name), [src, *headers]
+        srcs, headers = HOST_TARGETS[name]
+        flags, files = _host_flags(name), [*srcs, *headers]
         h = hashlib.sha256(" ".join(flags).encode())
         for f in files:
             h.update(f.encode())
-            h.update((HOST_SRC / f).read_bytes())
+            h.update((_host_dir(name) / f).read_bytes())
         if name == "claims":
             suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
             return BUILD_DIR / f"{CLAIMS_MODULE}-{h.hexdigest()[:16]}{suffix}"
@@ -111,7 +129,7 @@ def _target(name: str) -> Path:
 def _command(name: str, out: Path) -> list:
     if name in HOST_TARGETS:
         return [_gxx(), *_host_flags(name), "-o", str(out),
-                str(HOST_SRC / HOST_TARGETS[name][0])]
+                *(str(_host_dir(name) / f) for f in HOST_TARGETS[name][0])]
     return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
@@ -148,7 +166,7 @@ def build_all(names: Sequence[str] = KERNELS + tuple(HOST_TARGETS)
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (built first if missing): a kernel
-    library, ``jose`` or ``claims_rules``."""
+    library, ``jose``, ``claims_rules``, ``serve`` or ``client``."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

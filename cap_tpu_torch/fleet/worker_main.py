@@ -230,6 +230,20 @@ def main(argv=None) -> int:
     ap.add_argument("--max-wait-ms", type=float, default=2.0)
     ap.add_argument("--max-batch", type=int, default=32768)
     ap.add_argument("--drain-deadline-s", type=float, default=30.0)
+    # Serve chain: "native" (C++ frame I/O + lock-free ring) or
+    # "python" (reader/responder threads). A native chain that does not
+    # build or load raises; the ready line's serve_chain= field reports
+    # what runs.
+    ap.add_argument("--serve-chain", default="python",
+                    choices=["native", "python"])
+    # Native telemetry plane: "auto" (on whenever the native chain and
+    # telemetry are both on) or "off" (the Python decision fold).
+    ap.add_argument("--native-obs", default="auto", choices=["auto", "off"])
+    # Transport capability: "shm" honours per-connection shared-memory
+    # attach negotiations (CVB1 type 15) on whichever chain runs;
+    # "socket" refuses them (status 1, counted serve.shm_fallbacks).
+    ap.add_argument("--transport", default="socket",
+                    choices=["socket", "shm"])
     # Verdict cache: "auto" (on) or "off" (the cache tier and the
     # batcher's in-flight dedup off).
     ap.add_argument("--vcache", default="auto", choices=["auto", "off"])
@@ -248,7 +262,10 @@ def main(argv=None) -> int:
                           target_batch=args.target_batch,
                           max_wait_ms=args.max_wait_ms,
                           max_batch=args.max_batch,
-                          vcache=args.vcache != "off")
+                          vcache=args.vcache != "off",
+                          serve_native=args.serve_chain == "native",
+                          native_obs=args.native_obs != "off",
+                          transport=args.transport)
     host, port = worker.address
     epoch = worker.key_epoch
     # The ONE ready line a supervisor parses; flushed so it cannot sit

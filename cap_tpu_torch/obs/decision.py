@@ -450,6 +450,13 @@ def tenant_labels(tokens: Sequence[Any]) -> List[str]:
     return out
 
 
+def tenant_labels_from_slots(slots: Sequence[int]) -> List[str]:
+    """Native-plane slot array → labels (the native serve chain's
+    per-tenant vcache accounting; unresolved slots map to "none")."""
+    labels = TENANTS.labels()
+    return [labels.get(int(s), TENANT_NONE) for s in slots]
+
+
 def token_family_kid(token: Any) -> tuple:
     """(family, kid-hash-or-None) from a token's header segment.
 
@@ -476,6 +483,20 @@ def latency_bucket(latency_s: Optional[float]) -> str:
         if latency_s < bound:
             return label
     return "ge1s"
+
+
+# Fixed-order label table for the native plane (index form of
+# latency_bucket; pinned against it by test).
+LAT_BUCKET_INDEX = ("lt1ms", "lt10ms", "lt100ms", "lt1s", "ge1s", "na")
+
+
+def latency_bucket_index(latency_s: Optional[float]) -> int:
+    if latency_s is None:
+        return 5
+    for i, (bound, _label) in enumerate(_LAT_BUCKETS):
+        if latency_s < bound:
+            return i
+    return 4
 
 
 # ---------------------------------------------------------------------------
@@ -677,6 +698,30 @@ def record_batch(surface: str, results: Sequence[Any],
     for reason, idxs in reject_groups.items():
         bulk(f"decision.{surface}.reject.{reason}", idxs, "reject",
              reason)
+
+
+def entry_from_exemplar(key: int, fam_idx: int, lat_idx: int,
+                        kid: Optional[str],
+                        trace: Optional[str]) -> Dict[str, Any]:
+    """One ring entry from a native-plane exemplar record.
+
+    ``key`` is 0 for accept, ``1 + reason_index`` for a reject — the
+    fields come out exactly as :func:`record_batch`'s ``bulk`` builds
+    them.
+    """
+    entry: Dict[str, Any] = {
+        "surface": "serve",
+        "family": FAMILIES[fam_idx],
+        "verdict": "accept" if key == 0 else "reject",
+        "lat": LAT_BUCKET_INDEX[lat_idx],
+    }
+    if key:
+        entry["reason"] = REASON_INDEX[key - 1]
+    if kid:
+        entry["kid"] = kid
+    if trace:
+        entry["trace"] = trace
+    return _checked_entry(entry)
 
 
 def count_tenant_cache(labels: Sequence[str],

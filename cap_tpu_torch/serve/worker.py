@@ -1,23 +1,33 @@
 """The verify worker: owns the card's engine, serves the wire protocol.
 
-The port of ``cap_tpu.serve.worker``'s Python serve chain: host
-applications connect over TCP (or a Unix socket) and stream verify
-requests; all connections share ONE AdaptiveBatcher → ONE
-GPUBatchKeySet → one card, so concurrent small callers coalesce into
-full device batches. Each connection runs a reader thread and a
-responder thread, so a client may pipeline requests; responses return
-in request order.
+The port of ``cap_tpu.serve.worker``: host applications connect over
+TCP (or a Unix socket) and stream verify requests; all connections
+share ONE AdaptiveBatcher → ONE GPUBatchKeySet → one card, so
+concurrent small callers coalesce into full device batches. Two serve
+chains speak the same CVB1 bytes:
+
+- the Python chain (default): a reader and a responder thread a
+  connection, so a client may pipeline requests; responses return in
+  request order;
+- the native chain (``serve_native=True``,
+  :mod:`cap_tpu_torch.serve.native_serve`): C++ reader and writer
+  threads own the TCP fds and feed a lock-free ring; Python drains
+  whole chunks into the batcher. It serves TCP only:
+  ``serve_native=True`` with ``uds_path`` raises ``ValueError`` (the
+  JAX worker quietly runs its Python chain there), and a failed build
+  or load of the native library raises too.
+
+``transport="shm"`` honours per-connection shared-memory attach
+negotiations (CVB1 type 15, :mod:`cap_tpu_torch.serve.shm_ring`) on
+either chain; ``"socket"`` acks them status 1 and the connection keeps
+serving over the socket.
 
 Where the JAX package's worker reads its environment
 (``CAP_SERVE_TRANSPORT``, ``CAP_SERVE_DEDUP``, ``CAP_SERVE_VCACHE``,
-``CAP_SERVE_VCACHE_CAP``, ``CAP_SERVE_NATIVE``, ``CAP_SERVE_FAIR``,
-``CAP_SERVE_ADMIT_*``), this one takes arguments with the same
-defaults. Not ported yet (ROADMAP A item 8): the native serve chain
-(``serve_native=True``), the shared-memory transport
-(``transport="shm"``) and the HTTP observability server
-(``obs_port``); each raises ``NotImplementedError``. An SHM_ATTACH frame
-is refused with status 1 as the JAX worker's ``transport="socket"``
-refuses it, and the connection keeps serving.
+``CAP_SERVE_VCACHE_CAP``, ``CAP_SERVE_NATIVE``, ``CAP_SERVE_NATIVE_OBS``,
+``CAP_SERVE_FAIR``, ``CAP_SERVE_ADMIT_*``), this one takes arguments
+with the same defaults. Not ported yet (ROADMAP A item 8): the HTTP
+observability server (``obs_port`` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from ..obs import occupancy as _occupancy
 from . import admission as _admission
 from . import drr as _drr
 from . import protocol
+from . import shm_ring as _shm
 from . import vcache as _vcache
 from .batcher import AdaptiveBatcher
 
@@ -115,6 +126,10 @@ class VerifyWorker:
     fair scheduling and per-tenant admission (off by default).
     keys_grace_s: the grace window a KEYS push gives the old epoch's
     kids (None: the engine's default).
+    serve_native: the native C++ chain (TCP only; with ``uds_path`` it
+    raises ValueError). native_obs: its native telemetry plane, on
+    while telemetry is on (False: the Python decision fold).
+    transport: "socket", or "shm" to honour shared-memory attaches.
     """
 
     def __init__(self, keyset, host: str = "127.0.0.1", port: int = 0,
@@ -132,18 +147,17 @@ class VerifyWorker:
                  dedup: Optional[bool] = None,
                  drr_quantum: Optional[int] = None,
                  drr_weights: Optional[dict] = None,
-                 keys_grace_s: Optional[float] = None):
-        if transport == "shm":
-            raise NotImplementedError(
-                _NOT_PORTED.format("the shm transport"))
-        if transport != "socket":
+                 keys_grace_s: Optional[float] = None,
+                 native_obs: bool = True):
+        if transport not in ("socket", "shm"):
             raise ValueError(f"unknown transport {transport!r}")
-        if serve_native:
-            raise NotImplementedError(
-                _NOT_PORTED.format("the native serve chain"))
+        if serve_native and uds_path is not None:
+            raise ValueError("the native serve chain serves TCP only: "
+                             "serve_native=True takes no uds_path")
         if obs_port is not None:
             raise NotImplementedError(
                 _NOT_PORTED.format("the obs_port HTTP server"))
+        self._shm_enabled = transport == "shm"
         # The unwrapped engine: keyplane operations (KEYS pushes,
         # epoch reporting) address it directly, whatever raw-claims
         # wrapper the batcher ends up routed through.
@@ -180,7 +194,19 @@ class VerifyWorker:
                 capacity=vcache_capacity or 65536)
             self._vcache.set_epoch(getattr(self._engine, "key_epoch",
                                            None))
-        if self._adm_cfg.admission_on:
+        # The native chain: C++ frame I/O and a lock-free ring over the
+        # same batcher, cache and control handlers.
+        self._native = None
+        if serve_native:
+            from .native_serve import NativeServeChain
+
+            self._native = NativeServeChain(
+                self._batcher, stats_fn=self.stats,
+                keys_fn=self.apply_keys, peer_fill_fn=self.peer_fill,
+                max_batch=max_batch, vcache=self._vcache,
+                shm=self._shm_enabled, admission=self._adm_cfg,
+                native_obs=native_obs, grace_fn=self._in_grace)
+        elif self._adm_cfg.admission_on:
             # the reader thread polices at dispatch time
             self._admission = _admission.AdmissionController(
                 self._adm_cfg.rate, self._adm_cfg.burst)
@@ -219,13 +245,18 @@ class VerifyWorker:
 
     @property
     def serve_chain(self) -> str:
-        """The serve chain this worker runs: always "python"."""
-        return "python"
+        """Which serve chain this worker runs: "native" (C++ frame I/O
+        + lock-free ring) or "python" (reader/responder threads)."""
+        return "native" if self._native is not None else "python"
 
     @property
     def transport(self) -> str:
-        """The transport actually live: always "socket"."""
-        return "socket"
+        """The transport capability live: "shm" when this worker
+        honours shared-memory attach negotiations, else "socket"."""
+        return "shm" if self._shm_enabled else "socket"
+
+    def _in_grace(self) -> bool:
+        return bool(getattr(self._engine, "in_grace", False))
 
     def apply_keys(self, jwks_doc: dict, epoch) -> int:
         """Apply one keyplane KEYS push; returns the installed epoch.
@@ -282,7 +313,7 @@ class VerifyWorker:
         if op == "import":
             # a sibling's accepts may rest on kids a push dropped here:
             # none is taken while they still resolve
-            entries = [] if getattr(self._engine, "in_grace", False) \
+            entries = [] if self._in_grace() \
                 else doc.get("entries") or []
             n = self._vcache.import_entries(entries, epoch=doc.get("epoch"))
             telemetry.count("worker.peer_imports")
@@ -295,7 +326,9 @@ class VerifyWorker:
         scales (< 1.0 sheds, 1.0 restores); ``rate``/``burst`` retune
         the buckets wholesale. Raises when this worker has no
         admission plane armed."""
-        if self._admission is None:
+        native = self._native
+        if self._admission is None and (native is None
+                                        or not native.adm_native):
             raise TypeError("worker has no admission plane armed "
                             "(admit_rate unset)")
         applied = 0
@@ -305,15 +338,22 @@ class VerifyWorker:
             rate = float(rate)
             burst = float(burst) if burst is not None \
                 else max(1.0, 2.0 * rate)
-            self._admission.rate = max(0.0, rate)
-            self._admission.burst = burst
+            if native is not None:
+                native._lib.cap_serve_set_admission(
+                    native._h, 1, rate, burst)
+            if self._admission is not None:
+                self._admission.rate = max(0.0, rate)
+                self._admission.burst = burst
             self._adm_cfg.rate = max(0.0, rate)
             self._adm_cfg.burst = burst
             applied += 1
         for label, s in (doc.get("scale") or {}).items():
             label = str(label)
             s = float(s)
-            self._admission.set_scale(label, s)
+            if native is not None:
+                native.set_tenant_scale(label, s)
+            if self._admission is not None:
+                self._admission.set_scale(label, s)
             telemetry.count("admission.sheds" if s < 1.0
                             else "admission.unsheds")
             applied += 1
@@ -321,10 +361,30 @@ class VerifyWorker:
         return {"applied": applied, "shed": self.shed_state()}
 
     def shed_state(self) -> dict:
-        """Currently shed tenants (label → rate scale)."""
+        """Currently shed tenants (label → rate scale), whichever
+        enforcement point holds them."""
+        if self._native is not None:
+            return self._native.shed_state
         if self._admission is not None:
             return dict(self._admission.shed)
         return {}
+
+    def _native_obs_snapshot(self):
+        """The native side's mergeable snapshot (None on the python
+        chain): the serve chain's own counters plus — when the
+        telemetry plane is on — its decision counters and histogram
+        series; the exemplar pump runs first so the decision ring is
+        fresh."""
+        native = self._native
+        if native is None:
+            return None
+        snap = {"v": 1, "counters": dict(native.counters()),
+                "gauges": {}, "series": {}}
+        plane = native.obs_plane
+        if plane is not None:
+            plane.pump()
+            snap = telemetry.merge_snapshots([snap, plane.snapshot()])
+        return snap
 
     def stats(self) -> dict:
         """Process-local load/health snapshot (the STATS op payload).
@@ -332,24 +392,41 @@ class VerifyWorker:
         Counts and timings only — never tokens, keys, or claims. The
         telemetry recorder may be off (empty dicts then); queue depth
         and inflight come straight from the batcher either way. The
-        keys are the JAX worker's python chain's.
+        keys are the JAX worker's.
         """
         rec = telemetry.active()
         # occupancy counters flush into the recorder BEFORE the
         # snapshot below, so STATS carries them
         _occupancy.publish(rec)
+        native_counters = (self._native.counters()
+                           if self._native is not None else {})
+        # The native telemetry plane's counters (decision.serve.*) and
+        # series live in the C region, not the recorder: merged here so
+        # STATS shows one worker, whichever side counted.
+        plane_snap = self._native_obs_snapshot()
+        snap = rec.snapshot() if rec is not None else {}
+        series = rec.summary() if rec is not None else {}
+        if plane_snap is not None:
+            snap = telemetry.merge_snapshots([snap, plane_snap])
+            series = {**series, **telemetry.summarize_snapshot(
+                {"series": plane_snap.get("series") or {}})}
         return {
             "pid": os.getpid(),
             **self._batcher.stats(),
             "key_epoch": self.key_epoch,
             "serve_chain": self.serve_chain,
             "transport": self.transport,
+            **({"ring_depth": self._native.ring_depth()}
+               if self._native is not None else {}),
             "obs_port": None,
-            "counters": rec.counters() if rec is not None else {},
-            "series": rec.summary() if rec is not None else {},
+            "counters": {**(rec.counters() if rec is not None else {}),
+                         **native_counters,
+                         **((plane_snap.get("counters") or {})
+                            if plane_snap is not None else {})},
+            "series": series,
             # Mergeable form: bucket counts add across workers for
             # exact quantiles.
-            "snapshot": rec.snapshot() if rec is not None else {},
+            "snapshot": snap,
         }
 
     def close(self, deadline_s: float = 120.0) -> None:
@@ -365,7 +442,16 @@ class VerifyWorker:
                 os.unlink(self._uds_path)
             except OSError:
                 pass
+        if self._native is not None:
+            # Graceful-drain order: flush the ring into the batcher,
+            # let the batcher finish (its close waits for in-flight
+            # dispatches, whose on_done posts write the responses),
+            # give the native writers a beat, then sever connections.
+            self._native.stop_drain(deadline_s=min(10.0, deadline_s))
         self._batcher.close(deadline_s=deadline_s)
+        if self._native is not None:
+            time.sleep(0.2)
+            self._native.destroy()
 
     # -- internals --------------------------------------------------------
 
@@ -376,6 +462,16 @@ class VerifyWorker:
             except OSError:
                 return  # socket closed
             telemetry.count("worker.connections")
+            if self._native is not None:
+                # Native chain: the fd moves to C++ reader/writer
+                # threads; Python never sees this connection's frames.
+                try:
+                    conn.setsockopt(socket.IPPROTO_TCP,
+                                    socket.TCP_NODELAY, 1)
+                except OSError:
+                    pass
+                self._native.add_conn(conn)
+                continue
             threading.Thread(target=self._serve_conn, args=(conn,),
                              daemon=True, name="cap-gpu-conn").start()
 
@@ -422,13 +518,17 @@ class VerifyWorker:
                     telemetry.count("worker.protocol_errors")
                     return
                 if ftype == protocol.T_SHM_ATTACH:
-                    # No shm transport here: ack status 1 as the JAX
-                    # worker's socket transport does; the socket keeps
-                    # serving.
-                    telemetry.count("serve.shm_fallbacks")
-                    respq.put(("shm_err", "TypeError: worker has no shm "
-                               "transport (transport=socket)", None))
-                    continue
+                    # Transport negotiation: map the client's region
+                    # and swap this connection's frame source to its
+                    # request ring (responses follow through the
+                    # responder's sink switch). Anything unsupported
+                    # acks status 1 and the SOCKET keeps serving.
+                    shm_state = self._shm_attach(entries, respq)
+                    if shm_state is None:
+                        continue
+                    region, consumer = shm_state
+                    self._serve_shm_conn(conn, respq, region, consumer)
+                    return
                 if (not tenant_counted and entries
                         and ftype in (protocol.T_VERIFY_REQ,
                                       protocol.T_VERIFY_REQ_CRC,
@@ -519,6 +619,99 @@ class VerifyWorker:
                    self._admitted_submit(entries), None))
         return True
 
+    def _shm_attach(self, entries, respq):
+        """Negotiate one shm attach: returns (region, consumer) on
+        success (ack queued), None on a status-1 refusal (socket keeps
+        serving)."""
+        import json as _json
+
+        with telemetry.span(telemetry.SPAN_SHM_ATTACH):
+            try:
+                if not self._shm_enabled:
+                    raise TypeError("worker has no shm transport "
+                                    "(transport=socket)")
+                doc = _json.loads(entries[0])
+                if doc.get("op") != "attach" \
+                        or doc.get("version") != 1:
+                    raise ValueError(
+                        f"unsupported attach op/version: "
+                        f"{doc.get('op')!r}/{doc.get('version')!r}")
+                region = _shm.ShmRegion.open(str(doc.get("path")))
+            except Exception as e:  # noqa: BLE001 - acked, never fatal
+                telemetry.count("serve.shm_fallbacks")
+                respq.put(("shm_err",
+                           f"{type(e).__name__}: {e}", None))
+                return None
+            telemetry.count("serve.shm.attaches")
+            # short write timeout: a client killed mid-read stops
+            # consuming the response ring; the responder must give up
+            # and discard, not wedge for the default 30 s per frame
+            producer = _shm.RingProducer(region, "resp", timeout=5.0)
+            consumer = _shm.RingConsumer(region, "req")
+            # the ack rides the SOCKET; every later response rides the
+            # ring (the responder switches sinks on this marker)
+            respq.put(("shm_ack", producer, None))
+            return region, consumer
+
+    def _serve_shm_conn(self, conn, respq, region, consumer) -> None:
+        """Serve one attached connection from its request ring; the
+        socket is polled as the liveness channel only. A poisoned ring
+        (overrun / stale generation / malformed frame) detaches, the
+        worker survives — the shm analog of dropping a bad socket."""
+        import select
+
+        try:
+            while True:
+                try:
+                    rec = consumer.read(timeout=0.05)
+                except _shm.StaleGenerationError:
+                    telemetry.count("serve.shm.stale_gen")
+                    telemetry.count("worker.protocol_errors")
+                    return
+                except (protocol.ProtocolError, ValueError):
+                    telemetry.count("worker.protocol_errors")
+                    return
+                if rec is None:
+                    if self._closed:
+                        return
+                    try:
+                        readable, _, _ = select.select([conn], [], [], 0)
+                        if readable:
+                            if conn.recv(4096) == b"":
+                                return       # EOF: client gone
+                            # bytes on the socket after the attach:
+                            # protocol violation
+                            telemetry.count("worker.protocol_errors")
+                            return
+                    except (OSError, ValueError):
+                        return
+                    continue
+                t_recv = time.time()
+                try:
+                    ftype, entries, trace, used = \
+                        protocol.parse_frame_bytes(rec)
+                    if used != len(rec):
+                        raise protocol.MalformedFrameError(
+                            "shm record carries trailing bytes")
+                except (protocol.ProtocolError, UnicodeDecodeError,
+                        ConnectionError):
+                    telemetry.count("worker.protocol_errors")
+                    return
+                telemetry.count("serve.shm.frames")
+                if not self._dispatch_frame(ftype, entries, trace,
+                                            respq, t_recv):
+                    return
+        finally:
+            telemetry.count("serve.shm.detaches")
+            # the worker is the reliable janitor: unlink reclaims the
+            # file even after the client died to kill -9 (its own
+            # mapping dies with it); the responder may still hold the
+            # mmap through its producer — the mapping stays valid
+            try:
+                os.unlink(region.path)
+            except OSError:
+                pass
+
     def _admitted_submit(self, entries, trace: Optional[str] = None):
         """Token-bucket admission in front of the cache/batcher (the
         python chain's enforcement point). Throttled tokens get a ThrottledError
@@ -561,7 +754,7 @@ class VerifyWorker:
         epoch0 = vc.epoch
         # read after the epoch: a push that bumped it had already
         # installed its graced tables
-        graced = bool(getattr(self._engine, "in_grace", False))
+        graced = self._in_grace()
 
         def fill(idxs, fresh):
             if graced:
@@ -583,6 +776,13 @@ class VerifyWorker:
 
     def _respond_loop(self, conn: socket.socket, respq) -> None:
         broken = False
+        # Responses go to `sink`: the socket, until an shm attach
+        # swaps in the region's response-ring producer (which
+        # duck-types sendall — every protocol.send_* call emits one
+        # complete frame in one sendall). The attach ACK itself still
+        # rides the socket, so the client confirms the switch before
+        # it starts reading the ring.
+        sink = conn
         while True:
             item = respq.get()
             if item is None:
@@ -592,22 +792,25 @@ class VerifyWorker:
             kind, pending, trace = item
             try:
                 if kind == "pong":
-                    protocol.send_pong(conn)
+                    protocol.send_pong(sink)
+                elif kind == "shm_ack":
+                    protocol.send_shm_ack(conn)
+                    sink = pending    # the RingProducer
                 elif kind == "shm_err":
                     protocol.send_shm_ack(conn, error=pending)
                 elif kind == "keys_ack":
-                    protocol.send_keys_ack(conn, epoch=pending)
+                    protocol.send_keys_ack(sink, epoch=pending)
                 elif kind == "keys_err":
-                    protocol.send_keys_ack(conn, error=pending)
+                    protocol.send_keys_ack(sink, error=pending)
                 elif kind == "peer_ack":
-                    protocol.send_peer_ack(conn, doc=pending)
+                    protocol.send_peer_ack(sink, doc=pending)
                 elif kind == "peer_err":
-                    protocol.send_peer_ack(conn, error=pending)
+                    protocol.send_peer_ack(sink, error=pending)
                 elif kind == "stats":
                     # Snapshot at RESPOND time (in-order with verifies
                     # on this connection, so a stats probe sent after a
                     # batch reflects that batch's accounting).
-                    protocol.send_stats_response(conn, self.stats())
+                    protocol.send_stats_response(sink, self.stats())
                 else:
                     pending.event.wait()
                     # Serve-surface decision records: every verdict that
@@ -623,12 +826,13 @@ class VerifyWorker:
                         "serve", pending.results, tokens=pending.tokens,
                         latency_s=latency_s,
                         trace=trace)
-                    protocol.send_response(conn, pending.results,
+                    protocol.send_response(sink, pending.results,
                                            crc=kind == "batch_crc",
                                            trace=trace)
             except (ConnectionError, OSError, TimeoutError,
                     protocol.ProtocolError):
-                # Connection broke mid-response: close the
+                # Connection broke mid-response (socket) or the peer
+                # stopped consuming the response ring (shm): close the
                 # socket so the reader unblocks, then keep DRAINING
                 # until the reader's final None — exiting early would
                 # leave the reader wedged in a full-queue put().

@@ -9,8 +9,10 @@ Phases (any failure exits non-zero; none is caught):
 
 1. the card's name and power limit (nvidia-smi), then the build of
    every kernel from ``cap_tpu_torch/gpu/csrc`` with nvcc for sm_90a
-   and of the host prep from ``cap_tpu_torch/runtime/native`` with g++
-   (the prep library and the claims extension), one compiler a
+   and of the host targets from ``cap_tpu_torch/runtime/native`` and
+   ``cap_tpu_torch/serve/native`` with g++ (the prep library, the
+   claims extension, the claims rules, the native serve chain with its
+   telemetry plane and shm rings, and the C client), one compiler a
    target, all in parallel;
 2. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (23+23 RNS channels, 65,536 lanes: one
@@ -148,16 +150,23 @@ Phases (any failure exits non-zero; none is caught):
    expected and equal to ``verify_batch_raw``, the ladder launches
    equal to the ES chunks the keyset counted (11 redc each),
    verifies/s over the socket, p50/p99 request latency and the
-   device's idle share under the profiler ("serve path line"); then
-   the deployed defaults: a KEYS push mid-stream (rs-0 and es-0
-   dropped, a new RSA-2048 and P-256 key added, a 2 s grace), tokens
-   under the dropped kids accepted in the grace and rejected once the
-   keyset's retire counter moves (the grace's accepts too: the
-   verdict cache kept none of them), STATS at the new epoch, a request
-   replayed from the verdict cache with the keyset's token counter
-   unchanged; and ``python -m cap_tpu_torch.fleet.worker_main
-   --keyset jwks:<file>`` on the card: its ready line, one request,
-   SIGTERM, exit 0.
+   device's idle share under the profiler ("serve path line"); the
+   same traffic through the native chain (``serve_native=True``, C++
+   readers and writers, its telemetry plane on; "serve native line",
+   with its frame, token and ring high-water counts) and over the shm
+   transport on the native chain (4 pipelined ``ShmVerifyClient``
+   connections, rings sized from the largest frame, in /dev/shm when
+   it has room, else a temporary directory; "serve shm line"); then
+   the deployed defaults on the Python chain and on the native chain:
+   a KEYS push mid-stream (rs-0 and es-0, then rs-1 and es-1 dropped,
+   a new RSA-2048 and P-256 key added, a 2 s grace), tokens under the
+   dropped kids accepted in the grace and rejected once the keyset's
+   retire counter moves (the grace's accepts too: the verdict cache
+   kept none of them), STATS at the new epoch, a request replayed from
+   the verdict cache with the keyset's token counter unchanged; and
+   ``python -m cap_tpu_torch.fleet.worker_main --keyset jwks:<file>``
+   on the card, then with ``--serve-chain native --transport shm``
+   and an shm client: its ready line, one request, SIGTERM, exit 0.
 
 Each phase's seconds and the whole run's are logged ("phase …" and
 "chip_smoke: … s in all"). The line before the last is the per-kernel
@@ -3144,14 +3153,19 @@ def serve_spans(rng, n_tokens: int):
     return spans
 
 
-def serve_traffic(addr, tokens, spans):
-    """The spans' requests over SERVE_CONNS VerifyClient connections,
-    each pipelined (4 requests in flight), all connections at once:
-    (per-token results with accepted payloads as bytes, request
-    latencies in s, wall s)."""
+def serve_traffic(addr, tokens, spans, client=None):
+    """The spans' requests over SERVE_CONNS connections, each pipelined
+    (4 requests in flight), all connections at once: (per-token results
+    with accepted payloads as bytes, request latencies in s, wall s).
+    ``client(addr)`` opens a connection (default: a raw
+    ``VerifyClient``)."""
     import threading
 
     from cap_tpu_torch.serve.client import VerifyClient
+
+    if client is None:
+        def client(a):
+            return VerifyClient(*a, timeout=SERVE_WAIT_S, raw=True)
 
     results = [None] * len(tokens)
     lat, errs = [], []
@@ -3159,7 +3173,7 @@ def serve_traffic(addr, tokens, spans):
     def run(mine):
         try:
             sent_at = []
-            with VerifyClient(*addr, timeout=SERVE_WAIT_S, raw=True) as c:
+            with client(addr) as c:
                 stream = c.verify_stream(
                     (tokens[lo:hi] for lo, hi in mine), depth=4,
                     sent_at=sent_at)
@@ -3221,9 +3235,11 @@ def serve_keys_push(addr, doc, epoch: int) -> dict:
     return json.loads(entries[0][1])
 
 
-def serve_worker_main(jwks, tokens, expected):
-    """``python -m cap_tpu_torch.fleet.worker_main --keyset jwks:<file>``
-    on the card: its ready line, one request, SIGTERM, exit 0."""
+def serve_worker_main(jwks, tokens, expected, args=(), client=None):
+    """``python -m cap_tpu_torch.fleet.worker_main --keyset
+    jwks:<file> [args]`` on the card: its ready line, one request
+    (``client(port)``: a raw ``VerifyClient`` by default), SIGTERM,
+    exit 0. Returns the ready line's fields."""
     import queue
     import signal
     import tempfile
@@ -3231,6 +3247,11 @@ def serve_worker_main(jwks, tokens, expected):
 
     from cap_tpu_torch.jwt.jwk import serialize_public_key
     from cap_tpu_torch.serve.client import VerifyClient
+
+    if client is None:
+        def client(port):
+            return VerifyClient("127.0.0.1", port, timeout=SERVE_WAIT_S,
+                                raw=True)
 
     here = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="cap-serve-")
@@ -3241,7 +3262,7 @@ def serve_worker_main(jwks, tokens, expected):
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "cap_tpu_torch.fleet.worker_main",
-         "--keyset", f"jwks:{path}", "--drain-deadline-s", "30"],
+         "--keyset", f"jwks:{path}", "--drain-deadline-s", "30", *args],
         cwd=here, env=dict(os.environ, PYTHONPATH=here),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     lines: "queue.Queue" = queue.Queue()
@@ -3253,17 +3274,19 @@ def serve_worker_main(jwks, tokens, expected):
         assert ready.startswith("CAP_FLEET_READY port="), ready
         fields = dict(kv.split("=", 1) for kv in ready.split()[1:])
         assert fields["pid"] == str(proc.pid), ready
-        with VerifyClient("127.0.0.1", int(fields["port"]),
-                          timeout=SERVE_WAIT_S, raw=True) as c:
+        with client(int(fields["port"])) as c:
             got = c.verify_batch(tokens)
         check_served(got, tokens, expected)
         t1 = time.perf_counter()
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
         assert rc == 0, (rc, proc.stderr.read()[-2000:])
-        log(f"serve worker_main: {ready.strip()} after {boot_s:.1f} s; "
-            f"{len(tokens)} tokens verified as expected; SIGTERM drained "
-            f"and exited 0 in {time.perf_counter() - t1:.1f} s")
+        over = getattr(c, "transport", "socket")
+        log(f"serve worker_main{''.join(' ' + a for a in args)}: "
+            f"{ready.strip()} after {boot_s:.1f} s; {len(tokens)} tokens "
+            f"verified as expected over the {over} transport; SIGTERM "
+            f"drained and exited 0 in {time.perf_counter() - t1:.1f} s")
+        return fields
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -3274,109 +3297,107 @@ def serve_worker_main(jwks, tokens, expected):
         os.rmdir(tmp)
 
 
-def serve_path(records, north):
-    """The north-star's keys and tokens through the verify worker on
-    the card.
-
-    1. ``VerifyWorker(GPUBatchKeySet(jwks))`` on loopback, raw claims
-       and the async pipeline, the verdict cache and dedup off so every
-       token reaches the card: the 65,536-token batch as requests of 1
-       to 4,096 tokens over 4 pipelined ``VerifyClient`` connections,
-       every verdict as expected (payload bytes, or class and message)
-       and equal to ``verify_batch_raw``; the ladder launches equal to
-       the ES chunks the keyset counted, 11 redc each; verifies/s over
-       the socket, p50/p99 request latency, and the requests of the
-       first 16,384 tokens once more under the profiler for the
-       device's busy share;
-    2. the deployed defaults (verdict cache on, a 2 s KEYS grace): a
-       KEYS push mid-stream that drops rs-0 and es-0 and adds one new
-       RSA-2048 and one new P-256 key; tokens under the dropped kids
-       accepted inside the grace window and rejected after the keyset's
-       retire counter moves (the grace window's accepts replayed too:
-       the cache kept none), tokens under the new kids accepted, STATS
-       at the new epoch; one request replayed from the verdict cache
-       (the keyset's token counter does not grow);
-    3. ``python -m cap_tpu_torch.fleet.worker_main`` on the card.
-    """
-    import threading
-
+def serve_pass(records, ks, north, spans, name, direct=None, client=None,
+               **worker_kw):
+    """One measured pass of the north-star's tokens through
+    ``VerifyWorker(ks, vcache=False, dedup=False, **worker_kw)`` (a
+    warm request first): every verdict as expected and equal to
+    ``direct`` (``verify_batch_raw``'s, computed here when None), the
+    ladder launches equal to the ES chunks the keyset counted (11 redc
+    each), verifies/s, p50/p99 and the device's idle share under the
+    profiler over the first SERVE_PROFILED tokens' requests. Returns
+    (the pass's figures, ``direct``)."""
     import torch
+
+    from cap_tpu_torch import telemetry
+    from cap_tpu_torch.serve.worker import VerifyWorker
+
+    tokens, expected = north["tokens"], north["expected"]
+    ctr = counters()
+    with telemetry.recording() as rec:
+        # the native chain's telemetry plane attaches at construction
+        worker = VerifyWorker(ks, vcache=False, dedup=False, **worker_kw)
+        try:
+            serve_traffic(worker.address, tokens[:4096], [(0, 4096)],
+                          client)  # warm
+            lanes0 = rec.summary().get("device.es.lanes", {}).get("count", 0)
+            n0 = rec.counters().get("verify_batch.tokens", 0)
+            f0 = rec.counters().get("batcher.flushes", 0)
+            native0 = worker._native.counters() if worker._native else {}
+            if worker._native is not None:
+                worker._native.ring_hwm(reset=True)
+            for mod, attr in ctr.values():
+                setattr(mod, attr, 0)
+            results, lat, wall = serve_traffic(worker.address, tokens, spans,
+                                               client)
+            torch.cuda.synchronize()
+            launches = {k: getattr(mod, attr)
+                        for k, (mod, attr) in ctr.items()}
+            chunks = int(rec.summary()["device.es.lanes"]["count"] - lanes0)
+            n_card = rec.counters()["verify_batch.tokens"] - n0
+            flushes = rec.counters()["batcher.flushes"] - f0
+            native = {}
+            if worker._native is not None:
+                after = worker._native.counters()
+                native = {k: after[k] - native0.get(k, 0) for k in after}
+                native["ring_hwm"] = worker._native.ring_hwm(reset=False)
+            check_served(results, tokens, expected)
+            want = {k: ES_LAUNCHES.get(k, 0) * chunks for k in ctr}
+            assert launches == want and chunks > 0, (launches, want)
+            if direct is None:
+                direct = [wire_form(v) for v in ks.verify_batch_raw(tokens)]
+            assert [wire_form(v) for v in results] == direct, \
+                f"served != verify_batch_raw ({name})"
+            for k, count in launches.items():
+                r = records[k]
+                r["launches"] = r.get("launches", 0) + count
+                r.setdefault("launches_by_path", {})[name] = count
+            n_prof = spans_upto(spans, SERVE_PROFILED)
+            with device_profile() as prof:
+                _, _, prof_wall = serve_traffic(
+                    worker.address, tokens[:spans[n_prof - 1][1]],
+                    spans[:n_prof], client)
+                torch.cuda.synchronize()
+            busy_ms = sum(us for _, us in device_events(prof).values()) / 1e3
+        finally:
+            worker.close(deadline_s=SERVE_WAIT_S)
+    lat.sort()
+    fig = dict(vps=len(tokens) / wall, wall_s=wall,
+               p50_ms=lat[len(lat) // 2] * 1e3,
+               p99_ms=lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3,
+               device_busy_ms=busy_ms, profiled_wall_s=prof_wall,
+               flushes=flushes, chunks=chunks, n_card=n_card,
+               launches=launches, native=native,
+               idle=(f"{100 - 100 * busy_ms / 1e3 / prof_wall:.1f}% "
+                     f"({busy_ms:.1f} ms of device time in {prof_wall:.2f} s "
+                     f"under the profiler)") if busy_ms else "not measured")
+    records.setdefault(name, {}).update(
+        {k: v for k, v in fig.items() if k not in ("launches", "idle")})
+    return fig, direct
+
+
+def serve_keys_pass(ks, north, rng, drop, new, worker_kw, label):
+    """The deployed defaults (verdict cache on, a SERVE_GRACE_S KEYS
+    grace) on ``VerifyWorker(ks, **worker_kw)``: a KEYS push mid-stream
+    that drops the kids ``drop`` (an RSA and an EC one) and adds the
+    kids ``new`` (keys made here); tokens under the dropped kids
+    accepted inside the grace and rejected after the keyset's retire
+    counter moves (the grace window's accepts replayed too: the cache
+    kept none), tokens under the new kids accepted, STATS at the new
+    epoch; one request replayed from the verdict cache (the keyset's
+    token counter does not grow)."""
+    import threading
 
     from cap_tpu_torch import telemetry
     from cap_tpu_torch import testing as tt
     from cap_tpu_torch.jwt import algs
-    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
     from cap_tpu_torch.jwt.jwk import serialize_public_key
-    from cap_tpu_torch.serve.client import VerifyClient
     from cap_tpu_torch.serve.worker import VerifyWorker
 
-    rng = random.Random(SEED + 14)
-    jwks, tokens, expected = north["jwks"], north["tokens"], north["expected"]
-    spans = serve_spans(rng, len(tokens))
-    ks = GPUBatchKeySet(jwks)
-    ctr = counters()
-
-    # 1. every token to the card
-    worker = VerifyWorker(ks, vcache=False, dedup=False)
-    try:
-        serve_traffic(worker.address, tokens[:4096], [(0, 4096)])  # warm
-        with telemetry.recording() as rec:
-            for mod, attr in ctr.values():
-                setattr(mod, attr, 0)
-            results, lat, wall = serve_traffic(worker.address, tokens, spans)
-            torch.cuda.synchronize()
-            launches = {k: getattr(mod, attr)
-                        for k, (mod, attr) in ctr.items()}
-        chunks = int(rec.summary()["device.es.lanes"]["count"])
-        n_card = rec.counters()["verify_batch.tokens"]
-        flushes = rec.counters()["batcher.flushes"]
-        check_served(results, tokens, expected)
-        want = {k: ES_LAUNCHES.get(k, 0) * chunks for k in ctr}
-        assert launches == want and chunks > 0, (launches, want)
-        direct = ks.verify_batch_raw(tokens)
-        assert [wire_form(v) for v in results] == \
-            [wire_form(v) for v in direct], "served != verify_batch_raw"
-        for k, count in launches.items():
-            r = records[k]
-            r["launches"] = r.get("launches", 0) + count
-            r.setdefault("launches_by_path", {})["serve"] = count
-        lat.sort()
-        p50 = lat[len(lat) // 2] * 1e3
-        p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3
-        vps = len(tokens) / wall
-        # the device's busy share under the first SERVE_PROFILED tokens'
-        # requests
-        n_prof = spans_upto(spans, SERVE_PROFILED)
-        with device_profile() as prof:
-            _, _, prof_wall = serve_traffic(
-                worker.address, tokens[:spans[n_prof - 1][1]],
-                spans[:n_prof])
-            torch.cuda.synchronize()
-        busy_ms = sum(us for _, us in device_events(prof).values()) / 1e3
-    finally:
-        worker.close(deadline_s=SERVE_WAIT_S)
-    idle = (f"{100 - 100 * busy_ms / 1e3 / prof_wall:.1f}% "
-            f"({busy_ms:.1f} ms of device time in {prof_wall:.2f} s "
-            f"under the profiler)") if busy_ms else "not measured"
-    log(f"serve path: {len(tokens)} tokens as {len(spans)} requests of "
-        f"1-{SERVE_MAX_REQUEST} tokens over {SERVE_CONNS} pipelined "
-        f"connections, {flushes} batcher flushes, {n_card} tokens to the "
-        f"card; every verdict as expected and equal to verify_batch_raw; "
-        f"launches {launches} ({chunks} ES chunk(s) by the keyset's "
-        f"counter); observed host-to-device rate "
-        + (f"{ks._wire_bps / 1e9:.2f} GB/s" if ks._wire_bps
-           else "not measured") + " (the records' timed copies)")
-    log(f"serve path line: {vps:.0f} verifies/s over the socket "
-        f"({wall:.3f} s); request latency p50 {p50:.1f} ms, p99 "
-        f"{p99:.1f} ms; device idle {idle}; card: {card_line()}")
-    records.setdefault("serve", {}).update(
-        vps=vps, p50_ms=p50, p99_ms=p99, wall_s=wall,
-        device_busy_ms=busy_ms, profiled_wall_s=prof_wall)
-
-    # 2. the deployed defaults: the KEYS push mid-stream, the cache
-    signers = {kid: priv for priv, _, kid in north["signers"]}
-    new_rs, new_es = tt.generate_rsa_key(rng), tt.generate_ec_key(rng)
-    signers.update({"rs-new": new_rs, "es-new": new_es})
+    tokens, expected = north["tokens"], north["expected"]
+    signers = dict(north["keys"])
+    made = {new[0]: tt.generate_rsa_key(rng), new[1]: tt.generate_ec_key(rng)}
+    signers.update(made)
 
     def signed(kid, n, tag, now=1_700_000_000):
         alg = algs.RS256 if kid.startswith("rs") else algs.ES256
@@ -3388,16 +3409,17 @@ def serve_path(records, north):
     # the grace window's tokens live (the cache keeps an accept only
     # before its exp)
     now = int(time.time())
-    during = signed("rs-0", 4, "during", now=now) \
-        + signed("es-0", 4, "during", now=now)
-    after = signed("rs-0", 4, "after") + signed("es-0", 4, "after")
-    fresh = signed("rs-new", 4, "new") + signed("es-new", 4, "new")
-    live = [t for k in ("rs-1", "rs-2", "es-1", "es-2")
+    during = signed(drop[0], 4, "during", now=now) \
+        + signed(drop[1], 4, "during", now=now)
+    after = signed(drop[0], 4, "after") + signed(drop[1], 4, "after")
+    fresh = signed(new[0], 4, "new") + signed(new[1], 4, "new")
+    pub = {k: v for k, v in north["pub"].items() if k not in drop}
+    pub.update({k: made[k].public_key() for k in new})
+    kept = sorted(k for k in pub if k not in new)
+    live = [t for k in ([k for k in kept if k.startswith("rs")][:2]
+                        + [k for k in kept if k.startswith("es")][:2])
             for t in signed(k, 8, "live", now=now)]
-    keys = [serialize_public_key(j.key, kid=j.kid) for j in jwks
-            if j.kid not in ("rs-0", "es-0")]
-    keys += [serialize_public_key(new_rs.public_key(), kid="rs-new"),
-             serialize_public_key(new_es.public_key(), kid="es-new")]
+    keys = [serialize_public_key(key, kid=k) for k, key in pub.items()]
     sub = [json.loads(unb64(t.split(".")[1]))["sub"] for t in
            during + after + fresh]
 
@@ -3405,19 +3427,24 @@ def serve_path(records, north):
         return [json.loads(v)["sub"] if isinstance(v, bytes) else str(v)
                 for v in out]
 
-    worker = VerifyWorker(ks, keys_grace_s=SERVE_GRACE_S)
+    load = tokens[:SERVE_BACKGROUND]
+
+    worker = VerifyWorker(ks, keys_grace_s=SERVE_GRACE_S, **worker_kw)
     stream_errs = []
 
     def background():
         try:
-            serve_traffic(worker.address, tokens[:SERVE_BACKGROUND],
-                          serve_spans(rng, SERVE_BACKGROUND))
+            serve_traffic(worker.address, load,
+                          serve_spans(rng, len(load)))
         except Exception as e:  # noqa: BLE001 - raised below
             stream_errs.append(e)
+
+    from cap_tpu_torch.serve.client import VerifyClient
 
     try:
         with telemetry.recording() as rec:
             epoch0 = ks.key_epoch
+            retired0 = rec.counters().get("keyplane.grace_retired", 0)
             bg = threading.Thread(target=background, daemon=True)
             bg.start()
             t0 = time.perf_counter()
@@ -3428,11 +3455,13 @@ def serve_path(records, north):
                               raw=True) as c:
                 got_during = subs(c.verify_batch(during + fresh))
                 during_s = time.perf_counter() - t0
-                in_grace = rec.counters().get("keyplane.grace_retired", 0)
+                in_grace = rec.counters().get("keyplane.grace_retired",
+                                              0) - retired0
                 bg.join(SERVE_WAIT_S)
                 assert not bg.is_alive() and not stream_errs, stream_errs
                 deadline = time.perf_counter() + SERVE_WAIT_S
-                while rec.counters().get("keyplane.grace_retired", 0) < 1:
+                while rec.counters().get("keyplane.grace_retired",
+                                         0) - retired0 < 1:
                     assert time.perf_counter() < deadline, \
                         "grace never retired"
                     time.sleep(0.05)
@@ -3456,16 +3485,19 @@ def serve_path(records, north):
     finally:
         worker.close(deadline_s=SERVE_WAIT_S)
     n = len(during)
-    assert ack == {"epoch": epoch0 + 1} and in_grace == 0, (ack, in_grace)
+    assert ack == {"epoch": epoch0 + 1} and in_grace == 0, (
+        ack, in_grace, f"acked {swap_s:.2f} s, the grace request answered "
+        f"{during_s:.2f} s, retired {retire_s:.2f} s after the push")
     assert got_during == sub[:n] + sub[2 * n:], got_during
     assert got_after == [f"InvalidSignatureError: {REJECT[1]}"] * 2 * n \
         + sub[2 * n:], got_after
     assert stats["key_epoch"] == ks.key_epoch == epoch0 + 1, stats
+    assert stats["serve_chain"] == worker.serve_chain, stats
     assert n1 == n0 and hits >= len(replay), (n0, n1, hits)
     assert [wire_form(v) for v in first] == [wire_form(v) for v in second]
-    log(f"serve keys: KEYS push mid-stream (epoch {epoch0} -> "
-        f"{epoch0 + 1}, rs-0 and es-0 dropped, rs-new and es-new added) "
-        f"acked in {swap_s:.2f} s; {n} tokens under the dropped kids "
+    log(f"serve keys{label}: KEYS push mid-stream (epoch {epoch0} -> "
+        f"{epoch0 + 1}, {' and '.join(drop)} dropped, {' and '.join(new)} "
+        f"added) acked in {swap_s:.2f} s; {n} tokens under the dropped kids "
         f"accepted in the {SERVE_GRACE_S} s grace (answered "
         f"{during_s:.2f} s after the push), they and {n} more rejected "
         f"after the keyset's retire counter moved ({retire_s:.2f} s after "
@@ -3474,13 +3506,189 @@ def serve_path(records, north):
         f"epoch {stats['key_epoch']}; a {len(replay)}-token request "
         f"replayed from the verdict cache ({hits} hits, the keyset's "
         f"token counter unchanged at {n1})")
+    north["keys"] = {k: v for k, v in signers.items() if k not in drop}
+    north["pub"] = pub
 
-    # 3. the process entry point
+
+def retired_kid_cost(ks, tokens, drop, held_kids, n=256):
+    """The host time of tokens under kids that a KEYS push retired:
+    ``verify_batch_raw`` of the first ``n`` north-star tokens under the
+    kids ``drop`` (no key holds their kid any more, so the trial path
+    tries each key of their alg on the host oracle; every one
+    rejected), beside ``n`` tokens under ``held_kids``, which the
+    keyset holds."""
+    heads = {}
+
+    def kid(t):
+        seg = t.split(".", 1)[0]
+        if seg not in heads:
+            try:
+                heads[seg] = json.loads(unb64(seg)).get("kid")
+            except (ValueError, AttributeError):
+                heads[seg] = None
+        return heads[seg]
+
+    gone = [t for t in tokens if kid(t) in drop][:n]
+    held = [t for t in tokens if kid(t) in held_kids][:n]
+    assert len(gone) == len(held) == n, (len(gone), len(held))
+    ks.verify_batch_raw(held)  # warm
+    walls = []
+    for batch in (gone, held):
+        t0 = time.perf_counter()
+        out = ks.verify_batch_raw(batch)
+        walls.append(time.perf_counter() - t0)
+        if batch is gone:
+            assert all(isinstance(v, Exception) for v in out), \
+                [v for v in out if not isinstance(v, Exception)][:2]
+    log(f"serve retired kids: {n} north-star tokens under "
+        f"{' and '.join(drop)}, which the push retired, rejected by "
+        f"verify_batch_raw in {walls[0]:.3f} s (the trial path on the host "
+        f"oracle, {walls[0] / n * 1e3:.2f} ms a token), against "
+        f"{walls[1]:.3f} s for {n} under held kids")
+
+
+def shm_plan(spans, tokens):
+    """(ring bytes, region directory) for SERVE_CONNS shm connections:
+    each ring holds two of the largest request frames (a frame may take
+    half a ring). The directory is this run's own, made empty in
+    /dev/shm when /dev/shm has room for every region twice, else under
+    TMPDIR; the caller checks that it is empty again and removes it.
+    Logs /dev/shm's size and free bytes."""
+    import tempfile
+
+    largest = max(9 + sum(4 + len(t) for t in tokens[lo:hi])
+                  for lo, hi in spans)
+    ring = 1 << (2 * largest - 1).bit_length()
+    need = SERVE_CONNS * (4096 + 2 * ring)
+    try:
+        st = os.statvfs("/dev/shm")
+        size, free = st.f_blocks * st.f_frsize, st.f_bavail * st.f_frsize
+    except OSError:
+        size = free = 0
+    shm_dir = tempfile.mkdtemp(prefix="cap-shm-run-",
+                               dir="/dev/shm" if free >= 2 * need else None)
+    log(f"serve shm: /dev/shm size {size} bytes, {free} free; the largest "
+        f"request frame {largest} bytes, so rings of {ring} bytes, "
+        f"{need} bytes for {SERVE_CONNS} connections' regions, in "
+        f"{shm_dir}")
+    return ring, shm_dir
+
+
+def serve_line(fig, what: str) -> str:
+    return (f"{fig['vps']:.0f} verifies/s {what} ({fig['wall_s']:.3f} s); "
+            f"request latency p50 {fig['p50_ms']:.1f} ms, p99 "
+            f"{fig['p99_ms']:.1f} ms; device idle {fig['idle']}; "
+            f"{fig['flushes']} batcher flushes, {fig['chunks']} ES chunk(s) "
+            f"by the keyset's counter, launches {fig['launches']}")
+
+
+def serve_path(records, north):
+    """The north-star's keys and tokens through the verify worker on
+    the card.
+
+    1. ``VerifyWorker(GPUBatchKeySet(jwks))`` on loopback, raw claims
+       and the async pipeline, the verdict cache and dedup off so every
+       token reaches the card: the 65,536-token batch as requests of 1
+       to 4,096 tokens over 4 pipelined ``VerifyClient`` connections
+       (``serve_pass``) on the Python chain, then on the native chain
+       (``serve_native=True``, its telemetry plane on), then over the
+       shm transport on the native chain (4 pipelined
+       ``ShmVerifyClient`` connections, rings sized from the largest
+       frame): each pass's verdicts as expected and equal to
+       ``verify_batch_raw``, its launches and its line;
+    2. the deployed defaults (``serve_keys_pass``) on the Python chain
+       (rs-0 and es-0 dropped, rs-new and es-new added), the host time
+       of tokens under the retired kids (``retired_kid_cost``), then
+       the same push and background on the native chain over a fresh
+       ``GPUBatchKeySet(jwks)``;
+    3. ``python -m cap_tpu_torch.fleet.worker_main`` on the card, then
+       with ``--serve-chain native --transport shm`` and one shm
+       request.
+    """
+    import shutil
+
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.serve.shm_client import ShmVerifyClient
+
+    rng = random.Random(SEED + 14)
+    jwks, tokens, expected = north["jwks"], north["tokens"], north["expected"]
+    spans = serve_spans(rng, len(tokens))
+    ks = GPUBatchKeySet(jwks)
+    served = dict(north, keys={kid: priv for priv, _, kid in north["signers"]},
+                  pub={j.kid: j.key for j in jwks})
+
+    # 1. every token to the card: the Python chain, the native chain,
+    # the shm transport
+    fig, direct = serve_pass(records, ks, served, spans, "serve")
+    log(f"serve path: {len(tokens)} tokens as {len(spans)} requests of "
+        f"1-{SERVE_MAX_REQUEST} tokens over {SERVE_CONNS} pipelined "
+        f"connections, {fig['n_card']} tokens to the card; every verdict as "
+        f"expected and equal to verify_batch_raw; observed host-to-device "
+        f"rate " + (f"{ks._wire_bps / 1e9:.2f} GB/s" if ks._wire_bps
+                    else "not measured") + " (the records' timed copies)")
+    log(f"serve path line: {serve_line(fig, 'over the socket')}; card: "
+        f"{card_line()}")
+    fig, _ = serve_pass(records, ks, served, spans, "serve-native",
+                        direct=direct, serve_native=True)
+    nat = fig["native"]
+    line = serve_line(fig, "over the socket, native chain")
+    log(f"serve native line: {line}; native counters: "
+        f"{nat['serve.native.frames']} frames, "
+        f"{nat['serve.native.tokens']} tokens, ring high-water mark "
+        f"{nat['ring_hwm']} tokens, {nat['serve.native.protocol_errors']} "
+        f"protocol errors; card: {card_line()}")
+    # (the warm request too)
+    ring, shm_dir = shm_plan(spans + [(0, 4096)], tokens)
+
+    def shm_client(addr):
+        c = ShmVerifyClient(*addr, timeout=SERVE_WAIT_S, raw=True,
+                            ring_bytes=ring, shm_dir=shm_dir)
+        assert c.transport == "shm", c.attach_error
+        return c
+
+    try:
+        fig, _ = serve_pass(records, ks, served, spans, "serve-shm",
+                            direct=direct, client=shm_client,
+                            serve_native=True, transport="shm")
+        assert not os.listdir(shm_dir), "regions left behind"
+    finally:
+        shutil.rmtree(shm_dir, ignore_errors=True)
+    nat = fig["native"]
+    line = serve_line(fig, "over shm rings, native chain")
+    log(f"serve shm line: {line}; native counters: "
+        f"{nat['serve.shm.attaches']} attaches, "
+        f"{nat['serve.shm.frames']} shm frames, {nat['serve.native.tokens']} "
+        f"tokens, ring high-water mark {nat['ring_hwm']} tokens, "
+        f"{nat['serve.shm.stale_gen']} stale generations; card: "
+        f"{card_line()}")
+
+    # 2. the deployed defaults on both chains, each on a keyset that
+    # holds every north-star kid, with the same push and background
+    fresh = dict(served, keys=dict(served["keys"]), pub=dict(served["pub"]))
+    serve_keys_pass(ks, served, rng, ("rs-0", "es-0"), ("rs-new", "es-new"),
+                    {}, "")
+    retired_kid_cost(ks, tokens, ("rs-0", "es-0"), served["pub"])
+    ks = GPUBatchKeySet(jwks)
+    serve_keys_pass(ks, fresh, rng, ("rs-0", "es-0"), ("rs-new", "es-new"),
+                    {"serve_native": True}, " (native chain)")
+
+    # 3. the process entry point, on either chain and transport
     probe = tokens[:64] + [t for t, e in zip(tokens, expected)
                            if isinstance(e, tuple)][:8]
     probe_exp = expected[:64] + [e for e in expected
                                  if isinstance(e, tuple)][:8]
     serve_worker_main(jwks, probe, probe_exp)
+    ring, shm_dir = shm_plan([(0, len(probe))], probe)
+    try:
+        fields = serve_worker_main(
+            jwks, probe, probe_exp,
+            ("--serve-chain", "native", "--transport", "shm"),
+            lambda port: shm_client(("127.0.0.1", port)))
+        assert not os.listdir(shm_dir), "regions left behind"
+    finally:
+        shutil.rmtree(shm_dir, ignore_errors=True)
+    assert (fields["serve_chain"], fields["transport"]) == \
+        ("native", "shm"), fields
 
 
 def device_profile():
@@ -3679,7 +3887,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s for the kernels "
-        f"{', '.join(_build.KERNELS)} (nvcc) and the host prep "
+        f"{', '.join(_build.KERNELS)} (nvcc) and the host targets "
         f"{', '.join(_build.HOST_TARGETS)} (g++), all in parallel: "
         + ", ".join(f"{n} {info['seconds']:.1f} s"
                     for n, info in _build.BUILD_LOG.items()))

@@ -1114,3 +1114,62 @@ def test_serve_worker_on_the_card_matches_the_plain_path(dev):
     finally:
         for w in workers:
             w.close(deadline_s=60)
+
+
+def test_native_chain_and_shm_on_the_card_match_the_plain_path(dev,
+                                                                tmp_path):
+    """VerifyWorker(serve_native=True, transport="shm") over
+    GPUBatchKeySet on the card: pipelined requests over a socket
+    connection and over an shm connection, every verdict equal to a
+    Python-chain worker's over the keyset on the CPU; the ladder
+    launches equal the ES chunks the keyset counted, 11 redc each."""
+    from cap_tpu_torch import telemetry
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.serve.client import VerifyClient
+    from cap_tpu_torch.serve.shm_client import ShmVerifyClient
+    from cap_tpu_torch.serve.worker import VerifyWorker
+
+    jwks, tokens, _ = tt.headline_fixtures(128, seed=18)
+    batch = tokens + [tokens[3][:-4] + "AAAA", "a.b"]
+    reqs = [batch[i:i + 40] for i in range(0, len(batch), 40)] + [batch]
+
+    def wire(out):
+        return [[str(v) if isinstance(v, Exception) else v for v in r]
+                for r in out]
+
+    def drive(worker, shm: bool):
+        if shm:
+            c = ShmVerifyClient(*worker.address, timeout=60, raw=True,
+                                ring_bytes=1 << 20, shm_dir=str(tmp_path))
+            assert c.transport == "shm", c.attach_error
+        else:
+            c = VerifyClient(*worker.address, timeout=60, raw=True)
+        with c:
+            return wire(c.verify_stream(reqs, depth=4))
+
+    plain = VerifyWorker(GPUBatchKeySet(jwks, device="cpu"), vcache=False,
+                         max_wait_ms=20.0)
+    try:
+        want = drive(plain, False)
+    finally:
+        plain.close(deadline_s=60)
+    with telemetry.recording() as rec:
+        card = VerifyWorker(GPUBatchKeySet(jwks), vcache=False,
+                            max_wait_ms=20.0, serve_native=True,
+                            transport="shm")
+        try:
+            assert (card.serve_chain, card.transport) == ("native", "shm")
+            cuda_ladder.launches = cuda_redc.launches = 0
+            got = [drive(card, False), drive(card, True)]
+            torch.cuda.synchronize()
+            launches = (cuda_ladder.launches, cuda_redc.launches)
+            native = card._native.counters()
+        finally:
+            card.close(deadline_s=60)
+    chunks = int(rec.summary()["device.es.lanes"]["count"])
+    assert launches == (chunks, 11 * chunks) and chunks >= 2
+    assert got == [want, want]
+    assert native["serve.native.tokens"] >= 2 * sum(map(len, reqs))
+    assert native["serve.shm.attaches"] == 1
+    assert not list(tmp_path.iterdir())

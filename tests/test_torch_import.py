@@ -67,6 +67,10 @@ def test_serve_modules_are_covered():
                  "cap_tpu_torch.serve.admission",
                  "cap_tpu_torch.serve.vcache", "cap_tpu_torch.serve.batcher",
                  "cap_tpu_torch.serve.client", "cap_tpu_torch.serve.worker",
+                 "cap_tpu_torch.serve.native_serve",
+                 "cap_tpu_torch.serve.native_client",
+                 "cap_tpu_torch.serve.shm_ring",
+                 "cap_tpu_torch.serve.shm_client",
                  "cap_tpu_torch.fleet.worker_main"):
         assert name in MODULES, name
 

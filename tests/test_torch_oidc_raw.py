@@ -150,7 +150,7 @@ def test_claims_validate_cpp_is_the_reference_copy():
     theirs = REPO / "cap_tpu" / "runtime" / "native" / "claims_validate.cpp"
     assert filecmp.cmp(ours, theirs, shallow=False)
     assert _build.HOST_TARGETS["claims_rules"] == (
-        "claims_validate.cpp", ("claims_tape.h",))
+        ("claims_validate.cpp",), ("claims_tape.h",))
     lib = _build.load("claims_rules")
     assert pathlib.Path(lib._name).parent == _build.BUILD_DIR
 

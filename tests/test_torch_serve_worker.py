@@ -373,8 +373,8 @@ def test_close_drains_in_flight_requests():
 
 def test_not_ported_options_raise():
     ks = t_main.StubKeySet()
-    for kw in ({"serve_native": True}, {"obs_port": 0},
-               {"transport": "shm"}):
+    for kw in ({"obs_port": 0}, {"obs_port": 0, "serve_native": True},
+               {"obs_port": 0, "transport": "shm"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_worker.VerifyWorker(ks, **kw)
     for spec in ("jwks-url:http://x/", "oidc:http://x/",
