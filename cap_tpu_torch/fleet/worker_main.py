@@ -5,13 +5,17 @@ The port of ``cap_tpu.fleet.worker_main``. One process = one
 process:
 
 1. builds its keyset from ``--keyset`` (below) on ``--device``
-   (``cuda`` by default; without CUDA the keyset raises);
+   (``cuda`` by default; without CUDA the keyset raises). A pool holds
+   the process to its card with ``CUDA_VISIBLE_DEVICES``
+   (:mod:`cap_tpu_torch.parallel.place`);
 2. binds the serve socket and prints ONE machine-readable ready line on
    stdout (``CAP_FLEET_READY port=<p> pid=<p>``) — a supervisor parses
    it to learn the ephemeral port;
 3. serves until SIGTERM, then drains gracefully: stops accepting,
-   flushes every queued batch, answers the in-flight connections, and
-   exits 0.
+   flushes every queued batch, answers the in-flight connections,
+   writes a final ``sigterm-drain`` postmortem (``--postmortem-path``)
+   and exits 0 (kill -9 is the CRASH path: the pool collects the last
+   periodic checkpoint).
 
 Keyset specs (``--keyset``):
 
@@ -20,16 +24,29 @@ Keyset specs (``--keyset``):
   JAX package's ``StubKeySet`` as is;
 - ``jwks:<path>`` — a ``GPUBatchKeySet`` over the JWKS JSON file at
   ``<path>``;
+- ``jwks-url:<url>`` — boot straight from a REMOTE JWKS via the
+  keyplane: a ``KeyPlaneKeySet`` fetches the document, builds the
+  ``GPUBatchKeySet``, and keeps it fresh (jittered periodic refresh
+  every ``--keyplane-refresh-s`` + singleflight unknown-kid refresh;
+  a rotation keeps the old kids for ``--keyplane-grace-s``);
+- ``oidc:<issuer>`` — same, with the JWKS URL resolved through OIDC
+  discovery (issuer-equality enforced);
 - ``oidc-rp:issuer=I;client=C;nonce=N[;algs=ES256+RS256][;aud=a+b]
   [;keyset=<inner spec>]`` — the inner engine (default
   ``stub:raw=1,echo=1``) wrapped in ``oidc.serve_keyset.OIDCRawKeySet``
   so every served token passes signature verification AND
   registered-claims validation.
 
-Not ported yet (ROADMAP A item 8): ``jwks-url:`` and ``oidc:`` (the
-keyplane) and ``frontdoor:``; they raise ``ValueError``. The worker's
-knobs are flags here where the JAX package reads its environment
-(``--vcache off``, ``--no-telemetry``).
+Not ported yet (ROADMAP A item 8.5): ``frontdoor:``; it raises
+``ValueError``. The worker's knobs are flags here where the JAX
+package reads its environment (``--vcache off``, ``--no-telemetry``,
+``--postmortem-path``, ``--pm-interval``, ``--keyplane-refresh-s``,
+``--keyplane-grace-s``).
+
+Every keyset kind accepts the fleet's KEYS pushes (CVB1 type 11):
+``swap_keys`` swaps the live tables and the ready line / STATS /
+``/snapshot`` all report ``key_epoch`` so the pool can verify epoch
+convergence.
 """
 
 from __future__ import annotations
@@ -170,7 +187,9 @@ class StubKeySet:
 _DEVICE = "cuda"
 
 
-def make_keyset(spec: str, device: str = _DEVICE):
+def make_keyset(spec: str, device: str = _DEVICE,
+                keyplane_refresh_s: float = 300.0,
+                keyplane_grace_s: float = 30.0):
     """Build the worker's engine from a ``--keyset`` spec string."""
     if spec == "stub" or spec.startswith("stub:"):
         kwargs = {}
@@ -201,7 +220,7 @@ def make_keyset(spec: str, device: str = _DEVICE):
                 raise ValueError(f"unknown oidc-rp option {k!r}")
             opts[k] = v
         inner = make_keyset(opts.pop("keyset", "stub:raw=1,echo=1"),
-                            device)
+                            device, keyplane_refresh_s, keyplane_grace_s)
         return oidc_rp_keyset_from_spec(opts, inner)
     if spec.startswith("jwks:"):
         import json
@@ -212,11 +231,17 @@ def make_keyset(spec: str, device: str = _DEVICE):
         with open(spec[len("jwks:"):], "r") as f:
             doc = json.load(f)
         return GPUBatchKeySet(parse_jwks(doc), device=device)
-    for kind in ("jwks-url:", "oidc:", "frontdoor:"):
-        if spec.startswith(kind):
-            raise ValueError(
-                f"keyset spec {kind!r} is not ported yet (ROADMAP A "
-                f"item 8)")
+    if spec.startswith("jwks-url:") or spec.startswith("oidc:"):
+        from ..keyplane import source_for_spec
+        from ..keyplane.plane import KeyPlaneKeySet
+
+        return KeyPlaneKeySet(source_for_spec(spec),
+                              interval_s=keyplane_refresh_s,
+                              grace_s=keyplane_grace_s, device=device)
+    if spec.startswith("frontdoor:"):
+        raise ValueError(
+            "keyset spec 'frontdoor:' is not ported yet (ROADMAP A "
+            "item 8.5)")
     raise ValueError(f"unknown keyset spec {spec!r}")
 
 
@@ -250,6 +275,22 @@ def main(argv=None) -> int:
     # The telemetry recorder is on by default (the STATS op then serves
     # real numbers); --no-telemetry serves structural fields only.
     ap.add_argument("--no-telemetry", action="store_true")
+    # Observability server (serve.obs): 0 = ephemeral port (default),
+    # below 0 = disabled. The bound port is announced on the ready line.
+    ap.add_argument("--obs-port", type=int, default=0)
+    # Crash postmortems: checkpoint telemetry to this path on a timer
+    # and on SIGTERM drain, so the pool can collect a ≤interval-stale
+    # document even after kill -9. Empty = disabled.
+    ap.add_argument("--postmortem-path", default="")
+    ap.add_argument("--pm-interval", type=float, default=2.0)
+    # Keyplane (jwks-url: / oidc: specs): the periodic refresh cadence
+    # and the grace a rotation gives the retired kids.
+    ap.add_argument("--keyplane-refresh-s", type=float, default=300.0)
+    ap.add_argument("--keyplane-grace-s", type=float, default=30.0)
+    # PyTorch's intra-op threads (0: its default, one a core). A CPU
+    # worker beside others on one host takes a share of the cores:
+    # processes that each spin a thread a core slow one another down.
+    ap.add_argument("--torch-threads", type=int, default=0)
     args = ap.parse_args(argv)
 
     from .. import telemetry
@@ -257,7 +298,13 @@ def main(argv=None) -> int:
 
     if not args.no_telemetry:
         telemetry.enable()
-    keyset = make_keyset(args.keyset, args.device)
+    if args.torch_threads > 0:
+        import torch
+
+        torch.set_num_threads(args.torch_threads)
+    keyset = make_keyset(args.keyset, args.device,
+                         keyplane_refresh_s=args.keyplane_refresh_s,
+                         keyplane_grace_s=args.keyplane_grace_s)
     worker = VerifyWorker(keyset, host=args.host, port=args.port,
                           target_batch=args.target_batch,
                           max_wait_ms=args.max_wait_ms,
@@ -265,12 +312,23 @@ def main(argv=None) -> int:
                           vcache=args.vcache != "off",
                           serve_native=args.serve_chain == "native",
                           native_obs=args.native_obs != "off",
-                          transport=args.transport)
+                          transport=args.transport,
+                          obs_port=(None if args.obs_port < 0
+                                    else args.obs_port))
+    pm = None
+    if args.postmortem_path:
+        from ..obs.postmortem import PostmortemWriter
+
+        pm = PostmortemWriter(args.postmortem_path,
+                              interval_s=args.pm_interval,
+                              stats_fn=worker.stats)
     host, port = worker.address
+    obs = worker.obs_address
     epoch = worker.key_epoch
     # The ONE ready line a supervisor parses; flushed so it cannot sit
     # in a stdio buffer. Additive k=v fields as in the JAX package.
     print(f"CAP_FLEET_READY port={port} pid={os.getpid()}"
+          + (f" obs={obs[1]}" if obs is not None else "")
           + (f" epoch={epoch}" if epoch is not None else "")
           + f" serve_chain={worker.serve_chain}"
           + f" transport={worker.transport}"
@@ -284,6 +342,10 @@ def main(argv=None) -> int:
     # Graceful drain: stop accepting, flush queued batches (bounded),
     # give the responder threads a beat to write the last frames out.
     worker.close(deadline_s=args.drain_deadline_s)
+    if pm is not None:
+        # Fresh final checkpoint AFTER the drain: the postmortem then
+        # reflects everything this process ever served.
+        pm.close("sigterm-drain")
     time.sleep(0.2)
     return 0
 

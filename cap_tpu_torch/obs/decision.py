@@ -724,6 +724,30 @@ def entry_from_exemplar(key: int, fam_idx: int, lat_idx: int,
     return _checked_entry(entry)
 
 
+def record_one(surface: str, result: Any, token: Optional[str] = None,
+               latency_s: Optional[float] = None,
+               trace: Optional[str] = None) -> None:
+    record_batch(surface, [result],
+                 tokens=None if token is None else [token],
+                 latency_s=latency_s, trace=trace)
+
+
+def record_wrong_verdict(token: Any = None, n: int = 1) -> None:
+    """Count a verdict conflict caught by a cross-check — globally
+    (``decision.wrong_verdicts``, the zero-tolerance SLO) AND per
+    tenant (``decision.tenant.<t>.wrong_verdicts``, the per-tenant
+    zero-tolerance default rule) when the offending token is known."""
+    rec = telemetry.active()
+    if rec is None or n <= 0:
+        return
+    inc = {"decision.wrong_verdicts": n}
+    if token is not None:
+        seg = token.split(".", 1)[0] if isinstance(token, str) else None
+        label = _seg_fkt(seg, token)[2]
+        inc[f"decision.tenant.{label}.wrong_verdicts"] = n
+    rec.count_many(inc)
+
+
 def count_tenant_cache(labels: Sequence[str],
                        miss_idx: Sequence[int]) -> None:
     """Fold one vcache consult into per-tenant hit accounting
@@ -742,3 +766,105 @@ def count_tenant_cache(labels: Sequence[str],
         if k:
             inc[f"vcache.tenant.{t}.hits"] = k
     rec.count_many(inc)
+
+
+# ---------------------------------------------------------------------------
+# read side helpers (capstat / obs_smoke)
+# ---------------------------------------------------------------------------
+
+
+def decision_counters(counters: Dict[str, int]) -> Dict[str, int]:
+    """The ``decision.*`` subset of a counter map (snapshot or merged)."""
+    return {k: v for k, v in sorted(counters.items())
+            if k.startswith("decision.")}
+
+
+def surface_totals(counters: Dict[str, int]) -> Dict[str, Dict[str, int]]:
+    """Per-surface {accept, reject, reject.<reason>...} rollup from a
+    (merged) counter map — what capstat renders as the verdict table."""
+    out: Dict[str, Dict[str, int]] = {}
+    for k, v in counters.items():
+        if not k.startswith("decision."):
+            continue
+        parts = k.split(".")
+        # tenant-keyed counters (decision.<surface>.tenant.<t>.* and
+        # decision.tenant.<t>.wrong_verdicts) have their own rollup
+        # (tenant_totals) — they must not double into the surface view
+        if len(parts) < 3 or parts[1] == "tenant" \
+                or parts[2] in ("family", "tenant"):
+            continue
+        surf = parts[1]
+        row = out.setdefault(surf, {"accept": 0, "reject": 0})
+        if parts[2] == "accept":
+            row["accept"] += int(v)
+        elif parts[2] == "reject" and len(parts) >= 4:
+            row["reject"] += int(v)
+            row[f"reject.{parts[3]}"] = row.get(f"reject.{parts[3]}", 0) \
+                + int(v)
+    return out
+
+
+def tenant_totals(counters: Dict[str, int],
+                  surface: Optional[str] = None
+                  ) -> Dict[str, Dict[str, int]]:
+    """Per-tenant rollup from a (merged) counter map: tenant label →
+    {tokens, accept, reject, reject.<reason>…, wrong_verdicts,
+    vcache.lookups, vcache.hits}. ``surface`` narrows the decision
+    counters to one surface (capstat's ledger uses "serve" — worker-
+    side truth); None sums every surface."""
+    out: Dict[str, Dict[str, int]] = {}
+
+    def row(t: str) -> Dict[str, int]:
+        return out.setdefault(t, {"tokens": 0, "accept": 0,
+                                  "reject": 0})
+
+    for k, v in counters.items():
+        parts = k.split(".")
+        if k.startswith("decision.tenant.") and len(parts) == 4 \
+                and parts[3] == "wrong_verdicts":
+            r = row(parts[2])
+            r["wrong_verdicts"] = r.get("wrong_verdicts", 0) + int(v)
+            continue
+        if k.startswith("vcache.tenant.") and len(parts) == 4:
+            r = row(parts[2])
+            key = f"vcache.{parts[3]}"
+            r[key] = r.get(key, 0) + int(v)
+            continue
+        if not k.startswith("decision.") or len(parts) < 5 \
+                or parts[2] != "tenant":
+            continue
+        if surface is not None and parts[1] != surface:
+            continue
+        t = parts[3]
+        r = row(t)
+        what = parts[4]
+        if what == "tokens":
+            r["tokens"] += int(v)
+        elif what == "accept":
+            r["accept"] += int(v)
+        elif what == "reject":
+            if len(parts) >= 6:
+                r[f"reject.{parts[5]}"] = r.get(f"reject.{parts[5]}", 0) \
+                    + int(v)
+            else:
+                r["reject"] += int(v)
+    return out
+
+
+def nonzero_check(counters: Dict[str, int],
+                  surfaces: Sequence[str]) -> List[str]:
+    """obs-smoke's gate: every listed surface must have counted BOTH an
+    accept and a reject for the driven mixed batch. Returns problem
+    strings (empty = healthy)."""
+    problems = []
+    rollup = surface_totals(counters)
+    for surf in surfaces:
+        row = rollup.get(surf)
+        if row is None:
+            problems.append(f"surface {surf}: no decision counters at all")
+            continue
+        if row["accept"] <= 0:
+            problems.append(f"surface {surf}: zero accept decisions")
+        if row["reject"] <= 0:
+            problems.append(f"surface {surf}: zero reject decisions")
+    return problems

@@ -26,8 +26,10 @@ Where the JAX package's worker reads its environment
 (``CAP_SERVE_TRANSPORT``, ``CAP_SERVE_DEDUP``, ``CAP_SERVE_VCACHE``,
 ``CAP_SERVE_VCACHE_CAP``, ``CAP_SERVE_NATIVE``, ``CAP_SERVE_NATIVE_OBS``,
 ``CAP_SERVE_FAIR``, ``CAP_SERVE_ADMIT_*``), this one takes arguments
-with the same defaults. Not ported yet (ROADMAP A item 8): the HTTP
-observability server (``obs_port`` raises ``NotImplementedError``).
+with the same defaults. ``obs_port`` (0: an ephemeral port) starts the
+HTTP observability server (:mod:`cap_tpu_torch.serve.obs`: ``/metrics``,
+``/snapshot``, ``/flight``, ``/decisions``, ``/tenants``, ``/healthz``)
+on either chain.
 """
 
 from __future__ import annotations
@@ -47,8 +49,6 @@ from . import protocol
 from . import shm_ring as _shm
 from . import vcache as _vcache
 from .batcher import AdaptiveBatcher
-
-_NOT_PORTED = "not ported yet (ROADMAP A item 8: {})"
 
 # shared pre-set event for all-cache-hit submissions (nothing to wait on)
 _DONE_EVENT = threading.Event()
@@ -130,6 +130,7 @@ class VerifyWorker:
     raises ValueError). native_obs: its native telemetry plane, on
     while telemetry is on (False: the Python decision fold).
     transport: "socket", or "shm" to honour shared-memory attaches.
+    obs_port: the HTTP observability server (None: off; 0: ephemeral).
     """
 
     def __init__(self, keyset, host: str = "127.0.0.1", port: int = 0,
@@ -154,9 +155,6 @@ class VerifyWorker:
         if serve_native and uds_path is not None:
             raise ValueError("the native serve chain serves TCP only: "
                              "serve_native=True takes no uds_path")
-        if obs_port is not None:
-            raise NotImplementedError(
-                _NOT_PORTED.format("the obs_port HTTP server"))
         self._shm_enabled = transport == "shm"
         # The unwrapped engine: keyplane operations (KEYS pushes,
         # epoch reporting) address it directly, whatever raw-claims
@@ -226,6 +224,18 @@ class VerifyWorker:
             self._addr = self._sock.getsockname()
         self._sock.listen(128)
         self._closed = False
+        # Observability surface (obs_port=None → off, 0 → ephemeral):
+        # Prometheus /metrics + mergeable /snapshot + /flight recorder
+        # (serve.obs). Extras are live batcher depth — present in every
+        # scrape even when the telemetry recorder is off.
+        self._obs = None
+        if obs_port is not None:
+            from .obs import ObsServer
+
+            self._obs = ObsServer(
+                host=host if uds_path is None else "127.0.0.1",
+                port=obs_port, extra=self._obs_gauges,
+                snapshot_extra=self._native_obs_snapshot)
         # live connections (the STATS and gauge surface)
         self._conns_live = 0
         self._conns_lock = threading.Lock()
@@ -237,6 +247,11 @@ class VerifyWorker:
     def address(self) -> Tuple[str, int]:
         """(host, port) for TCP, (path, 0) for UDS."""
         return self._addr
+
+    @property
+    def obs_address(self) -> Optional[Tuple[str, int]]:
+        """(host, port) of the HTTP observability server, if enabled."""
+        return self._obs.address if self._obs is not None else None
 
     @property
     def key_epoch(self):
@@ -369,6 +384,73 @@ class VerifyWorker:
             return dict(self._admission.shed)
         return {}
 
+    def _obs_gauges(self) -> dict:
+        # flush the occupancy plane's counter deltas + window gauges
+        # into the recorder so this scrape sees device.occupancy fresh
+        _occupancy.publish()
+        d = self._batcher.depth()
+        out = {"batcher.queued_tokens": d["queued_tokens"],
+               "batcher.inflight_batches": d["inflight_batches"],
+               "worker.pid": os.getpid(),
+               # 1.0 when the native chain serves this worker — the
+               # numeric form capstat renders as chain=native
+               "serve.native.active": 1.0 if self._native else 0.0,
+               # 1.0 when shm attach negotiation is live — capstat
+               # renders it as tr=shm
+               "serve.shm.active": 1.0 if self.transport == "shm"
+               else 0.0}
+        if self._native is not None:
+            out["serve.native.ring_depth"] = float(
+                self._native.ring_depth())
+            # burst-visible peak depth since the LAST scrape (the
+            # native side tracks the max at push time; reading it here
+            # rearms the mark — gauge-reset-on-scrape)
+            out["serve.native.ring_hwm"] = float(
+                self._native.ring_hwm(reset=True))
+            out["serve.native.obs_plane"] = (
+                1.0 if self._native.obs_plane is not None else 0.0)
+        # connection plane: live conns, whichever chain accepts
+        if self._native is not None:
+            nc = self._native.counters()
+            out["serve.conns_live"] = float(
+                nc.get("serve.native.connections", 0)
+                - nc.get("serve.native.connections_closed", 0))
+        else:
+            out["serve.conns_live"] = float(self._conns_live)
+        epoch = self.key_epoch
+        if epoch is not None:
+            out["keyplane.epoch"] = float(epoch)
+        if self._vcache is not None:
+            out["vcache.size"] = float(self._vcache.size())
+        # admission & fairness state (capstat's tenant-ledger columns)
+        out["serve.fair.active"] = 1.0 if self._adm_cfg.fair else 0.0
+        adm_on = (self._admission is not None
+                  or (self._native is not None and self._native.adm_native))
+        out["admission.active"] = 1.0 if adm_on else 0.0
+        if adm_on:
+            out["admission.rate"] = float(self._adm_cfg.rate)
+            out["admission.burst"] = float(self._adm_cfg.burst)
+            for label, s in self.shed_state().items():
+                out[f"admission.tenant.{label}.shed_scale"] = float(s)
+            # per-tenant bucket fill + DRR weight for the capstat
+            # ledger's admission columns (bounded: the tenant table
+            # caps at 64 slots + none/other)
+            weights = self._adm_cfg.weights
+            for slot, label in sorted(
+                    _decision.TENANTS.labels().items()):
+                fill = None
+                if self._native is not None:
+                    fill = self._native.admission_fill(label)
+                elif self._admission is not None:
+                    fill = self._admission.fill(label)
+                if fill is not None:
+                    out[f"admission.tenant.{label}.fill"] = \
+                        round(float(fill), 3)
+                w = weights.get(label)
+                if w is not None:
+                    out[f"admission.tenant.{label}.weight"] = float(w)
+        return out
+
     def _native_obs_snapshot(self):
         """The native side's mergeable snapshot (None on the python
         chain): the serve chain's own counters plus — when the
@@ -395,6 +477,7 @@ class VerifyWorker:
         keys are the JAX worker's.
         """
         rec = telemetry.active()
+        obs = self.obs_address
         # occupancy counters flush into the recorder BEFORE the
         # snapshot below, so STATS carries them
         _occupancy.publish(rec)
@@ -418,7 +501,7 @@ class VerifyWorker:
             "transport": self.transport,
             **({"ring_depth": self._native.ring_depth()}
                if self._native is not None else {}),
-            "obs_port": None,
+            "obs_port": obs[1] if obs is not None else None,
             "counters": {**(rec.counters() if rec is not None else {}),
                          **native_counters,
                          **((plane_snap.get("counters") or {})
@@ -433,6 +516,8 @@ class VerifyWorker:
         """Stop accepting, then drain: every batch already queued or in
         flight is verified and answered (within ``deadline_s``)."""
         self._closed = True
+        if self._obs is not None:
+            self._obs.close()
         try:
             self._sock.close()
         except OSError:

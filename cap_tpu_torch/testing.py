@@ -902,11 +902,18 @@ def stop_server(srv, thread=None, timeout: float = SERVER_TIMEOUT_S) -> None:
 def _serve(state: Dict[str, Any], routes):
     """A loopback HTTP server answering GET by ``routes(path, base)`` →
     (status, JSON-able body); every GET increments ``state["fetches"]``.
+    ``state["status"]``, when set, answers every GET with that status
+    (and the same body); ``state["body"]`` (bytes), when set, replaces
+    the JSON body. With ``state["etags"]`` true a 200 carries an ETag
+    (a digest of its body) and a GET whose If-None-Match names it is
+    answered 304 with no body, counted in ``state["not_modified"]``.
     Yields (base URL, server)."""
+    import hashlib
     import threading
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     state.setdefault("fetches", 0)
+    state.setdefault("not_modified", 0)
     base = []
 
     class Handler(BaseHTTPRequestHandler):
@@ -915,9 +922,21 @@ def _serve(state: Dict[str, Any], routes):
         def do_GET(self):
             state["fetches"] += 1
             status, doc = routes(self.path, base[0])
-            body = json.dumps(doc).encode()
+            status = state.get("status") or status
+            body = state.get("body") or json.dumps(doc).encode()
+            etag = f'"{hashlib.sha256(body).hexdigest()[:16]}"'
+            if (status == 200 and state.get("etags")
+                    and self.headers.get("If-None-Match") == etag):
+                state["not_modified"] += 1
+                self.send_response(304)
+                self.send_header("ETag", etag)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
             self.send_response(status)
             self.send_header("Content-Type", "application/json")
+            if status == 200 and state.get("etags"):
+                self.send_header("ETag", etag)
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)

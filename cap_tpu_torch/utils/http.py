@@ -5,9 +5,10 @@ A process-wide keep-alive connection pool keyed by (scheme, host,
 port, SSL context), so one TLS handshake serves discovery and every
 JWKS fetch when the server allows keep-alive; ``get``, ``get_json``,
 ``fetch_discovery`` (the issuer-equality check) and ``post_form`` (the
-OIDC token exchange) over it. Left out of this copy: the telemetry
-counters and the conditional-GET (ETag) cache, which nothing in the
-port reads.
+OIDC token exchange) over it, and the conditional-GET (ETag) cache the
+keyplane's remote sources poll through (``get(conditional=True)``,
+counted in ``http.etag_hits``). Left out of this copy: the connection
+counters, which nothing in the port reads.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import threading
 from typing import Any, Dict, Optional, Tuple
 from urllib.parse import urlencode, urljoin, urlparse
 
+from .. import telemetry
 from ..errors import InvalidCACertError, InvalidIssuerError
 
 
@@ -224,12 +226,59 @@ def default_pool() -> ConnectionPool:
     return _POOL
 
 
+# Conditional-GET cache: url+context → (etag, body, headers) of the
+# last 200 that carried an ETag. ``get(conditional=True)`` sends
+# If-None-Match and transparently answers a 304 with the cached body,
+# so a periodic keyplane refresh of an unchanged JWKS costs one
+# header-only round trip instead of the document. Bounded (FIFO) —
+# this is a freshness cache for a handful of polled endpoints, not a
+# general HTTP cache (no Vary/Cache-Control semantics).
+_COND_LOCK = threading.Lock()
+_COND_CACHE: Dict[tuple, Tuple[str, bytes, Dict[str, str]]] = {}
+_COND_CACHE_MAX = 64
+
+
 def get(url: str, ctx: Optional[ssl.SSLContext] = None,
         headers: Optional[Dict[str, str]] = None,
-        timeout: float = 30.0) -> Tuple[int, bytes, Dict[str, str]]:
-    """GET a URL; returns (status, body, lowercased headers)."""
-    return _POOL.request("GET", url, headers=headers, ctx=ctx,
-                         timeout=timeout)
+        timeout: float = 30.0,
+        conditional: bool = False) -> Tuple[int, bytes, Dict[str, str]]:
+    """GET a URL; returns (status, body, lowercased headers).
+
+    ``conditional=True``: honor ETag validators — a cached ETag for
+    this (url, ctx) is sent as If-None-Match, and a 304 answer is
+    returned as status 200 with the CACHED body (plus header
+    ``x-cap-conditional: revalidated``), so callers branch on status
+    exactly as for a plain fetch.
+    """
+    key = (url, ctx)
+    cached = None
+    if conditional:
+        with _COND_LOCK:
+            cached = _COND_CACHE.get(key)
+        if cached is not None:
+            headers = dict(headers or {})
+            headers["If-None-Match"] = cached[0]
+    status, body, hdrs = _POOL.request("GET", url, headers=headers,
+                                       ctx=ctx, timeout=timeout)
+    if not conditional:
+        return status, body, hdrs
+    if status == 304 and cached is not None:
+        telemetry.count("http.etag_hits")
+        out = dict(cached[2])
+        out.update(hdrs)
+        out["x-cap-conditional"] = "revalidated"
+        return 200, cached[1], out
+    if status == 200:
+        etag = hdrs.get("etag")
+        if etag:
+            with _COND_LOCK:
+                if key not in _COND_CACHE and \
+                        len(_COND_CACHE) >= _COND_CACHE_MAX:
+                    _COND_CACHE.pop(next(iter(_COND_CACHE)))
+                _COND_CACHE[key] = (etag, body, hdrs)
+    return status, body, hdrs
+
+
 
 
 def get_json(url: str, ctx: Optional[ssl.SSLContext] = None,

@@ -167,6 +167,29 @@ Phases (any failure exits non-zero; none is caught):
    ``python -m cap_tpu_torch.fleet.worker_main --keyset jwks:<file>``
    on the card, then with ``--serve-chain native --transport shm``
    and an shm client: its ready line, one request, SIGTERM, exit 0.
+   The Python-chain and native-chain passes serve the obs endpoints
+   (``obs_port=0``): after each pass's clock stops, a STATS frame and
+   a scrape of /healthz, /metrics, /snapshot, /flight, /decisions and
+   /tenants, the scrape's worker and decision counters equal to
+   STATS', the device's dispatches and busy time above zero, /metrics
+   Prometheus text ("… obs scrape");
+15. the fleet path: the north-star's JWKS served on loopback, a
+   ``WorkerPool`` of two ``worker_main --keyset jwks-url:<url>``
+   processes (worker 0 owning the card, worker 1 on the CPU, a 1 s
+   keyplane poll and a 2 s grace) behind ``FleetClient(pool,
+   fallback=None)``: 24 seeded requests of 64–384 north-star tokens
+   from 4 threads, every verdict as expected and equal to
+   ``verify_batch_raw`` on the card, the card worker's ES chunks read
+   from its /snapshot; a pull rotation at the source (rs-0 and es-0
+   out, a new RSA-2048 and P-256 key in: the dropped kids accepted on
+   each worker inside its grace, rejected after it, the new kids
+   accepted), a push rotation (``pool.push_keys``, epoch skew 0), a
+   ``kill -9`` of the card worker mid-stream (every verdict right, the
+   respawn onto the card, the epochs reconverged, its postmortem with
+   the flight ring and no token's signature segment), the SLO defaults
+   over the merged counters, and the pool closed within a deadline
+   ("fleet line": verifies/s through the router, p50/p99, the split by
+   worker, boot, convergence and respawn seconds).
 
 Each phase's seconds and the whole run's are logged ("phase …" and
 "chip_smoke: … s in all"). The line before the last is the per-kernel
@@ -3359,6 +3382,9 @@ def serve_pass(records, ks, north, spans, name, direct=None, client=None,
                     spans[:n_prof], client)
                 torch.cuda.synchronize()
             busy_ms = sum(us for _, us in device_events(prof).values()) / 1e3
+            if worker.obs_address is not None:
+                # the clock has stopped: STATS and the six endpoints
+                obs_scrape(worker.address, worker.obs_address, name)
         finally:
             worker.close(deadline_s=SERVE_WAIT_S)
     lat.sort()
@@ -3619,7 +3645,8 @@ def serve_path(records, north):
 
     # 1. every token to the card: the Python chain, the native chain,
     # the shm transport
-    fig, direct = serve_pass(records, ks, served, spans, "serve")
+    fig, direct = serve_pass(records, ks, served, spans, "serve",
+                             obs_port=0)
     log(f"serve path: {len(tokens)} tokens as {len(spans)} requests of "
         f"1-{SERVE_MAX_REQUEST} tokens over {SERVE_CONNS} pipelined "
         f"connections, {fig['n_card']} tokens to the card; every verdict as "
@@ -3629,7 +3656,7 @@ def serve_path(records, north):
     log(f"serve path line: {serve_line(fig, 'over the socket')}; card: "
         f"{card_line()}")
     fig, _ = serve_pass(records, ks, served, spans, "serve-native",
-                        direct=direct, serve_native=True)
+                        direct=direct, serve_native=True, obs_port=0)
     nat = fig["native"]
     line = serve_line(fig, "over the socket, native chain")
     log(f"serve native line: {line}; native counters: "
@@ -3689,6 +3716,554 @@ def serve_path(records, north):
         shutil.rmtree(shm_dir, ignore_errors=True)
     assert (fields["serve_chain"], fields["transport"]) == \
         ("native", "shm"), fields
+
+
+# ---------------------------------------------------------------------------
+# the obs scrape of a serving worker (serve path) and the fleet path
+# ---------------------------------------------------------------------------
+
+PROM_LINE = (r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{quantile="[0-9.]+"\})? '
+             r'[-+]?([0-9.]+([eE][-+]?[0-9]+)?|inf|nan)$')
+OBS_PATHS = ("/healthz", "/metrics", "/snapshot", "/flight", "/decisions",
+             "/tenants")
+
+
+def http_get(addr, path: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{addr[0]}:{addr[1]}{path}",
+                                timeout=SERVE_WAIT_S) as r:
+        return r.read().decode()
+
+
+def stats_frame(addr) -> dict:
+    """One STATS request on its own connection; its JSON."""
+    import socket
+
+    from cap_tpu_torch.serve import protocol
+
+    with socket.create_connection(addr, timeout=SERVE_WAIT_S) as s:
+        protocol.send_stats_request(s)
+        ftype, entries = protocol.FrameReader(s).recv_frame()
+    assert ftype == protocol.T_STATS_RESP, ftype
+    return json.loads(entries[0][1])
+
+
+def worker_counters(counters: dict) -> dict:
+    return {k: v for k, v in counters.items()
+            if k.startswith(("worker.", "decision."))}
+
+
+def obs_scrape(addr, obs_addr, what: str) -> dict:
+    """A STATS frame, then the worker's six HTTP endpoints: the
+    scrape's worker and decision counters equal to STATS', the device's
+    dispatches and busy time above zero, /metrics Prometheus text
+    (every sample line a name, an optional quantile label and a
+    number), /tenants' exact lookups = attributed + overflow. Returns
+    the /snapshot document."""
+    import re
+
+    stats = stats_frame(addr)
+    t0 = time.perf_counter()
+    got = {p: http_get(obs_addr, p) for p in OBS_PATHS}
+    scrape_s = time.perf_counter() - t0
+    assert json.loads(got["/healthz"]) == {"ok": True}
+    snap = json.loads(got["/snapshot"])
+    counters = snap["snapshot"]["counters"]
+    assert worker_counters(counters) == worker_counters(stats["counters"]), \
+        f"{what}: the scrape's counters differ from STATS'"
+    assert stats["obs_port"] == obs_addr[1], stats["obs_port"]
+    assert counters.get("device.dispatches", 0) > 0 and \
+        counters.get("device.busy_us", 0) > 0, "no device time scraped"
+    prom = re.compile(PROM_LINE)
+    lines = got["/metrics"].splitlines()
+    for line in lines:
+        assert (line.startswith("# TYPE ") and line.split()[3] in (
+            "counter", "gauge", "summary")) or prom.match(line), line
+    tenants = json.loads(got["/tenants"])
+    assert tenants["lookups"] == tenants["attributed"] + \
+        tenants["overflow"], tenants
+    flights = json.loads(got["/flight"])["slowest"]
+    decisions = json.loads(got["/decisions"])["decisions"]
+    log(f"{what} obs scrape: /healthz, /metrics ({len(lines)} lines, "
+        f"Prometheus text), /snapshot, /flight ({len(flights)} traced), "
+        f"/decisions ({len(decisions)} sampled), /tenants "
+        f"({len(tenants['tenants'])} tenants, {tenants['lookups']} lookups) "
+        f"in {scrape_s * 1e3:.1f} ms; {len(worker_counters(counters))} worker "
+        f"and decision counters equal to the STATS frame's "
+        f"(worker.tokens {counters.get('worker.tokens', 0)}, "
+        f"decision.serve.accept {counters.get('decision.serve.accept', 0)}); "
+        f"device.dispatches {counters['device.dispatches']}, "
+        f"device.busy_us {counters['device.busy_us']}")
+    return snap
+
+
+FLEET_REFRESH_S = 1.0         # the keyplane's poll
+FLEET_GRACE_S = 2.0           # a pull rotation's grace
+FLEET_REQUESTS = 24           # routed requests, half to each worker
+FLEET_MIN_REQUEST = 64
+FLEET_MAX_REQUEST = 384
+FLEET_SUBMITTERS = 4          # threads calling FleetClient.verify_batch
+FLEET_DROPPED = 8             # tokens a dropped kid (rs-0, es-0)
+FLEET_NEW = 8                 # tokens a new kid
+FLEET_CRASH_REQUESTS = 8      # the stream the kill -9 lands in
+FLEET_WAIT_S = 120.0
+# each worker's PyTorch threads: half the host's cores, so the CPU
+# worker's intra-op threads and the card worker's host threads do not
+# spin against each other (a thread a core in each process took a
+# 1,554-token dry run of this phase on an 8-core CPU host from 2.6 s to
+# 89 s)
+FLEET_TORCH_THREADS = max(1, (os.cpu_count() or 2) // 2)
+
+
+def token_kid(token: str):
+    """The kid of a token's header (None: none, or no JSON header)."""
+    try:
+        return json.loads(unb64(token.split(".", 1)[0])).get("kid")
+    except (ValueError, AttributeError):
+        return None
+
+
+def check_routed(results, tokens, expected):
+    """Every verdict through the router as expected: an accepted token's
+    claims (its own payload segment, the expected sub), a rejected
+    token's ``RemoteVerifyError`` "<class>: <message>"."""
+    bad = []
+    for i, (got, exp) in enumerate(zip(results, expected)):
+        if isinstance(exp, tuple):
+            ok = (type(got).__name__ == "RemoteVerifyError"
+                  and str(got) == f"{exp[0]}: {exp[1]}")
+        else:
+            ok = (isinstance(got, dict)
+                  and got == json.loads(unb64(tokens[i].split(".")[1]))
+                  and got.get("sub") == exp)
+        if not ok:
+            bad.append((i, exp, got))
+    assert not bad, f"{len(bad)} wrong verdicts, first: {bad[:3]}"
+
+
+def routed_form(v):
+    """A router verdict in ``wire_form``'s terms (claims as the JSON
+    bytes' parse)."""
+    return str(v) if isinstance(v, Exception) else v
+
+
+def direct_form(v):
+    return json.loads(v) if isinstance(v, bytes) else v
+
+
+def fleet_epochs(pool) -> dict:
+    """worker_id → the key epoch its own STATS reports (None: no
+    answer)."""
+    return {w: (s or {}).get("key_epoch") for w, s in pool.stats().items()}
+
+
+def fleet_wait(what: str, cond, timeout: float = FLEET_WAIT_S) -> float:
+    """Seconds until ``cond()`` holds; fails the run after
+    ``timeout``."""
+    t0 = time.perf_counter()
+    while not cond():
+        assert time.perf_counter() - t0 < timeout, f"timed out: {what}"
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def fleet_path(records, north):
+    """The north-star's keys and tokens through the fleet on one card.
+
+    1. the port's ``testing.jwks_test_server`` serves the north-star's
+       JWKS on loopback (ETags on);
+    2. a ``WorkerPool`` of two ``python -m cap_tpu_torch.fleet.
+       worker_main --keyset jwks-url:<url>`` processes: worker 0 owns
+       the card (``WorkerPlacement(0, (0,), "cuda")``), worker 1 runs
+       on the CPU (``CUDA_VISIBLE_DEVICES=""``, ``--device cpu``), a
+       FLEET_REFRESH_S keyplane poll, a FLEET_GRACE_S grace, the obs
+       server on; ``FleetClient(pool, fallback=None)`` in front;
+    3. FLEET_REQUESTS seeded requests of the north-star's tokens from
+       FLEET_SUBMITTERS threads: every verdict as expected and equal to
+       ``verify_batch_raw`` on the card; the tokens each worker served;
+       the card worker's /snapshot showing its ES chunks on the card;
+    4. a pull rotation at the source (rs-0 and es-0 out, a new RSA-2048
+       and P-256 key in): each worker's swap read from its STATS; the
+       dropped kids' tokens accepted on each worker inside the grace
+       and rejected through the router after it, the new kids' tokens
+       accepted;
+    5. a push rotation: ``pool.push_keys`` of the served JWKS at the
+       next epoch reaching both workers;
+    6. ``chaos.kill9`` of the card worker in the middle of a stream of
+       requests: every verdict right, no ``FleetExhaustedError``, the
+       pool respawning it onto the card, the epochs reconverging, its
+       postmortem collected with its flight ring and counters and no
+       token's signature segment;
+    7. the SLO defaults over ``pool.stats_merged()``: no wrong verdict,
+       and no breach but tenant "none"'s reject ratio where the routed
+       tokens without an issuer (all expected rejected) reach a worker;
+    8. the "fleet line"; 9. the pool closed within a deadline.
+    """
+    import threading
+
+    import torch
+
+    from cap_tpu_torch import telemetry
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.fleet import FleetClient, WorkerPool
+    from cap_tpu_torch.fleet.chaos import kill9
+    from cap_tpu_torch.jwt import algs
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.jwt.jwk import serialize_public_key
+    from cap_tpu_torch.obs import decision, slo
+    from cap_tpu_torch.parallel import WorkerPlacement
+    from cap_tpu_torch.serve.client import VerifyClient
+
+    rng = random.Random(SEED + 16)
+    jwks, tokens, expected = north["jwks"], north["tokens"], north["expected"]
+    signers = {kid: priv for priv, _, kid in north["signers"]}
+    sizes = [rng.randint(FLEET_MIN_REQUEST, FLEET_MAX_REQUEST)
+             for _ in range(FLEET_REQUESTS + FLEET_CRASH_REQUESTS)]
+    n_routed = sum(sizes[:FLEET_REQUESTS])
+    start = rng.randrange(len(tokens) - 2 * sum(sizes))
+    sample = tokens[start:start + n_routed]
+    sample_exp = expected[start:start + n_routed]
+    # after the pull rotation: tokens under kids that stay (the
+    # rotation changes no other verdict: every accepted north-star
+    # token names its kid)
+    for t, e in zip(tokens[start + n_routed:], expected[start + n_routed:]):
+        if len(sample) == sum(sizes):
+            break
+        if token_kid(t) not in ("rs-0", "es-0"):
+            sample.append(t)
+            sample_exp.append(e)
+    spans, lo = [], 0
+    for n in sizes:
+        spans.append((lo, lo + n))
+        lo += n
+    crash_spans, spans = spans[FLEET_REQUESTS:], spans[:FLEET_REQUESTS]
+    ks = GPUBatchKeySet(jwks)
+    direct = [direct_form(wire_form(v)) for v in ks.verify_batch_raw(sample)]
+    del ks
+
+    made = {"rs-fleet": tt.generate_rsa_key(rng),
+            "es-fleet": tt.generate_ec_key(rng)}
+    signers.update(made)
+
+    # live tokens (exp ahead of the clock): a worker's verdict cache
+    # would keep their accepts, but for the grace's (ROADMAP C.2)
+    now = int(time.time())
+
+    def signed(kid, n, tag):
+        alg = algs.RS256 if kid.startswith("rs") else algs.ES256
+        return [tt.sign_jwt(signers[kid], alg,
+                            tt.default_claims(now=now,
+                                              sub=f"{tag}-{kid}-{i}"),
+                            kid=kid, rng=rng) for i in range(n)]
+
+    dropped = signed("rs-0", FLEET_DROPPED, "dropped") + \
+        signed("es-0", FLEET_DROPPED, "dropped")
+    fresh = signed("rs-fleet", FLEET_NEW, "new") + \
+        signed("es-fleet", FLEET_NEW, "new")
+
+    def subs(toks):
+        return [json.loads(unb64(t.split(".")[1]))["sub"] for t in toks]
+
+    keys = {j.kid: serialize_public_key(j.key, kid=j.kid) for j in jwks}
+    state = {"keys": list(keys.values()), "etags": True}
+    figs = {}
+    with tt.jwks_test_server(state) as (url, _), \
+            telemetry.recording() as rec:
+        # 2. the pool: one card worker beside one CPU worker
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pool = WorkerPool(
+            2, keyset_spec=f"jwks-url:{url}",
+            placements=[WorkerPlacement(0, (0,), "cuda"),
+                        WorkerPlacement(1, (1,), "cpu")],
+            keyplane_refresh_s=FLEET_REFRESH_S,
+            keyplane_grace_s=FLEET_GRACE_S, ping_interval=0.5,
+            spawn_timeout=FLEET_WAIT_S, postmortem_interval=0.5,
+            max_restarts=2, drain_grace=20.0,
+            worker_args=["--torch-threads", str(FLEET_TORCH_THREADS)])
+        try:
+            boot = {}
+
+            def booted():
+                for w in (0, 1):
+                    st = pool.state(w)
+                    assert st not in ("dead", "failed"), \
+                        f"fleet worker {w} did not boot ({st})"
+                    if st == "ready" and w not in boot:
+                        boot[w] = time.perf_counter() - t0
+                return len(boot) == 2
+
+            fleet_wait("the pool's boot", booted)
+            for w, where in ((0, "the card"), (1, "the CPU")):
+                log(f"fleet worker {w} ({where}): "
+                    f"{pool.ready_line(w)} after {boot[w]:.1f} s")
+            assert pool.key_epochs() == {0: 1, 1: 1}, pool.key_epochs()
+            try:
+                apps = subprocess.run(
+                    ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                     "--format=csv,noheader"], capture_output=True,
+                    text=True, timeout=60).stdout.strip().replace(
+                        "\n", "; ")
+            except (OSError, subprocess.SubprocessError) as e:
+                apps = f"not read ({e})"
+            log(f"fleet: nvidia-smi compute apps: {apps or 'none listed'} "
+                f"(worker pids {pool.pid(0)} on the card, {pool.pid(1)} on "
+                f"the CPU)")
+            client = FleetClient(pool, fallback=None,
+                                 total_deadline=FLEET_WAIT_S,
+                                 attempt_timeout=FLEET_WAIT_S / 2)
+
+            # 3. the traffic
+            results = [None] * len(sample)
+            lat, errs = [], []
+            todo = list(spans)
+            lock = threading.Lock()
+
+            def submit():
+                try:
+                    while True:
+                        with lock:
+                            if not todo:
+                                return
+                            lo, hi = todo.pop(0)
+                        t1 = time.perf_counter()
+                        with telemetry.trace():
+                            out = client.verify_batch(sample[lo:hi])
+                        lat.append(time.perf_counter() - t1)
+                        results[lo:hi] = out
+                except Exception as e:  # noqa: BLE001 - raised below
+                    errs.append(e)
+
+            before = {w: (s or {}).get("counters", {}).get(
+                "worker.tokens", 0) for w, s in pool.stats().items()}
+            threads = [threading.Thread(target=submit, daemon=True)
+                       for _ in range(FLEET_SUBMITTERS)]
+            t1 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(FLEET_WAIT_S)
+            wall = time.perf_counter() - t1
+            assert not errs and not any(t.is_alive() for t in threads), errs
+            check_routed(results[:n_routed], sample, sample_exp)
+            assert [routed_form(v) for v in results[:n_routed]] == \
+                direct[:n_routed], "routed != verify_batch_raw"
+            stats = pool.stats()
+            split = {w: s["counters"].get("worker.tokens", 0) - before[w]
+                     for w, s in stats.items()}
+            assert sum(split.values()) == n_routed and min(
+                split.values()) > 0, split
+            card_snap = json.loads(http_get(pool.obs_endpoints()[0],
+                                            "/snapshot"))["snapshot"]
+            es_chunks = int(card_snap["series"].get(
+                "device.es.lanes", {}).get("count", 0))
+            dispatches = card_snap["counters"].get("device.dispatches", 0)
+            assert es_chunks > 0 and dispatches > 0, (es_chunks, dispatches)
+            lat.sort()
+            figs.update(vps=n_routed / wall, wall_s=wall,
+                        p50_ms=lat[len(lat) // 2] * 1e3,
+                        p99_ms=lat[min(len(lat) - 1,
+                                       int(0.99 * len(lat)))] * 1e3,
+                        split=split, es_chunks=es_chunks,
+                        boot_s=max(boot.values()))
+            log(f"fleet traffic: {n_routed} tokens as {len(spans)} requests "
+                f"of {FLEET_MIN_REQUEST}-{FLEET_MAX_REQUEST} from "
+                f"{FLEET_SUBMITTERS} threads through FleetClient(pool, "
+                f"fallback=None) in {wall:.3f} s; every verdict as expected "
+                f"and equal to verify_batch_raw on the card; worker.tokens "
+                f"{split[0]} on the card, {split[1]} on the CPU; the card "
+                f"worker's /snapshot: {es_chunks} ES chunk(s) by the "
+                f"keyset's counter, device.dispatches {dispatches}")
+
+            # 4. pull rotation at the source
+            epoch0 = max(fleet_epochs(pool).values())
+            state["keys"] = [v for k, v in keys.items()
+                             if k not in ("rs-0", "es-0")] + [
+                serialize_public_key(made[k].public_key(), kid=k)
+                for k in made]
+            t1 = time.perf_counter()
+            swapped, graced = {}, {}
+            while len(graced) < 2:
+                assert time.perf_counter() - t1 < FLEET_WAIT_S, \
+                    "pull rotation never reached every worker"
+                for w, e in fleet_epochs(pool).items():
+                    if e == epoch0 + 1 and w not in swapped:
+                        swapped[w] = time.perf_counter() - t1
+                        # the worker's swap just landed: the dropped
+                        # kids still resolve on it for the grace
+                        with VerifyClient(*pool.address(w),
+                                          timeout=FLEET_WAIT_S) as c:
+                            got = c.verify_batch(dropped)
+                        graced[w] = time.perf_counter() - t1 - swapped[w]
+                        assert [v["sub"] if isinstance(v, dict) else str(v)
+                                for v in got] == subs(dropped), got[:2]
+                time.sleep(0.02)
+            converge_s = max(swapped.values())
+            out = client.verify_batch(fresh)
+            assert [v.get("sub") if isinstance(v, dict) else str(v)
+                    for v in out] == subs(fresh), out[:2]
+
+            def retired():
+                return all((s or {}).get("counters", {}).get(
+                    "keyplane.grace_retired", 0) >= 1
+                    for s in pool.stats().values())
+
+            retire_s = fleet_wait("the grace's retirement", retired)
+            out = client.verify_batch(dropped + fresh)
+            assert [str(v) for v in out[:len(dropped)]] == [
+                f"InvalidSignatureError: {REJECT[1]}"] * len(dropped), \
+                out[:2]
+            assert [v["sub"] for v in out[len(dropped):]] == subs(fresh)
+            figs["converge_s"] = converge_s
+            log(f"fleet pull rotation: rs-0 and es-0 out, rs-fleet and "
+                f"es-fleet in at the source; each worker's STATS at epoch "
+                f"{epoch0 + 1} after " + ", ".join(
+                    f"{swapped[w]:.2f} s (worker {w})" for w in (0, 1))
+                + f"; {len(dropped)} tokens under the dropped kids accepted "
+                f"on each worker inside the {FLEET_GRACE_S} s grace ("
+                + ", ".join(f"answered {graced[w]:.2f} s after worker {w}'s "
+                            f"swap" for w in (0, 1))
+                + f") and rejected through the router after both graces "
+                f"retired ({retire_s:.2f} s later); {len(fresh)} under the "
+                f"new kids accepted; pool.key_epochs() {pool.key_epochs()} "
+                f"(ready lines and KEYS acks)")
+
+            # 5. push rotation
+            doc = {"keys": list(state["keys"])}
+            t1 = time.perf_counter()
+            acks = pool.push_keys(doc, epoch=epoch0 + 2)
+            push_s = time.perf_counter() - t1
+            assert acks == {0: epoch0 + 2, 1: epoch0 + 2}, acks
+            assert pool.epoch_skew() == 0
+            assert set(fleet_epochs(pool).values()) == {epoch0 + 2}
+            lo, hi = crash_spans[0]
+            out = client.verify_batch(fresh + sample[lo:hi])
+            assert [routed_form(v) for v in out[len(fresh):]] == \
+                direct[lo:hi]
+            log(f"fleet push rotation: pool.push_keys at epoch {epoch0 + 2} "
+                f"acked by both workers in {push_s:.2f} s, epoch_skew 0, "
+                f"STATS epochs {fleet_epochs(pool)}")
+
+            # 6. kill -9 of the card worker mid-stream, once its
+            # checkpoint carries traced timelines
+            from cap_tpu_torch.obs import postmortem
+
+            victim, pm_path = pool.pid(0), pool.postmortem_path(0)
+            fleet_wait("a checkpoint with the flight ring", lambda: (
+                postmortem.read_postmortem(pm_path) or {}).get("flight"))
+            crash_out, crash_errs = {}, []
+
+            def stream():
+                try:
+                    for i, (lo, hi) in enumerate(crash_spans):
+                        with telemetry.trace():
+                            crash_out[i] = client.verify_batch(
+                                sample[lo:hi])
+                except Exception as e:  # noqa: BLE001 - raised below
+                    crash_errs.append(e)
+
+            th = threading.Thread(target=stream, daemon=True)
+            th.start()
+            fleet_wait("the stream's first answers",
+                       lambda: len(crash_out) >= 2 or not th.is_alive())
+            t_kill = time.perf_counter()
+            kill9(victim)
+            th.join(FLEET_WAIT_S)
+            assert not th.is_alive() and not crash_errs, crash_errs
+            for i, (lo, hi) in enumerate(crash_spans):
+                check_routed(crash_out[i], sample[lo:hi], sample_exp[lo:hi])
+                assert [routed_form(v) for v in crash_out[i]] == \
+                    direct[lo:hi]
+            fleet_wait("the card worker's respawn",
+                       lambda: pool.state(0) == "ready"
+                       and pool.pid(0) != victim)
+            respawn_s = time.perf_counter() - t_kill
+            fleet_wait("the epochs' reconvergence",
+                       lambda: pool.key_epochs() == {0: epoch0 + 2,
+                                                     1: epoch0 + 2}
+                       and set(fleet_epochs(pool).values())
+                       == {epoch0 + 2})
+            doc = pool.postmortem(0)
+            assert doc is not None and doc["pid"] == victim, doc
+            pm_counters = doc["snapshot"]["counters"]
+            assert pm_counters.get("worker.tokens", 0) > 0 and doc["flight"]
+            raw = json.dumps(doc)
+            with open(pm_path) as f:
+                raw += f.read()
+            sent = sample + dropped + fresh
+            leaked = [t for t in set(sent) if len(t.split(".")) == 3
+                      and len(t.split(".")[2]) >= 16
+                      and t.split(".")[2] in raw]
+            assert not leaked, f"{len(leaked)} signature segments leaked"
+            out = client.verify_batch(fresh)
+            assert [v["sub"] for v in out] == subs(fresh)
+            figs["respawn_s"] = respawn_s
+            log(f"fleet kill -9: the card worker (pid {victim}) killed "
+                f"mid-stream; {sum(len(v) for v in crash_out.values())} "
+                f"tokens in {len(crash_spans)} requests all verified as "
+                f"expected, no FleetExhaustedError; respawned onto the "
+                f"card (pid {pool.pid(0)}, {pool.ready_line(0)}) "
+                f"{respawn_s:.1f} s after the kill, epochs "
+                f"{pool.key_epochs()} again; its postmortem "
+                f"(reason {doc['reason']}, {len(doc['flight'])} traced "
+                f"timelines, worker.tokens {pm_counters['worker.tokens']}) "
+                f"holds none of the {len(set(sent))} tokens' signature "
+                f"segments")
+
+            # 7. SLOs over the merged counters
+            merged = pool.stats_merged()["aggregate"]
+            results = slo.evaluate_once(merged["snapshot"],
+                                        slo.default_rules())
+            for line in slo.format_results(results).splitlines():
+                log(f"fleet slo: {line}")
+            breached = [r["name"] for r in results if not r["ok"]]
+            mc = merged["counters"]
+            assert mc.get("decision.wrong_verdicts", 0) == 0
+            assert rec.counters().get("fleet.fallback_tokens", 0) == 0
+            # Tokens without an issuer count under tenant "none": here
+            # only the north-star's unsigned and two-segment tokens, all
+            # rejected, as their expected verdicts say. The default
+            # per-tenant template reads that as tenant "none" burning
+            # its rejection budget (ratio 1 against 0.5 at burn 1.5):
+            # the one breach the traffic implies, and no other.
+            unattributed = [e for t, e in zip(sample, sample_exp)
+                            if decision.token_tenant(t)
+                            == decision.TENANT_NONE]
+            assert all(isinstance(e, tuple) for e in unattributed)
+            none_tokens = mc.get("decision.serve.tenant.none.tokens", 0)
+            if breached:
+                assert breached == ["tenant_reject_ratio[none]"] and \
+                    0 < none_tokens == mc.get(
+                        "decision.serve.tenant.none.reject", 0), breached
+            log(f"fleet slo: {len(results)} rules, "
+                + (f"one breach, tenant_reject_ratio[none]: "
+                   f"{none_tokens} unattributed tokens on the workers, "
+                   f"every one rejected ({len(unattributed)} of the "
+                   f"routed tokens have no issuer, each expected "
+                   f"rejected)" if breached else "no breach")
+                + f"; decision.wrong_verdicts "
+                f"{mc.get('decision.wrong_verdicts', 0)}")
+        finally:
+            # 9. close within a deadline
+            t1 = time.perf_counter()
+            closer = threading.Thread(target=pool.close, daemon=True)
+            closer.start()
+            closer.join(FLEET_WAIT_S)
+            assert not closer.is_alive(), "the pool did not close"
+            assert all(h.proc is None or h.proc.poll() is not None
+                       for h in pool._handles), "a worker outlived close"
+            log(f"fleet: pool closed in {time.perf_counter() - t1:.1f} s")
+
+    # 8. the fleet line
+    records.setdefault("fleet", {}).update(figs)
+    log(f"fleet line: {figs['vps']:.0f} verifies/s through the router "
+        f"({figs['wall_s']:.3f} s); request latency p50 "
+        f"{figs['p50_ms']:.1f} ms, p99 {figs['p99_ms']:.1f} ms; split "
+        f"{figs['split'][0]} tokens on the card, {figs['split'][1]} on the "
+        f"CPU; boot {figs['boot_s']:.1f} s, convergence "
+        f"{figs['converge_s']:.2f} s, respawn {figs['respawn_s']:.1f} s; "
+        f"card: {card_line()}")
 
 
 def device_profile():
@@ -3922,6 +4497,7 @@ def main() -> int:
     timed("big-jwks", bigjwks_path, records)
     timed("oidc", oidc_path, records)
     timed("serve", serve_path, records, north)
+    timed("fleet", fleet_path, records, north)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all "
         f"({time.perf_counter() - t_run:.1f} s after the build)")
 

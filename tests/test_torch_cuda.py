@@ -11,7 +11,9 @@ an x5c JWKS loaded through discovery, the limb engine's modexps
 against the CPU (a 9,216-bit modulus against the host oracle), and
 ``verify_batch_raw`` and the OIDC ``Provider.verify_id_token_batch``
 (dict and raw modes, through discovery at the in-process TLS IdP)
-over the card keyset against the CPU.
+over the card keyset against the CPU, ``KeyPlaneKeySet`` on the card
+against the CPU across a rotation, and a ``WorkerPool`` of a card
+worker and a CPU worker behind ``FleetClient``.
 
 Marked ``cuda``: without a card each test skips. On the card's machine
 (no jax there, so without the suite's conftest):
@@ -1173,3 +1175,122 @@ def test_native_chain_and_shm_on_the_card_match_the_plain_path(dev,
     assert native["serve.native.tokens"] >= 2 * sum(map(len, reqs))
     assert native["serve.shm.attaches"] == 1
     assert not list(tmp_path.iterdir())
+
+
+def test_keyplane_keyset_on_the_card_matches_the_plain_path(dev):
+    """KeyPlaneKeySet over GPUBatchKeySet on the card against the same
+    over device="cpu", one loopback JWKS for both, across a rotation at
+    the source (rs-0 out, a new RSA-2048 and P-256 key in): equal
+    verdicts before, in the grace and after the retirement, and the
+    card's ladder launches."""
+    import random
+    import threading
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt.jwk import serialize_public_key
+    from cap_tpu_torch.keyplane import RemoteJWKSSource
+    from cap_tpu_torch.keyplane.plane import KeyPlaneKeySet
+
+    jwks, tokens, _ = tt.headline_fixtures(64, seed=29)
+    # a stream of its own: Random(29) would make headline_fixtures'
+    # first key again
+    rng = random.Random(1029)
+    new = {"rs-new": tt.generate_rsa_key(rng),
+           "es-new": tt.generate_ec_key(rng)}
+    fresh = [tt.sign_jwt(new["rs-new"], "RS256", tt.default_claims(),
+                         kid="rs-new", rng=rng),
+             tt.sign_jwt(new["es-new"], "ES256", tt.default_claims(),
+                         kid="es-new", rng=rng)]
+    batch = tokens + fresh + [tokens[2][:-4] + "AAAA", "a.b"]
+    keys = [serialize_public_key(j.key, kid=j.kid) for j in jwks]
+    state = {"keys": keys, "etags": True}
+    retire = []
+
+    class Held:
+        def __init__(self, interval, function, args=()):
+            self.function, self.args, self.daemon = function, args, False
+            retire.append(self)
+
+        def start(self):
+            pass
+
+    def norm(out):
+        return [repr(x) if isinstance(x, Exception) else x for x in out]
+
+    with tt.jwks_test_server(state) as (url, _):
+        kw = dict(start=False, miss_cooldown_s=0.0, negative_ttl_s=0.0,
+                  grace_s=30.0)
+        card = KeyPlaneKeySet(RemoteJWKSSource(url), **kw)
+        cpu = KeyPlaneKeySet(RemoteJWKSSource(url), device="cpu", **kw)
+        timer = threading.Timer
+        try:
+            assert card._ks.device.type == "cuda"
+            cuda_ladder.launches = 0
+            before = card.verify_batch_raw(batch)
+            assert cuda_ladder.launches >= 1
+            assert norm(before) == norm(cpu.verify_batch_raw(batch))
+            threading.Timer = Held
+            state["keys"] = keys[1:] + [
+                serialize_public_key(k.public_key(), kid=kid)
+                for kid, k in new.items()]
+            during = card.verify_batch_raw(batch)
+            assert norm(during) == norm(cpu.verify_batch_raw(batch))
+            assert card.in_grace and card.key_epoch == 2
+            assert all(isinstance(x, bytes) for x in during[-4:-2])
+            for t in retire:
+                t.function(*t.args)
+            after = card.verify_batch_raw(batch)
+            assert norm(after) == norm(cpu.verify_batch_raw(batch))
+            assert not card.in_grace
+            assert sum(isinstance(x, bytes) for x in after) < \
+                sum(isinstance(x, bytes) for x in during)
+        finally:
+            threading.Timer = timer
+            card.close()
+            cpu.close()
+
+
+def test_pool_of_a_card_worker_and_a_cpu_worker(dev, tmp_path):
+    """A WorkerPool of two ``worker_main --keyset jwks:<file>`` processes,
+    worker 0 owning the card and worker 1 on the CPU, behind
+    FleetClient(pool, fallback=None): every verdict equal to
+    ``verify_batch_raw`` on the card, both workers serving, the card
+    worker's ES chunks in its /snapshot."""
+    import json
+    import urllib.request
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.fleet import FleetClient, WorkerPool
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.jwt.jwk import serialize_public_key
+    from cap_tpu_torch.parallel import WorkerPlacement
+
+    jwks, tokens, _ = tt.headline_fixtures(256, seed=31)
+    batch = tokens + [tokens[5][:-4] + "AAAA", "a.b"]
+    want = GPUBatchKeySet(jwks).verify_batch_raw(batch)
+    path = tmp_path / "jwks.json"
+    path.write_text(json.dumps({"keys": [
+        serialize_public_key(j.key, kid=j.kid) for j in jwks]}))
+    torch.cuda.empty_cache()
+    with WorkerPool(2, keyset_spec=f"jwks:{path}", placements=[
+            WorkerPlacement(0, (0,), "cuda"),
+            WorkerPlacement(1, (1,), "cpu")],
+            spawn_timeout=300.0, worker_args=["--torch-threads", "4"]) as p:
+        assert p.wait_all_ready(300.0), [p.state(w) for w in (0, 1)]
+        cl = FleetClient(p, fallback=None, total_deadline=300.0,
+                         attempt_timeout=150.0, rr_seed=0)
+        got = []
+        for i in range(0, len(batch), 66):
+            got += cl.verify_batch(batch[i:i + 66])
+        assert [str(x) if isinstance(x, Exception) else x for x in got] == [
+            f"{type(x).__name__}: {x}" if isinstance(x, Exception)
+            else json.loads(x) for x in want]
+        served = {w: s["counters"]["worker.tokens"]
+                  for w, s in p.stats().items()}
+        assert min(served.values()) > 0, served
+        host, port = p.obs_endpoints()[0]
+        with urllib.request.urlopen(f"http://{host}:{port}/snapshot",
+                                    timeout=60) as r:
+            snap = json.load(r)["snapshot"]
+        assert snap["series"]["device.es.lanes"]["count"] >= 1
+        assert snap["counters"]["device.dispatches"] >= 1

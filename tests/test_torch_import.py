@@ -71,8 +71,57 @@ def test_serve_modules_are_covered():
                  "cap_tpu_torch.serve.native_client",
                  "cap_tpu_torch.serve.shm_ring",
                  "cap_tpu_torch.serve.shm_client",
-                 "cap_tpu_torch.fleet.worker_main"):
+                 "cap_tpu_torch.fleet.worker_main",
+                 "cap_tpu_torch.serve.obs", "cap_tpu_torch.obs.slo",
+                 "cap_tpu_torch.obs.postmortem", "cap_tpu_torch.keyplane",
+                 "cap_tpu_torch.keyplane.source",
+                 "cap_tpu_torch.keyplane.refresher",
+                 "cap_tpu_torch.keyplane.plane",
+                 "cap_tpu_torch.parallel", "cap_tpu_torch.parallel.place",
+                 "cap_tpu_torch.fleet", "cap_tpu_torch.fleet.pool",
+                 "cap_tpu_torch.fleet.router", "cap_tpu_torch.fleet.chaos",
+                 "cap_tpu_torch.fleet.autoscale"):
         assert name in MODULES, name
+
+
+def test_utils_exports_equal_the_reference():
+    """``cap_tpu_torch.utils`` re-exports the reference's three names
+    (ROADMAP C.4)."""
+    import cap_tpu.utils as j_utils
+
+    import cap_tpu_torch.utils as t_utils
+    from cap_tpu_torch.utils import (  # noqa: F401
+        random_base62,
+        remove_duplicates_stable,
+        str_list_contains,
+    )
+
+    assert t_utils.__all__ == j_utils.__all__
+    for name in j_utils.__all__:
+        assert getattr(t_utils, name).__module__.replace(
+            "cap_tpu_torch.", "cap_tpu.") == getattr(j_utils,
+                                                     name).__module__
+
+
+@pytest.mark.parametrize("pkg,left_out", [
+    ("obs", set()), ("keyplane", set()),
+    ("fleet", {"ConsistentHashRing", "FrontDoor"}),
+    ("parallel", None)])
+def test_package_exports_equal_the_reference(pkg, left_out):
+    """The ported packages export the reference's names, less what is
+    still to port (the front door; the mesh half of ``parallel``)."""
+    import importlib
+
+    t_mod = importlib.import_module(f"cap_tpu_torch.{pkg}")
+    if left_out is None:
+        assert t_mod.__all__ == ["PlacementError", "WorkerPlacement",
+                                 "assert_single_owner",
+                                 "single_owner_placement"]
+        return
+    j_mod = importlib.import_module(f"cap_tpu.{pkg}")
+    assert sorted(t_mod.__all__) == sorted(set(j_mod.__all__) - left_out)
+    for name in t_mod.__all__:
+        assert getattr(t_mod, name) is not None
 
 
 def test_imports_with_jax_blocked():

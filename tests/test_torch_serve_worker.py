@@ -372,15 +372,12 @@ def test_close_drains_in_flight_requests():
 
 
 def test_not_ported_options_raise():
-    ks = t_main.StubKeySet()
-    for kw in ({"obs_port": 0}, {"obs_port": 0, "serve_native": True},
-               {"obs_port": 0, "transport": "shm"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_worker.VerifyWorker(ks, **kw)
-    for spec in ("jwks-url:http://x/", "oidc:http://x/",
-                 "frontdoor:pool=a:1"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            t_main.make_keyset(spec)
+    """Only the front door is still to port: its spec raises, and the
+    JAX package's other specs build."""
+    with pytest.raises(ValueError, match="ROADMAP"):
+        t_main.make_keyset("frontdoor:pool=a:1")
+    with pytest.raises(ValueError, match="unknown keyset spec"):
+        t_main.make_keyset("nope:x")
 
 
 def test_worker_main_process():
