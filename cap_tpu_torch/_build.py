@@ -19,8 +19,12 @@ loaded with ``ctypes`` by ``oidc.claims_native``), ``serve`` (the
 native serve chain of ``serve.native_serve``: ``serve_native.cpp``, the
 telemetry plane ``telemetry_native.cpp`` and the shared-memory rings
 ``shm_ring.cpp``, linked with ``jose_native.cpp`` for the readers'
-``sha2::sha256``) and ``client`` (``serve/native/client_native.cpp``,
-the C client of ``serve.native_client``). A target's name hashes every
+``sha2::sha256``), ``frontdoor`` (the front door's native relay,
+``frontdoor_native.cpp``, linked with ``jose_native.cpp`` for the same
+``sha2::sha256``; a library of its own, bound by
+``serve.native_serve.load_frontdoor``) and ``client``
+(``serve/native/client_native.cpp``, the C client of
+``serve.native_client``). A target's name hashes every
 source and header it compiles. No ``-march=native``: the SHA-NI path is
 chosen at run time, and the build directory may be shared by hosts.
 
@@ -56,6 +60,8 @@ HOST_TARGETS = {
     "serve": (("jose_native.cpp", "serve_native.cpp",
                "telemetry_native.cpp", "shm_ring.cpp"),
               ("cvb1_wire.h", "shm_ring.h", "telemetry_native.h")),
+    "frontdoor": (("jose_native.cpp", "frontdoor_native.cpp"),
+                  ("cvb1_wire.h",)),
     "client": (("client_native.cpp",), ()),
 }
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-pthread", "-std=c++17")
@@ -166,7 +172,8 @@ def build_all(names: Sequence[str] = KERNELS + tuple(HOST_TARGETS)
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (built first if missing): a kernel
-    library, ``jose``, ``claims_rules``, ``serve`` or ``client``."""
+    library, ``jose``, ``claims_rules``, ``serve``, ``frontdoor`` or
+    ``client``."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

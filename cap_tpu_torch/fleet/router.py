@@ -1,7 +1,8 @@
 """Failover routing client for the serve fleet.
 
 The port of ``cap_tpu.fleet.router`` (``ConsistentHashRing`` lives with
-the front door, which is not ported yet). ``FleetClient`` mirrors the
+the front door, :mod:`cap_tpu_torch.fleet.frontdoor`, whose pools are
+each a ``FleetClient``). ``FleetClient`` mirrors the
 ``KeySet.verify_batch`` surface over a POOL of workers, with the
 availability contract the single-process ``VerifyClient`` cannot offer:
 

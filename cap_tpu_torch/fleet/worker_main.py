@@ -35,13 +35,23 @@ Keyset specs (``--keyset``):
   [;keyset=<inner spec>]`` — the inner engine (default
   ``stub:raw=1,echo=1``) wrapped in ``oidc.serve_keyset.OIDCRawKeySet``
   so every served token passes signature verification AND
-  registered-claims validation.
+  registered-claims validation;
+- ``frontdoor:pool=h:p+h:p;pool=h:p[;routing=rr][;spill=2.0]`` — the
+  router-tier process (the gateway): no engine of its own; it serves
+  CVB1 on the front and routes every token to the named worker pools
+  by consistent hash over its digest
+  (:func:`~cap_tpu_torch.fleet.frontdoor.frontdoor_from_spec`). KEYS
+  pushes to the gateway fan out to every pool behind it.
+  ``--frontdoor-chain native`` (the default) serves it with the C++
+  relay (``NativeFrontDoorServer``; a relay that cannot be built
+  raises), ``python`` with ``VerifyWorker(FrontDoor)``; the ready line
+  carries ``frontdoor_chain=``.
 
-Not ported yet (ROADMAP A item 8.5): ``frontdoor:``; it raises
-``ValueError``. The worker's knobs are flags here where the JAX
-package reads its environment (``--vcache off``, ``--no-telemetry``,
+The worker's knobs are flags here where the JAX package reads its
+environment (``--vcache off``, ``--no-telemetry``,
 ``--postmortem-path``, ``--pm-interval``, ``--keyplane-refresh-s``,
-``--keyplane-grace-s``).
+``--keyplane-grace-s``; the JAX package's ``auto`` front-door chain
+and its ``CAP_FRONTDOOR_NATIVE`` kill switch have no counterpart).
 
 Every keyset kind accepts the fleet's KEYS pushes (CVB1 type 11):
 ``swap_keys`` swaps the live tables and the ready line / STATS /
@@ -239,9 +249,11 @@ def make_keyset(spec: str, device: str = _DEVICE,
                               interval_s=keyplane_refresh_s,
                               grace_s=keyplane_grace_s, device=device)
     if spec.startswith("frontdoor:"):
-        raise ValueError(
-            "keyset spec 'frontdoor:' is not ported yet (ROADMAP A "
-            "item 8.5)")
+        # Router-tier process: no engine of its own — the "keyset" is
+        # the digest-affinity router over remote pools.
+        from .frontdoor import frontdoor_from_spec
+
+        return frontdoor_from_spec(spec[len("frontdoor:"):])
     raise ValueError(f"unknown keyset spec {spec!r}")
 
 
@@ -260,6 +272,13 @@ def main(argv=None) -> int:
     # build or load raises; the ready line's serve_chain= field reports
     # what runs.
     ap.add_argument("--serve-chain", default="python",
+                    choices=["native", "python"])
+    # Front-door chain (frontdoor: keysets only): "native" runs the
+    # relay gate (C++ readers route by digest against the pushed-down
+    # ring and splice payload bytes to the owning pool; Python keeps
+    # the slow path) and raises if the relay cannot be built; "python"
+    # the VerifyWorker(FrontDoor) gate.
+    ap.add_argument("--frontdoor-chain", default="native",
                     choices=["native", "python"])
     # Native telemetry plane: "auto" (on whenever the native chain and
     # telemetry are both on) or "off" (the Python decision fold).
@@ -305,16 +324,26 @@ def main(argv=None) -> int:
     keyset = make_keyset(args.keyset, args.device,
                          keyplane_refresh_s=args.keyplane_refresh_s,
                          keyplane_grace_s=args.keyplane_grace_s)
-    worker = VerifyWorker(keyset, host=args.host, port=args.port,
-                          target_batch=args.target_batch,
-                          max_wait_ms=args.max_wait_ms,
-                          max_batch=args.max_batch,
-                          vcache=args.vcache != "off",
-                          serve_native=args.serve_chain == "native",
-                          native_obs=args.native_obs != "off",
-                          transport=args.transport,
-                          obs_port=(None if args.obs_port < 0
-                                    else args.obs_port))
+    from .frontdoor import FrontDoor, NativeFrontDoorServer
+
+    obs_port = None if args.obs_port < 0 else args.obs_port
+    fd_chain = None
+    if isinstance(keyset, FrontDoor) and args.frontdoor_chain == "native":
+        worker = NativeFrontDoorServer(keyset, host=args.host,
+                                       port=args.port, obs_port=obs_port)
+        fd_chain = "native"
+    else:
+        worker = VerifyWorker(keyset, host=args.host, port=args.port,
+                              target_batch=args.target_batch,
+                              max_wait_ms=args.max_wait_ms,
+                              max_batch=args.max_batch,
+                              vcache=args.vcache != "off",
+                              serve_native=args.serve_chain == "native",
+                              native_obs=args.native_obs != "off",
+                              transport=args.transport,
+                              obs_port=obs_port)
+        if isinstance(keyset, FrontDoor):
+            fd_chain = "python"
     pm = None
     if args.postmortem_path:
         from ..obs.postmortem import PostmortemWriter
@@ -332,7 +361,8 @@ def main(argv=None) -> int:
           + (f" epoch={epoch}" if epoch is not None else "")
           + f" serve_chain={worker.serve_chain}"
           + f" transport={worker.transport}"
-          + f" tel={int(telemetry.active() is not None)}",
+          + f" tel={int(telemetry.active() is not None)}"
+          + (f" frontdoor_chain={fd_chain}" if fd_chain else ""),
           flush=True)
 
     stop = threading.Event()

@@ -29,7 +29,9 @@ Where the JAX package degrades, this one raises: every symbol group
 admission, the occupancy stamps) is built from the port's own sources,
 so a failed build raises ``RuntimeError`` and a missing symbol or a
 drifted layout ``ImportError``; no ``*_fallbacks`` counter stands in
-for either. The front door's symbols are not bound here. The native
+for either. The front door's relay (``frontdoor_native.cpp``) is a
+library of its own, the ``frontdoor`` target: :func:`load_frontdoor`
+binds it under the same rule. The native
 telemetry plane is an argument (``native_obs``) where the JAX package
 reads ``CAP_SERVE_NATIVE_OBS``. Like the Python chain, the drain caches
 no accept verified while the engine's grace window is open
@@ -88,6 +90,16 @@ _SCHED_SYMBOLS = ("cap_serve_layout_sched", "cap_serve_set_fair",
 # The occupancy plane's reader-side enqueue stamps.
 _OCC_SYMBOLS = ("cap_serve_layout_occ", "cap_serve_drain_enq")
 
+# The front door's native relay (frontdoor_native.cpp), the
+# ``frontdoor`` library.
+_FD_SYMBOLS = ("cap_frontdoor_create", "cap_frontdoor_destroy",
+               "cap_frontdoor_layout", "cap_frontdoor_stage_ring",
+               "cap_frontdoor_stage_pool", "cap_frontdoor_commit",
+               "cap_frontdoor_set_live", "cap_frontdoor_add_conn",
+               "cap_frontdoor_drain", "cap_frontdoor_post_raw",
+               "cap_frontdoor_counter", "cap_frontdoor_inflight",
+               "cap_frontdoor_probe_route")
+
 # exemplar record stride (telemetry_native.h EX_STRIDE)
 _EX_STRIDE = 88
 _KID_LEN = 12
@@ -111,6 +123,26 @@ CTR_ADM_CHECKED = 12
 CTR_ADM_ADMITTED = 13
 CTR_ADM_THROTTLED = 14
 
+# front-door relay counter slots, mirroring frontdoor_native.cpp
+FDC_CONNS = 0
+FDC_FRAMES = 1
+FDC_TOKENS = 2
+FDC_PROTO_ERR = 3
+FDC_PONGS = 4
+FDC_LOOKUPS = 5
+FDC_HITS = 6
+FDC_RELAYS = 7
+FDC_RELAY_TOKENS = 8
+FDC_SPLICES = 9
+FDC_SLOW_FRAMES = 10
+FDC_SLOW_TOKENS = 11
+FDC_UPSTREAM_FAILS = 12
+FDC_SEQ_HELD_MAX = 13
+FDC_DROPPED_POSTS = 14
+FDC_CONNS_CLOSED = 15
+FDC_N = 16
+FD_MAX_POOLS = 64
+
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i8p = ctypes.POINTER(ctypes.c_int8)
 _i16p = ctypes.POINTER(ctypes.c_int16)
@@ -119,6 +151,7 @@ _i64p = ctypes.POINTER(ctypes.c_int64)
 _f64p = ctypes.POINTER(ctypes.c_double)
 
 _lib = None
+_fd_lib = None
 _lib_lock = threading.Lock()
 
 
@@ -168,6 +201,64 @@ def load() -> ctypes.CDLL:
         _setup_sched(lib)
         _setup_occ(lib)
         _lib = lib
+        return lib
+
+
+def load_frontdoor() -> ctypes.CDLL:
+    """Load (building on first use) and type-check the ``frontdoor``
+    library, the front door's native relay. A failed build raises
+    ``RuntimeError``; a missing symbol or a layout that drifted from
+    the constants above ``ImportError``."""
+    global _fd_lib
+    with _lib_lock:
+        if _fd_lib is not None:
+            return _fd_lib
+        lib = _build.load("frontdoor")
+        missing = [s for s in _FD_SYMBOLS if not hasattr(lib, s)]
+        if missing:
+            raise ImportError("the frontdoor library lacks "
+                              + ", ".join(missing))
+        lib.cap_frontdoor_create.restype = ctypes.c_void_p
+        lib.cap_frontdoor_create.argtypes = []
+        lib.cap_frontdoor_destroy.argtypes = [ctypes.c_void_p]
+        lib.cap_frontdoor_layout.argtypes = [_i32p]
+        lib.cap_frontdoor_stage_ring.restype = ctypes.c_int32
+        lib.cap_frontdoor_stage_ring.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64), _i32p,
+            ctypes.c_int64]
+        lib.cap_frontdoor_stage_pool.restype = ctypes.c_int32
+        lib.cap_frontdoor_stage_pool.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_char_p,
+            ctypes.c_int32]
+        lib.cap_frontdoor_commit.restype = ctypes.c_int32
+        lib.cap_frontdoor_commit.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_double]
+        lib.cap_frontdoor_set_live.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32]
+        lib.cap_frontdoor_add_conn.restype = ctypes.c_int32
+        lib.cap_frontdoor_add_conn.argtypes = [ctypes.c_void_p,
+                                               ctypes.c_int32]
+        lib.cap_frontdoor_drain.restype = ctypes.c_int32
+        lib.cap_frontdoor_drain.argtypes = [
+            ctypes.c_void_p, ctypes.c_double, _u8p, ctypes.c_int64,
+            _i64p, _i32p, _i64p, ctypes.c_int32, _i64p]
+        lib.cap_frontdoor_post_raw.restype = ctypes.c_int32
+        lib.cap_frontdoor_post_raw.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, _u8p,
+            ctypes.c_int64]
+        lib.cap_frontdoor_counter.restype = ctypes.c_int64
+        lib.cap_frontdoor_counter.argtypes = [ctypes.c_void_p,
+                                              ctypes.c_int32]
+        lib.cap_frontdoor_inflight.restype = ctypes.c_int64
+        lib.cap_frontdoor_inflight.argtypes = [ctypes.c_void_p,
+                                               ctypes.c_int32]
+        lib.cap_frontdoor_probe_route.restype = ctypes.c_int32
+        lib.cap_frontdoor_probe_route.argtypes = [
+            ctypes.c_void_p, _u8p, ctypes.c_int32, _i32p]
+        # layout handshake: pool cap, counter slots, version, digest
+        _check_layout("frontdoor", _layout(lib.cap_frontdoor_layout, 4),
+                      (FD_MAX_POOLS, FDC_N, 1, _DIG_LEN))
+        _fd_lib = lib
         return lib
 
 
@@ -1264,8 +1355,7 @@ class NativeServeChain:
                             # exception TYPE (one dict hit) — the
                             # native fold consumes the index
                             rbuf[i] = _decision.reason_index(r)
-                        payloads.append(
-                            f"{type(r).__name__}: {r}".encode())
+                        payloads.append(protocol.error_payload(r))
                     elif isinstance(r, (bytes, bytearray, memoryview)):
                         payloads.append(bytes(r))
                     else:

@@ -281,11 +281,23 @@ def send_request(sock: socket.socket, tokens: Sequence[str],
     sock.sendall(b"".join(parts))
 
 
+def error_payload(err: BaseException) -> bytes:
+    """A rejection's payload on the wire: ``"<ErrorClass>: <message>"``.
+    A ``RemoteVerifyError`` is a rejection relayed from another worker
+    (the front door's verdicts) and already holds that text: it goes on
+    as the worker sent it, so a gateway's rejections read (and
+    classify) as the worker's own. The JAX package prefixes its class
+    name once more ("RemoteVerifyError: InvalidSignatureError: …")."""
+    if type(err).__name__ == "RemoteVerifyError":
+        return str(err).encode()
+    return f"{type(err).__name__}: {err}".encode()
+
+
 def _response_parts(ftype: int, results: Sequence[Any]) -> List[bytes]:
     parts = [_HDR.pack(MAGIC, ftype, len(results))]
     for r in results:
         if isinstance(r, Exception):
-            payload = f"{type(r).__name__}: {r}".encode()
+            payload = error_payload(r)
             parts.append(struct.pack("<BI", 1, len(payload)))
         elif isinstance(r, (bytes, bytearray, memoryview)):
             payload = bytes(r)

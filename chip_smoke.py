@@ -12,8 +12,8 @@ Phases (any failure exits non-zero; none is caught):
    and of the host targets from ``cap_tpu_torch/runtime/native`` and
    ``cap_tpu_torch/serve/native`` with g++ (the prep library, the
    claims extension, the claims rules, the native serve chain with its
-   telemetry plane and shm rings, and the C client), one compiler a
-   target, all in parallel;
+   telemetry plane and shm rings, the front door's relay and the C
+   client), one compiler a target, all in parallel;
 2. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (23+23 RNS channels, 65,536 lanes: one
    32,768-token ES or EdDSA chunk with both ladder chains; redc and
@@ -189,13 +189,29 @@ Phases (any failure exits non-zero; none is caught):
    the flight ring and no token's signature segment), the SLO defaults
    over the merged counters, and the pool closed within a deadline
    ("fleet line": verifies/s through the router, p50/p99, the split by
-   worker, boot, convergence and respawn seconds).
+   worker, boot, convergence and respawn seconds);
+16. the frontdoor path, on the fleet's two workers before its pool
+   closes, each a host: a ``worker_main --keyset frontdoor:…
+   --frontdoor-chain native`` process (its ready line, one request,
+   SIGTERM); the Python gate ``VerifyWorker(FrontDoor)`` and the native
+   relay ``NativeFrontDoorServer(FrontDoor)``, both ``fallback=None``,
+   each sent 640 of the window's tokens twice (requests of 64 over 2
+   connections): every verdict as expected and equal to
+   ``verify_batch_raw``, each host's tokens the ring's split (and its
+   spills), lookups = hits + misses, the repeats' cacheable rejects
+   hitting their host's verdict cache, the card host's ES chunks; a
+   ``kill -9`` of the CPU worker in a stream through the relay (its
+   tokens re-routed, no wrong verdict, the ring's owner serving again
+   after the respawn); ``FrontDoor.push_keys`` with epoch skew 0
+   ("frontdoor line": verifies/s and p50/p99 a gateway, tokens a host,
+   the routing and relay counters, the phase's seconds).
 
 Each phase's seconds and the whole run's are logged ("phase …" and
 "chip_smoke: … s in all"). The line before the last is the per-kernel
 JSON record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import random
@@ -3868,6 +3884,20 @@ def fleet_wait(what: str, cond, timeout: float = FLEET_WAIT_S) -> float:
     return time.perf_counter() - t0
 
 
+def fleet_close(pool):
+    """Close the pool within a deadline, every worker gone."""
+    import threading
+
+    t1 = time.perf_counter()
+    closer = threading.Thread(target=pool.close, daemon=True)
+    closer.start()
+    closer.join(FLEET_WAIT_S)
+    assert not closer.is_alive(), "the pool did not close"
+    assert all(h.proc is None or h.proc.poll() is not None
+               for h in pool._handles), "a worker outlived close"
+    log(f"fleet: pool closed in {time.perf_counter() - t1:.1f} s")
+
+
 def fleet_path(records, north):
     """The north-star's keys and tokens through the fleet on one card.
 
@@ -3898,7 +3928,9 @@ def fleet_path(records, north):
     7. the SLO defaults over ``pool.stats_merged()``: no wrong verdict,
        and no breach but tenant "none"'s reject ratio where the routed
        tokens without an issuer (all expected rejected) reach a worker;
-    8. the "fleet line"; 9. the pool closed within a deadline.
+    8. the "fleet line"; 9. the pool closed within a deadline, when
+       the stack this returns closes (after the front door's phase,
+       which takes the pool over with the tokens whose kids stayed).
     """
     import threading
 
@@ -3968,8 +4000,10 @@ def fleet_path(records, north):
     keys = {j.kid: serialize_public_key(j.key, kid=j.kid) for j in jwks}
     state = {"keys": list(keys.values()), "etags": True}
     figs = {}
-    with tt.jwks_test_server(state) as (url, _), \
-            telemetry.recording() as rec:
+    stack = contextlib.ExitStack()
+    try:
+        url, _ = stack.enter_context(tt.jwks_test_server(state))
+        rec = stack.enter_context(telemetry.recording())
         # 2. the pool: one card worker beside one CPU worker
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -3982,278 +4016,271 @@ def fleet_path(records, north):
             spawn_timeout=FLEET_WAIT_S, postmortem_interval=0.5,
             max_restarts=2, drain_grace=20.0,
             worker_args=["--torch-threads", str(FLEET_TORCH_THREADS)])
+        stack.callback(fleet_close, pool)
+        boot = {}
+
+        def booted():
+            for w in (0, 1):
+                st = pool.state(w)
+                assert st not in ("dead", "failed"), \
+                    f"fleet worker {w} did not boot ({st})"
+                if st == "ready" and w not in boot:
+                    boot[w] = time.perf_counter() - t0
+            return len(boot) == 2
+
+        fleet_wait("the pool's boot", booted)
+        for w, where in ((0, "the card"), (1, "the CPU")):
+            log(f"fleet worker {w} ({where}): "
+                f"{pool.ready_line(w)} after {boot[w]:.1f} s")
+        assert pool.key_epochs() == {0: 1, 1: 1}, pool.key_epochs()
         try:
-            boot = {}
+            apps = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True, timeout=60).stdout.strip().replace(
+                    "\n", "; ")
+        except (OSError, subprocess.SubprocessError) as e:
+            apps = f"not read ({e})"
+        log(f"fleet: nvidia-smi compute apps: {apps or 'none listed'} "
+            f"(worker pids {pool.pid(0)} on the card, {pool.pid(1)} on "
+            f"the CPU)")
+        client = FleetClient(pool, fallback=None,
+                             total_deadline=FLEET_WAIT_S,
+                             attempt_timeout=FLEET_WAIT_S / 2)
 
-            def booted():
-                for w in (0, 1):
-                    st = pool.state(w)
-                    assert st not in ("dead", "failed"), \
-                        f"fleet worker {w} did not boot ({st})"
-                    if st == "ready" and w not in boot:
-                        boot[w] = time.perf_counter() - t0
-                return len(boot) == 2
+        # 3. the traffic
+        results = [None] * len(sample)
+        lat, errs = [], []
+        todo = list(spans)
+        lock = threading.Lock()
 
-            fleet_wait("the pool's boot", booted)
-            for w, where in ((0, "the card"), (1, "the CPU")):
-                log(f"fleet worker {w} ({where}): "
-                    f"{pool.ready_line(w)} after {boot[w]:.1f} s")
-            assert pool.key_epochs() == {0: 1, 1: 1}, pool.key_epochs()
+        def submit():
             try:
-                apps = subprocess.run(
-                    ["nvidia-smi", "--query-compute-apps=pid,used_memory",
-                     "--format=csv,noheader"], capture_output=True,
-                    text=True, timeout=60).stdout.strip().replace(
-                        "\n", "; ")
-            except (OSError, subprocess.SubprocessError) as e:
-                apps = f"not read ({e})"
-            log(f"fleet: nvidia-smi compute apps: {apps or 'none listed'} "
-                f"(worker pids {pool.pid(0)} on the card, {pool.pid(1)} on "
-                f"the CPU)")
-            client = FleetClient(pool, fallback=None,
-                                 total_deadline=FLEET_WAIT_S,
-                                 attempt_timeout=FLEET_WAIT_S / 2)
+                while True:
+                    with lock:
+                        if not todo:
+                            return
+                        lo, hi = todo.pop(0)
+                    t1 = time.perf_counter()
+                    with telemetry.trace():
+                        out = client.verify_batch(sample[lo:hi])
+                    lat.append(time.perf_counter() - t1)
+                    results[lo:hi] = out
+            except Exception as e:  # noqa: BLE001 - raised below
+                errs.append(e)
 
-            # 3. the traffic
-            results = [None] * len(sample)
-            lat, errs = [], []
-            todo = list(spans)
-            lock = threading.Lock()
+        before = {w: (s or {}).get("counters", {}).get(
+            "worker.tokens", 0) for w, s in pool.stats().items()}
+        threads = [threading.Thread(target=submit, daemon=True)
+                   for _ in range(FLEET_SUBMITTERS)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(FLEET_WAIT_S)
+        wall = time.perf_counter() - t1
+        assert not errs and not any(t.is_alive() for t in threads), errs
+        check_routed(results[:n_routed], sample, sample_exp)
+        assert [routed_form(v) for v in results[:n_routed]] == \
+            direct[:n_routed], "routed != verify_batch_raw"
+        stats = pool.stats()
+        split = {w: s["counters"].get("worker.tokens", 0) - before[w]
+                 for w, s in stats.items()}
+        assert sum(split.values()) == n_routed and min(
+            split.values()) > 0, split
+        card_snap = json.loads(http_get(pool.obs_endpoints()[0],
+                                        "/snapshot"))["snapshot"]
+        es_chunks = int(card_snap["series"].get(
+            "device.es.lanes", {}).get("count", 0))
+        dispatches = card_snap["counters"].get("device.dispatches", 0)
+        assert es_chunks > 0 and dispatches > 0, (es_chunks, dispatches)
+        lat.sort()
+        figs.update(vps=n_routed / wall, wall_s=wall,
+                    p50_ms=lat[len(lat) // 2] * 1e3,
+                    p99_ms=lat[min(len(lat) - 1,
+                                   int(0.99 * len(lat)))] * 1e3,
+                    split=split, es_chunks=es_chunks,
+                    boot_s=max(boot.values()))
+        log(f"fleet traffic: {n_routed} tokens as {len(spans)} requests "
+            f"of {FLEET_MIN_REQUEST}-{FLEET_MAX_REQUEST} from "
+            f"{FLEET_SUBMITTERS} threads through FleetClient(pool, "
+            f"fallback=None) in {wall:.3f} s; every verdict as expected "
+            f"and equal to verify_batch_raw on the card; worker.tokens "
+            f"{split[0]} on the card, {split[1]} on the CPU; the card "
+            f"worker's /snapshot: {es_chunks} ES chunk(s) by the "
+            f"keyset's counter, device.dispatches {dispatches}")
 
-            def submit():
-                try:
-                    while True:
-                        with lock:
-                            if not todo:
-                                return
-                            lo, hi = todo.pop(0)
-                        t1 = time.perf_counter()
-                        with telemetry.trace():
-                            out = client.verify_batch(sample[lo:hi])
-                        lat.append(time.perf_counter() - t1)
-                        results[lo:hi] = out
-                except Exception as e:  # noqa: BLE001 - raised below
-                    errs.append(e)
+        # 4. pull rotation at the source
+        epoch0 = max(fleet_epochs(pool).values())
+        state["keys"] = [v for k, v in keys.items()
+                         if k not in ("rs-0", "es-0")] + [
+            serialize_public_key(made[k].public_key(), kid=k)
+            for k in made]
+        t1 = time.perf_counter()
+        swapped, graced = {}, {}
+        while len(graced) < 2:
+            assert time.perf_counter() - t1 < FLEET_WAIT_S, \
+                "pull rotation never reached every worker"
+            for w, e in fleet_epochs(pool).items():
+                if e == epoch0 + 1 and w not in swapped:
+                    swapped[w] = time.perf_counter() - t1
+                    # the worker's swap just landed: the dropped
+                    # kids still resolve on it for the grace
+                    with VerifyClient(*pool.address(w),
+                                      timeout=FLEET_WAIT_S) as c:
+                        got = c.verify_batch(dropped)
+                    graced[w] = time.perf_counter() - t1 - swapped[w]
+                    assert [v["sub"] if isinstance(v, dict) else str(v)
+                            for v in got] == subs(dropped), got[:2]
+            time.sleep(0.02)
+        converge_s = max(swapped.values())
+        out = client.verify_batch(fresh)
+        assert [v.get("sub") if isinstance(v, dict) else str(v)
+                for v in out] == subs(fresh), out[:2]
 
-            before = {w: (s or {}).get("counters", {}).get(
-                "worker.tokens", 0) for w, s in pool.stats().items()}
-            threads = [threading.Thread(target=submit, daemon=True)
-                       for _ in range(FLEET_SUBMITTERS)]
-            t1 = time.perf_counter()
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(FLEET_WAIT_S)
-            wall = time.perf_counter() - t1
-            assert not errs and not any(t.is_alive() for t in threads), errs
-            check_routed(results[:n_routed], sample, sample_exp)
-            assert [routed_form(v) for v in results[:n_routed]] == \
-                direct[:n_routed], "routed != verify_batch_raw"
-            stats = pool.stats()
-            split = {w: s["counters"].get("worker.tokens", 0) - before[w]
-                     for w, s in stats.items()}
-            assert sum(split.values()) == n_routed and min(
-                split.values()) > 0, split
-            card_snap = json.loads(http_get(pool.obs_endpoints()[0],
-                                            "/snapshot"))["snapshot"]
-            es_chunks = int(card_snap["series"].get(
-                "device.es.lanes", {}).get("count", 0))
-            dispatches = card_snap["counters"].get("device.dispatches", 0)
-            assert es_chunks > 0 and dispatches > 0, (es_chunks, dispatches)
-            lat.sort()
-            figs.update(vps=n_routed / wall, wall_s=wall,
-                        p50_ms=lat[len(lat) // 2] * 1e3,
-                        p99_ms=lat[min(len(lat) - 1,
-                                       int(0.99 * len(lat)))] * 1e3,
-                        split=split, es_chunks=es_chunks,
-                        boot_s=max(boot.values()))
-            log(f"fleet traffic: {n_routed} tokens as {len(spans)} requests "
-                f"of {FLEET_MIN_REQUEST}-{FLEET_MAX_REQUEST} from "
-                f"{FLEET_SUBMITTERS} threads through FleetClient(pool, "
-                f"fallback=None) in {wall:.3f} s; every verdict as expected "
-                f"and equal to verify_batch_raw on the card; worker.tokens "
-                f"{split[0]} on the card, {split[1]} on the CPU; the card "
-                f"worker's /snapshot: {es_chunks} ES chunk(s) by the "
-                f"keyset's counter, device.dispatches {dispatches}")
+        def retired():
+            return all((s or {}).get("counters", {}).get(
+                "keyplane.grace_retired", 0) >= 1
+                for s in pool.stats().values())
 
-            # 4. pull rotation at the source
-            epoch0 = max(fleet_epochs(pool).values())
-            state["keys"] = [v for k, v in keys.items()
-                             if k not in ("rs-0", "es-0")] + [
-                serialize_public_key(made[k].public_key(), kid=k)
-                for k in made]
-            t1 = time.perf_counter()
-            swapped, graced = {}, {}
-            while len(graced) < 2:
-                assert time.perf_counter() - t1 < FLEET_WAIT_S, \
-                    "pull rotation never reached every worker"
-                for w, e in fleet_epochs(pool).items():
-                    if e == epoch0 + 1 and w not in swapped:
-                        swapped[w] = time.perf_counter() - t1
-                        # the worker's swap just landed: the dropped
-                        # kids still resolve on it for the grace
-                        with VerifyClient(*pool.address(w),
-                                          timeout=FLEET_WAIT_S) as c:
-                            got = c.verify_batch(dropped)
-                        graced[w] = time.perf_counter() - t1 - swapped[w]
-                        assert [v["sub"] if isinstance(v, dict) else str(v)
-                                for v in got] == subs(dropped), got[:2]
-                time.sleep(0.02)
-            converge_s = max(swapped.values())
-            out = client.verify_batch(fresh)
-            assert [v.get("sub") if isinstance(v, dict) else str(v)
-                    for v in out] == subs(fresh), out[:2]
+        retire_s = fleet_wait("the grace's retirement", retired)
+        out = client.verify_batch(dropped + fresh)
+        assert [str(v) for v in out[:len(dropped)]] == [
+            f"InvalidSignatureError: {REJECT[1]}"] * len(dropped), \
+            out[:2]
+        assert [v["sub"] for v in out[len(dropped):]] == subs(fresh)
+        figs["converge_s"] = converge_s
+        log(f"fleet pull rotation: rs-0 and es-0 out, rs-fleet and "
+            f"es-fleet in at the source; each worker's STATS at epoch "
+            f"{epoch0 + 1} after " + ", ".join(
+                f"{swapped[w]:.2f} s (worker {w})" for w in (0, 1))
+            + f"; {len(dropped)} tokens under the dropped kids accepted "
+            f"on each worker inside the {FLEET_GRACE_S} s grace ("
+            + ", ".join(f"answered {graced[w]:.2f} s after worker {w}'s "
+                        f"swap" for w in (0, 1))
+            + f") and rejected through the router after both graces "
+            f"retired ({retire_s:.2f} s later); {len(fresh)} under the "
+            f"new kids accepted; pool.key_epochs() {pool.key_epochs()} "
+            f"(ready lines and KEYS acks)")
 
-            def retired():
-                return all((s or {}).get("counters", {}).get(
-                    "keyplane.grace_retired", 0) >= 1
-                    for s in pool.stats().values())
+        # 5. push rotation
+        doc = {"keys": list(state["keys"])}
+        t1 = time.perf_counter()
+        acks = pool.push_keys(doc, epoch=epoch0 + 2)
+        push_s = time.perf_counter() - t1
+        assert acks == {0: epoch0 + 2, 1: epoch0 + 2}, acks
+        assert pool.epoch_skew() == 0
+        assert set(fleet_epochs(pool).values()) == {epoch0 + 2}
+        lo, hi = crash_spans[0]
+        out = client.verify_batch(fresh + sample[lo:hi])
+        assert [routed_form(v) for v in out[len(fresh):]] == \
+            direct[lo:hi]
+        log(f"fleet push rotation: pool.push_keys at epoch {epoch0 + 2} "
+            f"acked by both workers in {push_s:.2f} s, epoch_skew 0, "
+            f"STATS epochs {fleet_epochs(pool)}")
 
-            retire_s = fleet_wait("the grace's retirement", retired)
-            out = client.verify_batch(dropped + fresh)
-            assert [str(v) for v in out[:len(dropped)]] == [
-                f"InvalidSignatureError: {REJECT[1]}"] * len(dropped), \
-                out[:2]
-            assert [v["sub"] for v in out[len(dropped):]] == subs(fresh)
-            figs["converge_s"] = converge_s
-            log(f"fleet pull rotation: rs-0 and es-0 out, rs-fleet and "
-                f"es-fleet in at the source; each worker's STATS at epoch "
-                f"{epoch0 + 1} after " + ", ".join(
-                    f"{swapped[w]:.2f} s (worker {w})" for w in (0, 1))
-                + f"; {len(dropped)} tokens under the dropped kids accepted "
-                f"on each worker inside the {FLEET_GRACE_S} s grace ("
-                + ", ".join(f"answered {graced[w]:.2f} s after worker {w}'s "
-                            f"swap" for w in (0, 1))
-                + f") and rejected through the router after both graces "
-                f"retired ({retire_s:.2f} s later); {len(fresh)} under the "
-                f"new kids accepted; pool.key_epochs() {pool.key_epochs()} "
-                f"(ready lines and KEYS acks)")
+        # 6. kill -9 of the card worker mid-stream, once its
+        # checkpoint carries traced timelines
+        from cap_tpu_torch.obs import postmortem
 
-            # 5. push rotation
-            doc = {"keys": list(state["keys"])}
-            t1 = time.perf_counter()
-            acks = pool.push_keys(doc, epoch=epoch0 + 2)
-            push_s = time.perf_counter() - t1
-            assert acks == {0: epoch0 + 2, 1: epoch0 + 2}, acks
-            assert pool.epoch_skew() == 0
-            assert set(fleet_epochs(pool).values()) == {epoch0 + 2}
-            lo, hi = crash_spans[0]
-            out = client.verify_batch(fresh + sample[lo:hi])
-            assert [routed_form(v) for v in out[len(fresh):]] == \
+        victim, pm_path = pool.pid(0), pool.postmortem_path(0)
+        fleet_wait("a checkpoint with the flight ring", lambda: (
+            postmortem.read_postmortem(pm_path) or {}).get("flight"))
+        crash_out, crash_errs = {}, []
+
+        def stream():
+            try:
+                for i, (lo, hi) in enumerate(crash_spans):
+                    with telemetry.trace():
+                        crash_out[i] = client.verify_batch(
+                            sample[lo:hi])
+            except Exception as e:  # noqa: BLE001 - raised below
+                crash_errs.append(e)
+
+        th = threading.Thread(target=stream, daemon=True)
+        th.start()
+        fleet_wait("the stream's first answers",
+                   lambda: len(crash_out) >= 2 or not th.is_alive())
+        t_kill = time.perf_counter()
+        kill9(victim)
+        th.join(FLEET_WAIT_S)
+        assert not th.is_alive() and not crash_errs, crash_errs
+        for i, (lo, hi) in enumerate(crash_spans):
+            check_routed(crash_out[i], sample[lo:hi], sample_exp[lo:hi])
+            assert [routed_form(v) for v in crash_out[i]] == \
                 direct[lo:hi]
-            log(f"fleet push rotation: pool.push_keys at epoch {epoch0 + 2} "
-                f"acked by both workers in {push_s:.2f} s, epoch_skew 0, "
-                f"STATS epochs {fleet_epochs(pool)}")
+        fleet_wait("the card worker's respawn",
+                   lambda: pool.state(0) == "ready"
+                   and pool.pid(0) != victim)
+        respawn_s = time.perf_counter() - t_kill
+        fleet_wait("the epochs' reconvergence",
+                   lambda: pool.key_epochs() == {0: epoch0 + 2,
+                                                 1: epoch0 + 2}
+                   and set(fleet_epochs(pool).values())
+                   == {epoch0 + 2})
+        doc = pool.postmortem(0)
+        assert doc is not None and doc["pid"] == victim, doc
+        pm_counters = doc["snapshot"]["counters"]
+        assert pm_counters.get("worker.tokens", 0) > 0 and doc["flight"]
+        raw = json.dumps(doc)
+        with open(pm_path) as f:
+            raw += f.read()
+        sent = sample + dropped + fresh
+        leaked = [t for t in set(sent) if len(t.split(".")) == 3
+                  and len(t.split(".")[2]) >= 16
+                  and t.split(".")[2] in raw]
+        assert not leaked, f"{len(leaked)} signature segments leaked"
+        out = client.verify_batch(fresh)
+        assert [v["sub"] for v in out] == subs(fresh)
+        figs["respawn_s"] = respawn_s
+        log(f"fleet kill -9: the card worker (pid {victim}) killed "
+            f"mid-stream; {sum(len(v) for v in crash_out.values())} "
+            f"tokens in {len(crash_spans)} requests all verified as "
+            f"expected, no FleetExhaustedError; respawned onto the "
+            f"card (pid {pool.pid(0)}, {pool.ready_line(0)}) "
+            f"{respawn_s:.1f} s after the kill, epochs "
+            f"{pool.key_epochs()} again; its postmortem "
+            f"(reason {doc['reason']}, {len(doc['flight'])} traced "
+            f"timelines, worker.tokens {pm_counters['worker.tokens']}) "
+            f"holds none of the {len(set(sent))} tokens' signature "
+            f"segments")
 
-            # 6. kill -9 of the card worker mid-stream, once its
-            # checkpoint carries traced timelines
-            from cap_tpu_torch.obs import postmortem
-
-            victim, pm_path = pool.pid(0), pool.postmortem_path(0)
-            fleet_wait("a checkpoint with the flight ring", lambda: (
-                postmortem.read_postmortem(pm_path) or {}).get("flight"))
-            crash_out, crash_errs = {}, []
-
-            def stream():
-                try:
-                    for i, (lo, hi) in enumerate(crash_spans):
-                        with telemetry.trace():
-                            crash_out[i] = client.verify_batch(
-                                sample[lo:hi])
-                except Exception as e:  # noqa: BLE001 - raised below
-                    crash_errs.append(e)
-
-            th = threading.Thread(target=stream, daemon=True)
-            th.start()
-            fleet_wait("the stream's first answers",
-                       lambda: len(crash_out) >= 2 or not th.is_alive())
-            t_kill = time.perf_counter()
-            kill9(victim)
-            th.join(FLEET_WAIT_S)
-            assert not th.is_alive() and not crash_errs, crash_errs
-            for i, (lo, hi) in enumerate(crash_spans):
-                check_routed(crash_out[i], sample[lo:hi], sample_exp[lo:hi])
-                assert [routed_form(v) for v in crash_out[i]] == \
-                    direct[lo:hi]
-            fleet_wait("the card worker's respawn",
-                       lambda: pool.state(0) == "ready"
-                       and pool.pid(0) != victim)
-            respawn_s = time.perf_counter() - t_kill
-            fleet_wait("the epochs' reconvergence",
-                       lambda: pool.key_epochs() == {0: epoch0 + 2,
-                                                     1: epoch0 + 2}
-                       and set(fleet_epochs(pool).values())
-                       == {epoch0 + 2})
-            doc = pool.postmortem(0)
-            assert doc is not None and doc["pid"] == victim, doc
-            pm_counters = doc["snapshot"]["counters"]
-            assert pm_counters.get("worker.tokens", 0) > 0 and doc["flight"]
-            raw = json.dumps(doc)
-            with open(pm_path) as f:
-                raw += f.read()
-            sent = sample + dropped + fresh
-            leaked = [t for t in set(sent) if len(t.split(".")) == 3
-                      and len(t.split(".")[2]) >= 16
-                      and t.split(".")[2] in raw]
-            assert not leaked, f"{len(leaked)} signature segments leaked"
-            out = client.verify_batch(fresh)
-            assert [v["sub"] for v in out] == subs(fresh)
-            figs["respawn_s"] = respawn_s
-            log(f"fleet kill -9: the card worker (pid {victim}) killed "
-                f"mid-stream; {sum(len(v) for v in crash_out.values())} "
-                f"tokens in {len(crash_spans)} requests all verified as "
-                f"expected, no FleetExhaustedError; respawned onto the "
-                f"card (pid {pool.pid(0)}, {pool.ready_line(0)}) "
-                f"{respawn_s:.1f} s after the kill, epochs "
-                f"{pool.key_epochs()} again; its postmortem "
-                f"(reason {doc['reason']}, {len(doc['flight'])} traced "
-                f"timelines, worker.tokens {pm_counters['worker.tokens']}) "
-                f"holds none of the {len(set(sent))} tokens' signature "
-                f"segments")
-
-            # 7. SLOs over the merged counters
-            merged = pool.stats_merged()["aggregate"]
-            results = slo.evaluate_once(merged["snapshot"],
-                                        slo.default_rules())
-            for line in slo.format_results(results).splitlines():
-                log(f"fleet slo: {line}")
-            breached = [r["name"] for r in results if not r["ok"]]
-            mc = merged["counters"]
-            assert mc.get("decision.wrong_verdicts", 0) == 0
-            assert rec.counters().get("fleet.fallback_tokens", 0) == 0
-            # Tokens without an issuer count under tenant "none": here
-            # only the north-star's unsigned and two-segment tokens, all
-            # rejected, as their expected verdicts say. The default
-            # per-tenant template reads that as tenant "none" burning
-            # its rejection budget (ratio 1 against 0.5 at burn 1.5):
-            # the one breach the traffic implies, and no other.
-            unattributed = [e for t, e in zip(sample, sample_exp)
-                            if decision.token_tenant(t)
-                            == decision.TENANT_NONE]
-            assert all(isinstance(e, tuple) for e in unattributed)
-            none_tokens = mc.get("decision.serve.tenant.none.tokens", 0)
-            if breached:
-                assert breached == ["tenant_reject_ratio[none]"] and \
-                    0 < none_tokens == mc.get(
-                        "decision.serve.tenant.none.reject", 0), breached
-            log(f"fleet slo: {len(results)} rules, "
-                + (f"one breach, tenant_reject_ratio[none]: "
-                   f"{none_tokens} unattributed tokens on the workers, "
-                   f"every one rejected ({len(unattributed)} of the "
-                   f"routed tokens have no issuer, each expected "
-                   f"rejected)" if breached else "no breach")
-                + f"; decision.wrong_verdicts "
-                f"{mc.get('decision.wrong_verdicts', 0)}")
-        finally:
-            # 9. close within a deadline
-            t1 = time.perf_counter()
-            closer = threading.Thread(target=pool.close, daemon=True)
-            closer.start()
-            closer.join(FLEET_WAIT_S)
-            assert not closer.is_alive(), "the pool did not close"
-            assert all(h.proc is None or h.proc.poll() is not None
-                       for h in pool._handles), "a worker outlived close"
-            log(f"fleet: pool closed in {time.perf_counter() - t1:.1f} s")
+        # 7. SLOs over the merged counters
+        merged = pool.stats_merged()["aggregate"]
+        results = slo.evaluate_once(merged["snapshot"],
+                                    slo.default_rules())
+        for line in slo.format_results(results).splitlines():
+            log(f"fleet slo: {line}")
+        breached = [r["name"] for r in results if not r["ok"]]
+        mc = merged["counters"]
+        assert mc.get("decision.wrong_verdicts", 0) == 0
+        assert rec.counters().get("fleet.fallback_tokens", 0) == 0
+        # Tokens without an issuer count under tenant "none": here
+        # only the north-star's unsigned and two-segment tokens, all
+        # rejected, as their expected verdicts say. The default
+        # per-tenant template reads that as tenant "none" burning
+        # its rejection budget (ratio 1 against 0.5 at burn 1.5):
+        # the one breach the traffic implies, and no other.
+        unattributed = [e for t, e in zip(sample, sample_exp)
+                        if decision.token_tenant(t)
+                        == decision.TENANT_NONE]
+        assert all(isinstance(e, tuple) for e in unattributed)
+        none_tokens = mc.get("decision.serve.tenant.none.tokens", 0)
+        if breached:
+            assert breached == ["tenant_reject_ratio[none]"] and \
+                0 < none_tokens == mc.get(
+                    "decision.serve.tenant.none.reject", 0), breached
+        log(f"fleet slo: {len(results)} rules, "
+            + (f"one breach, tenant_reject_ratio[none]: "
+               f"{none_tokens} unattributed tokens on the workers, "
+               f"every one rejected ({len(unattributed)} of the "
+               f"routed tokens have no issuer, each expected "
+               f"rejected)" if breached else "no breach")
+            + f"; decision.wrong_verdicts "
+            f"{mc.get('decision.wrong_verdicts', 0)}")
+    except BaseException:
+        stack.close()
+        raise
 
     # 8. the fleet line
     records.setdefault("fleet", {}).update(figs)
@@ -4264,6 +4291,391 @@ def fleet_path(records, north):
         f"CPU; boot {figs['boot_s']:.1f} s, convergence "
         f"{figs['converge_s']:.2f} s, respawn {figs['respawn_s']:.1f} s; "
         f"card: {card_line()}")
+    # the front door's phase takes the pool over; the stack closes it
+    # (and the JWKS server) after that phase
+    keep = [i for i, t in enumerate(sample)
+            if token_kid(t) not in ("rs-0", "es-0")]
+    return {"stack": stack, "pool": pool, "epoch": epoch0 + 2,
+            "doc": {"keys": list(state["keys"])},
+            "tokens": [sample[i] for i in keep],
+            "expected": [sample_exp[i] for i in keep],
+            "direct": [direct[i] for i in keep]}
+
+
+FD_UNIQUE = 640               # request positions a chain, each sent twice
+FD_REQUEST = 64               # tokens a request
+FD_CLIENTS = 2                # client connections a gateway
+FD_CRASH_REQUESTS = 8         # the native stream the kill -9 lands in
+FD_PROC_TOKENS = 64           # the spec-booted gateway's one request
+
+
+class PoolHost:
+    """One worker of a ``WorkerPool`` presented to a ``FrontDoor`` as a
+    pool of its own (a "host"): its endpoints follow the worker's
+    respawns; a key push goes through the pool once (its supervisor
+    re-pushes stragglers), and each host reports its worker's epoch."""
+
+    def __init__(self, pool, worker_id: int):
+        self.pool, self.worker_id = pool, worker_id
+
+    def endpoints(self):
+        eps = self.pool.endpoints()
+        w = self.worker_id
+        return {w: eps[w]} if w in eps else {}
+
+    def push_keys(self, doc, epoch=None):
+        if self.pool.keys_epoch() != epoch:
+            self.pool.push_keys(doc, epoch=epoch)
+        return self.key_epochs()
+
+    def key_epochs(self):
+        return {self.worker_id: self.pool.key_epochs()[self.worker_id]}
+
+
+def host_counters(pool) -> dict:
+    """worker_id → (worker.tokens, vcache.hits) from its STATS."""
+    out = {}
+    for w, st in pool.stats().items():
+        c = (st or {}).get("counters", {})
+        out[w] = (c.get("worker.tokens", 0), c.get("vcache.hits", 0))
+    return out
+
+
+def cacheable(exp) -> bool:
+    """Whether a worker's verdict cache keeps this expected reject
+    (accepts of the north-star's tokens are past their exp)."""
+    from cap_tpu_torch import errors
+    from cap_tpu_torch.obs import decision
+    from cap_tpu_torch.serve import vcache
+
+    return isinstance(exp, tuple) and decision.classify(
+        getattr(errors, exp[0])(exp[1])) in vcache.CACHEABLE_REJECTS
+
+
+def frontdoor_gateway_proc(pool, tokens, expected, direct):
+    """``python -m cap_tpu_torch.fleet.worker_main --keyset
+    frontdoor:pool=…;pool=… --frontdoor-chain native`` over the two
+    hosts: its ready line (``frontdoor_chain=native``), one request,
+    SIGTERM, exit 0. Returns its seconds to the ready line."""
+    import queue
+    import signal
+    import threading
+
+    from cap_tpu_torch.serve.client import VerifyClient
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    eps = pool.endpoints()
+    spec = "frontdoor:" + ";".join(f"pool={eps[w][0]}:{eps[w][1]}"
+                                   for w in (0, 1))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cap_tpu_torch.fleet.worker_main",
+         "--keyset", spec, "--frontdoor-chain", "native",
+         "--obs-port", "-1"],
+        cwd=here, env=dict(os.environ, PYTHONPATH=here),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    lines: "queue.Queue" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    try:
+        ready = lines.get(timeout=FLEET_WAIT_S)
+        boot_s = time.perf_counter() - t0
+        fields = dict(kv.split("=", 1) for kv in ready.split()[1:])
+        assert ready.startswith("CAP_FLEET_READY") and fields.get(
+            "frontdoor_chain") == "native", ready
+        with VerifyClient("127.0.0.1", int(fields["port"]),
+                          timeout=FLEET_WAIT_S) as c:
+            got = c.verify_batch(tokens)
+        check_routed(got, tokens, expected)
+        assert [routed_form(v) for v in got] == direct
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        assert rc == 0, (rc, proc.stderr.read()[-2000:])
+        log(f"frontdoor worker_main --keyset {spec} --frontdoor-chain "
+            f"native: {ready.strip()} after {boot_s:.1f} s; "
+            f"{len(tokens)} tokens verified as expected; SIGTERM, exit 0")
+        return boot_s
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+def frontdoor_path(records, fleet):
+    """The front door over the fleet phase's two workers, each a host.
+
+    1. ``python -m cap_tpu_torch.fleet.worker_main --keyset
+       frontdoor:pool=…;pool=… --frontdoor-chain native``: its ready
+       line, one request, SIGTERM;
+    2. two gateways over the hosts (``PoolHost``: worker 0 on the card,
+       worker 1 on the CPU), each ``FrontDoor(hosts, fallback=None)``
+       with the default routing (affinity, spill 1.25, 64 virtual
+       nodes): the Python gate ``VerifyWorker(FrontDoor, vcache=False)``
+       (no cache of its own, so every send reaches a host) and the
+       native relay ``NativeFrontDoorServer(FrontDoor)``;
+    3. through each, FD_UNIQUE of the fleet's north-star tokens whose
+       kids stayed, as requests of FD_REQUEST over FD_CLIENTS
+       connections, then the same requests again: every verdict as
+       expected and equal to ``verify_batch_raw`` on the card; each
+       host's STATS tokens equal to what the ring gives it (plus what
+       spilled to it, less what spilled away); ``frontdoor.lookups ==
+       affinity_hits + affinity_misses``; on each host the repeats of
+       the cacheable rejects hit its verdict cache; the card worker's
+       ES chunks counted in its /snapshot; the relay's choices
+       (``probe_route``) the ring's;
+    4. kill -9 of the CPU worker in the middle of FD_CRASH_REQUESTS
+       requests through the native gate: every verdict right, its
+       tokens re-routed to the card (``frontdoor.reroutes``, the relay's
+       upstream failures or dead-pool frames counted); after the
+       respawn the ring's owner serves its tokens again;
+    5. ``FrontDoor.push_keys`` at the next epoch: both hosts at it,
+       ``epoch_skew() == 0``, each worker's STATS at it;
+    6. the "frontdoor line"."""
+    import statistics
+    import threading
+
+    from cap_tpu_torch.fleet import FrontDoor
+    from cap_tpu_torch.fleet.chaos import kill9
+    from cap_tpu_torch.fleet.frontdoor import NativeFrontDoorServer
+    from cap_tpu_torch.serve import vcache
+    from cap_tpu_torch.serve.client import VerifyClient
+    from cap_tpu_torch.serve.worker import VerifyWorker
+
+    t_phase = time.perf_counter()
+    pool = fleet["pool"]
+    tokens = fleet["tokens"][:FD_UNIQUE + FD_CRASH_REQUESTS * FD_REQUEST]
+    expected = fleet["expected"][:len(tokens)]
+    direct = fleet["direct"][:len(tokens)]
+    assert len(tokens) == FD_UNIQUE + FD_CRASH_REQUESTS * FD_REQUEST
+    spans = [(lo, min(lo + FD_REQUEST, FD_UNIQUE))
+             for lo in range(0, FD_UNIQUE, FD_REQUEST)]
+    crash = [(lo, lo + FD_REQUEST)
+             for lo in range(FD_UNIQUE, len(tokens), FD_REQUEST)]
+    hosts = [PoolHost(pool, 0), PoolHost(pool, 1)]
+    kw = dict(fallback=None,
+              client_kw={"attempt_timeout": FLEET_WAIT_S / 2,
+                         "total_deadline": FLEET_WAIT_S})
+    figs = {}
+
+    # 1. the gateway process from a spec
+    figs["proc_boot_s"] = frontdoor_gateway_proc(
+        pool, tokens[:FD_PROC_TOKENS], expected[:FD_PROC_TOKENS],
+        direct[:FD_PROC_TOKENS])
+
+    ring_fd = FrontDoor(hosts, **kw)
+    digests = [vcache.token_digest(t) for t in tokens]
+    owners = [ring_fd._ring.primary(d) for d in digests]
+    ring_fd.close()
+    owned = [sum(owners[lo] == w for lo in range(FD_UNIQUE))
+             for w in (0, 1)]
+    repeats = [sum(owners[i] == w and cacheable(expected[i])
+                   for i in range(FD_UNIQUE)) for w in (0, 1)]
+    assert min(owned) > 0 and min(repeats) > 0, (owned, repeats)
+
+    def run(addr, todo):
+        """The requests ``todo`` over FD_CLIENTS connections: (results
+        by span, latencies, wall seconds)."""
+        out, lat, errs = {}, [], []
+        todo = list(todo)
+        lock = threading.Lock()
+
+        def client():
+            try:
+                with VerifyClient(*addr, timeout=FLEET_WAIT_S) as c:
+                    while True:
+                        with lock:
+                            if not todo:
+                                return
+                            lo, hi = todo.pop(0)
+                        t1 = time.perf_counter()
+                        out[lo] = c.verify_batch(tokens[lo:hi])
+                        lat.append(time.perf_counter() - t1)
+            except Exception as e:  # noqa: BLE001 - raised below
+                errs.append(e)
+
+        threads = [threading.Thread(target=client, daemon=True)
+                   for _ in range(FD_CLIENTS)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(FLEET_WAIT_S)
+        wall = time.perf_counter() - t1
+        assert not errs and not any(t.is_alive() for t in threads), errs
+        return out, lat, wall
+
+    def check(out, todo):
+        for lo, hi in todo:
+            check_routed(out[lo], tokens[lo:hi], expected[lo:hi])
+            assert [routed_form(v) for v in out[lo]] == direct[lo:hi], \
+                "through the front door != verify_batch_raw"
+
+    def es_chunks():
+        snap = json.loads(http_get(pool.obs_endpoints()[0],
+                                   "/snapshot"))["snapshot"]
+        return int(snap["series"].get("device.es.lanes", {}).get(
+            "count", 0))
+
+    # 2-3. the two gateways, the same requests twice through each
+    chains = {}
+    for chain in ("python", "native"):
+        fd = FrontDoor(hosts, **kw)
+        gate = (VerifyWorker(fd, vcache=False) if chain == "python"
+                else NativeFrontDoorServer(fd))
+        try:
+            before, es0 = host_counters(pool), es_chunks()
+            out1, lat1, wall1 = run(gate.address, spans)
+            out2, lat2, wall2 = run(gate.address, spans)
+            after, es1 = host_counters(pool), es_chunks()
+            check(out1, spans)
+            check(out2, spans)
+            if chain == "native":
+                assert gate.probe_route(digests) == owners
+                time.sleep(0.5)               # one fold of the relay
+                nc = gate.native_counters()
+            else:
+                nc = {}
+            c, pools = fd.counters(), fd.snapshot()["pools"]
+        finally:
+            gate.close(30.0)
+            fd.close()
+        assert c["frontdoor.lookups"] == c["frontdoor.affinity_hits"] + \
+            c["frontdoor.affinity_misses"] == 2 * FD_UNIQUE, c
+        assert c["frontdoor.reroutes"] == 0, c
+        spill = [pools[str(w)]["spills_in"] for w in (0, 1)]
+        sent = [after[w][0] - before[w][0] for w in (0, 1)]
+        hits = [after[w][1] - before[w][1] for w in (0, 1)]
+        assert sent == [2 * owned[w] - spill[1 - w] + spill[w]
+                        for w in (0, 1)], (chain, sent, owned, spill)
+        assert all(hits[w] >= repeats[w] for w in (0, 1)), (hits, repeats)
+        assert es1 > es0, "the card worker ran no ES chunk"
+        lat = sorted(lat1 + lat2)
+        chains[chain] = dict(
+            vps=2 * FD_UNIQUE / (wall1 + wall2), wall_s=wall1 + wall2,
+            p50_ms=statistics.median(lat) * 1e3,
+            p99_ms=lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3,
+            sent=sent, hits=hits, es_chunks=es1 - es0,
+            counters={k.split(".", 1)[1]: v for k, v in c.items()
+                      if k.count(".") == 1},
+            native={k.rsplit(".", 1)[1]: v for k, v in nc.items()})
+        log(f"frontdoor {chain} gate: {2 * FD_UNIQUE} tokens "
+            f"({FD_UNIQUE} twice) as {2 * len(spans)} requests of "
+            f"{FD_REQUEST} over {FD_CLIENTS} connections in "
+            f"{wall1 + wall2:.3f} s; every verdict as expected and equal "
+            f"to verify_batch_raw on the card; worker.tokens {sent[0]} on "
+            f"the card host, {sent[1]} on the CPU host (the ring owns "
+            f"{owned[0]} and {owned[1]} of the {FD_UNIQUE}; spills in "
+            f"{spill}); vcache.hits {hits} (at least the {repeats} "
+            f"repeats of cacheable rejects); {es1 - es0} ES chunk(s) on "
+            f"the card; counters {chains[chain]['counters']}"
+            + (f"; relay {chains[chain]['native']}" if nc else ""))
+
+    # 4. kill -9 of the CPU host's worker mid-stream, native gate
+    fd = FrontDoor(hosts, **kw)
+    gate = NativeFrontDoorServer(fd)
+    try:
+        victim = pool.pid(1)
+        results, errs = {}, []
+
+        def stream():
+            try:
+                with VerifyClient(*gate.address, timeout=FLEET_WAIT_S) as c:
+                    for lo, hi in crash:
+                        results[lo] = c.verify_batch(tokens[lo:hi])
+            except Exception as e:  # noqa: BLE001 - raised below
+                errs.append(e)
+
+        th = threading.Thread(target=stream, daemon=True)
+        th.start()
+        fleet_wait("the stream's first answers",
+                   lambda: len(results) >= 2 or not th.is_alive())
+        t_kill = time.perf_counter()
+        kill9(victim)
+        th.join(FLEET_WAIT_S)
+        assert not th.is_alive() and not errs, errs
+        check(results, crash)
+        c, nc = fd.counters(), gate.native_counters()
+        slow = {k.rsplit(".", 1)[1]: v for k, v in c.items()
+                if k.startswith("frontdoor.native.slow.")}
+        assert c["frontdoor.reroutes"] > 0, c
+        assert nc["frontdoor.native.upstream_fails"] + slow.get(
+            "dead_pool", 0) > 0, (nc, slow)
+        assert c["frontdoor.lookups"] == c["frontdoor.affinity_hits"] + \
+            c["frontdoor.affinity_misses"], c
+        fleet_wait("the CPU worker's respawn",
+                   lambda: pool.state(1) == "ready"
+                   and pool.pid(1) != victim)
+        respawn_s = time.perf_counter() - t_kill
+        fleet_wait("the relay's view of the respawn", lambda: gate.probe_route(
+            digests[:FD_REQUEST]) == owners[:FD_REQUEST])
+        before = host_counters(pool)
+        s0 = fd.snapshot()["pools"]
+        with VerifyClient(*gate.address, timeout=FLEET_WAIT_S) as cl:
+            out = cl.verify_batch(tokens[:FD_REQUEST])
+        check({0: out}, [(0, FD_REQUEST)])
+        after, s1 = host_counters(pool), fd.snapshot()["pools"]
+        spill = [s1[str(w)]["spills_in"] - s0[str(w)]["spills_in"]
+                 for w in (0, 1)]
+        back = [sum(o == w for o in owners[:FD_REQUEST]) - spill[1 - w]
+                + spill[w] for w in (0, 1)]
+        assert [after[w][0] - before[w][0] for w in (0, 1)] == back, back
+        figs.update(reroutes=c["frontdoor.reroutes"], respawn_s=respawn_s,
+                    upstream_fails=nc["frontdoor.native.upstream_fails"],
+                    crash_slow=slow)
+        log(f"frontdoor kill -9: the CPU worker (pid {victim}) killed in "
+            f"the middle of {len(crash)} requests of {FD_REQUEST} through "
+            f"the native gate; every verdict as expected, no "
+            f"FleetExhaustedError; frontdoor.reroutes "
+            f"{c['frontdoor.reroutes']}, relay upstream_fails "
+            f"{nc['frontdoor.native.upstream_fails']}, slow frames {slow}; "
+            f"respawned (pid {pool.pid(1)}) {respawn_s:.1f} s after the "
+            f"kill; then {FD_REQUEST} tokens on their ring owners again "
+            f"({back[0]} card, {back[1]} CPU)")
+
+        # 5. the keyplane fan-out through the front door, once the
+        # respawned worker has the pool's epoch again (else the pool's
+        # re-push of it could land after this one)
+        fleet_wait("the epochs' reconvergence", lambda: set(
+            fleet_epochs(pool).values()) == {fleet["epoch"]})
+        epoch = fleet["epoch"] + 1
+        t1 = time.perf_counter()
+        acks = fd.push_keys(fleet["doc"], epoch=epoch)
+        push_s = time.perf_counter() - t1
+        assert acks == {0: {0: epoch}, 1: {1: epoch}}, acks
+        assert fd.key_epochs() == {"p0.w0": epoch, "p1.w1": epoch}
+        assert fd.epoch_skew() == 0 and fd.key_epoch == epoch
+        assert set(fleet_epochs(pool).values()) == {epoch}
+        figs["push_s"] = push_s
+        log(f"frontdoor push_keys at epoch {epoch}: {acks}, key_epochs "
+            f"{fd.key_epochs()}, epoch_skew 0, STATS epochs "
+            f"{fleet_epochs(pool)} in {push_s:.2f} s")
+    finally:
+        gate.close(30.0)
+        fd.close()
+
+    # 6. the frontdoor line
+    figs.update(chains=chains, seconds=time.perf_counter() - t_phase)
+    records["frontdoor"] = figs
+    py, nat = chains["python"], chains["native"]
+    log(f"frontdoor line: python gate {py['vps']:.0f} verifies/s, p50 "
+        f"{py['p50_ms']:.1f} ms, p99 {py['p99_ms']:.1f} ms; native relay "
+        f"{nat['vps']:.0f} verifies/s, p50 {nat['p50_ms']:.1f} ms, p99 "
+        f"{nat['p99_ms']:.1f} ms; tokens a host (card, CPU): python "
+        f"{py['sent']}, native {nat['sent']}; python lookups "
+        f"{py['counters']['lookups']} hits "
+        f"{py['counters']['affinity_hits']} misses "
+        f"{py['counters']['affinity_misses']} spills "
+        f"{py['counters']['spills']}; native lookups "
+        f"{nat['counters']['lookups']} hits "
+        f"{nat['counters']['affinity_hits']} misses "
+        f"{nat['counters']['affinity_misses']} spills "
+        f"{nat['counters']['spills']}; reroutes under the kill "
+        f"{figs['reroutes']}; relay relays {nat['native']['relays']} "
+        f"splices {nat['native']['splices']} slow frames "
+        f"{nat['native']['slow_frames']}; phase "
+        f"{figs['seconds']:.1f} s; card: {card_line()}")
 
 
 def device_profile():
@@ -4497,7 +4909,9 @@ def main() -> int:
     timed("big-jwks", bigjwks_path, records)
     timed("oidc", oidc_path, records)
     timed("serve", serve_path, records, north)
-    timed("fleet", fleet_path, records, north)
+    fleet = timed("fleet", fleet_path, records, north)
+    with fleet["stack"]:
+        timed("frontdoor", frontdoor_path, records, fleet)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all "
         f"({time.perf_counter() - t_run:.1f} s after the build)")
 

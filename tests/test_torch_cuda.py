@@ -12,8 +12,9 @@ against the CPU (a 9,216-bit modulus against the host oracle), and
 ``verify_batch_raw`` and the OIDC ``Provider.verify_id_token_batch``
 (dict and raw modes, through discovery at the in-process TLS IdP)
 over the card keyset against the CPU, ``KeyPlaneKeySet`` on the card
-against the CPU across a rotation, and a ``WorkerPool`` of a card
-worker and a CPU worker behind ``FleetClient``.
+against the CPU across a rotation, a ``WorkerPool`` of a card
+worker and a CPU worker behind ``FleetClient``, and a ``FrontDoor``
+over a card worker and a CPU worker behind both gates.
 
 Marked ``cuda``: without a card each test skips. On the card's machine
 (no jax there, so without the suite's conftest):
@@ -1294,3 +1295,67 @@ def test_pool_of_a_card_worker_and_a_cpu_worker(dev, tmp_path):
             snap = json.load(r)["snapshot"]
         assert snap["series"]["device.es.lanes"]["count"] >= 1
         assert snap["counters"]["device.dispatches"] >= 1
+
+
+def test_front_door_over_a_card_worker_and_a_cpu_worker(dev):
+    """FrontDoor over two hosts, a worker on the card and a worker on
+    the CPU, behind both gates (``VerifyWorker(FrontDoor)`` and the
+    native relay): every verdict equal to ``verify_batch_raw`` on the
+    card, the relay's choices the ring's, its lookups all hits and
+    equal to the tokens sent, the card worker's ES chunks launching
+    the ladder."""
+    import json
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.fleet import ConsistentHashRing, FrontDoor
+    from cap_tpu_torch.fleet.frontdoor import NativeFrontDoorServer
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.serve import vcache
+    from cap_tpu_torch.serve.client import VerifyClient
+    from cap_tpu_torch.serve.worker import VerifyWorker
+
+    jwks, tokens, _ = tt.headline_fixtures(128, seed=37)
+    batch = tokens + [tokens[7][:-4] + "AAAA", "a.b"]
+    want = [f"{type(x).__name__}: {x}" if isinstance(x, Exception)
+            else json.loads(x)
+            for x in GPUBatchKeySet(jwks).verify_batch_raw(batch)]
+    owners = [ConsistentHashRing([0, 1]).primary(vcache.token_digest(t))
+              for t in batch]
+    assert set(owners) == {0, 1}
+    hosts = [VerifyWorker(GPUBatchKeySet(jwks), max_wait_ms=1.0),
+             VerifyWorker(GPUBatchKeySet(jwks, device="cpu"),
+                          max_wait_ms=1.0)]
+    kw = {"fallback": None, "client_kw": {"attempt_timeout": 150.0,
+                                          "total_deadline": 300.0}}
+    fd = FrontDoor([[h.address] for h in hosts], **kw)
+    gates = [VerifyWorker(fd, vcache=False),
+             NativeFrontDoorServer(FrontDoor([[h.address] for h in hosts],
+                                             **kw))]
+    try:
+        for gate in gates:
+            ladder0 = cuda_ladder.launches
+            with VerifyClient(*gate.address, timeout=300.0) as cl:
+                got = []
+                for i in range(0, len(batch), 65):
+                    got += cl.verify_batch(batch[i:i + 65])
+            assert [str(x) if isinstance(x, Exception) else x
+                    for x in got] == want
+            assert cuda_ladder.launches > ladder0
+        nat = gates[1]
+        assert nat.probe_route([vcache.token_digest(t)
+                                for t in batch]) == owners
+        nc = nat.native_counters()
+        assert nc["frontdoor.native.lookups"] == nc[
+            "frontdoor.native.hits"] == len(batch)
+        pools = fd.snapshot()["pools"]
+        assert [pools[str(p)]["tokens"] for p in (0, 1)] == [
+            owners.count(0), owners.count(1)]
+        for f in (fd, nat.frontdoor):
+            c = f.counters()
+            assert c["frontdoor.lookups"] == c["frontdoor.affinity_hits"] \
+                + c["frontdoor.affinity_misses"] == len(batch)
+    finally:
+        for g in gates:
+            g.close(30.0)
+        for h in hosts:
+            h.close(30.0)

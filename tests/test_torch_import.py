@@ -80,7 +80,8 @@ def test_serve_modules_are_covered():
                  "cap_tpu_torch.parallel", "cap_tpu_torch.parallel.place",
                  "cap_tpu_torch.fleet", "cap_tpu_torch.fleet.pool",
                  "cap_tpu_torch.fleet.router", "cap_tpu_torch.fleet.chaos",
-                 "cap_tpu_torch.fleet.autoscale"):
+                 "cap_tpu_torch.fleet.autoscale",
+                 "cap_tpu_torch.fleet.frontdoor"):
         assert name in MODULES, name
 
 
@@ -105,11 +106,11 @@ def test_utils_exports_equal_the_reference():
 
 @pytest.mark.parametrize("pkg,left_out", [
     ("obs", set()), ("keyplane", set()),
-    ("fleet", {"ConsistentHashRing", "FrontDoor"}),
+    ("fleet", set()),
     ("parallel", None)])
 def test_package_exports_equal_the_reference(pkg, left_out):
     """The ported packages export the reference's names, less what is
-    still to port (the front door; the mesh half of ``parallel``)."""
+    still to port (the mesh half of ``parallel``)."""
     import importlib
 
     t_mod = importlib.import_module(f"cap_tpu_torch.{pkg}")

@@ -372,10 +372,15 @@ def test_close_drains_in_flight_requests():
 
 
 def test_not_ported_options_raise():
-    """Only the front door is still to port: its spec raises, and the
-    JAX package's other specs build."""
-    with pytest.raises(ValueError, match="ROADMAP"):
-        t_main.make_keyset("frontdoor:pool=a:1")
+    """Every spec of the JAX package builds now, the front door's too
+    (a ``FrontDoor``); only an unknown spec or option raises."""
+    from cap_tpu_torch.fleet import FrontDoor
+
+    fd = t_main.make_keyset("frontdoor:pool=a:1")
+    assert isinstance(fd, FrontDoor)
+    fd.close()
+    with pytest.raises(ValueError, match="unknown frontdoor option"):
+        t_main.make_keyset("frontdoor:pool=a:1;bogus=1")
     with pytest.raises(ValueError, match="unknown keyset spec"):
         t_main.make_keyset("nope:x")
 
