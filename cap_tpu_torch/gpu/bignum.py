@@ -1,10 +1,12 @@
 """Batched big-number arithmetic on int64 limb tensors.
 
 The port of the JAX package's limb engine: the ES* scalar work (range
-checks, s⁻¹, u1/u2) and the RSA modexps of keys the RNS engine does
-not take (``modexp_65537``, ``modexp_vare``). Little-endian base-2^16
-limbs, limb-first [K, N], every limb a 16-bit value held in int64 so
-limb products and column sums never wrap. Carries and borrows resolve
+checks, s⁻¹, u1/u2), the RSA modexps of keys the RNS engine does
+not take (``modexp_65537``, ``modexp_vare``) or of every key under an
+entry point's ``rns=False``, and the field arithmetic of the limb
+ECDSA and Ed25519 ladders (``add_mod``, ``sub_mod``). Little-endian
+base-2^16 limbs, limb-first [K, N], every limb a 16-bit value held in
+int64 so limb products and column sums never wrap. Carries and borrows resolve
 in fixed depth — one ripple pass, then a Kogge-Stone carry-lookahead
 over the limb axis — so no step depends on the data.
 """
@@ -216,6 +218,32 @@ def batch_mont_inverse(x_m: torch.Tensor, n1: torch.Tensor,
         inv_right = mont_mul(inv, lvl[:, 0::2], nh, nph)
         inv = torch.stack([inv_left, inv_right], dim=2).reshape(k, width)
     return inv
+
+
+def add_mod(a: torch.Tensor, b: torch.Tensor,
+            m: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod m over [K, N] normalized limbs, a, b < m; m [K, N] or
+    a [K, 1] column."""
+    k = a.shape[0]
+    zero_row = torch.zeros_like(a[:1])
+    t = carry_normalize(torch.cat([a + b, zero_row], dim=0))
+    m_pad = torch.cat([m.expand_as(a), zero_row], dim=0)
+    return sub_where(t, m_pad, compare_ge(t, m_pad))[:k]
+
+
+def sub_mod(a: torch.Tensor, b: torch.Tensor,
+            m: torch.Tensor) -> torch.Tensor:
+    """(a − b) mod m over [K, N] normalized limbs, a, b < m: a + m − b,
+    then one conditional subtract."""
+    k = a.shape[0]
+    zero_row = torch.zeros_like(a[:1])
+    m = m.expand_as(a)
+    t = carry_normalize(torch.cat([a + m, zero_row], dim=0))
+    b_pad = torch.cat([b.expand_as(a), zero_row], dim=0)
+    t = sub_where(t, b_pad, torch.ones(a.shape[1], dtype=torch.bool,
+                                       device=a.device))
+    m_pad = torch.cat([m, zero_row], dim=0)
+    return sub_where(t, m_pad, compare_ge(t, m_pad))[:k]
 
 
 def is_zero(a: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,25 @@
 """Batched ECDSA verification (P-256/P-384/P-521) in PyTorch.
 
-The port of the JAX package's ES* engine, RNS branch only: the scalar
-work (range checks, s⁻¹ by a batched product tree, u1/u2) runs in
-16-bit limbs (``bignum``), the point work — a two-chain ladder of 8-bit
-windows over precomputed tables, mixed Jacobian + affine adds — in RNS
-(``ec_rns``), and the final check is projective: accept iff
-X ≡ r·Z² or, when r + n < p, X ≡ (r+n)·Z² (mod p).
+The port of the JAX package's ES* engine. The scalar work (range
+checks, s⁻¹ by a batched product tree, u1/u2) runs in 16-bit limbs
+(``bignum``); the point work runs on one of two engines, the caller's
+choice (``rns=``), each with one of two window-add laws (``ladder=``):
+
+- RNS (the default): a two-chain ladder of 8-bit windows over
+  precomputed tables in residue form (``ec_rns``), on the card the
+  whole-ladder kernel (``jacobian``) or per-window affine adds whose
+  divisions share one batched inversion, every multiply a REDC launch
+  (``affine``);
+- limbs (``rns=False``): 4-bit windows over Montgomery limb tables
+  (:meth:`ECKeyTable.limb_tables`), plain PyTorch as in the JAX
+  package, which runs this engine outside any Pallas kernel: mixed
+  Jacobian + affine adds interleaving the G and Q chains
+  (:func:`_jac_madd`), or two lane-concatenated affine chains with one
+  batched inversion mod p a window (:func:`_affine_madd`).
+
+The final check is projective on the Jacobian ladders: accept iff
+X ≡ r·Z² or, when r + n < p, X ≡ (r+n)·Z² (mod p); the limb affine
+ladder compares x with r (or r + n) directly.
 
 Same-x exceptional cases in the ladder are flagged ``deg`` per token;
 the caller re-verifies those on the pure-integer oracle
@@ -24,7 +38,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import bignum as B
 from . import limbs as L
+
+LADDERS = ("jacobian", "affine")
+
+
+def resolve_ladder(ladder: str) -> str:
+    """The window-add law ``ladder`` if it is one (``jacobian`` or
+    ``affine``); raises ``ValueError`` otherwise, in the JAX package's
+    words."""
+    if ladder not in LADDERS:
+        raise ValueError(f"unknown EC ladder mode {ladder!r}")
+    return ladder
 
 # NIST curve domain parameters (FIPS 186-4 / SEC 2).
 _CURVE_INTS = {
@@ -76,7 +102,17 @@ class CurveParams:
         nprime, nr2, _ = mont_params(self.n, k)
         self.nprime_limbs = L.int_to_limbs(nprime, k)
         self.nr2_limbs = L.int_to_limbs(nr2, k)
+        # the limb ladder's field constants: p' and R² mod p, and R mod
+        # p (Montgomery 1; the limb tables hold x·R, y·R)
+        pprime, pr2, self.pone = mont_params(self.p, k)
+        self.field_limbs = [L.int_to_limbs(v, k)
+                            for v in (pprime, pr2, self.pone)]
+        self.pbits: int = self.p.bit_length()
+        # 4-bit interleaved windows of the limb ladder
+        self.n_windows = (self.nbits + 3) // 4
         self._dev: Dict[torch.device, tuple] = {}
+        self._field_dev: Dict[torch.device, tuple] = {}
+        self._g_tabs: Dict[torch.device, tuple] = {}
 
     def device_consts(self, device) -> tuple:
         """[K, 1] int64 columns of the scalar-field constants on
@@ -88,6 +124,26 @@ class CurveParams:
                 for v in (self.n_limbs, self.nprime_limbs, self.nr2_limbs,
                           self.p_limbs))
         return self._dev[device]
+
+    def field_consts(self, device) -> tuple:
+        """[K, 1] int64 columns of the limb ladder's field constants on
+        ``device``: (p', R² mod p, R mod p)."""
+        device = torch.device(device)
+        if device not in self._field_dev:
+            self._field_dev[device] = tuple(
+                torch.as_tensor(v.astype(np.int64)[:, None], device=device)
+                for v in self.field_limbs)
+        return self._field_dev[device]
+
+    def g_tables(self, device) -> tuple:
+        """G's 4-bit window table on ``device`` (cached): (x, y) rows
+        [n_windows·15, K] int64 as :func:`limb_window_rows` lays them
+        out."""
+        device = torch.device(device)
+        if device not in self._g_tabs:
+            self._g_tabs[device] = limb_window_rows(
+                self, [(self.gx, self.gy)], device)
+        return self._g_tabs[device]
 
     # -- host affine arithmetic (table precompute, oracle) ---------------
 
@@ -188,13 +244,39 @@ def curve(name: str) -> CurveParams:
     return _CURVES_CACHE[name]
 
 
+_TABLE_GROUP = 32     # keys whose window chains share their inversions
+
+
+def limb_window_rows(cp: CurveParams, points: Sequence[Tuple[int, int]],
+                     device) -> tuple:
+    """The limb ladder's 4-bit window tables of ``points`` on ``device``:
+    (x, y) [len(points)·n_windows·15, K] int64 field-Montgomery rows,
+    point j's row j·n_windows·15 + i·15 + (d − 1) holding d·2^{4i}·point
+    (the JAX package's ``ECKeyTable.tqx``/``tqy`` layout). One chain a
+    distinct point, 32 points sharing each inversion."""
+    uniq = list(dict.fromkeys(points))
+    mult = {}
+    for g in range(0, len(uniq), _TABLE_GROUP):
+        group = uniq[g:g + _TABLE_GROUP]
+        mult.update(zip(group, cp.window_multiples_many(group, 4,
+                                                        cp.n_windows)))
+    p, r = cp.p, cp.pone
+    return tuple(
+        torch.as_tensor(L.ints_to_limbs(
+            [v * r % p for pt in points for v in mult[pt][c]],
+            cp.k).T.astype(np.int64), device=torch.device(device))
+        for c in (0, 1))
+
+
 class ECKeyTable:
-    """The keys of one curve and their RNS window table on a device.
+    """The keys of one curve and their window tables on a device.
 
     ``keys``: :class:`HostECPublicKey` (or anything with
-    ``public_numbers().x/.y``). The RNS table (``ec_rns.ECRNSKeyTable``)
-    is built at first use, or installed from the JAX package's arrays
-    by ``convert``.
+    ``public_numbers().x/.y``). Both tables are built at first use: the
+    RNS table (``ec_rns.ECRNSKeyTable``, which ``convert`` may install
+    from the JAX package's arrays instead) by the RNS engine, the limb
+    tables (:meth:`limb_tables`) only by a call that runs the limb
+    engine.
     """
 
     def __init__(self, crv: str, keys: Sequence, device="cuda"):
@@ -203,6 +285,7 @@ class ECKeyTable:
         self.coord_bytes = self.curve.coord_bytes
         self.device = torch.device(device)
         self._rns = None
+        self._limb = None
 
     def rns(self):
         if self._rns is None:
@@ -210,6 +293,15 @@ class ECKeyTable:
 
             self._rns = ec_rns.ECRNSKeyTable(self.curve.name, self.keys)
         return self._rns
+
+    def limb_tables(self) -> tuple:
+        """The limb engine's (tqx, tqy) window rows of every key on the
+        table's device (:func:`limb_window_rows`)."""
+        if self._limb is None:
+            self._limb = limb_window_rows(
+                self.curve, [(k.public_numbers().x, k.public_numbers().y)
+                             for k in self.keys], self.device)
+        return self._limb
 
 
 def scalar_mult(cp: CurveParams, k: int,
@@ -391,31 +483,231 @@ def _ec_prep(sig_bytes: torch.Tensor, dig: torch.Tensor, k: int):
     return r, s, L.bytes_to_limbs_device(e_mat)
 
 
-def _es_verify(sig: torch.Tensor, dig: torch.Tensor, flags: torch.Tensor,
-               idx: torch.Tensor, table: ECKeyTable):
-    from . import ec_rns
+# ---------------------------------------------------------------------------
+# The limb engine (field values in Montgomery form unless noted)
+# ---------------------------------------------------------------------------
 
+def _jac_madd(X1, Y1, Z1, x2, y2, p, pp, one_m):
+    """Mixed Jacobian + affine addition, 11 field products.
+
+    Returns (X3, Y3, Z3, degenerate): the same-x cases (P = ±(x2, y2))
+    are not computed but flagged, for the oracle; P at infinity (Z1 = 0)
+    returns the affine addend.
+    """
+    z1z1 = B.mont_mul(Z1, Z1, p, pp)
+    u2 = B.mont_mul(x2, z1z1, p, pp)
+    s2 = B.mont_mul(y2, B.mont_mul(Z1, z1z1, p, pp), p, pp)
+    h = B.sub_mod(u2, X1, p)
+    hh = B.mont_mul(h, h, p, pp)
+    i4 = B.add_mod(B.add_mod(hh, hh, p), B.add_mod(hh, hh, p), p)
+    j = B.mont_mul(h, i4, p, pp)
+    s2y1 = B.sub_mod(s2, Y1, p)
+    rr = B.add_mod(s2y1, s2y1, p)
+    v = B.mont_mul(X1, i4, p, pp)
+    X3 = B.sub_mod(B.sub_mod(B.mont_mul(rr, rr, p, pp), j, p),
+                   B.add_mod(v, v, p), p)
+    y1j = B.mont_mul(Y1, j, p, pp)
+    Y3 = B.sub_mod(B.mont_mul(rr, B.sub_mod(v, X3, p), p, pp),
+                   B.add_mod(y1j, y1j, p), p)
+    zh = B.add_mod(Z1, h, p)
+    Z3 = B.sub_mod(B.sub_mod(B.mont_mul(zh, zh, p, pp), z1z1, p), hh, p)
+
+    p_inf = B.is_zero(Z1)
+    degenerate = ~p_inf & B.is_zero(h)       # doubling and ±inverse alike
+    sel = p_inf[None, :]
+    return (torch.where(sel, x2, X3), torch.where(sel, y2, Y3),
+            torch.where(sel, one_m, Z3), degenerate)
+
+
+def _affine_madd(x, y, inf, ax, ay, has, p, pp, one_m, p1, pp1, p_int):
+    """Batched affine + affine addition, 2M + 1S and one batched
+    inversion mod p over every lane (``bignum.batch_mont_inverse`` with
+    the field's [K, 1] columns p1, pp1).
+
+    x, y: [K, M] accumulator (canonical Montgomery form); inf: [M] lanes
+    at infinity; ax, ay: table points (never infinity); has: [M] lanes
+    that add this step. An accumulator at infinity takes the addend; a
+    live lane with x == ax (doubling or inverse) is flagged
+    ``degenerate`` for the oracle, its denominator replaced by 1 so the
+    inversion stays defined. Returns (x3, y3, inf3, degenerate).
+    """
+    dx = B.sub_mod(ax, x, p)
+    eqx = B.is_zero(dx)
+    live = has & ~inf
+    degenerate = live & eqx
+    den = torch.where((live & ~eqx)[None, :], dx, one_m)
+    inv = B.batch_mont_inverse(den, p1, pp1, p_int)
+    lam = B.mont_mul(B.sub_mod(ay, y, p), inv, p, pp)
+    sq = B.mont_mul(lam, lam, p, pp)
+    x3 = B.sub_mod(B.sub_mod(sq, x, p), ax, p)
+    y3 = B.sub_mod(B.mont_mul(lam, B.sub_mod(x, x3, p), p, pp), y, p)
+    lift = (inf & has)[None, :]
+    x3 = torch.where(lift, ax, x3)
+    y3 = torch.where(lift, ay, y3)
+    sel = has[None, :]
+    return (torch.where(sel, x3, x), torch.where(sel, y3, y), inf & ~has,
+            degenerate)
+
+
+def _gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of a [rows, K] table as [K, len(idx)] limbs."""
+    return tab.index_select(0, idx).T
+
+
+def _ecdsa_core(r, s, e, key_idx, tqx, tqy, cp: CurveParams,
+                ladder: str = "jacobian"):
+    """Batched ECDSA verify on the limb engine.
+
+    r, s, e: [K, N] plain limbs (signature halves, hash integer); N a
+    power of two (the batch inversions pair the lanes down); key_idx:
+    [N] int64 rows into tqx/tqy [nk·n_windows·15, K]. ``jacobian``
+    interleaves the G and Q chains in one mixed Jacobian + affine
+    accumulator; ``affine`` runs :func:`_ecdsa_affine_tail`. Returns
+    (ok [N], deg [N]).
+    """
+    k, n_tok = r.shape
+    dev = r.device
+    n_col, npp_col, nr2_col, p_col = cp.device_consts(dev)
+    pp_col, pr2_col, pone_col = cp.field_consts(dev)
+    p, pp, pr2, pone, n, npp = (c.expand(k, n_tok) for c in (
+        p_col, pp_col, pr2_col, pone_col, n_col, npp_col))
+
+    # 1. range checks 1 ≤ r, s < n
+    r_ok = ~B.is_zero(r) & ~B.compare_ge(r, n)
+    s_ok = ~B.is_zero(s) & ~B.compare_ge(s, n)
+
+    # 2. w = s⁻¹ mod n (Montgomery domain) by the batched product tree;
+    #    invalid s is replaced by 1 (rejected by s_ok anyway)
+    one_plain = torch.zeros_like(r)
+    one_plain[0] = 1
+    s_safe = torch.where(s_ok[None, :], s, one_plain)
+    s_m = B.mont_mul(s_safe, nr2_col.expand(k, n_tok), n, npp)
+    w_m = B.batch_mont_inverse(s_m, n_col, npp_col, cp.n)
+
+    # 3. u1 = e·w, u2 = r·w mod n (plain: the R factors cancel)
+    u1 = B.mont_mul(e, w_m, n, npp)
+    u2 = B.mont_mul(r, w_m, n, npp)
+
+    # 4. R = Σ d1_i·(2^{4i}G) + d2_i·(2^{4i}Q) over precomputed rows
+    dig1 = L.nibbles(u1, cp.n_windows)
+    dig2 = L.nibbles(u2, cp.n_windows)
+    key_base = key_idx.to(torch.int64) * (cp.n_windows * 15)
+    tgx, tgy = cp.g_tables(dev)
+
+    if ladder == "affine":
+        return _ecdsa_affine_tail(r, r_ok, s_ok, dig1, dig2, key_base,
+                                  tqx, tqy, tgx, tgy, cp)
+
+    X, Y, Z = pone, pone, torch.zeros_like(r)    # infinity (Z = 0)
+    deg = torch.zeros(n_tok, dtype=torch.bool, device=dev)
+    for i in range(cp.n_windows):
+        for tab_x, tab_y, d, row0 in ((tgx, tgy, dig1[i], i * 15),
+                                      (tqx, tqy, dig2[i],
+                                       key_base + i * 15)):
+            has = d > 0
+            idx = row0 + torch.where(has, d - 1, 0)
+            Xa, Ya, Za, dd = _jac_madd(X, Y, Z, _gather(tab_x, idx),
+                                       _gather(tab_y, idx), p, pp, pone)
+            sel = has[None, :]
+            X = torch.where(sel, Xa, X)
+            Y = torch.where(sel, Ya, Y)
+            Z = torch.where(sel, Za, Z)
+            deg = deg | (dd & has)
+
+    # 5. projective check: X ≡ r·Z² or X ≡ (r + n)·Z² (mod p)
+    z2 = B.mont_mul(Z, Z, p, pp)
+    ok1 = (X == B.mont_mul(B.mont_mul(r, pr2, p, pp), z2, p, pp)).all(dim=0)
+    rpn_k, rpn_lt_p = _r_plus_n(r, n, p)
+    rhs2 = B.mont_mul(B.mont_mul(rpn_k, pr2, p, pp), z2, p, pp)
+    ok2 = (X == rhs2).all(dim=0) & rpn_lt_p
+    ok = r_ok & s_ok & ~B.is_zero(Z) & (ok1 | ok2)
+    return ok, deg & r_ok & s_ok
+
+
+def _r_plus_n(r, n, p):
+    """(r + n as [K, N] limbs, [N] bool r + n < p)."""
+    k = r.shape[0]
+    zero_row = torch.zeros_like(r[:1])
+    rpn = B.carry_normalize(torch.cat([r + n, zero_row], dim=0))
+    p_pad = torch.cat([p, zero_row], dim=0)
+    return rpn[:k], ~B.compare_ge(rpn, p_pad)
+
+
+def _ecdsa_affine_tail(r, r_ok, s_ok, dig1, dig2, key_base, tqx, tqy,
+                       tgx, tgy, cp: CurveParams):
+    """The affine ladder of :func:`_ecdsa_core`: the G and Q chains as
+    two lane-concatenated affine accumulators ([K, 2N]), each window one
+    :func:`_affine_madd` whose divisions share one inversion over the
+    2N lanes; then one more affine add merges the chains (an inversion
+    over N lanes) and x is compared with r·R (or (r + n)·R) directly.
+
+    A chain of one scalar never meets its own window multiple, so only
+    the merge can be degenerate (u1·G = ±u2·Q): flagged for the oracle
+    as on the Jacobian ladder.
+    """
+    k, n_tok = r.shape
+    dev = r.device
+    n_col, _, _, p_col = cp.device_consts(dev)
+    pp_col, pr2_col, pone_col = cp.field_consts(dev)
+    p, pp, pr2, pone, n = (c.expand(k, n_tok) for c in (
+        p_col, pp_col, pr2_col, pone_col, n_col))
+    p2, pp2, pone2 = (c.expand(k, 2 * n_tok)
+                      for c in (p_col, pp_col, pone_col))
+
+    x, y = pone2, pone2
+    inf = torch.ones(2 * n_tok, dtype=torch.bool, device=dev)
+    deg = torch.zeros(2 * n_tok, dtype=torch.bool, device=dev)
+    for i in range(cp.n_windows):
+        d1, d2 = dig1[i], dig2[i]
+        i1 = i * 15 + torch.where(d1 > 0, d1 - 1, 0)
+        i2 = key_base + i * 15 + torch.where(d2 > 0, d2 - 1, 0)
+        ax = torch.cat([_gather(tgx, i1), _gather(tqx, i2)], dim=1)
+        ay = torch.cat([_gather(tgy, i1), _gather(tqy, i2)], dim=1)
+        x, y, inf, dd = _affine_madd(x, y, inf, ax, ay,
+                                     torch.cat([d1, d2]) > 0, p2, pp2,
+                                     pone2, p_col, pp_col, cp.p)
+        deg = deg | dd
+
+    # merge: the Q accumulator as the addend; where it is at infinity,
+    # the G accumulator passes through
+    xm, _, inf_m, ddm = _affine_madd(
+        x[:, :n_tok], y[:, :n_tok], inf[:n_tok], x[:, n_tok:],
+        y[:, n_tok:], ~inf[n_tok:], p, pp, pone, p_col, pp_col, cp.p)
+    deg = deg[:n_tok] | deg[n_tok:] | ddm
+
+    # affine check: x == r·R or (r + n)·R (mod p), both canonical
+    ok1 = (xm == B.mont_mul(r, pr2, p, pp)).all(dim=0)
+    rpn_k, rpn_lt_p = _r_plus_n(r, n, p)
+    ok2 = (xm == B.mont_mul(rpn_k, pr2, p, pp)).all(dim=0) & rpn_lt_p
+    ok = r_ok & s_ok & ~inf_m & (ok1 | ok2)
+    return ok, deg & r_ok & s_ok
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+def _es_verify(sig: torch.Tensor, dig: torch.Tensor, flags: torch.Tensor,
+               idx: torch.Tensor, table: ECKeyTable, ladder: str,
+               rns: bool):
     cp = table.curve
     r, s, e = _ec_prep(sig, dig, k=cp.k)
-    ok, deg = ec_rns._ecdsa_rns_core(r, s, e, idx, table.rns(), cp)
+    if rns:
+        from . import ec_rns
+
+        ok, deg = ec_rns._ecdsa_rns_core(r, s, e, idx, table.rns(), cp,
+                                         ladder=ladder)
+    else:
+        tqx, tqy = table.limb_tables()
+        ok, deg = _ecdsa_core(r, s, e, idx, tqx, tqy, cp, ladder=ladder)
     return ok & flags, deg & flags
-
-
-def _es_packed_rns_impl(packed: torch.Tensor, table: ECKeyTable,
-                        hlen: int):
-    cp = table.curve
-    cb = cp.coord_bytes
-    sig = packed[:, :2 * cb]
-    dig = packed[:, 2 * cb:2 * cb + hlen]
-    flags = packed[:, 2 * cb + hlen] != 0
-    idx = packed[:, 2 * cb + hlen + 1].to(torch.int64)
-    return _es_verify(sig, dig, flags, idx, table)
 
 
 def verify_es_packed_pending(table: ECKeyTable, rec: np.ndarray,
                              hash_len: int):
     """Queue one packed ES* chunk on the table's device; returns the
-    device ([N] ok, [N] deg) bool tensors.
+    device ([N] ok, [N] deg) bool tensors (the RNS engine, the
+    whole-ladder kernel).
 
     Degenerate-flagged tokens (deg True) must be re-verified on the
     pure-integer oracle by the caller after the sync.
@@ -424,22 +716,28 @@ def verify_es_packed_pending(table: ECKeyTable, rec: np.ndarray,
     dev = (rec if torch.is_tensor(rec)
            else torch.from_numpy(np.ascontiguousarray(rec))).to(
         table.device)
-    return _es_packed_rns_impl(dev, table, hash_len)
+    cb = table.curve.coord_bytes
+    return _es_verify(dev[:, :2 * cb], dev[:, 2 * cb:2 * cb + hash_len],
+                      dev[:, 2 * cb + hash_len] != 0,
+                      dev[:, 2 * cb + hash_len + 1].to(torch.int64), table,
+                      "jacobian", True)
 
 
 def verify_ecdsa_arrays_pending(table: ECKeyTable, sig_mat: np.ndarray,
                                 sig_lens: np.ndarray, hash_mat: np.ndarray,
-                                hash_len: int, key_idx: np.ndarray):
+                                hash_len: int, key_idx: np.ndarray,
+                                ladder: str = "jacobian", rns: bool = True):
     """Queue one ES* chunk given as arrays (key classes of more than 255
     keys); returns the device ([P] ok, [P] deg) bool tensors, P the
     token count padded to a power of two ≥ 128 (padding rows False).
 
     sig_mat: [N, ≥ 2·cb] left-aligned JOSE r ‖ s; sig_lens: [N];
     hash_mat: [N, ≥ hash_len] digests; key_idx: [N] table rows of any
-    size. The same engine as the packed path (one whole-ladder launch,
-    then redc); lanes flagged deg must be re-verified on
-    :func:`_py_verify_one` by the caller after the sync.
+    size. The same engines as the packed path; lanes flagged deg must
+    be re-verified on :func:`_py_verify_one` by the caller after the
+    sync.
     """
+    resolve_ladder(ladder)
     cb = table.curve.coord_bytes
     n_tok = sig_mat.shape[0]
     n_pad = 128
@@ -457,4 +755,45 @@ def verify_ecdsa_arrays_pending(table: ECKeyTable, sig_mat: np.ndarray,
     return _es_verify(torch.from_numpy(sig).to(dev),
                       torch.from_numpy(dig).to(dev),
                       torch.from_numpy(len_ok).to(dev),
-                      torch.from_numpy(idx).to(dev), table)
+                      torch.from_numpy(idx).to(dev), table, ladder, rns)
+
+
+def verify_ecdsa_arrays(table: ECKeyTable, sig_mat: np.ndarray,
+                        sig_lens: np.ndarray, hash_mat: np.ndarray,
+                        hash_len: int, key_idx: np.ndarray,
+                        ladder: str = "jacobian",
+                        rns: bool = True) -> np.ndarray:
+    """[N] bool verdicts of :func:`verify_ecdsa_arrays_pending`'s chunk,
+    its flagged lanes re-verified on the oracle."""
+    n_tok = sig_mat.shape[0]
+    ok_dev, deg_dev = verify_ecdsa_arrays_pending(
+        table, sig_mat, sig_lens, hash_mat, hash_len, key_idx,
+        ladder=ladder, rns=rns)
+    ok = ok_dev.cpu().numpy()[:n_tok].copy()
+    cb = table.curve.coord_bytes
+    for j in np.nonzero(deg_dev.cpu().numpy()[:n_tok])[0]:
+        ok[j] = _py_verify_one(table, int(key_idx[j]),
+                               sig_mat[j, :2 * cb].tobytes(),
+                               hash_mat[j, :hash_len].tobytes())
+    return ok
+
+
+def verify_ecdsa_batch(table: ECKeyTable, sigs: Sequence[bytes],
+                       msg_hashes: Sequence[bytes], key_idx: np.ndarray,
+                       ladder: str = "jacobian",
+                       rns: bool = True) -> np.ndarray:
+    """[N] bool verdicts for one ES* bucket given as lists of raw JOSE
+    signatures and digests (all of one length)."""
+    w = 2 * table.curve.coord_bytes
+    n_tok = len(sigs)
+    sig_mat = np.zeros((n_tok, w), np.uint8)
+    sig_lens = np.fromiter((len(sg) for sg in sigs), np.int64, n_tok)
+    for j, sg in enumerate(sigs):
+        if len(sg) == w:
+            sig_mat[j] = np.frombuffer(sg, np.uint8)
+    hash_len = len(msg_hashes[0]) if msg_hashes else 32
+    hash_mat = np.zeros((n_tok, hash_len), np.uint8)
+    for j, h in enumerate(msg_hashes):
+        hash_mat[j] = np.frombuffer(h[:hash_len], np.uint8)
+    return verify_ecdsa_arrays(table, sig_mat, sig_lens, hash_mat,
+                               hash_len, key_idx, ladder=ladder, rns=rns)

@@ -13,8 +13,13 @@ Hand-written CUDA kernels carry the ladder on the card:
 ``cuda_redc.redc`` runs every other REDC (the accumulator merge and
 the projective check). ``ladder_per_window`` runs the same ladder as
 one ``cuda_madd.madd`` launch a window; it is on no path and serves
-as the whole-ladder kernel's comparison. The field ops below take the
-REDC as a parameter so the plain version of the mixed add
+as the whole-ladder kernel's comparison. The affine ladder
+(``ladder="affine"`` of ``ec``'s entry points) keeps its accumulator
+affine: each window one 2M + 1S add whose divisions share one batched
+inversion (:func:`rns_batch_inverse`, its root inverted by a Fermat
+ladder over the bits of p − 2 on the device), every multiply one
+``cuda_redc.redc`` launch. The field ops below take the REDC as a
+parameter so the plain version of the mixed add
 (``cuda_madd.madd_ref``) can run the same arithmetic with the plain
 REDC.
 """
@@ -213,6 +218,146 @@ def _jadd_rns(c: ECRNSContext, X1, Y1, Z1, inf1, X2, Y2, Z2, inf2,
 
 
 # ---------------------------------------------------------------------------
+# Affine window addition: batched RNS inversion + 2M+1S law
+# ---------------------------------------------------------------------------
+
+def _one_dom(c: ECRNSContext, device):
+    """The A-domain 1 (A mod p) as [I, 1] residue columns (A, B)."""
+    return c.device_consts(device).one
+
+
+_PM2_BITS: Dict[str, np.ndarray] = {}
+
+
+def _pm2_bits_np(crv: str) -> np.ndarray:
+    """MSB-first bits of p − 2, the Fermat exponent that inverts the
+    product tree's root."""
+    if crv not in _PM2_BITS:
+        e = curve(crv).p - 2
+        nb = curve(crv).p.bit_length()
+        _PM2_BITS[crv] = np.asarray(
+            [(e >> (nb - 1 - i)) & 1 for i in range(nb)], np.int32)
+    return _PM2_BITS[crv]
+
+
+def rns_batch_inverse(c: ECRNSContext, den, min_width: int = 128,
+                      redc=cuda_redc.redc):
+    """Simultaneous inversion of an A-domain residue batch mod p.
+
+    den: (A, B) pair [I, M], digits ≤ 3m, values < 8p, no lane ≡ 0
+    (mod p), M a power of two. Montgomery's product tree in rmul form
+    (closed over the A-domain): pair-multiply down to a ``min_width``
+    root (log2(M/min_width) REDCs), raise the root to p − 2 on the
+    device, left to right from its leading 1 bit: a square each later
+    bit and a multiply each later 1 bit (pbits − 1 + popcount(p − 2) −
+    1 REDCs; the JAX package computes both products at every bit and
+    selects, the same value), walk back up (log2(M/min_width) REDCs,
+    two products each). Returns the per-lane inverses den⁻¹·A,
+    digit-canonical, values < 3p.
+    """
+    levels = [den]
+    cur = den
+    while cur[0].shape[1] > min_width and cur[0].shape[1] % 2 == 0:
+        cur = rmul(c, (cur[0][:, 0::2], cur[1][:, 0::2]),
+                   (cur[0][:, 1::2], cur[1][:, 1::2]), redc)
+        levels.append(cur)
+    root = inv = cur
+    for bit in _pm2_bits_np(c.cp.name)[1:].tolist():
+        inv = rmul(c, inv, inv, redc)
+        if bit:
+            inv = rmul(c, inv, root, redc)
+    for lvl in levels[-2::-1]:
+        left = (lvl[0][:, 0::2], lvl[1][:, 0::2])
+        right = (lvl[0][:, 1::2], lvl[1][:, 1::2])
+        il, ir = rmul_many(c, [(inv, right), (inv, left)], redc)
+        inv = (torch.stack([il[0], ir[0]], dim=2).reshape(lvl[0].shape),
+               torch.stack([il[1], ir[1]], dim=2).reshape(lvl[1].shape))
+    return inv
+
+
+def _affine_madd_rns(c: ECRNSContext, x, y, inf, x2, y2, has, one_b,
+                     redc=cuda_redc.redc):
+    """Affine + affine window addition with an explicit infinity lane.
+
+    State x, y digit-canonical, values < 3p; x2, y2 < p (table points,
+    never infinity); has: lanes adding this step; one_b: the A-domain 1
+    (:func:`_one_dom`). λ = (y2 − y)/(x2 − x) takes its inverse from
+    ONE :func:`rns_batch_inverse` over all lanes; then 4 REDCs: λ, λ²,
+    λ·(x − x3) with x3's re-reduction, and y3's re-reduction (an affine
+    state is used additively, so it re-enters the < 3p bound by a
+    product with 1). An accumulator at infinity lifts the addend; a
+    same-x lane (doubling or inverse) is flagged by the 2-channel probe
+    (false positives only cost an oracle re-verify), its denominator
+    replaced by 1. Returns (x, y, inf, deg).
+    """
+    dxl = rsub(c, x2, x, 4, guard=1)                 # < 5p, ≤ 3m
+    dd = has & ~inf & congruent_zero_probe(c, dxl, 5)
+    good = has & ~inf & ~dd
+    inv = rns_batch_inverse(c, rsel(good, dxl, one_b), redc=redc)
+    dyl = rsub(c, y2, y, 4, guard=1)                 # < 5p, ≤ 3m
+    lam = rmul(c, dyl, inv, redc)                    # < 3p, ≤ m
+    sq = rmul(c, lam, lam, redc)                     # < 3p, ≤ m
+    x3l = rsub(c, rsub(c, sq, x, 4, guard=1), x2, 2,
+               guard=1)                              # < 9p, ≤ 5m
+    xdiff = rsub(c, x, x3l, 16, guard=5)             # < 19p, ≤ 7m
+    y3t, x3 = rmul_many(c, [(xdiff, lam), (x3l, one_b)], redc)
+    y3 = rmul(c, rsub(c, y3t, y, 4, guard=1), one_b, redc)   # < 3p
+    lift = inf & has
+    x3 = rsel(lift, x2, x3)
+    y3 = rsel(lift, y2, y3)
+    return rsel(has, x3, x), rsel(has, y3, y), inf & ~has, dd
+
+
+def affine_ladder(c: ECRNSContext, tab, d_all, base, win_stride: int,
+                  redc=cuda_redc.redc):
+    """The affine ladder on ``cuda_ladder.ladder``'s inputs: from the
+    point at infinity, window i adds row ``i·win_stride + base + d − 1``
+    of the packed table on each lane whose digit d > 0, by
+    :func:`_affine_madd_rns`. Returns (x, y, inf, deg): the affine
+    accumulator as (A, B) pairs and [M] bools.
+
+    REDC launches: W·(2·log2(M/128) + pbits + popcount(p − 2) + 2)
+    for W windows over M lanes (M a power of two ≥ 256): the inversion
+    (:func:`rns_batch_inverse`) and 4 more a window.
+    """
+    ia, ib = c.A.count, c.B.count
+    iap = max(ia, ib)
+    m = d_all.shape[1]
+    dev = d_all.device
+    one_b = _one_dom(c, dev)
+    x = y = (one_b[0].expand(ia, m), one_b[1].expand(ib, m))
+    inf = torch.ones(m, dtype=torch.bool, device=dev)
+    deg = torch.zeros(m, dtype=torch.bool, device=dev)
+    base = base.to(torch.int64)
+    for i in range(d_all.shape[0]):
+        d = d_all[i].to(torch.int64)
+        has = d > 0
+        g = tab.index_select(0, i * win_stride + base
+                             + torch.where(has, d - 1, 0)).T.contiguous()
+        x, y, inf, dd = _affine_madd_rns(
+            c, x, y, inf, unpack_pt(g[:iap], ia, ib),
+            unpack_pt(g[iap:], ia, ib), has, one_b, redc)
+        deg = deg | dd
+    return x, y, inf, deg
+
+
+def affine_redc_launches(crv: str, n_pad: int) -> int:
+    """``cuda_redc.redc`` launches of one ES* verify over ``n_pad``
+    lanes (a power of two ≥ 128) on the affine ladder: W windows over
+    M = 2·n_pad lanes (the G and Q chains side by side), each the
+    batched inversion (log2(M/128) tree products down, pbits − 1
+    squares and popcount(p − 2) − 1 multiplies of the root's Fermat
+    ladder, log2(M/128) products back up) and 4 more (λ, λ², λ·(x − x3)
+    with x3's re-reduction, y3's re-reduction); then 11, the merge (6)
+    and the projective check (5)."""
+    c = ctx_for(crv)
+    p = c.cp.p
+    levels = (2 * n_pad // 128).bit_length() - 1
+    return c.n_windows * (2 * levels + p.bit_length()
+                          + bin(p - 2).count("1") + 2) + 11
+
+
+# ---------------------------------------------------------------------------
 # The batched verify core
 # ---------------------------------------------------------------------------
 
@@ -268,13 +413,14 @@ def ladder_per_window(c: ECRNSContext, tab, d_all, base,
 
 
 def _ecdsa_rns_core(r, s, e, key_idx, rtab: "ECRNSKeyTable",
-                    cp: CurveParams):
+                    cp: CurveParams, ladder: str = "jacobian"):
     """ECDSA verify: scalar math in limbs, point math in RNS.
 
     r, s, e: [K, N] int64 limbs, N a power of two ≥ 128; key_idx: [N];
-    ``rtab``: the packed window table. The ladder runs as one
-    whole-ladder launch (``cuda_ladder``). Returns (ok, deg) [N]
-    bools.
+    ``rtab``: the packed window table. ``jacobian``: the ladder runs as
+    one whole-ladder launch (``cuda_ladder``); ``affine``:
+    :func:`affine_ladder`, whose chains enter the merge with Z = 1.
+    Returns (ok, deg) [N] bools.
     """
     from . import bignum as B
 
@@ -307,8 +453,14 @@ def _ecdsa_rns_core(r, s, e, key_idx, rtab: "ECRNSKeyTable",
     win_stride = (rtab.nk + 1) * per
     base = torch.cat([torch.zeros(n_tok, dtype=I32, device=dev),
                       ((key_idx.to(torch.int64) + 1) * per).to(I32)])
-    X, Y, Z, inf, deg = cuda_ladder.ladder(c, rtab.device_tab(dev), d_all,
-                                           base, win_stride)
+    if ladder == "affine":
+        X, Y, inf, deg = affine_ladder(c, rtab.device_tab(dev), d_all, base,
+                                       win_stride)
+        one = _one_dom(c, dev)
+        Z = (one[0].expand_as(X[0]), one[1].expand_as(X[1]))
+    else:
+        X, Y, Z, inf, deg = cuda_ladder.ladder(c, rtab.device_tab(dev),
+                                               d_all, base, win_stride)
 
     def half(pair, lo):
         return (pair[0][:, lo:lo + n_tok], pair[1][:, lo:lo + n_tok])

@@ -1,9 +1,13 @@
-"""Batched Ed25519 (EdDSA) verification: host side, packed records, and
-the limb-domain finish around the RNS ladder.
+"""Batched Ed25519 (EdDSA) verification: host side, packed records, the
+limb-domain finish around the RNS ladder, and the limb ladder.
 
-The port of the JAX package's ``tpu/ed25519.py``, RNS branch (its
-4-bit limb ladder ``_ed25519_core`` is not ported). The verify is the
-device ladder's, everywhere in the port (the batch path, the host
+The port of the JAX package's ``tpu/ed25519.py``. Two engines, the
+caller's choice (``rns=``): the RNS ladder (``ed25519_rns``, 8-bit
+windows, the ``edw`` kernel on the card; the default) and the limb
+ladder (``rns=False``: 4-bit windows over 16-bit Montgomery limbs,
+complete mixed adds, digit 0 the identity row, plain PyTorch as in the
+JAX package, which runs it outside any Pallas kernel). The verify is
+the device ladder's, everywhere in the port (the batch path, the host
 oracle, the tests):
 
 - the 32 key bytes decode by RFC 8032 §5.1.3 (:func:`decode_point`,
@@ -37,6 +41,7 @@ D_CONST = (-121665 * pow(121666, -1, P)) % P
 SQRT_M1 = pow(2, (P - 1) // 4, P)
 K = 16                       # 256 bits of 16-bit limbs
 NBITS = 253                  # max bit length of S and k (both < 2^253)
+N_WINDOWS = (NBITS + 3) // 4  # 4-bit windows of the limb ladder
 
 _BY = 4 * pow(5, -1, P) % P
 _D2 = 2 * D_CONST % P
@@ -197,19 +202,28 @@ def ed25519_sign(seed: bytes, msg: bytes) -> bytes:
 
 class _FieldConsts:
     """[K, 1] int64 limb columns of the field constants, per device:
-    p, p' (Montgomery), R² mod p and L. (The JAX package also carries
-    R mod p and p − 2 for its device Fermat ladder; the port inverts
-    the batch's root with a host ``pow``.)"""
+    p, p' (Montgomery), R² mod p and L, and R mod p (Montgomery 1, the
+    limb ladder's). (The JAX package also carries p − 2 for its device
+    Fermat ladder; the port inverts the batch's root with a host
+    ``pow``.)"""
 
     def __init__(self):
         from .bignum import mont_params
 
-        pprime, pr2, _ = mont_params(P, K)
+        pprime, pr2, self.pone_int = mont_params(P, K)
         self.host = [L.int_to_limbs(v, K).astype(np.int64) for v in
-                     (P, pprime, pr2, L_ORDER)]
+                     (P, pprime, pr2, L_ORDER, self.pone_int)]
         self._dev: Dict[torch.device, tuple] = {}
 
     def device(self, device) -> tuple:
+        """(p, p', R² mod p, L) columns on ``device``."""
+        return self._columns(device)[:4]
+
+    def one_m(self, device) -> torch.Tensor:
+        """R mod p as a [K, 1] column on ``device``."""
+        return self._columns(device)[4]
+
+    def _columns(self, device) -> tuple:
         device = torch.device(device)
         if device not in self._dev:
             self._dev[device] = tuple(
@@ -228,15 +242,56 @@ def consts() -> _FieldConsts:
     return _CONSTS
 
 
+def _window_triple_rows(pts: Sequence[Tuple[int, int]]) -> np.ndarray:
+    """The limb ladder's 4-bit window tables of ``pts``: [3, len(pts)·
+    N_WINDOWS·16, K] uint32, point j's row j·N_WINDOWS·16 + i·16 + d
+    holding the Montgomery-form triple (y − x, y + x, 2dxy) of
+    d·2^{4i}·pt (d = 0: the identity, which the complete formulas
+    absorb, so the ladder needs no skip mask). The multiples run in
+    extended coordinates and normalize with one inversion."""
+    ext = []
+    for pt in pts:
+        base = to_ext(pt)
+        for _ in range(N_WINDOWS):
+            acc = to_ext(_IDENTITY)
+            ext.append(acc)
+            for _ in range(15):
+                acc = ext_add(acc, base)
+                ext.append(acc)
+            base = ext_add(acc, base)                 # 2^4 · base
+    r = consts().pone_int
+    aff = normalize(ext)
+    return np.stack([L.ints_to_limbs(vals, K).T for vals in (
+        [(y - x) * r % P for x, y in aff],
+        [(y + x) * r % P for x, y in aff],
+        [_D2 * x % P * y % P * r % P for x, y in aff])])
+
+
+_B_TABLE: Dict[torch.device, tuple] = {}
+
+
+def b_table(device) -> tuple:
+    """The basepoint's limb window table on ``device`` (cached): 3 ×
+    [N_WINDOWS·16, K] int64."""
+    device = torch.device(device)
+    if device not in _B_TABLE:
+        rows = _window_triple_rows([_B_POINT]).astype(np.int64)
+        _B_TABLE[device] = tuple(torch.as_tensor(t, device=device)
+                                 for t in rows)
+    return _B_TABLE[device]
+
+
 class Ed25519KeyTable:
     """The Ed25519 public keys of a keyset on a device.
 
     ``keys``: :class:`HostEd25519PublicKey` (``.raw``) or raw 32-byte
     strings. Keys that do not decode are kept (their row is the
     identity table) and flagged in ``invalid``: their tokens verify
-    False. The RNS window table (``ed25519_rns.Ed25519RNSKeyTable``) is
-    built at first use, or installed from the JAX package's arrays by
-    ``convert``.
+    False. Both window tables are built at first use: the RNS table
+    (``ed25519_rns.Ed25519RNSKeyTable``, which ``convert`` may install
+    from the JAX package's arrays instead) by the RNS engine, the limb
+    table of −A (:meth:`tna`) only by a call that runs the limb
+    engine.
     """
 
     def __init__(self, keys: Sequence, device="cuda"):
@@ -246,6 +301,7 @@ class Ed25519KeyTable:
         self.invalid = np.asarray([a is None for a in self.decoded], bool)
         self.device = torch.device(device)
         self._rns = None
+        self._tna = None
 
     def rns(self):
         if self._rns is None:
@@ -253,6 +309,86 @@ class Ed25519KeyTable:
 
             self._rns = ed25519_rns.Ed25519RNSKeyTable(self.decoded)
         return self._rns
+
+    def tna(self) -> tuple:
+        """The limb ladder's window tables of each key's −A (the
+        identity for a key that does not decode), 3 × [nk·N_WINDOWS·16,
+        K] int64 on the table's device, one chain a distinct point."""
+        if self._tna is None:
+            pts = [_IDENTITY if a is None else ((P - a[0]) % P, a[1])
+                   for a in self.decoded]
+            uniq = list(dict.fromkeys(pts))
+            rows = _window_triple_rows(uniq).reshape(
+                3, len(uniq), N_WINDOWS * 16, K)
+            pick = [uniq.index(pt) for pt in pts]
+            self._tna = tuple(torch.as_tensor(
+                t[pick].reshape(-1, K).astype(np.int64), device=self.device)
+                for t in rows)
+        return self._tna
+
+
+# ---------------------------------------------------------------------------
+# The limb ladder (field values in Montgomery form unless noted)
+# ---------------------------------------------------------------------------
+
+def _edw_madd(X, Y, Z, T, ym, yp, t2, p, pp):
+    """Mixed extended + affine-triple addition, a = −1
+    (madd-2008-hwcd-3), 7M; complete on edwards25519 (doubling,
+    inverses and the identity on either side included)."""
+    from . import bignum as B
+
+    a = B.mont_mul(B.sub_mod(Y, X, p), ym, p, pp)
+    b = B.mont_mul(B.add_mod(Y, X, p), yp, p, pp)
+    c = B.mont_mul(T, t2, p, pp)
+    d = B.add_mod(Z, Z, p)
+    e = B.sub_mod(b, a, p)
+    f = B.sub_mod(d, c, p)
+    g = B.add_mod(d, c, p)
+    h = B.add_mod(b, a, p)
+    return (B.mont_mul(e, f, p, pp), B.mont_mul(g, h, p, pp),
+            B.mont_mul(f, g, p, pp), B.mont_mul(e, h, p, pp))
+
+
+def _ed25519_core(s, kk, yr, sign_r, bad_key, key_idx, tna,
+                  tb) -> torch.Tensor:
+    """Batched Ed25519 verify on the limb engine.
+
+    s, kk: [K, N] plain scalar limbs (S; k = H(R‖A‖M) mod L), N a power
+    of two ≥ 128 (the batch inverse's tree); yr: [K, N] limbs of R's y
+    (sign bit cleared); sign_r: [N] its sign bit; bad_key: [N] bool;
+    key_idx: [N] int64 rows; tna, tb: the −A and B tables. R' = [S]B +
+    [k](−A) by 2·N_WINDOWS mixed adds from the identity, normalized
+    with one batched inversion of Z, its encoding compared with R's.
+    Returns ok [N].
+    """
+    from . import bignum as B
+
+    k, n_tok = s.shape
+    dev = s.device
+    p1, pp1, _, l1 = consts().device(dev)
+    p, pp, pone, l_ = (c.expand(k, n_tok)
+                       for c in (p1, pp1, consts().one_m(dev), l1))
+    s_ok = ~B.compare_ge(s, l_)            # S < L (canonical S)
+
+    dig1, dig2 = L.nibbles(s, N_WINDOWS), L.nibbles(kk, N_WINDOWS)
+    key_base = key_idx.to(torch.int64) * (N_WINDOWS * 16)
+    X, Y, Z, T = torch.zeros_like(s), pone, pone, torch.zeros_like(s)
+    for i in range(N_WINDOWS):
+        for tab, idx in ((tb, i * 16 + dig1[i]),
+                         (tna, key_base + i * 16 + dig2[i])):
+            ym, yp, t2 = (t.index_select(0, idx).T for t in tab)
+            X, Y, Z, T = _edw_madd(X, Y, Z, T, ym, yp, t2, p, pp)
+
+    # affine normalize (Z ≠ 0: the formulas are complete), leave the
+    # Montgomery domain, compare the encoding with R's (which rejects
+    # every non-canonical R: y < p always)
+    zinv = B.batch_mont_inverse(Z, p1, pp1, P)
+    one = torch.zeros_like(s)
+    one[0] = 1
+    x = B.mont_mul(B.mont_mul(X, zinv, p, pp), one, p, pp)
+    y = B.mont_mul(B.mont_mul(Y, zinv, p, pp), one, p, pp)
+    enc_ok = (y == yr).all(dim=0) & ((x[0] & 1) == sign_r)
+    return s_ok & enc_ok & ~bad_key
 
 
 # ---------------------------------------------------------------------------
@@ -319,40 +455,49 @@ def _ed_packed_unpack(packed: torch.Tensor):
 
 
 def _ed_verify(packed: torch.Tensor, idx: torch.Tensor,
-               table: Ed25519KeyTable) -> torch.Tensor:
+               table: Ed25519KeyTable, rns: bool) -> torch.Tensor:
     """Records (the key row byte unread) and their [N] key rows → [N]
-    bool."""
-    from . import ed25519_rns
-
+    bool, on the RNS engine or (``rns=False``) the limb engine."""
     s, kk, yr, sign_r, _, flags = _ed_packed_unpack(packed)
-    ok = ed25519_rns._ed25519_rns_core(s, kk, yr, sign_r, idx, table.rns())
+    if rns:
+        from . import ed25519_rns
+
+        ok = ed25519_rns._ed25519_rns_core(s, kk, yr, sign_r, idx,
+                                           table.rns())
+    else:
+        # a key that does not decode has its flag cleared already
+        ok = _ed25519_core(s, kk, yr, sign_r, torch.zeros_like(flags), idx,
+                           table.tna(), b_table(packed.device))
     return ok & flags
 
 
 def verify_ed_packed_pending(table: Ed25519KeyTable,
                              rec: np.ndarray) -> torch.Tensor:
-    """Queue one packed EdDSA chunk on the table's device; returns the
-    device [N] bool. N must be a power of two ≥ 128 (the batch
-    inverse's tree); padding rows compute on key row 0."""
+    """Queue one packed EdDSA chunk on the table's device (the RNS
+    engine); returns the device [N] bool. N must be a power of two ≥
+    128 (the batch inverse's tree); padding rows compute on key row
+    0."""
     # the keyset hands over the card's chunks already on the device
     dev = (rec if torch.is_tensor(rec)
            else torch.from_numpy(np.ascontiguousarray(rec))).to(
         table.device)
-    return _ed_verify(dev, dev[:, 97].to(torch.int64), table)
+    return _ed_verify(dev, dev[:, 97].to(torch.int64), table, True)
 
 
 def verify_ed25519_batch_pending(table: Ed25519KeyTable,
                                  sigs: Sequence[bytes],
                                  msgs: Sequence[bytes],
-                                 key_idx: np.ndarray) -> torch.Tensor:
+                                 key_idx: np.ndarray,
+                                 rns: bool = True) -> torch.Tensor:
     """Queue one EdDSA chunk given as lists (key classes of more than
     255 keys); returns the device [P] bool, P the token count padded to
     a power of two ≥ 128 (padding rows on key row 0, False).
 
     sigs: raw JOSE signatures (R ‖ S); msgs: signing inputs; key_idx:
-    [N] table rows of any size. The same engine as the packed path (32
-    edw launches, then redc); the rows go as an int64 tensor beside the
-    records of :func:`_ed_records` (their key row byte left 0).
+    [N] table rows of any size. The same engines as the packed path (on
+    the RNS engine 32 edw launches, then redc); the rows go as an int64
+    tensor beside the records of :func:`_ed_records` (their key row byte
+    left 0).
     """
     n_tok = len(sigs)
     pad = 128
@@ -364,4 +509,13 @@ def verify_ed25519_batch_pending(table: Ed25519KeyTable,
     rec[:n_tok] = _ed_records(table, sigs, msgs, rows, 96 + ED_REC_EXTRA)
     dev = table.device
     return _ed_verify(torch.from_numpy(rec).to(dev),
-                      torch.from_numpy(rows).to(dev), table)
+                      torch.from_numpy(rows).to(dev), table, rns)
+
+
+def verify_ed25519_batch(table: Ed25519KeyTable, sigs: Sequence[bytes],
+                         msgs: Sequence[bytes], key_idx: np.ndarray,
+                         rns: bool = True) -> np.ndarray:
+    """[N] bool verdicts for one EdDSA bucket (the synchronous form of
+    :func:`verify_ed25519_batch_pending`)."""
+    return verify_ed25519_batch_pending(
+        table, sigs, msgs, key_idx, rns=rns).cpu().numpy()[:len(sigs)]

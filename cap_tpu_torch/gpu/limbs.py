@@ -9,6 +9,8 @@ lacks most operations.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 import torch
 
@@ -32,6 +34,16 @@ def int_to_limbs(value: int, k: int) -> np.ndarray:
         out[i] = value & LIMB_MASK
         value >>= LIMB_BITS
     return out
+
+
+def ints_to_limbs(values: Sequence[int], k: int) -> np.ndarray:
+    """N ints → [k, N] uint32 limb-first array."""
+    for v in values:
+        if v < 0 or v >> (k * LIMB_BITS):
+            raise ValueError(f"value does not fit in {k} limbs")
+    blob = b"".join(v.to_bytes(2 * k, "little") for v in values)
+    return np.frombuffer(blob, "<u2").reshape(len(values), k).T.astype(
+        np.uint32)
 
 
 def limbs_to_int(limbs) -> int:
@@ -68,3 +80,11 @@ def bytes_to_limbs_device(mat: torch.Tensor) -> torch.Tensor:
     m = mat.to(torch.int64)
     limbs_be = (m[:, 0::2] << 8) | m[:, 1::2]
     return limbs_be.flip(1).T.contiguous()
+
+
+def nibbles(u: torch.Tensor, n: int) -> torch.Tensor:
+    """[K, N] 16-bit limbs → the first n of their [4K, N] 4-bit digits,
+    least significant first (the limb ladders' window digits)."""
+    k, m = u.shape
+    return torch.stack([(u >> (4 * j)) & 15 for j in range(4)],
+                       dim=1).reshape(4 * k, m)[:n]

@@ -23,9 +23,17 @@ A chunk's states never leave the card until its two bit vectors
 ``ntt.ntt_ref``), which is also the keyset's trial path. Keygen and a
 deterministic signer exist only to make fixtures.
 
+The two-phase arm (:func:`verify_mldsa_batch`; the JAX keyset's
+``CAP_TPU_MLDSA_FUSED=0``) keeps the hashing on the host: the chunk's
+decode, μ and SampleInBall by hashlib SHAKE (:class:`_PreppedChunk`),
+then the w1 network alone on the device (:func:`verify_mldsa_core_pending`:
+2 ntt and 1 intt launches a chunk, no Keccak), then w1Encode and the
+c̃ compare on the host.
+
 ``host_shake_calls`` counts every host SHAKE this module computes:
 per key (tr, ExpandA at table build) and in the oracle and signer,
-never per token on the packed path.
+never per token on the fused path (three a token on the two-phase
+arm).
 """
 
 from __future__ import annotations
@@ -792,3 +800,117 @@ def verify_mldsa_fused_pending(table: MLDSAKeyTable,
     outs = _fused_core(table.a_mont, table.t1_mont, *put,
                        p.gamma2, p.tau, p.w1_bits)
     return FusedPending(table, prep, pad, list(outs))
+
+
+# ---------------------------------------------------------------------------
+# The two-phase arm: host μ / SampleInBall / c̃ around the device w1 network
+# ---------------------------------------------------------------------------
+
+def _to_dev(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def verify_mldsa_core_pending(table: MLDSAKeyTable, z: np.ndarray,
+                              c: np.ndarray, h: np.ndarray,
+                              key_idx: np.ndarray) -> torch.Tensor:
+    """Queue the w1 network on the table's device: z int32 [B, l, 256],
+    c int32 [B, 256] (both in [0, q)), h uint8 [B, k, 256], key_idx [B]
+    → the device uint8 [B, k, 256] w1 values (2 ntt + 1 intt launches)."""
+    dev = table.device
+    return w1_resident(table, _to_dev(z, dev), _to_dev(c, dev),
+                       _to_dev(h, dev), _to_dev(key_idx.astype(np.int64),
+                                                dev))
+
+
+def w1_resident(table: MLDSAKeyTable, z: torch.Tensor, c: torch.Tensor,
+                h: torch.Tensor, key_idx: torch.Tensor) -> torch.Tensor:
+    """The w1 network on tensors already on the table's device (no
+    host-to-device copy on the timed path)."""
+    return _w1_core(table.a_mont, table.t1_mont, z, c, h, key_idx,
+                    table.params.gamma2).to(torch.uint8)
+
+
+class _PreppedChunk:
+    """Host side of one two-phase chunk: the signature gates and z/h
+    rows (:func:`_decode_batch`), and per decodable token SampleInBall's
+    c, μ and c̃ by host SHAKE (counted in ``host_shake_calls``)."""
+
+    def __init__(self, table: MLDSAKeyTable, sigs: Sequence[bytes],
+                 msgs: Sequence[bytes], key_idx: np.ndarray, pad: int):
+        p = table.params
+        m = len(sigs)
+        self.m = m
+        self.key_idx = np.zeros(pad, np.int64)
+        self.key_idx[:m] = np.asarray(key_idx, np.int64)[:m]
+        valid, ct_m, z_m, h_m = _decode_batch([bytes(x) for x in sigs], p)
+        self.valid = np.zeros(pad, bool)
+        self.valid[:m] = valid
+        self.z = np.zeros((pad, p.l, N), np.int32)
+        self.z[:m] = z_m % Q
+        self.h = np.zeros((pad, p.k, N), np.uint8)
+        self.h[:m] = h_m
+        self.c = np.zeros((pad, N), np.int32)
+        self.mus: List[Optional[bytes]] = [None] * pad
+        self.cts: List[Optional[bytes]] = [None] * pad
+        for i in np.nonzero(valid)[0].tolist():
+            ct = ct_m[i].tobytes()
+            self.c[i] = sample_in_ball(ct, p) % Q
+            self.mus[i] = mu_for(table.keys[int(self.key_idx[i])].tr,
+                                 bytes(msgs[i]))
+            self.cts[i] = ct
+
+    def finalize(self, table: MLDSAKeyTable, w1: np.ndarray) -> np.ndarray:
+        """Host finish: w1Encode and the SHAKE256(μ ‖ w1enc) == c̃
+        compare → [pad] bool (w1 needs the rows of the valid lanes)."""
+        p = table.params
+        ok = np.zeros(len(self.valid), bool)
+        for i in np.nonzero(self.valid)[0].tolist():
+            ok[i] = _shake256(self.mus[i] + w1_encode(w1[i], p),
+                              p.lam // 4) == self.cts[i]
+        return ok
+
+
+def verify_mldsa_pending(table: MLDSAKeyTable, sigs: Sequence[bytes],
+                         msgs: Sequence[bytes], key_idx: np.ndarray,
+                         pad: Optional[int] = None):
+    """The two-phase arm: host decode and hashing now, the w1 network
+    queued on the device; returns ``fin()`` → [pad] bool verdicts (the
+    w1 copy and the host finish run on the call). Tokens invalid at
+    decode never reach the device and finish False, as
+    :func:`py_verify` decides them."""
+    if pad is None:
+        pad = len(sigs)
+    prep = _PreppedChunk(table, sigs, msgs, key_idx, pad)
+    w1_dev = (verify_mldsa_core_pending(table, prep.z, prep.c, prep.h,
+                                        prep.key_idx)
+              if prep.valid.any() else None)
+
+    def fin() -> np.ndarray:
+        if w1_dev is None:
+            return np.zeros(pad, bool)
+        return prep.finalize(table, w1_dev.cpu().numpy())
+
+    return fin
+
+
+def verify_mldsa_batch(table: MLDSAKeyTable, sigs: Sequence[bytes],
+                       msgs: Sequence[bytes],
+                       key_idx: np.ndarray) -> np.ndarray:
+    """[N] bool verdicts for one ML-DSA bucket on the two-phase arm (the
+    JAX package's blocking interface)."""
+    return verify_mldsa_pending(table, sigs, msgs, key_idx)()
+
+
+def host_w1(table: MLDSAKeyTable, prep: _PreppedChunk) -> np.ndarray:
+    """numpy mirror of the w1 network over a prepped chunk: int64 [pad,
+    k, 256], zero rows for the lanes that did not decode."""
+    p = table.params
+    out = np.zeros((len(prep.valid), p.k, N), np.int64)
+    for i in np.nonzero(prep.valid)[0].tolist():
+        key = table.keys[int(prep.key_idx[i])]
+        z_hat = _ntt.ntt_ref(prep.z[i].astype(np.int64))
+        c_hat = _ntt.ntt_ref(prep.c[i].astype(np.int64))
+        w = _ntt.intt_ref((_matvec_ntt(key.a_hat, z_hat)
+                           - (c_hat * key.t1_hat_2d) % Q) % Q)
+        out[i] = _ntt.use_hint_ref(prep.h[i], w, p.gamma2)
+    return out

@@ -9,22 +9,27 @@ right-aligned signatures, digests and int64 key rows go separately.
 Each key class takes one of two engines, as in the JAX package:
 
 - RNS, for a class whose keys all have e = 65537 and an
-  RNS-compatible modulus. RS*: the expected encoded message EM is
-  built on the device from the digest, and ``rns._rns_verify_core``
-  checks s^65537 ≡ EM (mod n) entirely in RNS. PS*:
+  RNS-compatible modulus, unless the caller asks for ``rns=False``.
+  RS*: the expected encoded message EM is built on the device from
+  the digest, and ``rns._rns_verify_core`` checks s^65537 ≡ EM
+  (mod n) entirely in RNS. PS*:
   ``rns._rns_modexp_em_core`` returns s^65537 mod n as limbs (CRT
   reconstruction). Its REDC runs on per-token key constants as plain
   torch ops (the JAX package computes it outside any Pallas kernel
   too), with its extension products as float32 ``torch.matmul``.
 - limbs, for every other class (``bignum.modexp_65537`` when every e
-  is 65537 but a modulus shares a factor with an RNS prime or is too
-  wide for the prime pool; ``bignum.modexp_vare`` over the class's
-  widest exponent otherwise), plain torch ops too.
+  is 65537 but a modulus shares a factor with an RNS prime, is too
+  wide for the prime pool, or ``rns=False`` was asked for;
+  ``bignum.modexp_vare`` over the class's widest exponent otherwise),
+  plain torch ops too.
 
 PS* runs the whole EMSA-PSS-VERIFY with its SHA-256 (``gpu.sha256``)
 or SHA-384/512 (``gpu.sha512``) on the device, on either engine and
 path (the JAX package's arrays path checks the EM on the host; the
-verdicts are the same). Only an [N] bool returns.
+verdicts are the same). Only an [N] bool returns. The synchronous
+entry points (``verify_pkcs1v15_batch``, ``verify_pss_batch``,
+``verify_pkcs1v15_arrays``, ``verify_pss_arrays``) return the host
+verdicts of the same paths.
 """
 
 from __future__ import annotations
@@ -156,18 +161,21 @@ def s_in_range_mask(table: RSAKeyTable, s_limbs: torch.Tensor,
 
 
 def _rs_em_ok(table: RSAKeyTable, s_limbs: torch.Tensor,
-              expected: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """[N] bool: s^e mod n == the expected EM, on the class's engine."""
-    if table.ctx is not None:
+              expected: torch.Tensor, idx: torch.Tensor,
+              rns: bool) -> torch.Tensor:
+    """[N] bool: s^e mod n == the expected EM, on the class's engine
+    (the limb engine where ``rns`` is False)."""
+    if rns and table.ctx is not None:
         return verify_em_equals_device(table.ctx, table.rtab, s_limbs,
                                        expected, idx)
     return (modexp_for_table(table, s_limbs, idx) == expected).all(dim=0)
 
 
 def _ps_em(table: RSAKeyTable, s_limbs: torch.Tensor,
-           idx: torch.Tensor) -> torch.Tensor:
-    """s^e mod n as [N, 2K] big-endian bytes, on the class's engine."""
-    if table.ctx is not None:
+           idx: torch.Tensor, rns: bool) -> torch.Tensor:
+    """s^e mod n as [N, 2K] big-endian bytes, on the class's engine
+    (the limb engine where ``rns`` is False)."""
+    if rns and table.ctx is not None:
         em = modexp_em_device(table.ctx, table.rtab, s_limbs, idx,
                               table.n_tab[idx].T)
     else:
@@ -220,10 +228,10 @@ def _rs_packed_unpack(packed: torch.Tensor, k: int, h_len: int):
 
 
 def _rs_verify(s_limbs, dig, flags, idx, table: RSAKeyTable,
-               hash_name: str) -> torch.Tensor:
+               hash_name: str, rns: bool) -> torch.Tensor:
     expected = _expected_em_device(dig, table.sizes_dev[idx], table.k,
                                    hash_name)
-    return (_rs_em_ok(table, s_limbs, expected, idx)
+    return (_rs_em_ok(table, s_limbs, expected, idx, rns)
             & s_in_range_mask(table, s_limbs, idx) & flags)
 
 
@@ -237,7 +245,7 @@ def verify_rs_packed_pending(table: RSAKeyTable, rec: np.ndarray,
         table.device)
     s_limbs, dig, flags, idx = _rs_packed_unpack(dev, table.k,
                                                  HASH_LEN[hash_name])
-    return _rs_verify(s_limbs, dig, flags, idx, table, hash_name)
+    return _rs_verify(s_limbs, dig, flags, idx, table, hash_name, True)
 
 
 # ---------------------------------------------------------------------------
@@ -363,8 +371,8 @@ def _pss_verify_device(em_bytes: torch.Tensor, mhash: torch.Tensor,
 
 
 def _ps_verify(s_limbs, dig, flags, idx, table: RSAKeyTable,
-               hash_name: str) -> torch.Tensor:
-    ok = _pss_verify_device(_ps_em(table, s_limbs, idx), dig,
+               hash_name: str, rns: bool) -> torch.Tensor:
+    ok = _pss_verify_device(_ps_em(table, s_limbs, idx, rns), dig,
                             table.mod_bits_dev[idx], 2 * table.k,
                             hash_name)
     return ok & s_in_range_mask(table, s_limbs, idx) & flags
@@ -381,7 +389,7 @@ def verify_ps_packed_pending(table: RSAKeyTable, rec: np.ndarray,
         table.device)
     s_limbs, dig, flags, idx = _rs_packed_unpack(dev, table.k,
                                                  HASH_LEN[hash_name])
-    return _ps_verify(s_limbs, dig, flags, idx, table, hash_name)
+    return _ps_verify(s_limbs, dig, flags, idx, table, hash_name, True)
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +417,8 @@ def _arrays_inputs(table: RSAKeyTable, sig_mat: np.ndarray,
 def verify_pkcs1v15_arrays_pending(table: RSAKeyTable, sig_mat: np.ndarray,
                                    sig_lens: np.ndarray,
                                    hash_mat: np.ndarray, hash_name: str,
-                                   key_idx: np.ndarray) -> torch.Tensor:
+                                   key_idx: np.ndarray,
+                                   rns: bool = True) -> torch.Tensor:
     """Queue one RS* chunk given as arrays; returns the device [N] bool.
 
     sig_mat: [N, W ≤ 2k] left-aligned signature bytes; sig_lens: [N];
@@ -423,17 +432,80 @@ def verify_pkcs1v15_arrays_pending(table: RSAKeyTable, sig_mat: np.ndarray,
     flags = len_ok & (sizes >= len(DIGEST_INFO_PREFIX[hash_name])
                       + HASH_LEN[hash_name] + 11)
     return _rs_verify(s_limbs, dig, torch.as_tensor(flags, device=idx.device),
-                      idx, table, hash_name)
+                      idx, table, hash_name, rns)
 
 
 def verify_pss_arrays_pending(table: RSAKeyTable, sig_mat: np.ndarray,
                               sig_lens: np.ndarray, hash_mat: np.ndarray,
-                              hash_name: str,
-                              key_idx: np.ndarray) -> torch.Tensor:
+                              hash_name: str, key_idx: np.ndarray,
+                              rns: bool = True) -> torch.Tensor:
     """Queue one PS* chunk given as arrays (as
     :func:`verify_pkcs1v15_arrays_pending`); the EMSA-PSS check runs on
     the device, so only the [N] bool returns."""
     s_limbs, dig, idx, len_ok = _arrays_inputs(
         table, sig_mat, sig_lens, hash_mat, hash_name, key_idx)
     return _ps_verify(s_limbs, dig, torch.as_tensor(len_ok, device=idx.device),
-                      idx, table, hash_name)
+                      idx, table, hash_name, rns)
+
+
+# ---------------------------------------------------------------------------
+# Synchronous entry points (arrays, and lists of raw signatures)
+# ---------------------------------------------------------------------------
+
+def verify_pkcs1v15_arrays(table: RSAKeyTable, sig_mat: np.ndarray,
+                           sig_lens: np.ndarray, hash_mat: np.ndarray,
+                           hash_name: str, key_idx: np.ndarray,
+                           rns: bool = True) -> np.ndarray:
+    """[N] bool RS* verdicts of :func:`verify_pkcs1v15_arrays_pending`."""
+    return verify_pkcs1v15_arrays_pending(
+        table, sig_mat, sig_lens, hash_mat, hash_name, key_idx,
+        rns=rns).cpu().numpy()
+
+
+def verify_pss_arrays(table: RSAKeyTable, sig_mat: np.ndarray,
+                      sig_lens: np.ndarray, hash_mat: np.ndarray,
+                      hash_name: str, key_idx: np.ndarray,
+                      rns: bool = True) -> np.ndarray:
+    """[N] bool PS* verdicts of :func:`verify_pss_arrays_pending`."""
+    return verify_pss_arrays_pending(
+        table, sig_mat, sig_lens, hash_mat, hash_name, key_idx,
+        rns=rns).cpu().numpy()
+
+
+def _list_arrays(table: RSAKeyTable, sigs: Sequence[bytes],
+                 msg_hashes: Sequence[bytes], hash_name: str):
+    """Lists of raw signatures and digests → (sig_mat [N, 2k] left-
+    aligned, sig_lens, hash_mat); a signature wider than 2k bytes keeps
+    its length (it fails the length check) but no bytes."""
+    n = len(sigs)
+    width = 2 * table.k
+    sig_mat = np.zeros((n, width), np.uint8)
+    sig_lens = np.fromiter((len(sg) for sg in sigs), np.int64, n)
+    for j, sg in enumerate(sigs):
+        if len(sg) <= width:
+            sig_mat[j, :len(sg)] = np.frombuffer(sg, np.uint8)
+    hash_mat = np.zeros((n, HASH_LEN[hash_name]), np.uint8)
+    for j, h in enumerate(msg_hashes):
+        hash_mat[j] = np.frombuffer(h, np.uint8)
+    return sig_mat, sig_lens, hash_mat
+
+
+def verify_pkcs1v15_batch(table: RSAKeyTable, sigs: Sequence[bytes],
+                          msg_hashes: Sequence[bytes], hash_name: str,
+                          key_idx: np.ndarray,
+                          rns: bool = True) -> np.ndarray:
+    """[N] bool verdicts for one RS* bucket given as lists; signatures
+    not of their key's length fail."""
+    return verify_pkcs1v15_arrays(
+        table, *_list_arrays(table, sigs, msg_hashes, hash_name),
+        hash_name, np.asarray(key_idx, np.int64), rns=rns)
+
+
+def verify_pss_batch(table: RSAKeyTable, sigs: Sequence[bytes],
+                     msg_hashes: Sequence[bytes], hash_name: str,
+                     key_idx: np.ndarray, rns: bool = True) -> np.ndarray:
+    """[N] bool verdicts for one PS* bucket given as lists: the modexp
+    and the whole EMSA-PSS check on the device."""
+    return verify_pss_arrays(
+        table, *_list_arrays(table, sigs, msg_hashes, hash_name),
+        hash_name, np.asarray(key_idx, np.int64), rns=rns)

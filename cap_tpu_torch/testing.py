@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from .gpu.ec import HostECPublicKey, curve, host_ecdsa_sign
+from .gpu.ec import scalar_mult as _ec_mult
 from .gpu.ed25519 import HostEd25519PublicKey, ed25519_sign
 from .gpu.mldsa import PARAMS as MLDSA_PARAMS
 from .gpu.mldsa import keygen as mldsa_keygen
@@ -676,6 +677,76 @@ def ladder_inputs(c, n_windows: int, m: int, n_keys: int, rng,
         tab[stride + base[j] + k] = tab[base[j] + a - 1]
         true_deg[j] = True
     return tab, d, base, stride, true_deg
+
+
+_EDGE_HLEN = {"P-256": 32, "P-384": 48, "P-521": 64}
+
+
+def ec_edge_vectors(crv: str):
+    """The ES* ladders' edge vectors on one curve, the JAX package's
+    ``tests/test_ec_affine.py`` fixture rebuilt from its seed (the same
+    random draws, so the same key, signatures and digests): (public
+    key, names, raw signatures, digests). Valid signatures (both s
+    halves), tampered r and s, r or s of 0, n, 1 or n − 1, the merge's
+    doubling (u1·G = u2·Q) and inverse (u1·G = −u2·Q), an e = 0 G chain
+    that stays at infinity (rejecting, and a crafted accepting
+    signature on the Q chain alone), and an all-ones digest (e ≥ n on
+    P-256 and P-384)."""
+    cp = curve(crv)
+    rng = random.Random(0xC0FFEE + cp.nbits)
+    cb = cp.coord_bytes
+    hlen = _EDGE_HLEN[crv]
+    d = rng.randrange(1, cp.n)
+    key = HostECPublicKey.from_private(crv, d)
+    q = (key.public_numbers().x, key.public_numbers().y)
+
+    def sig(r, s):
+        return r.to_bytes(cb, "big") + s.to_bytes(cb, "big")
+
+    def dig(e):
+        return e.to_bytes(hlen, "big")
+
+    digest = bytes(rng.randrange(256) for _ in range(hlen))
+    r, s = host_ecdsa_sign(crv, d, int.from_bytes(digest, "big"),
+                           rng.randrange(1, cp.n))
+    vectors = [
+        ("valid", sig(r, s), digest),
+        ("valid-high-s", sig(r, cp.n - s), digest),
+        ("tampered-s", sig(r, s + 1 if s + 1 < cp.n else s - 1), digest),
+        ("tampered-r", sig(r + 1 if r + 1 < cp.n else r - 1, s), digest),
+        ("r-zero", sig(0, s), digest),
+        ("s-zero", sig(r, 0), digest),
+        ("r-eq-n", sig(cp.n, s), digest),
+        ("s-eq-n", sig(r, cp.n), digest),
+        ("r-s-one", sig(1, 1), digest),
+        ("r-s-n-minus-1", sig(cp.n - 1, cp.n - 1), digest),
+    ]
+    # s = 1: u2 = r, u1 = e; e = d·r makes the chains meet (doubling),
+    # e = −d·r makes them inverse; the digest width bounds e
+    lim = 1 << (8 * hlen)
+    r0 = rng.randrange(1, cp.n)
+    while d * r0 % cp.n >= lim:
+        r0 = rng.randrange(1, cp.n)
+    vectors.append(("deg-double-merge", sig(r0, 1), dig(d * r0 % cp.n)))
+    r1 = rng.randrange(1, cp.n)
+    while (cp.n - d * r1 % cp.n) % cp.n >= lim:
+        r1 = rng.randrange(1, cp.n)
+    vectors.append(("deg-inverse-merge", sig(r1, 1),
+                    dig((cp.n - d * r1 % cp.n) % cp.n)))
+    vectors.append(("inf-g-reject", sig(r0, s), dig(0)))
+    while True:
+        u2 = rng.randrange(1, cp.n)
+        ra = _ec_mult(cp, u2, q)[0] % cp.n
+        if ra:
+            break
+    vectors.append(("inf-g-accept", sig(ra, ra * pow(u2, -1, cp.n) % cp.n),
+                    dig(0)))
+    big = b"\xff" * hlen
+    rb, sb = host_ecdsa_sign(crv, d, int.from_bytes(big, "big"),
+                             rng.randrange(1, cp.n))
+    vectors.append(("valid-e-ge-n", sig(rb, sb), big))
+    return (key, [v[0] for v in vectors], [v[1] for v in vectors],
+            [v[2] for v in vectors])
 
 
 def jwks_document(jwks: List[JWK]) -> Dict[str, Any]:

@@ -83,7 +83,26 @@ Phases (any failure exits non-zero; none is caught):
    hooked, every input they were handed replayed through the plain
    versions ([1024, 25, 2] states; [1024, l, 256], [1024, 256] and
    [1024, k, 256] rows), and both timed at each of those shapes;
-8. the ps-sha512 path the same way: 8 RSA-2048 keys, 65,536 tokens half
+8. the engine modes, through the engine entry points that take them
+   (``rns=``, ``ladder=``; the JAX package reads them from its
+   environment) on the signatures of the north-star's first 8,192
+   tokens, config-4's first 8,192 and pq-mldsa's first 2,048, each
+   pass one counted run after its window tables are built (every
+   launch counter zeroed just before it and read just after it, every
+   verdict the signature's, the engine entries it called counted),
+   then one timed run beside the default entries' on the same inputs:
+   (a) ``rns=False`` (RS256 by ``modexp_65537``, ES256 by the limb
+   Jacobian ladder: no kernel), (b) ES256 with ``ladder="affine"``
+   (the RNS affine ladder: redc W·(2·log2(M/128) + pbits +
+   popcount(p − 2) + 2) + 11 times, ``ec_rns.affine_redc_launches``,
+   every launch held against the plain REDC on its inputs and each
+   lane count timed; no ladder, no madd), (c) ES256 with ``rns=False,
+   ladder="affine"`` (the limb affine ladder: no kernel), (d) config-4
+   with ``rns=False`` (EdDSA by the limb ladder, PS256 by
+   ``modexp_65537`` with the device PSS check: no kernel), (e) pq-mldsa
+   on the two-phase arm (``verify_mldsa_batch``: 2 ntt and 1 intt
+   launches a set, no Keccak, the host SHAKE counted);
+9. the ps-sha512 path the same way: 8 RSA-2048 keys, 65,536 tokens half
    PS384 and half PS512 tiled from 1,024 unique ones, the 1/8 tampered
    share, three tokens of each PS rejection class of config-4 under
    each hash, no kernel launched (the PS engine is PyTorch); before the
@@ -91,7 +110,7 @@ Phases (any failure exits non-zero; none is caught):
    (0–111 for the one-block form) and on one chunk's MGF1 seeds and M'
    inputs of each hash, captured where the engine hashes them, timed
    by CUDA events;
-9. the pq-slhdsa path the same way: 8 SLH-DSA-SHAKE-128f and 8
+10. the pq-slhdsa path the same way: 8 SLH-DSA-SHAKE-128f and 8
    SLH-DSA-SHAKE-128s AKP keys, 512 tokens half under each set tiled
    from 16 unique 128f and 2 unique 128s tokens, the 1/8 tampered
    share, three tokens of each SLH-DSA rejection class under each set,
@@ -101,19 +120,19 @@ Phases (any failure exits non-zero; none is caught):
    wrapper hooked, every input replayed through the plain version
    ([256, 33 | 14 | 35, 25, 2] and [256, 25, 2] states) and both
    timed at each shape;
-10. the config-2 path (BASELINE.json's second configuration) the same
+11. the config-2 path (BASELINE.json's second configuration) the same
    way: 4 RSA-2048 and 4 RSA-4096 keys, 65,536 tokens a third each
    RS256, RS384 and RS512 over both widths, the RS rejection classes
    under each width, a kid-less token and an unknown kid; the RNS
    engine at two widths, no kernel launched;
-11. the rsa-limb path the same way: an RSA-2048 class of e = 3, 17,
+12. the rsa-limb path the same way: an RSA-2048 class of e = 3, 17,
    65537 and 2^31 − 1 keys (``modexp_vare``), an RSA-3072 class with a
    4099·q modulus (``modexp_65537`` on limbs) and 4 P-256 keys, 16,384
    tokens half RS256/PS256 and half ES256 (one ES chunk: 1 ladder + 11
    redc); then one full limb chunk a width (2048-bit vare at 16,384
    tokens, 3072- and 4096-bit F4 at 8,192) timed by CUDA events with
    its peak device memory, 64 lanes against ``pow``;
-12. the big-jwks path the same way: 300 RSA-2048, 300 P-256 and 300
+13. the big-jwks path the same way: 300 RSA-2048, 300 P-256 and 300
    Ed25519 keys, so every class takes the arrays path (int64 key
    rows), 32,768 tokens a third each RS256, ES256 and EdDSA over all
    300 rows, the rejection classes over rows above 255; one ES chunk
@@ -121,7 +140,7 @@ Phases (any failure exits non-zero; none is caught):
    every ladder, redc and edw input of one batch replayed through the
    plain versions (key rows above 255 read) and the ladder and edw
    timed at those shapes;
-13. the oidc path (BASELINE.json's fifth configuration): the port's
+14. the oidc path (BASELINE.json's fifth configuration): the port's
    ``oidc.testing.TestProvider`` on loopback TLS (its CA a pure-Python
    P-256 certificate), mid-rotation with 4 P-256 keys and 1 RSA-2048
    key in its JWKS; a ``Provider`` built through discovery over
@@ -143,7 +162,7 @@ Phases (any failure exits non-zero; none is caught):
    on the device; every unique token against the single-
    token ``verify_id_token`` over the CPU JSONWebKeySet in spawned
    processes;
-14. the serve path: ``VerifyWorker(GPUBatchKeySet)`` on loopback (raw
+15. the serve path: ``VerifyWorker(GPUBatchKeySet)`` on loopback (raw
    claims, the async pipeline; the verdict cache and dedup off) takes
    the north-star's 65,536 tokens as requests of 1 to 4,096 tokens
    over 4 pipelined ``VerifyClient`` connections: every verdict as
@@ -173,7 +192,7 @@ Phases (any failure exits non-zero; none is caught):
    /tenants, the scrape's worker and decision counters equal to
    STATS', the device's dispatches and busy time above zero, /metrics
    Prometheus text ("… obs scrape");
-15. the fleet path: the north-star's JWKS served on loopback, a
+16. the fleet path: the north-star's JWKS served on loopback, a
    ``WorkerPool`` of two ``worker_main --keyset jwks-url:<url>``
    processes (worker 0 owning the card, worker 1 on the CPU, a 1 s
    keyplane poll and a 2 s grace) behind ``FleetClient(pool,
@@ -190,7 +209,7 @@ Phases (any failure exits non-zero; none is caught):
    over the merged counters, and the pool closed within a deadline
    ("fleet line": verifies/s through the router, p50/p99, the split by
    worker, boot, convergence and respawn seconds);
-16. the frontdoor path, on the fleet's two workers before its pool
+17. the frontdoor path, on the fleet's two workers before its pool
    closes, each a host: a ``worker_main --keyset frontdoor:…
    --frontdoor-chain native`` process (its ready line, one request,
    SIGTERM); the Python gate ``VerifyWorker(FrontDoor)`` and the native
@@ -1332,6 +1351,48 @@ WARM = 3
 WARM_SLOW = 2
 
 
+def family_launches(jwks, tokens, families):
+    """(launches, chunks, family summary) of one batch: ``families``
+    [(alg, kid prefix, chunk tokens, {kernel: launches per chunk})]
+    name the tokens of the kernels' packed path and what each of their
+    chunks launches."""
+    from cap_tpu_torch.runtime.native_binding import prepare_batch_arrays
+
+    pb = prepare_batch_arrays(tokens)
+    want, n_chunks, fams = {}, 0, []
+    for alg, prefix, chunk, per_chunk in families:
+        kids = {j.kid: 0 for j in jwks if j.kid and j.kid.startswith(prefix)}
+        idx = family_idx(pb, alg)
+        n_fam = int((pb.kid_rows(idx, kids) >= 0).sum())
+        chunks = (n_fam + chunk - 1) // chunk
+        n_chunks += chunks
+        for k, per in per_chunk.items():
+            want[k] = want.get(k, 0) + per * chunks
+        fams.append(f"{n_fam} {alg}")
+    return want, n_chunks, fams
+
+
+@contextlib.contextmanager
+def counted_launches(records, name, want):
+    """Every launch counter zeroed as the block starts and read as it
+    ends: every kernel launched exactly ``want[k]`` times (0 for a
+    kernel ``want`` does not name; a kernel it names launched), the
+    counts added to ``records`` under the path ``name``. Yields the
+    dict the counts land in."""
+    ctr = counters()
+    for mod, attr in ctr.values():
+        setattr(mod, attr, 0)
+    launches = {}
+    yield launches
+    launches.update({k: getattr(mod, attr) for k, (mod, attr) in ctr.items()})
+    for k, count in launches.items():
+        assert count == want.get(k, 0) and (k not in want or want[k] > 0), \
+            (name, launches, want)
+        rec = records[k]
+        rec["launches"] = rec.get("launches", 0) + count
+        rec.setdefault("launches_by_path", {})[name] = count
+
+
 def drive_path(records, name, jwks, tokens, expected, families, engines,
                warm=WARM, **ks_opts):
     """One path through ``GPUBatchKeySet(jwks, **ks_opts).verify_batch``:
@@ -1345,43 +1406,22 @@ def drive_path(records, name, jwks, tokens, expected, families, engines,
     import torch
 
     from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
-    from cap_tpu_torch.runtime.native_binding import prepare_batch_arrays
 
     ks = GPUBatchKeySet(jwks, **ks_opts)
     prep_phase(name, ks, tokens, engines)
-    pb = prepare_batch_arrays(tokens)
-    want, n_chunks, fams = {}, 0, []
-    for alg, prefix, chunk, per_chunk in families:
-        kids = {j.kid: 0 for j in jwks if j.kid and j.kid.startswith(prefix)}
-        idx = family_idx(pb, alg)
-        n_fam = int((pb.kid_rows(idx, kids) >= 0).sum())
-        chunks = (n_fam + chunk - 1) // chunk
-        n_chunks += chunks
-        for k, per in per_chunk.items():
-            want[k] = want.get(k, 0) + per * chunks
-        fams.append(f"{n_fam} {alg}")
-
-    ctr = counters()
-    for mod, attr in ctr.values():
-        setattr(mod, attr, 0)
-    t0 = time.perf_counter()
-    results = ks.verify_batch(tokens)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = {k: getattr(mod, attr) for k, (mod, attr) in ctr.items()}
-    check_verdicts(results, expected)
+    want, n_chunks, fams = family_launches(jwks, tokens, families)
+    with counted_launches(records, name, want) as launches:
+        t0 = time.perf_counter()
+        results = ks.verify_batch(tokens)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        check_verdicts(results, expected)
     on_path = (f"{', '.join(fams)} on the kernels' path, {n_chunks} "
                f"chunk(s)") if fams else "no kernel on the path"
     log(f"{name} path: {len(tokens)} tokens ({on_path}), every verdict "
         f"as expected; "
         f"launches {launches}; flagged lanes re-verified on the "
         f"oracle: {ks.deg_reverified}; first run {first_s:.2f} s")
-    for k, count in launches.items():
-        assert count == want.get(k, 0) and (k not in want or want[k] > 0), \
-            (name, launches, want)
-        rec = records[k]
-        rec["launches"] = rec.get("launches", 0) + count
-        rec.setdefault("launches_by_path", {})[name] = count
 
     times = []
     for _ in range(warm):
@@ -1811,6 +1851,7 @@ def config4_path(records):
     drive_path(records, "config-4", jwks, tokens, expected,
                [("EdDSA", "ed-", 32768, {"edw": 32, "redc": 3})],
                ("PS256", "EdDSA"), warm=WARM_SLOW)
+    return dict(jwks=jwks, tokens=tokens, expected=expected)
 
 
 def build_config3(rng):
@@ -1984,6 +2025,352 @@ def mldsa_path(records):
                       ("ML-DSA-65", "mldsa65-", 1024, per_chunk)],
                      ("ML-DSA-44", "ML-DSA-65"), warm=WARM_SLOW)
     path_shape_phase(records, run["ks"], tokens, "pq-mldsa")
+    return dict(jwks=jwks, tokens=tokens, expected=expected)
+
+
+N_MODE_TOKENS = 8192          # engine modes: cut from 65,536
+N_MODE_PQ_TOKENS = 2048       # engine modes: cut from 16,384
+MLDSA_CHUNK = 1024            # the keyset's ML-DSA chunk, every set
+
+
+def pad_pow2(n: int) -> int:
+    """The lanes an engine entry pads n tokens to: a power of two ≥ 128."""
+    return max(128, 1 << max(n - 1, 0).bit_length())
+
+
+@contextlib.contextmanager
+def redc_swapped(hook):
+    """``cuda_redc.redc`` replaced by ``hook`` while the block runs: the
+    module's attribute and the ``redc=`` default of every ec_rns and
+    ed25519_rns function that binds it. Yields the real wrapper."""
+    from cap_tpu_torch.gpu import cuda_redc, ec_rns, ed25519_rns
+
+    real = cuda_redc.redc
+    swapped = []
+    for mod in (ec_rns, ed25519_rns):
+        for fn in list(vars(mod).values()):
+            d = getattr(fn, "__defaults__", None)
+            if d and any(x is real for x in d):
+                swapped.append((fn, d))
+                fn.__defaults__ = tuple(hook if x is real else x for x in d)
+    cuda_redc.redc = hook
+    try:
+        yield real
+    finally:
+        cuda_redc.redc = real
+        for fn, d in swapped:
+            fn.__defaults__ = d
+
+
+REPLAY_LANES = 65536          # lanes a batched plain-REDC replay
+
+
+@contextlib.contextmanager
+def redc_held(path: str):
+    """Every REDC launch of the block held against ``redc_ref`` on the
+    same inputs: each launch's inputs and outputs kept, then replayed
+    through the plain version when the block ends, the launches of one
+    lane count side by side in batches of up to ``REPLAY_LANES`` lanes
+    (a REDC lane depends on its own column alone): bit-equal, or
+    (``max_err``) equal by value mod p on both residue planes. Yields
+    {lanes: [(ctx, xA, xB, tA, tB), ...]}, the launches by lane count."""
+    import torch
+
+    from cap_tpu_torch.gpu import cuda_redc
+
+    shapes = {}
+    real = cuda_redc.redc
+
+    def hook(ctx, xA, xB):
+        out = real(ctx, xA, xB)
+        shapes.setdefault(int(xA.shape[1]), []).append(
+            (ctx, xA.clone(), xB.clone(), out[0].clone(), out[1].clone()))
+        return out
+
+    with redc_swapped(hook):
+        yield shapes
+    for lanes, rows in shapes.items():
+        ctx = rows[0][0]
+        assert all(r[0] is ctx for r in rows), (path, lanes)
+        per = max(1, REPLAY_LANES // lanes)
+        for lo in range(0, len(rows), per):
+            xA, xB, tA, tB = (torch.cat([r[i] for r in rows[lo:lo + per]],
+                                        dim=1) for i in range(1, 5))
+            rA, rB = cuda_redc.redc_ref(ctx, xA, xB)
+            if torch.equal(tA, rA) and torch.equal(tB, rB):
+                continue
+            err, nd, split = max_err(
+                ctx, [t.cpu().numpy() for t in (tA, tB)],
+                [t.cpu().numpy() for t in (rA, rB)])
+            assert err == 0 and split == 0, f"redc at {path}: {err}, {nd}"
+
+
+@contextlib.contextmanager
+def engine_calls():
+    """Counts of the calls into each engine entry while the block runs
+    (which engine a mode routes each family to; ``_py_verify_one``
+    counts the ES lanes re-verified on the oracle)."""
+    from cap_tpu_torch.gpu import ec, ec_rns, ed25519, ed25519_rns, mldsa, rsa
+
+    calls = {}
+    hooks = [(rsa, "modexp_65537"), (rsa, "verify_em_equals_device"),
+             (rsa, "modexp_em_device"), (ec, "_ecdsa_core"),
+             (ec, "_ecdsa_affine_tail"), (ec, "_py_verify_one"),
+             (ec_rns, "_ecdsa_rns_core"), (ec_rns, "affine_ladder"),
+             (ed25519, "_ed25519_core"), (ed25519_rns, "_ed25519_rns_core"),
+             (mldsa, "verify_mldsa_core_pending"), (mldsa, "_fused_core")]
+    saved = []
+    for mod, name in hooks:
+        real = getattr(mod, name)
+
+        def hook(*a, _real=real, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **k)
+
+        saved.append((mod, name, real))
+        setattr(mod, name, hook)
+    try:
+        yield calls
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def mode_inputs(jwks, tokens, expected, fams):
+    """One slice's engine inputs by family. ``fams`` [(alg, kid prefix)]:
+    a token of the alg whose kid names one of the family's keys goes in,
+    with the verdict its signature alone decides (True where the keyset
+    accepts it, False where it answers ``REJECT``), and the family's
+    key table on the card. Returns {alg: dict(table, sigs, msgs,
+    digests, rows, want)}."""
+    import hashlib
+
+    import numpy as np
+
+    from cap_tpu_torch.errors import CapError
+    from cap_tpu_torch.gpu import ec, ed25519, mldsa, rsa
+    from cap_tpu_torch.jwt.jose import parse_jws
+
+    out = {}
+    for alg, prefix in fams:
+        keys = [j for j in jwks if j.kid and j.kid.startswith(prefix)]
+        row = {j.kid: i for i, j in enumerate(keys)}
+        b = dict(sigs=[], msgs=[], rows=[], want=[])
+        for tok, exp in zip(tokens, expected):
+            try:
+                p = parse_jws(tok)
+            except CapError:
+                continue
+            if p.alg != alg or p.kid not in row:
+                continue
+            assert isinstance(exp, str) or exp == REJECT, (alg, exp)
+            b["sigs"].append(p.signature)
+            b["msgs"].append(p.signing_input)
+            b["rows"].append(row[p.kid])
+            b["want"].append(isinstance(exp, str))
+        b["digests"] = [hashlib.sha256(m).digest() for m in b["msgs"]]
+        b["rows"] = np.asarray(b["rows"], np.int64)
+        pubs = [j.key for j in keys]
+        if alg in ("RS256", "PS256"):
+            b["table"] = rsa.RSAKeyTable([(k.n, k.e) for k in pubs])
+        elif alg == "ES256":
+            b["table"] = ec.ECKeyTable("P-256", pubs)
+        elif alg == "EdDSA":
+            b["table"] = ed25519.Ed25519KeyTable(pubs)
+        else:
+            b["table"] = mldsa.MLDSAKeyTable(alg, pubs)
+        out[alg] = b
+    return out
+
+
+def mode_verify(alg: str, b: dict, mode: dict):
+    """One family's verdicts through its engine entry point in ``mode``
+    (the entry's ``rns=``/``ladder=`` keywords; ``{}`` the default).
+    ML-DSA: the two-phase arm (``verify_mldsa_batch``) for a mode, the
+    fused engine in the keyset's chunks for the default."""
+    from cap_tpu_torch.gpu import ec, ed25519, mldsa, rsa
+
+    t = b["table"]
+    if alg == "RS256":
+        return rsa.verify_pkcs1v15_batch(t, b["sigs"], b["digests"],
+                                         "sha256", b["rows"], **mode)
+    if alg == "PS256":
+        return rsa.verify_pss_batch(t, b["sigs"], b["digests"], "sha256",
+                                    b["rows"], **mode)
+    if alg == "ES256":
+        return ec.verify_ecdsa_batch(t, b["sigs"], b["digests"], b["rows"],
+                                     **mode)
+    if alg == "EdDSA":
+        return ed25519.verify_ed25519_batch(t, b["sigs"], b["msgs"],
+                                            b["rows"], **mode)
+    if mode:
+        return mldsa.verify_mldsa_batch(t, b["sigs"], b["msgs"], b["rows"])
+    out = []
+    for lo in range(0, len(b["sigs"]), MLDSA_CHUNK):
+        n = len(b["sigs"][lo:lo + MLDSA_CHUNK])
+        fin = mldsa.verify_mldsa_fused_pending(
+            t, b["sigs"][lo:lo + n], b["msgs"][lo:lo + n],
+            b["rows"][lo:lo + n], pad=pad_pow2(n))
+        out.extend(fin()[:n])
+    return out
+
+
+def mode_run(inputs, modes):
+    """The verdicts of every family of ``modes`` {alg: mode} and the
+    run's seconds (the card synchronized at its end)."""
+    import torch
+
+    t0 = time.perf_counter()
+    got = {alg: [bool(v) for v in mode_verify(alg, inputs[alg], mode)]
+           for alg, mode in modes.items()}
+    torch.cuda.synchronize()
+    return got, time.perf_counter() - t0
+
+
+def redc_path_shapes(records, path: str, shapes):
+    """Each lane count the path handed the REDC kernel, its launches,
+    and the kernel and its plain version timed on the first of those
+    inputs (CUDA events, one call each), beside the bound."""
+    from cap_tpu_torch.gpu import cuda_redc
+
+    out = []
+    for lanes, rows in sorted(shapes.items()):
+        ctx, xA, xB = rows[0][:3]
+        ms_k = cuda_ms(lambda: cuda_redc.redc(ctx, xA, xB), 1)
+        ms_p = cuda_ms(lambda: cuda_redc.redc_ref(ctx, xA, xB), 1)
+        ia, ib = ctx.A.count, ctx.B.count
+        b_ms, b_by, _ = rns_bound(lanes * (2 * ia + 2 * ib) * 4,
+                                  redc_work(ia, ib), lanes)
+        out.append(dict(path=path, lanes=lanes, calls=len(rows),
+                        max_abs_err=0, ms=ms_k, by="events", plain_ms=ms_p,
+                        bound_ms=b_ms, bound_by=b_by))
+    records["redc"].setdefault("path_shapes", []).extend(out)
+    return out
+
+
+def mode_pass(records, name, inputs, modes, want, engines, base_s, card,
+              hold_redc=False):
+    """One engine-mode pass over the families of ``modes`` {alg: mode}:
+    the mode's window tables built first, then one counted run (every
+    launch counter zeroed just before it and read just after it, every
+    kernel launched exactly ``want[k]`` times and no other, every
+    verdict the signature's, the engines in ``engines`` called, the
+    counts added to ``records`` under ``name``), timed as the pass's
+    warm run beside the default entries' time on the same inputs
+    (``base_s``). With ``hold_redc`` every REDC launch of the counted
+    run is held against its plain version, and one more run, unhooked,
+    is timed."""
+    from cap_tpu_torch.gpu import mldsa
+
+    for alg, mode in modes.items():
+        t = inputs[alg]["table"]
+        if alg == "ES256" and mode.get("rns") is False:
+            t.limb_tables()
+        elif alg == "ES256":
+            t.rns().device_tab(t.device)
+        elif alg == "EdDSA" and mode.get("rns") is False:
+            t.tna()
+    mldsa.host_shake_calls = 0
+    # the REDC defaults are swapped before engine_calls wraps the
+    # functions that bind them
+    with counted_launches(records, name, want) as launches, (
+            redc_held(name) if hold_redc else contextlib.nullcontext({})) \
+            as shapes, engine_calls() as calls:
+        got, warm_s = mode_run(inputs, modes)
+        for alg in modes:
+            bad = [i for i, (g, w) in enumerate(zip(got[alg],
+                                                    inputs[alg]["want"]))
+                   if g != w]
+            assert not bad, (name, alg, len(bad), bad[:5])
+    shakes = mldsa.host_shake_calls
+    for e in engines:
+        assert calls.get(e, 0) > 0, (name, e, calls)
+    if hold_redc:
+        assert sum(map(len, shapes.values())) == launches["redc"]
+        rows = redc_path_shapes(records, name, shapes)
+        log(f"engine modes {name}: every one of the {launches['redc']} "
+            f"redc launches equal to the plain version on its inputs; by "
+            f"lanes: " + ", ".join(
+                f"{r['lanes']} x {r['calls']} ({r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms)"
+                for r in rows))
+        # the held run is not timed: one more, unhooked
+        again, warm_s = mode_run(inputs, modes)
+        assert again == got, name
+    n = sum(len(inputs[alg]["sigs"]) for alg in modes)
+    log(f"engine modes {name}: {modes} over "
+        + ", ".join(f"{len(inputs[a]['sigs'])} {a}" for a in modes)
+        + f", every verdict the signature's; launches {launches}; engine "
+        f"calls {calls}; host SHAKE {shakes}; warm run {warm_s:.3f} s, "
+        f"{n / warm_s:.0f} verifies/s beside the default entries' "
+        f"{n / base_s:.0f} on the same inputs ({card})")
+    return dict(shakes=shakes, calls=calls, warm_s=warm_s)
+
+
+def default_s(inputs, algs) -> float:
+    """The default entries' warm seconds on the families ``algs``: one
+    run to build the RNS tables, then one timed (verdicts checked)."""
+    modes = dict.fromkeys(algs, {})
+    mode_run(inputs, modes)
+    got, secs = mode_run(inputs, modes)
+    for alg in algs:
+        assert got[alg] == inputs[alg]["want"], alg
+    return secs
+
+
+def engine_modes_path(records, north, config4, pq):
+    """The engine modes off the default path, through the engine entry
+    points that take them (``rsa.verify_pkcs1v15_batch``,
+    ``verify_pss_batch``, ``ec.verify_ecdsa_batch``,
+    ``ed25519.verify_ed25519_batch``, ``mldsa.verify_mldsa_batch``), on
+    the signatures of the first 8,192 tokens of the north-star and
+    config-4 batches and the first 2,048 of pq-mldsa: (a) ``rns=False``
+    (RS256 by ``modexp_65537``, ES256 by the limb Jacobian ladder; no
+    kernel), (b) ES256 with ``ladder="affine"`` (the RNS affine ladder,
+    :func:`ec_rns.affine_redc_launches` redc launches, each held against
+    the plain REDC; no ladder, no madd), (c) ES256 with ``rns=False,
+    ladder="affine"`` (the limb affine ladder; no kernel), (d) config-4
+    with ``rns=False`` (EdDSA by the limb ladder, PS256 by
+    ``modexp_65537`` with the device PSS check; no kernel), (e) pq-mldsa
+    on the two-phase arm (2 ntt + 1 intt a set's call, no Keccak, host
+    SHAKE)."""
+    from cap_tpu_torch.gpu import ec_rns
+
+    card = card_line()
+    ns = mode_inputs(north["jwks"], north["tokens"][:N_MODE_TOKENS],
+                     north["expected"][:N_MODE_TOKENS],
+                     [("RS256", "rs-"), ("ES256", "es-")])
+    c4 = mode_inputs(config4["jwks"], config4["tokens"][:N_MODE_TOKENS],
+                     config4["expected"][:N_MODE_TOKENS],
+                     [("PS256", "ps-"), ("EdDSA", "ed-")])
+    pqs = mode_inputs(pq["jwks"], pq["tokens"][:N_MODE_PQ_TOKENS],
+                      pq["expected"][:N_MODE_PQ_TOKENS],
+                      [("ML-DSA-44", "mldsa44-"), ("ML-DSA-65", "mldsa65-")])
+    base = dict(north=default_s(ns, ("RS256", "ES256")),
+                es=default_s(ns, ("ES256",)),
+                config4=default_s(c4, ("PS256", "EdDSA")),
+                pq=default_s(pqs, ("ML-DSA-44", "ML-DSA-65")))
+    off = dict(rns=False)
+    mode_pass(records, "modes-a rns=off", ns,
+              {"RS256": off, "ES256": off}, {},
+              ("modexp_65537", "_ecdsa_core"), base["north"], card)
+    n_es = len(ns["ES256"]["sigs"])
+    mode_pass(records, "modes-b affine", ns, {"ES256": dict(ladder="affine")},
+              {"redc": ec_rns.affine_redc_launches("P-256", pad_pow2(n_es))},
+              ("affine_ladder",), base["es"], card, hold_redc=True)
+    mode_pass(records, "modes-c rns=off affine", ns,
+              {"ES256": dict(ladder="affine", rns=False)}, {},
+              ("_ecdsa_core", "_ecdsa_affine_tail"), base["es"], card)
+    mode_pass(records, "modes-d config-4 rns=off", c4,
+              {"PS256": off, "EdDSA": off}, {},
+              ("modexp_65537", "_ed25519_core"), base["config4"], card)
+    two = dict(two_phase=True)
+    # one verify_mldsa_batch a set: 2 ntt + 1 intt each
+    run = mode_pass(records, "modes-e two-phase", pqs,
+                    {"ML-DSA-44": two, "ML-DSA-65": two},
+                    {"ntt": 4, "intt": 2}, ("verify_mldsa_core_pending",),
+                    base["pq"], card)
+    assert run["shakes"] > 0 and "_fused_core" not in run["calls"]
 
 
 def sha512_phase(ks, tokens):
@@ -2467,13 +2854,7 @@ def rns_path_replay(records, ks, tokens, path, want, want_chunks):
     events, one call each)."""
     import torch
 
-    from cap_tpu_torch.gpu import (
-        cuda_edw,
-        cuda_ladder,
-        cuda_redc,
-        ec_rns,
-        ed25519_rns,
-    )
+    from cap_tpu_torch.gpu import cuda_edw, cuda_ladder, cuda_redc, ed25519_rns
 
     real = dict(ladder=cuda_ladder.ladder, redc=cuda_redc.redc,
                 edw=cuda_edw.edw_window)
@@ -2516,24 +2897,13 @@ def rns_path_replay(records, ks, tokens, path, want, want_chunks):
         calls["edw"] += 1
         return out
 
-    swapped = []
-    for mod in (ec_rns, ed25519_rns):
-        for fn in list(vars(mod).values()):
-            d = getattr(fn, "__defaults__", None)
-            if d and any(x is real["redc"] for x in d):
-                swapped.append((fn, d))
-                fn.__defaults__ = tuple(redc if x is real["redc"] else x
-                                        for x in d)
-    cuda_ladder.ladder, cuda_redc.redc, cuda_edw.edw_window = \
-        ladder, redc, edw
+    cuda_ladder.ladder, cuda_edw.edw_window = ladder, edw
     try:
-        _, chunks = telemetry_chunks(lambda: ks.verify_batch(tokens))
+        with redc_swapped(redc):
+            _, chunks = telemetry_chunks(lambda: ks.verify_batch(tokens))
     finally:
         cuda_ladder.ladder = real["ladder"]
-        cuda_redc.redc = real["redc"]
         cuda_edw.edw_window = real["edw"]
-        for fn, d in swapped:
-            fn.__defaults__ = d
     assert calls == want and {f: chunks.get(f) for f in want_chunks} \
         == want_chunks, \
         (path, calls, want, chunks, want_chunks)
@@ -4900,8 +5270,9 @@ def main() -> int:
     north = timed("north-star", main_path, records)
     timed("validator", validator_path, records, north)
     timed("config-3", config3_path, records)
-    timed("config-4", config4_path, records)
-    timed("pq-mldsa", mldsa_path, records)
+    config4 = timed("config-4", config4_path, records)
+    pq = timed("pq-mldsa", mldsa_path, records)
+    timed("engine modes", engine_modes_path, records, north, config4, pq)
     timed("ps-sha512", ps512_path, records)
     timed("pq-slhdsa", slhdsa_path, records)
     timed("config-2", config2_path, records)

@@ -1359,3 +1359,139 @@ def test_front_door_over_a_card_worker_and_a_cpu_worker(dev):
             g.close(30.0)
         for h in hosts:
             h.close(30.0)
+
+
+# ---------------------------------------------------------------------------
+# The engine modes off the default path: the limb engines (plain
+# PyTorch), the affine ladders and the two-phase ML-DSA arm
+# ---------------------------------------------------------------------------
+
+def _counts():
+    return dict(redc=cuda_redc.launches, madd=cuda_madd.launches,
+                ladder=cuda_ladder.launches, edw=cuda_edw.launches,
+                keccak=cuda_keccak.launches, ntt=cuda_ntt.ntt_launches,
+                intt=cuda_ntt.intt_launches)
+
+
+def _delta(before):
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in _counts().items()}
+
+
+@pytest.mark.parametrize("ladder,rns_on", [("jacobian", False),
+                                           ("affine", False),
+                                           ("affine", True)],
+                         ids=["limb-jacobian", "limb-affine", "rns-affine"])
+def test_ecdsa_modes_on_the_card_match_the_cpu(dev, ladder, rns_on):
+    """``verify_ecdsa_batch`` on the card against the same call on the
+    CPU over the P-256 edge vectors, in each mode; the limb ladders
+    launch no kernel, the RNS affine ladder only redc, the count the
+    formula of ``ec_rns.affine_redc_launches`` gives."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu import ec as gpuec
+
+    key, names, sigs, digs = tt.ec_edge_vectors("P-256")
+    idx = np.zeros(len(sigs), np.int64)
+    before = _counts()
+    card = gpuec.verify_ecdsa_batch(gpuec.ECKeyTable("P-256", [key]), sigs,
+                                    digs, idx, ladder=ladder, rns=rns_on)
+    launched = _delta(before)
+    cpu = gpuec.verify_ecdsa_batch(
+        gpuec.ECKeyTable("P-256", [key], device="cpu"), sigs, digs, idx,
+        ladder=ladder, rns=rns_on)
+    assert list(card) == list(cpu)
+    want = {k: 0 for k in launched}
+    if rns_on:
+        want["redc"] = ec_rns.affine_redc_launches("P-256", 128)
+    assert launched == want
+
+
+@pytest.mark.parametrize("crv", ["P-384", "P-521"])
+def test_rns_affine_ladder_on_the_card_matches_the_oracle(dev, crv):
+    """P-384 and P-521 on the RNS affine ladder (minutes of the plain
+    REDC on a CPU): the card's verdicts are the oracle's."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu import ec as gpuec
+
+    key, names, sigs, digs = tt.ec_edge_vectors(crv)
+    table = gpuec.ECKeyTable(crv, [key])
+    before = _counts()
+    got = gpuec.verify_ecdsa_batch(table, sigs, digs,
+                                   np.zeros(len(sigs), np.int64),
+                                   ladder="affine", rns=True)
+    assert _delta(before)["redc"] == ec_rns.affine_redc_launches(crv, 128)
+    want = [gpuec._py_verify_one(table, 0, s, d) for s, d in zip(sigs, digs)]
+    assert [bool(v) for v in got] == want
+
+
+def test_ed25519_and_rsa_limb_engines_on_the_card_match_the_cpu(dev):
+    """``verify_ed25519_batch``, ``verify_pkcs1v15_batch`` and
+    ``verify_pss_batch`` with ``rns=False`` on the card against the CPU:
+    no kernel launched."""
+    import hashlib
+    import random
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu import ed25519 as ed
+    from cap_tpu_torch.gpu import rsa as gpursa
+    from cap_tpu_torch.jwt.verify import pkcs1v15_em
+
+    seeds = [bytes([i + 3]) * 32 for i in range(3)]
+    keys = [ed.HostEd25519PublicKey.from_seed(s) for s in seeds] + [
+        ed.HostEd25519PublicKey((2).to_bytes(32, "little"))]
+    msgs = [b"m%d" % j for j in range(12)]
+    sigs = [ed.ed25519_sign(seeds[j % 3], m) for j, m in enumerate(msgs)]
+    sigs[4] = sigs[4][:40] + bytes([sigs[4][40] ^ 1]) + sigs[4][41:]
+    rows = np.asarray([j % 3 for j in range(12)], np.int64)
+    rows[[7, 11]] = 3                   # the key that does not decode
+    rng = random.Random(3)
+    rsa_key = tt.generate_rsa_key(rng)
+    digs = [hashlib.sha256(m).digest() for m in msgs[:6]]
+    rs_sigs = [rsa_key.raw_sign(int.from_bytes(
+        pkcs1v15_em(d, "sha256", 256), "big")).to_bytes(256, "big")
+        for d in digs]
+    ps_sigs = [rsa_key.raw_sign(int.from_bytes(tt.pss_em(
+        d, 2047, "sha256", rng.randbytes(32)), "big")).to_bytes(256, "big")
+        for d in digs]
+    rs_sigs[2] = ps_sigs[2]
+    rows_rsa = np.zeros(6, np.int64)
+    out = {}
+    for dv in ("cuda", "cpu"):
+        before = _counts() if dv == "cuda" else None
+        t_ed = ed.Ed25519KeyTable(keys, device=dv)
+        t_rsa = gpursa.RSAKeyTable([(rsa_key.n, rsa_key.e)], device=dv)
+        out[dv] = (list(ed.verify_ed25519_batch(t_ed, sigs, msgs, rows,
+                                                rns=False)),
+                   list(gpursa.verify_pkcs1v15_batch(
+                       t_rsa, rs_sigs, digs, "sha256", rows_rsa, rns=False)),
+                   list(gpursa.verify_pss_batch(
+                       t_rsa, ps_sigs, digs, "sha256", rows_rsa, rns=False)))
+        if dv == "cuda":
+            assert not any(_delta(before).values())
+    assert out["cuda"] == out["cpu"]
+    assert sum(out["cuda"][0]) == 9 and sum(out["cuda"][1]) == 5
+    assert all(out["cuda"][2])
+
+
+def test_mldsa_two_phase_on_the_card_matches_the_cpu(dev):
+    """``verify_mldsa_batch`` (the two-phase arm) on the card against the
+    CPU: 2 ntt and 1 intt launches for the chunk, no Keccak."""
+    from cap_tpu_torch.gpu import mldsa
+
+    pset = "ML-DSA-44"
+    port = [mldsa.keygen(pset, bytes([71 + i]) * 32) for i in range(2)]
+    msgs = [b"tp-%d" % j for j in range(10)]
+    sigs = [port[j % 2][0].sign(m) for j, m in enumerate(msgs)]
+    sigs[3] = sigs[3][:-1]
+    msgs[5] = b"changed"
+    rows = np.asarray([j % 2 for j in range(10)], np.int64)
+    pubs = [u for _, u in port]
+    before = _counts()
+    card = mldsa.verify_mldsa_batch(mldsa.MLDSAKeyTable(pset, pubs), sigs,
+                                    msgs, rows)
+    launched = _delta(before)
+    cpu = mldsa.verify_mldsa_batch(
+        mldsa.MLDSAKeyTable(pset, pubs, device="cpu"), sigs, msgs, rows)
+    assert list(card) == list(cpu) and sum(card) == 8
+    assert launched == dict(redc=0, madd=0, ladder=0, edw=0, keccak=0,
+                            ntt=2, intt=1)
