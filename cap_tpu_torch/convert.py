@@ -10,7 +10,8 @@ compute on the same constants:
   ``Bmod_A``, ``invA_B``; for field contexts also ``sig_c``, ``p_B``,
   ``cp_A``, ``cp_B``;
 - ``RNSKeyTable``: ``sig_c``, ``n_B``, ``a2_A``, ``a2_B``;
-- ``ECRNSKeyTable``: ``tab``;
+- ``ECRNSKeyTable``: ``tab``, at the width of the JAX context's
+  ``w_bits`` (given in the context arrays);
 - ``Ed25519RNSKeyTable``: ``tna`` and the basepoint's ``b_table_rns()``
   (the JAX package's [rows, I_A + I_B] planes; the port keeps them
   transposed);
@@ -102,16 +103,19 @@ def rsa_key_table(public_numbers: Sequence, ctx_arrays: Dict,
 def ec_key_table(crv: str, keys: Sequence, ctx_arrays: Dict, tab,
                  device="cuda") -> ECKeyTable:
     """An ``ECKeyTable`` whose RNS context and window table are the JAX
-    package's."""
+    package's, at the window width of the JAX table's context
+    (``ctx_arrays["w_bits"]``, 8 where absent): the table serves
+    ``rns(w_bits)`` and the entry points' ``w_bits=`` of that width."""
     from .gpu.ec_rns import ctx_for, packed_cols
 
-    ctx = load_context(ctx_for(crv), ctx_arrays)
+    w_bits = int(ctx_arrays.get("w_bits", 8))
+    ctx = load_context(ctx_for(crv, w_bits), ctx_arrays)
     per = (1 << ctx.w_bits) - 1
     rows = ctx.n_windows * (len(keys) + 1) * per
     tab = _like(np.zeros((rows, 2 * packed_cols(ctx)), np.int32), tab,
                 "tab")
     table = ECKeyTable(crv, keys, device)
-    table._rns = ECRNSKeyTable(crv, keys, tab=tab, ctx=ctx)
+    table._rns[w_bits] = ECRNSKeyTable(crv, keys, tab=tab, ctx=ctx)
     return table
 
 

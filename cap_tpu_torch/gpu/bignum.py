@@ -174,7 +174,31 @@ def modexp_vare(s: torch.Tensor, e: torch.Tensor, n: torch.Tensor,
 def batch_mont_inverse(x_m: torch.Tensor, n1: torch.Tensor,
                        npp1: torch.Tensor, n_int: int,
                        min_width: int = 128) -> torch.Tensor:
-    """Simultaneous inversion of a whole batch (Montgomery domain).
+    """Simultaneous inversion of a whole batch (Montgomery domain): see
+    :func:`batch_mont_inverse_steps`."""
+    return run_steps(batch_mont_inverse_steps(x_m, n1, npp1, n_int,
+                                              min_width))
+
+
+def run_steps(steps):
+    """Run a core written as a generator to its end and return its
+    value. Such a core yields just before each read of the device
+    (:func:`batch_mont_inverse_steps`), so that a meshed caller
+    (``parallel.place.on_shards``) can queue every shard's work up to
+    that read before any shard reads."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as stop:
+            return stop.value
+
+
+def batch_mont_inverse_steps(x_m: torch.Tensor, n1: torch.Tensor,
+                             npp1: torch.Tensor, n_int: int,
+                             min_width: int = 128):
+    """Simultaneous inversion of a whole batch (Montgomery domain), as
+    a generator that yields once, with the root queued on the device
+    and not yet read, and returns the inverses (:func:`run_steps`).
 
     Montgomery's product tree: pair-multiply down to a ``min_width``
     root, invert the root, walk back down — ~3 multiplies per element.
@@ -202,6 +226,7 @@ def batch_mont_inverse(x_m: torch.Tensor, n1: torch.Tensor,
 
     r = 1 << (LIMB_BITS * k)
     r_inv = pow(r, -1, n_int)
+    yield
     root = cur.cpu().numpy()
     inv_np = root.copy()
     for j in range(root.shape[1]):

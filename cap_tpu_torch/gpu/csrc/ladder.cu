@@ -22,7 +22,13 @@
 // registers across the windows. Each thread gathers only its share of
 // the lane's table row (row = i·win_stride + base + d − 1 for a digit
 // d > 0, the row at base for d = 0, whose sum is discarded) from the
-// row-major [rows, 2·iap] table, L2-resident for a few keys: the next
+// row-major [rows, 2·iap] table. The digits may be of any width up to
+// 16 bits (2^w − 1 rows a slot and window, the index in int). The
+// table of G and 8 P-256 keys fits the H100's 50 MB L2 at 8-bit
+// windows (13.5 MB); at 12-bit windows it does not (149 MB; P-384
+// 321 MB, P-521 584 MB), nor does a 300-key table at 8 bits, and the
+// gathers then come from device memory, a window's rows scattered
+// over its (keys + 1)·(2^w − 1) rows. The next
 // window's share is copied into shared memory by cp.async while the
 // current window computes (on the H100 as fast as a register
 // prefetch on P-256 and 5% faster on P-384 and P-521, where the

@@ -8,7 +8,8 @@ table row ``i·win_stride + base + (d − 1)`` for a digit d > 0 (the
 lane's state passes through a digit 0), the final infinity mask and
 the OR of the windows' same-x flags. tab: the row-major window table
 [rows, 2·iap] int32 (packed x words, then packed y words, a row);
-d_all: [W, M] int32 digits (both ladder chains concatenated); base:
+d_all: [W, M] int32 digits of any width w ≤ 16 (both ladder chains
+concatenated; 2^w − 1 rows a slot and window); base:
 [M] int32 slot base of each lane. Returns (X, Y, Z, inf, deg): (A
 [I_A, M], B [I_B, M]) int32 pairs and [M] bools.
 
@@ -27,6 +28,7 @@ import torch
 from . import cuda_madd, cuda_redc
 
 launches = 0
+_MAX_ROWS = (1 << 31) - 1
 
 
 def ladder_ref(ctx, tab, d_all, base, win_stride: int):
@@ -106,6 +108,12 @@ def _check_args(ctx, tab, d_all, base, win_stride: int) -> None:
             n_windows * win_stride > tab.shape[0]:
         raise ValueError(f"{n_windows} windows of stride {win_stride} do "
                          f"not fit the table's {tab.shape[0]} rows")
+    # the kernel forms row indices in int and byte offsets in size_t: a
+    # table of up to 2^31 − 1 rows (12-bit P-521 windows of G and 8
+    # keys: 1,621,620 rows; of G and 300 keys: 54,234,180)
+    if tab.shape[0] > _MAX_ROWS:
+        raise ValueError(f"a table of {tab.shape[0]} rows exceeds the "
+                         f"kernel's {_MAX_ROWS}")
 
 
 def ladder(ctx, tab, d_all, base, win_stride: int):

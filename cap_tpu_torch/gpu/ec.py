@@ -5,7 +5,8 @@ checks, s⁻¹ by a batched product tree, u1/u2) runs in 16-bit limbs
 (``bignum``); the point work runs on one of two engines, the caller's
 choice (``rns=``), each with one of two window-add laws (``ladder=``):
 
-- RNS (the default): a two-chain ladder of 8-bit windows over
+- RNS (the default): a two-chain ladder of w-bit windows (``w_bits=``,
+  8 by default, the JAX package's ``CAP_TPU_EC_WBITS``) over
   precomputed tables in residue form (``ec_rns``), on the card the
   whole-ladder kernel (``jacobian``) or per-window affine adds whose
   divisions share one batched inversion, every multiply a REDC launch
@@ -272,11 +273,11 @@ class ECKeyTable:
     """The keys of one curve and their window tables on a device.
 
     ``keys``: :class:`HostECPublicKey` (or anything with
-    ``public_numbers().x/.y``). Both tables are built at first use: the
-    RNS table (``ec_rns.ECRNSKeyTable``, which ``convert`` may install
-    from the JAX package's arrays instead) by the RNS engine, the limb
-    tables (:meth:`limb_tables`) only by a call that runs the limb
-    engine.
+    ``public_numbers().x/.y``). Every table is built at first use: the
+    RNS table of a window width (:meth:`rns`, ``ec_rns.ECRNSKeyTable``,
+    which ``convert`` may install from the JAX package's arrays
+    instead) by the RNS engine at that width, the limb tables
+    (:meth:`limb_tables`) only by a call that runs the limb engine.
     """
 
     def __init__(self, crv: str, keys: Sequence, device="cuda"):
@@ -284,15 +285,18 @@ class ECKeyTable:
         self.keys = list(keys)
         self.coord_bytes = self.curve.coord_bytes
         self.device = torch.device(device)
-        self._rns = None
+        self._rns: Dict[int, object] = {}     # window width → RNS table
         self._limb = None
 
-    def rns(self):
-        if self._rns is None:
+    def rns(self, w_bits: int = 8):
+        """The RNS window table at ``w_bits``-bit windows, one a width
+        (P-256 with 8 keys: 13.5 MB at 8 bits, 149 MB at 12)."""
+        if w_bits not in self._rns:
             from . import ec_rns
 
-            self._rns = ec_rns.ECRNSKeyTable(self.curve.name, self.keys)
-        return self._rns
+            self._rns[w_bits] = ec_rns.ECRNSKeyTable(
+                self.curve.name, self.keys, w_bits=w_bits)
+        return self._rns[w_bits]
 
     def limb_tables(self) -> tuple:
         """The limb engine's (tqx, tqy) window rows of every key on the
@@ -689,14 +693,23 @@ def _ecdsa_affine_tail(r, r_ok, s_ok, dig1, dig2, key_base, tqx, tqy,
 
 def _es_verify(sig: torch.Tensor, dig: torch.Tensor, flags: torch.Tensor,
                idx: torch.Tensor, table: ECKeyTable, ladder: str,
-               rns: bool):
+               rns: bool, w_bits: int = 8):
+    """[N] (ok, deg) of one chunk: :func:`_es_steps` run to its end."""
+    return B.run_steps(_es_steps(sig, dig, flags, idx, table, ladder, rns,
+                                 w_bits))
+
+
+def _es_steps(sig, dig, flags, idx, table: ECKeyTable, ladder: str,
+              rns: bool, w_bits: int = 8):
+    """:func:`_es_verify` as a generator: on the RNS engine it yields
+    before the batch inverse reads its root (``bignum.run_steps``)."""
     cp = table.curve
     r, s, e = _ec_prep(sig, dig, k=cp.k)
     if rns:
         from . import ec_rns
 
-        ok, deg = ec_rns._ecdsa_rns_core(r, s, e, idx, table.rns(), cp,
-                                         ladder=ladder)
+        ok, deg = yield from ec_rns._ecdsa_rns_core_steps(
+            r, s, e, idx, table.rns(w_bits), cp, ladder=ladder)
     else:
         tqx, tqy = table.limb_tables()
         ok, deg = _ecdsa_core(r, s, e, idx, tqx, tqy, cp, ladder=ladder)
@@ -704,32 +717,49 @@ def _es_verify(sig: torch.Tensor, dig: torch.Tensor, flags: torch.Tensor,
 
 
 def verify_es_packed_pending(table: ECKeyTable, rec: np.ndarray,
-                             hash_len: int):
+                             hash_len: int, mesh=None):
     """Queue one packed ES* chunk on the table's device; returns the
     device ([N] ok, [N] deg) bool tensors (the RNS engine, the
     whole-ladder kernel).
 
     Degenerate-flagged tokens (deg True) must be re-verified on the
-    pure-integer oracle by the caller after the sync.
+    pure-integer oracle by the caller after the sync. With a ``mesh``
+    the record shards along the batch axis: each shard's core runs on
+    its device over the window table there
+    (``ECRNSKeyTable.device_tab``, built once a device), with its own
+    batch inverse (one host ``pow`` of its root a shard, every shard's
+    work queued up to its root before any root is read), and returns
+    :class:`..parallel.place.Sharded` (ok, deg) in batch order.
     """
-    # the keyset hands over the card's chunks already on the device
-    dev = (rec if torch.is_tensor(rec)
-           else torch.from_numpy(np.ascontiguousarray(rec))).to(
-        table.device)
     cb = table.curve.coord_bytes
-    return _es_verify(dev[:, :2 * cb], dev[:, 2 * cb:2 * cb + hash_len],
-                      dev[:, 2 * cb + hash_len] != 0,
-                      dev[:, 2 * cb + hash_len + 1].to(torch.int64), table,
-                      "jacobian", True)
+
+    def steps(dev):
+        return _es_steps(dev[:, :2 * cb], dev[:, 2 * cb:2 * cb + hash_len],
+                         dev[:, 2 * cb + hash_len] != 0,
+                         dev[:, 2 * cb + hash_len + 1].to(torch.int64),
+                         table, "jacobian", True)
+
+    if mesh is not None:
+        from ..parallel.place import on_shards, shard_batch
+
+        # the RNS engine reads its tables where the shard's tensors live
+        return on_shards(mesh, lambda i, r: steps(r), shard_batch(mesh, rec))
+    # the keyset hands over the card's chunks already on the device
+    return B.run_steps(steps((rec if torch.is_tensor(rec) else
+                              torch.from_numpy(np.ascontiguousarray(rec))).to(
+        table.device)))
 
 
 def verify_ecdsa_arrays_pending(table: ECKeyTable, sig_mat: np.ndarray,
                                 sig_lens: np.ndarray, hash_mat: np.ndarray,
                                 hash_len: int, key_idx: np.ndarray,
-                                ladder: str = "jacobian", rns: bool = True):
+                                ladder: str = "jacobian", rns: bool = True,
+                                w_bits: int = 8):
     """Queue one ES* chunk given as arrays (key classes of more than 255
     keys); returns the device ([P] ok, [P] deg) bool tensors, P the
     token count padded to a power of two ≥ 128 (padding rows False).
+    ``w_bits``: the RNS ladder's window width (the limb engine keeps
+    its 4-bit windows).
 
     sig_mat: [N, ≥ 2·cb] left-aligned JOSE r ‖ s; sig_lens: [N];
     hash_mat: [N, ≥ hash_len] digests; key_idx: [N] table rows of any
@@ -755,20 +785,21 @@ def verify_ecdsa_arrays_pending(table: ECKeyTable, sig_mat: np.ndarray,
     return _es_verify(torch.from_numpy(sig).to(dev),
                       torch.from_numpy(dig).to(dev),
                       torch.from_numpy(len_ok).to(dev),
-                      torch.from_numpy(idx).to(dev), table, ladder, rns)
+                      torch.from_numpy(idx).to(dev), table, ladder, rns,
+                      w_bits)
 
 
 def verify_ecdsa_arrays(table: ECKeyTable, sig_mat: np.ndarray,
                         sig_lens: np.ndarray, hash_mat: np.ndarray,
                         hash_len: int, key_idx: np.ndarray,
-                        ladder: str = "jacobian",
-                        rns: bool = True) -> np.ndarray:
+                        ladder: str = "jacobian", rns: bool = True,
+                        w_bits: int = 8) -> np.ndarray:
     """[N] bool verdicts of :func:`verify_ecdsa_arrays_pending`'s chunk,
     its flagged lanes re-verified on the oracle."""
     n_tok = sig_mat.shape[0]
     ok_dev, deg_dev = verify_ecdsa_arrays_pending(
         table, sig_mat, sig_lens, hash_mat, hash_len, key_idx,
-        ladder=ladder, rns=rns)
+        ladder=ladder, rns=rns, w_bits=w_bits)
     ok = ok_dev.cpu().numpy()[:n_tok].copy()
     cb = table.curve.coord_bytes
     for j in np.nonzero(deg_dev.cpu().numpy()[:n_tok])[0]:
@@ -780,10 +811,12 @@ def verify_ecdsa_arrays(table: ECKeyTable, sig_mat: np.ndarray,
 
 def verify_ecdsa_batch(table: ECKeyTable, sigs: Sequence[bytes],
                        msg_hashes: Sequence[bytes], key_idx: np.ndarray,
-                       ladder: str = "jacobian",
-                       rns: bool = True) -> np.ndarray:
+                       ladder: str = "jacobian", rns: bool = True,
+                       w_bits: int = 8) -> np.ndarray:
     """[N] bool verdicts for one ES* bucket given as lists of raw JOSE
-    signatures and digests (all of one length)."""
+    signatures and digests (all of one length); ``ladder``, ``rns`` and
+    ``w_bits`` (the RNS ladder's window width, 8 or 12 bits where the
+    JAX package reads ``CAP_TPU_EC_WBITS``) pick the engine."""
     w = 2 * table.curve.coord_bytes
     n_tok = len(sigs)
     sig_mat = np.zeros((n_tok, w), np.uint8)
@@ -796,4 +829,5 @@ def verify_ecdsa_batch(table: ECKeyTable, sigs: Sequence[bytes],
     for j, h in enumerate(msg_hashes):
         hash_mat[j] = np.frombuffer(h[:hash_len], np.uint8)
     return verify_ecdsa_arrays(table, sig_mat, sig_lens, hash_mat,
-                               hash_len, key_idx, ladder=ladder, rns=rns)
+                               hash_len, key_idx, ladder=ladder, rns=rns,
+                               w_bits=w_bits)

@@ -35,26 +35,34 @@ from . import cuda_ladder, cuda_madd, cuda_redc
 from .ec import CurveParams, curve
 from .rns import FieldRNSContext, I32, _limbs_to_rns, _mod_fix
 
-W_BITS = 8          # window width of the ladder (the JAX default)
+W_BITS = 8          # default window width of the ladder (the JAX default)
 
 
 class ECRNSContext(FieldRNSContext):
-    """Per-curve field context (shared construction in FieldRNSContext)."""
+    """Per-curve field context (shared construction in FieldRNSContext)
+    at a window width of ``w_bits``: ⌈nbits / w⌉ ladder windows, each
+    2^w − 1 table rows a key slot (P-256: 32 windows of 255 rows at 8
+    bits, 22 of 4,095 at 12)."""
 
-    def __init__(self, cp: CurveParams):
+    def __init__(self, cp: CurveParams, w_bits: int = W_BITS):
+        # a digit spans at most two 16-bit limbs (``_digits_of``)
+        if not 1 <= w_bits <= 16:
+            raise ValueError(f"window width {w_bits} outside 1..16 bits")
         super().__init__(cp.p, cp.k)
         self.cp = cp
-        self.w_bits = W_BITS
-        self.n_windows = (cp.nbits + W_BITS - 1) // W_BITS
+        self.w_bits = w_bits
+        self.n_windows = (cp.nbits + w_bits - 1) // w_bits
 
 
-_CTX: Dict[str, ECRNSContext] = {}
+_CTX: Dict[Tuple[str, int], ECRNSContext] = {}
 
 
-def ctx_for(crv: str) -> ECRNSContext:
-    if crv not in _CTX:
-        _CTX[crv] = ECRNSContext(curve(crv))
-    return _CTX[crv]
+def ctx_for(crv: str, w_bits: int = W_BITS) -> ECRNSContext:
+    """The curve's context at ``w_bits``, built once a (curve, width)."""
+    key = (crv, w_bits)
+    if key not in _CTX:
+        _CTX[key] = ECRNSContext(curve(crv), w_bits)
+    return _CTX[key]
 
 
 # ---------------------------------------------------------------------------
@@ -341,16 +349,18 @@ def affine_ladder(c: ECRNSContext, tab, d_all, base, win_stride: int,
     return x, y, inf, deg
 
 
-def affine_redc_launches(crv: str, n_pad: int) -> int:
+def affine_redc_launches(crv: str, n_pad: int,
+                         w_bits: int = W_BITS) -> int:
     """``cuda_redc.redc`` launches of one ES* verify over ``n_pad``
-    lanes (a power of two ≥ 128) on the affine ladder: W windows over
+    lanes (a power of two ≥ 128) on the affine ladder at ``w_bits``-bit
+    windows: W windows over
     M = 2·n_pad lanes (the G and Q chains side by side), each the
     batched inversion (log2(M/128) tree products down, pbits − 1
     squares and popcount(p − 2) − 1 multiplies of the root's Fermat
     ladder, log2(M/128) products back up) and 4 more (λ, λ², λ·(x − x3)
     with x3's re-reduction, y3's re-reduction); then 11, the merge (6)
     and the projective check (5)."""
-    c = ctx_for(crv)
+    c = ctx_for(crv, w_bits)
     p = c.cp.p
     levels = (2 * n_pad // 128).bit_length() - 1
     return c.n_windows * (2 * levels + p.bit_length()
@@ -412,11 +422,15 @@ def ladder_per_window(c: ECRNSContext, tab, d_all, base,
     return X, Y, Z, inf, deg
 
 
-def _ecdsa_rns_core(r, s, e, key_idx, rtab: "ECRNSKeyTable",
-                    cp: CurveParams, ladder: str = "jacobian"):
-    """ECDSA verify: scalar math in limbs, point math in RNS.
+def _ecdsa_rns_core_steps(r, s, e, key_idx, rtab: "ECRNSKeyTable",
+                          cp: CurveParams, ladder: str = "jacobian"):
+    """ECDSA verify: scalar math in limbs, point math in RNS, as a
+    generator (``bignum.run_steps``) that yields before the batch
+    inverse reads its root on the host.
 
-    r, s, e: [K, N] int64 limbs, N a power of two ≥ 128; key_idx: [N];
+    r, s, e: [K, N] int64 limbs (N a power of two ≥ 128 on the keyset's
+    chunks; a mesh shard's N may be fewer, its own inverse root);
+    key_idx: [N];
     ``rtab``: the packed window table. ``jacobian``: the ladder runs as
     one whole-ladder launch (``cuda_ladder``); ``affine``:
     :func:`affine_ladder`, whose chains enter the merge with Z = 1.
@@ -438,7 +452,7 @@ def _ecdsa_rns_core(r, s, e, key_idx, rtab: "ECRNSKeyTable",
     one_plain[0] = 1
     s_safe = torch.where(s_ok[None, :], s, one_plain)
     s_m = B.mont_mul(s_safe, nr2.expand(k, n_tok), nb, nppb)
-    w_m = B.batch_mont_inverse(s_m, n_col, npp, cp.n)
+    w_m = yield from B.batch_mont_inverse_steps(s_m, n_col, npp, cp.n)
     u1 = B.mont_mul(e, w_m, nb, nppb)
     u2 = B.mont_mul(r, w_m, nb, nppb)
 
@@ -538,8 +552,9 @@ class ECRNSKeyTable:
 
     def __init__(self, crv: str, keys: Sequence,
                  tab: Optional[np.ndarray] = None,
-                 ctx: Optional[ECRNSContext] = None):
-        self.ctx = ctx if ctx is not None else ctx_for(crv)
+                 ctx: Optional[ECRNSContext] = None,
+                 w_bits: int = W_BITS):
+        self.ctx = ctx if ctx is not None else ctx_for(crv, w_bits)
         self.cp = self.ctx.cp
         c = self.ctx
         self.nk = nk = len(keys)
@@ -561,7 +576,7 @@ class ECRNSKeyTable:
                                     _window_residue_rows_many(c, group)):
                 packed[pt] = (_pack_residue_rows(c, rx),
                               _pack_residue_rows(c, ry))
-        parts = [_g_packed_np(crv)] + [packed[pt] for pt in pts]
+        parts = [_g_packed_np(crv, c.w_bits)] + [packed[pt] for pt in pts]
         # [slots, W, per, iap] → window-major [W, slots, per, iap]
         tx = np.stack([px.reshape(nw, per, iap) for px, _ in parts])
         ty = np.stack([py.reshape(nw, per, iap) for _, py in parts])
@@ -619,14 +634,16 @@ def _window_residue_rows(c: ECRNSContext, point) -> Tuple[np.ndarray,
     return _window_residue_rows_many(c, [point])[0]
 
 
-_G_PACKED_NP: Dict[str, tuple] = {}
+_G_PACKED_NP: Dict[Tuple[str, int], tuple] = {}
 
 
-def _g_packed_np(crv: str):
-    """Host-cached packed G window rows (x, y), each [W·per, iap]."""
-    if crv not in _G_PACKED_NP:
-        c = ctx_for(crv)
+def _g_packed_np(crv: str, w_bits: int = W_BITS):
+    """Host-cached packed G window rows (x, y), each [W·per, iap], at
+    the window width ``w_bits``."""
+    key = (crv, w_bits)
+    if key not in _G_PACKED_NP:
+        c = ctx_for(crv, w_bits)
         rx, ry = _window_residue_rows(c, (c.cp.gx, c.cp.gy))
-        _G_PACKED_NP[crv] = (_pack_residue_rows(c, rx),
+        _G_PACKED_NP[key] = (_pack_residue_rows(c, rx),
                              _pack_residue_rows(c, ry))
-    return _G_PACKED_NP[crv]
+    return _G_PACKED_NP[key]

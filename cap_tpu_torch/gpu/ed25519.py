@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import bignum as B
 from . import limbs as L
 
 # edwards25519 domain parameters (RFC 8032 §5.1).
@@ -335,8 +336,6 @@ def _edw_madd(X, Y, Z, T, ym, yp, t2, p, pp):
     """Mixed extended + affine-triple addition, a = −1
     (madd-2008-hwcd-3), 7M; complete on edwards25519 (doubling,
     inverses and the identity on either side included)."""
-    from . import bignum as B
-
     a = B.mont_mul(B.sub_mod(Y, X, p), ym, p, pp)
     b = B.mont_mul(B.add_mod(Y, X, p), yp, p, pp)
     c = B.mont_mul(T, t2, p, pp)
@@ -361,8 +360,6 @@ def _ed25519_core(s, kk, yr, sign_r, bad_key, key_idx, tna,
     with one batched inversion of Z, its encoding compared with R's.
     Returns ok [N].
     """
-    from . import bignum as B
-
     k, n_tok = s.shape
     dev = s.device
     p1, pp1, _, l1 = consts().device(dev)
@@ -458,12 +455,19 @@ def _ed_verify(packed: torch.Tensor, idx: torch.Tensor,
                table: Ed25519KeyTable, rns: bool) -> torch.Tensor:
     """Records (the key row byte unread) and their [N] key rows → [N]
     bool, on the RNS engine or (``rns=False``) the limb engine."""
+    return B.run_steps(_ed_steps(packed, idx, table, rns))
+
+
+def _ed_steps(packed: torch.Tensor, idx: torch.Tensor,
+              table: Ed25519KeyTable, rns: bool):
+    """:func:`_ed_verify` as a generator: on the RNS engine it yields
+    before the batch inverse reads its root (``bignum.run_steps``)."""
     s, kk, yr, sign_r, _, flags = _ed_packed_unpack(packed)
     if rns:
         from . import ed25519_rns
 
-        ok = ed25519_rns._ed25519_rns_core(s, kk, yr, sign_r, idx,
-                                           table.rns())
+        ok = yield from ed25519_rns._ed25519_rns_core_steps(
+            s, kk, yr, sign_r, idx, table.rns())
     else:
         # a key that does not decode has its flag cleared already
         ok = _ed25519_core(s, kk, yr, sign_r, torch.zeros_like(flags), idx,
@@ -471,17 +475,30 @@ def _ed_verify(packed: torch.Tensor, idx: torch.Tensor,
     return ok & flags
 
 
-def verify_ed_packed_pending(table: Ed25519KeyTable,
-                             rec: np.ndarray) -> torch.Tensor:
+def verify_ed_packed_pending(table: Ed25519KeyTable, rec: np.ndarray,
+                             mesh=None):
     """Queue one packed EdDSA chunk on the table's device (the RNS
-    engine); returns the device [N] bool. N must be a power of two ≥
-    128 (the batch inverse's tree); padding rows compute on key row
-    0."""
+    engine); returns the device [N] bool. Padding rows compute on key
+    row 0. The batch inverse's tree pairs lanes down to a 128-lane root
+    from a power of two above 128; a batch of 128 lanes or fewer is its
+    own root, each lane inverted by the host ``pow``. With a ``mesh``
+    the record shards along the batch axis (a 128-row chunk over 8
+    shards: 16 lanes a shard, each shard its own root) and the verdicts
+    come back as :class:`..parallel.place.Sharded` in batch order,
+    every shard's 32 windows queued before any shard's inverse root is
+    read."""
+    def steps(dev):
+        return _ed_steps(dev, dev[:, 97].to(torch.int64), table, True)
+
+    if mesh is not None:
+        from ..parallel.place import on_shards, shard_batch
+
+        # the RNS engine reads its tables where the shard's tensors live
+        return on_shards(mesh, lambda i, r: steps(r), shard_batch(mesh, rec))
     # the keyset hands over the card's chunks already on the device
-    dev = (rec if torch.is_tensor(rec)
-           else torch.from_numpy(np.ascontiguousarray(rec))).to(
-        table.device)
-    return _ed_verify(dev, dev[:, 97].to(torch.int64), table, True)
+    return B.run_steps(steps((rec if torch.is_tensor(rec) else
+                              torch.from_numpy(np.ascontiguousarray(rec))).to(
+        table.device)))
 
 
 def verify_ed25519_batch_pending(table: Ed25519KeyTable,

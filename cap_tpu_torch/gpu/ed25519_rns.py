@@ -234,11 +234,25 @@ def window_rows(dig1: torch.Tensor, dig2: torch.Tensor,
 
 def _ed25519_rns_core(s, kk, yr, sign_r, key_idx,
                       rtab: Ed25519RNSKeyTable) -> torch.Tensor:
-    """Ed25519 verify: RNS ladder, limb-domain finish.
+    """Ed25519 verify: RNS ladder, limb-domain finish (see
+    :func:`_ed25519_rns_core_steps`). Returns ok [N] bool."""
+    from . import bignum as B
+
+    return B.run_steps(_ed25519_rns_core_steps(s, kk, yr, sign_r, key_idx,
+                                               rtab))
+
+
+def _ed25519_rns_core_steps(s, kk, yr, sign_r, key_idx,
+                            rtab: Ed25519RNSKeyTable):
+    """Ed25519 verify: RNS ladder, limb-domain finish, as a generator
+    (``bignum.run_steps``) that yields before the batch inverse reads
+    its root on the host, after the 32 ladder windows are queued.
 
     s, kk, yr: [K, N] int64 limbs (S; k = H(R‖A‖M) mod L; R's y with
     the sign bit cleared); sign_r: [N] R's sign bit; key_idx: [N] key
-    rows. N a power of two ≥ 128 (the batch inverse's tree). Returns
+    rows. N any lane count (a power of two ≥ 128 pairs down to a
+    128-lane root in the batch inverse's tree; fewer lanes are their
+    own root). Returns
     ok [N] bool (S < L and the encoding of [S]B + [k](−A) equals R).
     """
     from . import bignum as B
@@ -291,7 +305,7 @@ def _ed25519_rns_core(s, kk, yr, sign_r, key_idx,
 
     Xl, Yl, Zl = to_canonical(X), to_canonical(Y), to_canonical(Z)
     z_m = B.mont_mul(Zl, pr2.expand(k, n_tok), pb, ppb)
-    zinv = B.batch_mont_inverse(z_m, p, pp, P)
+    zinv = yield from B.batch_mont_inverse_steps(z_m, p, pp, P)
     # x = X·(Z⁻¹·R)·R⁻¹: one Montgomery product cancels the R factor
     x = B.mont_mul(Xl, zinv, pb, ppb)
     y = B.mont_mul(Yl, zinv, pb, ppb)

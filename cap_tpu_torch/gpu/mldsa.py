@@ -518,6 +518,10 @@ def py_verify(pub: MLDSAPublicKey, signature: bytes,
 # device engine: per-parameter-set key tables + the fused verify
 # ---------------------------------------------------------------------------
 
+# the key table's tensors, replicated on every device of a mesh
+TABLE_TENSORS = ("a_mont", "t1_mont")
+
+
 class MLDSAKeyTable:
     """Key material of ONE parameter set on the device.
 
@@ -779,13 +783,17 @@ def verify_mldsa_fused_pending(table: MLDSAKeyTable,
                                sigs: Sequence[bytes],
                                msgs: Sequence[bytes],
                                key_idx: np.ndarray,
-                               pad: Optional[int] = None) -> FusedPending:
+                               pad: Optional[int] = None,
+                               mesh=None) -> FusedPending:
     """Decode now and queue the one fused device pass; the returned
     :class:`FusedPending` gives [pad] bool verdicts when called.
 
     Tokens invalid at decode finish False without touching the hash
     chain; lanes whose SampleInBall walk exhausts its budget re-verify
-    on the host oracle.
+    on the host oracle. With a ``mesh`` every per-token array shards
+    along the batch axis (``pad`` a multiple of the mesh size), the
+    key tables and the w1 pad replicate, and ``outs`` are
+    :class:`..parallel.place.Sharded`.
     """
     if pad is None:
         pad = len(sigs)
@@ -793,10 +801,23 @@ def verify_mldsa_fused_pending(table: MLDSAKeyTable,
     prep = _FusedPrep(table, sigs, msgs, key_idx, pad)
     if not prep.valid.any():
         return FusedPending(table, prep, pad, [])
+    arrs = (prep.mu_blocks, prep.mu_nblk, prep.ct_block, prep.ct_cmp,
+            prep.z, prep.h, prep.key_idx, prep.valid)
+    w1_pad = _W1_PAD[table.parameter_set]
+    if mesh is not None:
+        from ..parallel.place import (on_shards, replicated,
+                                      replicated_views, shard_batch)
+
+        views = replicated_views(mesh, table, TABLE_TENSORS)
+        pads = replicated(mesh, w1_pad)
+        outs = on_shards(
+            mesh, lambda i, *a: _fused_core(
+                views[i].a_mont, views[i].t1_mont, *a, pads[i], p.gamma2,
+                p.tau, p.w1_bits),
+            *(shard_batch(mesh, a) for a in arrs))
+        return FusedPending(table, prep, pad, list(outs))
     dev = table.device
-    put = [_kk.to_device(a, dev) for a in (
-        prep.mu_blocks, prep.mu_nblk, prep.ct_block, prep.ct_cmp, prep.z,
-        prep.h, prep.key_idx, prep.valid, _W1_PAD[table.parameter_set])]
+    put = [_kk.to_device(a, dev) for a in arrs + (w1_pad,)]
     outs = _fused_core(table.a_mont, table.t1_mont, *put,
                        p.gamma2, p.tau, p.w1_bits)
     return FusedPending(table, prep, pad, list(outs))
@@ -812,10 +833,21 @@ def _to_dev(a: np.ndarray, device) -> torch.Tensor:
 
 def verify_mldsa_core_pending(table: MLDSAKeyTable, z: np.ndarray,
                               c: np.ndarray, h: np.ndarray,
-                              key_idx: np.ndarray) -> torch.Tensor:
+                              key_idx: np.ndarray, mesh=None):
     """Queue the w1 network on the table's device: z int32 [B, l, 256],
     c int32 [B, 256] (both in [0, q)), h uint8 [B, k, 256], key_idx [B]
-    → the device uint8 [B, k, 256] w1 values (2 ntt + 1 intt launches)."""
+    → the device uint8 [B, k, 256] w1 values (2 ntt + 1 intt launches).
+    With a ``mesh`` the four arrays shard along the batch axis, the key
+    tables replicate, and the w1 values are
+    :class:`..parallel.place.Sharded` (2 ntt + 1 intt a shard)."""
+    if mesh is not None:
+        from ..parallel.place import on_shards, replicated_views, shard_batch
+
+        views = replicated_views(mesh, table, TABLE_TENSORS)
+        return on_shards(
+            mesh, lambda i, *a: w1_resident(views[i], *a),
+            *(shard_batch(mesh, a) for a in (z, c, h,
+                                             key_idx.astype(np.int64))))
     dev = table.device
     return w1_resident(table, _to_dev(z, dev), _to_dev(c, dev),
                        _to_dev(h, dev), _to_dev(key_idx.astype(np.int64),
@@ -872,17 +904,18 @@ class _PreppedChunk:
 
 def verify_mldsa_pending(table: MLDSAKeyTable, sigs: Sequence[bytes],
                          msgs: Sequence[bytes], key_idx: np.ndarray,
-                         pad: Optional[int] = None):
+                         pad: Optional[int] = None, mesh=None):
     """The two-phase arm: host decode and hashing now, the w1 network
     queued on the device; returns ``fin()`` → [pad] bool verdicts (the
     w1 copy and the host finish run on the call). Tokens invalid at
     decode never reach the device and finish False, as
-    :func:`py_verify` decides them."""
+    :func:`py_verify` decides them. ``mesh`` shards the w1 network as
+    in :func:`verify_mldsa_core_pending`."""
     if pad is None:
         pad = len(sigs)
     prep = _PreppedChunk(table, sigs, msgs, key_idx, pad)
     w1_dev = (verify_mldsa_core_pending(table, prep.z, prep.c, prep.h,
-                                        prep.key_idx)
+                                        prep.key_idx, mesh=mesh)
               if prep.valid.any() else None)
 
     def fin() -> np.ndarray:
@@ -894,11 +927,12 @@ def verify_mldsa_pending(table: MLDSAKeyTable, sigs: Sequence[bytes],
 
 
 def verify_mldsa_batch(table: MLDSAKeyTable, sigs: Sequence[bytes],
-                       msgs: Sequence[bytes],
-                       key_idx: np.ndarray) -> np.ndarray:
+                       msgs: Sequence[bytes], key_idx: np.ndarray,
+                       mesh=None) -> np.ndarray:
     """[N] bool verdicts for one ML-DSA bucket on the two-phase arm (the
-    JAX package's blocking interface)."""
-    return verify_mldsa_pending(table, sigs, msgs, key_idx)()
+    JAX package's blocking interface), sharded over ``mesh`` if one is
+    given."""
+    return verify_mldsa_pending(table, sigs, msgs, key_idx, mesh=mesh)()
 
 
 def host_w1(table: MLDSAKeyTable, prep: _PreppedChunk) -> np.ndarray:

@@ -235,17 +235,44 @@ def _rs_verify(s_limbs, dig, flags, idx, table: RSAKeyTable,
             & s_in_range_mask(table, s_limbs, idx) & flags)
 
 
-def verify_rs_packed_pending(table: RSAKeyTable, rec: np.ndarray,
-                             hash_name: str) -> torch.Tensor:
-    """Queue one packed RS* chunk on the table's device; returns the
-    device [N] bool (materialized by the caller's one sync)."""
+# the key table's own tensors, replicated on every device of a mesh
+TABLE_TENSORS = ("n_tab", "np_tab", "r2_tab", "one_tab", "e_dev",
+                 "sizes_dev", "mod_bits_dev")
+
+
+def _packed_pending(table: RSAKeyTable, rec, hash_name: str, verify,
+                    mesh):
+    """One packed chunk through ``verify`` (:func:`_rs_verify` or
+    :func:`_ps_verify`): on the table's device, or with a mesh the
+    record sharded along the batch axis and the tables replicated, one
+    shard's core a mesh device (a :class:`..parallel.place.Sharded`
+    verdict)."""
+    h_len = HASH_LEN[hash_name]
+
+    def run(view, dev_rec):
+        s_limbs, dig, flags, idx = _rs_packed_unpack(dev_rec, view.k, h_len)
+        return verify(s_limbs, dig, flags, idx, view, hash_name, True)
+
+    if mesh is not None:
+        from ..parallel.place import on_shards, replicated_views, shard_batch
+
+        views = replicated_views(mesh, table, TABLE_TENSORS)
+        return on_shards(mesh, lambda i, r: run(views[i], r),
+                         shard_batch(mesh, rec))
     # the keyset hands over the card's chunks already on the device
     dev = (rec if torch.is_tensor(rec)
            else torch.from_numpy(np.ascontiguousarray(rec))).to(
         table.device)
-    s_limbs, dig, flags, idx = _rs_packed_unpack(dev, table.k,
-                                                 HASH_LEN[hash_name])
-    return _rs_verify(s_limbs, dig, flags, idx, table, hash_name, True)
+    return run(table, dev)
+
+
+def verify_rs_packed_pending(table: RSAKeyTable, rec: np.ndarray,
+                             hash_name: str, mesh=None):
+    """Queue one packed RS* chunk on the table's device; returns the
+    device [N] bool (materialized by the caller's one sync). With a
+    ``mesh`` (:func:`cap_tpu_torch.parallel.make_mesh`) the record
+    shards along the batch axis and the tables replicate."""
+    return _packed_pending(table, rec, hash_name, _rs_verify, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -379,17 +406,12 @@ def _ps_verify(s_limbs, dig, flags, idx, table: RSAKeyTable,
 
 
 def verify_ps_packed_pending(table: RSAKeyTable, rec: np.ndarray,
-                             hash_name: str) -> torch.Tensor:
+                             hash_name: str, mesh=None):
     """Queue one packed PS* chunk (records of ``rs_packed_records`` with
     kind "ps") on the table's device; returns the device [N] bool. The
-    EM never leaves the device."""
-    # the keyset hands over the card's chunks already on the device
-    dev = (rec if torch.is_tensor(rec)
-           else torch.from_numpy(np.ascontiguousarray(rec))).to(
-        table.device)
-    s_limbs, dig, flags, idx = _rs_packed_unpack(dev, table.k,
-                                                 HASH_LEN[hash_name])
-    return _ps_verify(s_limbs, dig, flags, idx, table, hash_name, True)
+    EM never leaves the device. ``mesh`` as in
+    :func:`verify_rs_packed_pending`."""
+    return _packed_pending(table, rec, hash_name, _ps_verify, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -820,7 +820,7 @@ def pad_rows(m: int) -> int:
 
 def verify_slhdsa_pending(table: SLHDSAKeyTable, sigs: Sequence[bytes],
                           msgs: Sequence[bytes], key_idx: np.ndarray,
-                          pad: Optional[int] = None) -> torch.Tensor:
+                          pad: Optional[int] = None, mesh=None):
     """Decode one chunk now and queue its hash forest on the table's
     device; returns the device [pad] bool verdicts (read by the
     caller's one sync).
@@ -828,10 +828,18 @@ def verify_slhdsa_pending(table: SLHDSAKeyTable, sigs: Sequence[bytes],
     Wrong-length signatures finish False without touching the device,
     the verdicts ``py_verify`` gives (the length is SLH-DSA's only
     non-root reject gate); when no row is valid nothing is queued.
+
+    With a ``mesh``, as in the JAX package, the arrays whose axis 0 is
+    the chunk's ``pad`` rows shard along it and the layer-major ones
+    (the batch on axis 1) replicate; each shard's forest runs on its
+    device over its own columns of those, and the verdicts come back as
+    :class:`..parallel.place.Sharded` in batch order.
     """
     if pad is None:
         pad = pad_rows(len(sigs))
     prep = _SLHPrep(table, sigs, msgs, key_idx, pad)
+    if mesh is not None:
+        return _slh_sharded(table, prep, pad, mesh)
     dev = table.device
     if not prep.valid.any():
         return torch.zeros(pad, dtype=torch.bool, device=dev)
@@ -840,9 +848,43 @@ def verify_slhdsa_pending(table: SLHDSAKeyTable, sigs: Sequence[bytes],
     return _slh_core(table.pk_seed_l, table.pk_root_l, *arrs)
 
 
+# the key table's tensors, replicated on every device of a mesh
+TABLE_TENSORS = ("pk_seed_l", "pk_root_l")
+
+
+def _slh_sharded(table: SLHDSAKeyTable, prep: "_SLHPrep", pad: int, mesh):
+    """:func:`verify_slhdsa_pending`'s chunk over a mesh."""
+    from ..parallel.place import (Sharded, broadcast, on_shards,
+                                  replicated_views, shard_batch,
+                                  shard_bounds)
+
+    bounds = shard_bounds(mesh, pad)
+    if not prep.valid.any():
+        return Sharded(mesh, [torch.zeros(sl.stop - sl.start,
+                                          dtype=torch.bool, device=d)
+                              for sl, d in zip(bounds, mesh.devices)])
+    views = replicated_views(mesh, table, TABLE_TENSORS)
+    arrs = prep.arrays()
+    rows = [a.shape[0] == pad for a in arrs]
+    # the layer-major arrays whole on each device (this chunk's data,
+    # so not through the table cache)
+    reps = [None if r else broadcast(mesh, a) for a, r in zip(arrs, rows)]
+    sharded = [shard_batch(mesh, a) for a, r in zip(arrs, rows) if r]
+
+    def shard(i, *parts):
+        it = iter(parts)
+        args = [next(it) if r else rep[i][:, bounds[i]]
+                for r, rep in zip(rows, reps)]
+        args[0] = args[0].to(torch.int64)                # key rows
+        return _slh_core(views[i].pk_seed_l, views[i].pk_root_l, *args)
+
+    return on_shards(mesh, shard, *sharded)
+
+
 def verify_slhdsa_batch(table: SLHDSAKeyTable, sigs: Sequence[bytes],
-                        msgs: Sequence[bytes],
-                        key_idx: np.ndarray) -> np.ndarray:
-    """[N] bool verdicts for one SLH-DSA bucket (blocking)."""
-    out = verify_slhdsa_pending(table, sigs, msgs, key_idx)
+                        msgs: Sequence[bytes], key_idx: np.ndarray,
+                        mesh=None) -> np.ndarray:
+    """[N] bool verdicts for one SLH-DSA bucket (blocking), sharded over
+    ``mesh`` if one is given."""
+    out = verify_slhdsa_pending(table, sigs, msgs, key_idx, mesh=mesh)
     return out.cpu().numpy()[:len(sigs)]

@@ -61,9 +61,13 @@ spans and the occupancy interval of each batch go to
 ``GPURemoteKeySet`` keeps a ``GPUBatchKeySet`` over a remote JWKS with
 at most one refetch a batch for unknown kids.
 
-Not ported yet (ROADMAP): the two-phase ML-DSA arm (host μ/c̃ around
-the device NTT); the bench helpers ``resident_dispatchers`` /
-``resident_slope_vps``.
+With a ``mesh`` (:func:`cap_tpu_torch.parallel.make_mesh`) every
+packed chunk shards along the batch axis over the mesh's devices, the
+key tables replicated on each, as the JAX keyset's ``mesh=`` does; the
+arrays paths run on the mesh's first device.
+
+Not ported (ROADMAP): the bench helpers ``resident_dispatchers`` /
+``resident_slope_vps``, which belong to the port's benchmark.
 """
 
 from __future__ import annotations
@@ -183,7 +187,8 @@ class _KeyTables:
     the previous instance finishes entirely on its epoch.
     """
 
-    __slots__ = ("epoch", "grace_kids", "jwks", "by_kid", "rsa_tables",
+    __slots__ = ("epoch", "grace_kids", "mesh", "jwks", "by_kid",
+                 "rsa_tables",
                  "n_rsa_keys", "ec_tables", "ed_table", "rsa_rows",
                  "ec_rows", "ed_rows", "kid_rsa_row", "kid_ec_row",
                  "kid_ed_row", "ec_keys", "mldsa_rows", "mldsa_tables",
@@ -191,8 +196,10 @@ class _KeyTables:
                  "kid_slhdsa_row")
 
     def __init__(self, jwks: Sequence[JWK], device: torch.device,
-                 epoch: int = 0, grace_kids: Sequence[str] = ()):
+                 epoch: int = 0, grace_kids: Sequence[str] = (),
+                 mesh=None):
         self.epoch = int(epoch)
+        self.mesh = mesh
         # kids of the previous epoch that resolve only until the grace
         # retires (empty in a pure epoch)
         self.grace_kids = frozenset(grace_kids)
@@ -293,11 +300,26 @@ class _KeyTables:
     def warm(self) -> "_KeyTables":
         """Build the EC and Ed25519 window tables now, on this thread
         (they are built at their first batch otherwise), so a batch on
-        a swapped-in epoch builds nothing on the verify path."""
-        for table in self.ec_tables.values():
-            table.rns().device_tab(table.device)
+        a swapped-in epoch builds nothing on the verify path. Over a
+        mesh: the window tables on each distinct mesh device, and the
+        other tables' copies there (``parallel.place.replicated``)."""
+        mesh = self.mesh
+        devices = mesh.distinct() if mesh is not None else None
+        windowed = list(self.ec_tables.values())
         if self.ed_table is not None:
-            self.ed_table.rns().device_tab(self.ed_table.device)
+            windowed.append(self.ed_table)
+        for table in windowed:
+            for dev in devices or (table.device,):
+                table.rns().device_tab(dev)
+        if mesh is not None:
+            from ..parallel.place import replicated_views
+
+            for table in self.rsa_tables:
+                replicated_views(mesh, table, gpursa.TABLE_TENSORS)
+            for table in self.mldsa_tables.values():
+                replicated_views(mesh, table, gpumldsa.TABLE_TENSORS)
+            for table in self.slhdsa_tables.values():
+                replicated_views(mesh, table, gpuslh.TABLE_TENSORS)
         return self
 
 
@@ -315,19 +337,38 @@ class GPUBatchKeySet(KeySet):
     ``CAP_TPU_CHUNK_BUDGET_MS``).
     ``epoch``: the key-material version of the initial tables;
     :meth:`swap_keys` installs later ones.
+    ``mesh``: a :class:`cap_tpu_torch.parallel.mesh.Mesh`: every packed
+    chunk then shards along the batch axis over its devices (equal
+    shards, so the mesh size must divide the chunk pads, powers of two
+    ≥ 128; SLH-DSA's ≥ 16) with the key tables replicated on each; the
+    arrays paths run on its first device. ``device`` defaults to that
+    first device and must equal it. A shard that fails raises: nothing
+    is re-run unsharded or on the CPU.
     """
 
-    def __init__(self, jwks: Sequence[JWK], device=None,
+    def __init__(self, jwks: Sequence[JWK], device=None, mesh=None,
                  max_chunk: int = 32768, chunk_budget_ms: float = 250.0,
                  epoch: int = 0):
         if not jwks:
             raise NilParameterError("at least one key is required")
+        if mesh is not None:
+            first = mesh.devices[0]
+            if device is not None and not _same_device(device, first):
+                raise ValueError(
+                    f"device {torch.device(device)} is not the mesh's "
+                    f"first device {first}")
+            device = first
         device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
+        uses_cuda = device.type == "cuda" or (mesh is not None and any(
+            d.type == "cuda" for d in mesh.devices))
+        if uses_cuda and not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; GPUBatchKeySet runs on the card "
                 "unless device='cpu' is given")
         self.device = device
+        self.mesh = mesh
+        # the engines' keyword: an unmeshed keyset calls them as before
+        self._mesh_kw = {} if mesh is None else {"mesh": mesh}
         self.deg_reverified = 0
         self._max_chunk = max_chunk
         # Wire-adaptive chunk sizing: an EWMA of the observed
@@ -337,7 +378,7 @@ class GPUBatchKeySet(KeySet):
         self._wire_bps: Optional[float] = None
         self._chunk_budget_s = float(chunk_budget_ms) / 1e3
         self._swap_lock = threading.Lock()
-        self._tables = _KeyTables(jwks, device, epoch=epoch)
+        self._tables = _KeyTables(jwks, device, epoch=epoch, mesh=mesh)
 
     # -- epoch-versioned key tables (hot swap) -----------------------------
 
@@ -385,7 +426,8 @@ class GPUBatchKeySet(KeySet):
             with telemetry.span(telemetry.SPAN_KEYPLANE_SWAP):
                 self._tables = _KeyTables(
                     jwks + retained, self.device, epoch=new_epoch,
-                    grace_kids=[j.kid for j in retained]).warm()
+                    grace_kids=[j.kid for j in retained],
+                    mesh=self.mesh).warm()
         if retained:
             telemetry.count("keyplane.grace_kids", len(retained))
             timer = threading.Timer(
@@ -402,7 +444,8 @@ class GPUBatchKeySet(KeySet):
         thread). A newer swap having landed meanwhile makes this a
         no-op."""
         try:
-            pure = _KeyTables(jwks, self.device, epoch=epoch).warm()
+            pure = _KeyTables(jwks, self.device, epoch=epoch,
+                              mesh=self.mesh).warm()
         except Exception:  # noqa: BLE001 - keep serving graced tables
             telemetry.count("keyplane.grace_retire_errors")
             return
@@ -760,8 +803,8 @@ class GPUBatchKeySet(KeySet):
                                   else gpursa.verify_ps_packed_pending)
                         rec = rsa_records(pb, table, kind, hash_name,
                                           chunk, crows, pad)
-                        ok = verify(table, _send(rec, self.device, stats),
-                                    hash_name)
+                        ok = verify(table, self._send(rec, stats),
+                                    hash_name, **self._mesh_kw)
                 pending.append((chunk, m, [ok], self._finish_ok))
 
     @staticmethod
@@ -820,7 +863,8 @@ class GPUBatchKeySet(KeySet):
                     rec = es_records(pb, table, chunk, crows, hash_len,
                                      pad)
                     ok, deg = gpuec.verify_es_packed_pending(
-                        table, _send(rec, self.device, stats), hash_len)
+                        table, self._send(rec, stats), hash_len,
+                        **self._mesh_kw)
                     sig_of = rec[:, :2 * cb]
                     dig_of = rec[:, 2 * cb:2 * cb + hash_len]
 
@@ -875,7 +919,7 @@ class GPUBatchKeySet(KeySet):
                     rec = gpued.ed_packed_records(table, sigs, msgs,
                                                   key_idx)
                     ok = gpued.verify_ed_packed_pending(
-                        table, _send(rec, self.device, stats))
+                        table, self._send(rec, stats), **self._mesh_kw)
             pending.append((chunk, m, [ok], self._finish_ok))
 
     def _run_mldsa_packed(self, pset: str, idx: np.ndarray, pb,
@@ -910,7 +954,7 @@ class GPUBatchKeySet(KeySet):
                 fin = gpumldsa.verify_mldsa_fused_pending(
                     table, [pb.signature(j) for j in chunk.tolist()],
                     [pb.signing_input(j) for j in chunk.tolist()],
-                    rows[lo: lo + chunk_n], pad=pad)
+                    rows[lo: lo + chunk_n], pad=pad, **self._mesh_kw)
 
             def finish(chunk, arrs, pb, results, fin=fin):
                 okv = fin.verdicts(arrs)
@@ -956,21 +1000,41 @@ class GPUBatchKeySet(KeySet):
                 ok = gpuslh.verify_slhdsa_pending(
                     table, [pb.signature(j) for j in chunk.tolist()],
                     [pb.signing_input(j) for j in chunk.tolist()],
-                    rows[lo: lo + chunk_n], pad=pad)
+                    rows[lo: lo + chunk_n], pad=pad, **self._mesh_kw)
             pending.append((chunk, m, [ok], self._finish_ok))
+
+    def _send(self, rec: np.ndarray, stats: Optional[dict]):
+        """One packed chunk's records for the engine, counted as its h2d
+        bytes and copied to the keyset's device (:func:`_copy`); over a
+        mesh, split into its shards (``parallel.place.shard_bounds``),
+        each copied to its device so, timed the same way."""
+        _count_h2d(stats, (rec,))
+        if self.mesh is None:
+            return _copy(rec, self.device, stats)
+        from ..parallel.place import Sharded, shard_bounds
+
+        parts = [_copy(rec[sl], dev, stats) for sl, dev in zip(
+            shard_bounds(self.mesh, len(rec)), self.mesh.devices)]
+        return Sharded(self.mesh, [torch.from_numpy(np.ascontiguousarray(p))
+                                   if isinstance(p, np.ndarray) else p
+                                   for p in parts])
+
+
+def _same_device(a, b) -> bool:
+    """Whether two device names are one device ("cuda" is card 0)."""
+    a, b = torch.device(a), torch.device(b)
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
 
 
 # copies smaller than this time the host's hand-off more than the link
 _MIN_TIMED_COPY = 1 << 20
 
 
-def _send(rec: np.ndarray, device: torch.device, stats: Optional[dict]):
-    """One chunk's packed records for the engine, counted as its h2d
-    bytes. On the card the copy is made here, one of at least
-    ``_MIN_TIMED_COPY`` bytes between two CUDA events (the observed
-    rate of ``_observe_wire``); on the CPU the records go as they
-    are."""
-    _count_h2d(stats, (rec,))
+def _copy(rec: np.ndarray, device: torch.device, stats: Optional[dict]):
+    """Packed records on the engine's device. On the card the copy is
+    made here, one of at least ``_MIN_TIMED_COPY`` bytes between two
+    CUDA events (the observed rate of ``_observe_wire``); on the CPU
+    the records go as they are."""
     if device.type != "cuda":
         return rec
     host = torch.from_numpy(np.ascontiguousarray(rec))
@@ -1008,11 +1072,13 @@ class GPURemoteKeySet(KeySet):
 
     def __init__(self, jwks_url: str, jwks_ca_pem: Optional[str] = None,
                  max_chunk: int = 32768,
-                 min_refresh_interval: float = 10.0, device=None):
+                 min_refresh_interval: float = 10.0, device=None,
+                 mesh=None):
         self._remote = JSONWebKeySet(jwks_url, jwks_ca_pem)
         self._max_chunk = max_chunk
         self._min_refresh = min_refresh_interval
         self._device = device
+        self._mesh = mesh          # passed to every table rebuild
         self._ks: Optional[GPUBatchKeySet] = None
         self._kids: set = set()
         self._last_refresh = 0.0
@@ -1037,6 +1103,7 @@ class GPURemoteKeySet(KeySet):
             kids = {j.kid for j in jwks if j.kid}
             if self._ks is None:
                 self._ks = GPUBatchKeySet(jwks, device=self._device,
+                                          mesh=self._mesh,
                                           max_chunk=self._max_chunk)
                 self._kids = kids
             elif kids != self._kids:

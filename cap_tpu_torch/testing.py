@@ -637,16 +637,18 @@ def slhdsa_bad_signatures(sig: bytes, parameter_set: str
 
 def ladder_inputs(c, n_windows: int, m: int, n_keys: int, rng,
                   at_inf: int = 16, plant_every: int = 97,
-                  zero_share: float = 0.0):
+                  zero_share: float = 0.0, pool: Optional[int] = None):
     """Seeded inputs of the whole ladder (``gpu.cuda_ladder.ladder``) and
-    of the per-window one over ``c`` (an ``ec_rns`` context), from the
-    numpy Generator ``rng``: a window table of G and ``n_keys`` key
-    slots, [n_windows·(n_keys+1)·255, 2·iap] packed words of random
-    values < p (the ladder's arithmetic needs no curve points); 8-bit
-    digits [n_windows, m], a ``zero_share`` of them forced to 0 and
-    lanes below ``at_inf`` all 0 (they stay at infinity); the first
+    of the per-window one over ``c`` (an ``ec_rns`` context at its
+    window width w), from the numpy Generator ``rng``: a window table of
+    G and ``n_keys`` key slots, [n_windows·(n_keys+1)·(2^w − 1), 2·iap]
+    packed words of random values < p (the ladder's arithmetic needs no
+    curve points; with ``pool``, each coordinate drawn from ``pool``
+    random values, which keeps a 12-bit table's host build short);
+    w-bit digits [n_windows, m], a ``zero_share`` of them forced to 0
+    and lanes below ``at_inf`` all 0 (they stay at infinity); the first
     half of the lanes on G's slot, the second on a random key's; and
-    every ``plant_every``-th lane from ``at_inf`` on (at most 255) a
+    every ``plant_every``-th lane from ``at_inf`` on (at most 2^w − 1) a
     true same-x degeneracy: its window-1 row a copy of its window-0
     row, so window 1 adds the lifted point to itself. Returns numpy
     (tab, d_all, base, win_stride, true_deg)."""
@@ -656,9 +658,12 @@ def ladder_inputs(c, n_windows: int, m: int, n_keys: int, rng,
     stride = (n_keys + 1) * per
     rows = n_windows * stride
     nbytes = (c.p_int.bit_length() + 71) // 8
+    n_vals = 2 * rows if pool is None else pool
     res = ec_rns._residue_matrix(
         c, [int.from_bytes(rng.bytes(nbytes), "big") % c.p_int
-            for _ in range(2 * rows)])
+            for _ in range(n_vals)])
+    if pool is not None:
+        res = res[rng.integers(0, pool, 2 * rows)]
     tab = np.concatenate([ec_rns._pack_residue_rows(c, res[:rows]),
                           ec_rns._pack_residue_rows(c, res[rows:])],
                          axis=1)

@@ -223,10 +223,42 @@ Phases (any failure exits non-zero; none is caught):
    tokens re-routed, no wrong verdict, the ring's owner serving again
    after the respawn); ``FrontDoor.push_keys`` with epoch skew 0
    ("frontdoor line": verifies/s and p50/p99 a gateway, tokens a host,
-   the routing and relay counters, the phase's seconds).
+   the routing and relay counters, the phase's seconds);
+18. the w12 phase: the whole-ladder kernel at 12-bit windows (22, 32
+   and 44 on P-256, P-384 and P-521) at 65,536 lanes over a table of G
+   and 8 key slots (4,095 rows a slot and window), held against its
+   plain version on every lane with planted degeneracies and timed in
+   turns with itself at 8 bits (8, 12, 12, 8), each against its bound,
+   while each key set's 12-bit table builds in a worker process (host
+   seconds, bytes, seconds to the card); then the ES signatures of the
+   first 8,192 tokens of the north-star and config-3 through
+   ``ec.verify_ecdsa_batch(..., w_bits=12)``: the 8-bit entries timed
+   with every verdict the signature's, one counted run at 12 bits (1
+   ladder + 11 redc a call, every verdict the signature's, every
+   ladder and redc launch held against its plain version at the path's
+   shapes, each shape timed) and one more timed beside them;
+19. the mesh phase, on one card: ``GPUBatchKeySet(jwks,
+   mesh=Mesh([cuda:0, cuda:0]))`` on the first 8,192 tokens of the
+   north-star and config-4, the first 2,048 of pq-mldsa and
+   pq-slhdsa's 512, beside the unmeshed keyset: verdicts equal, each
+   chunk's launches once a shard (counted over one run in which every
+   launch is held against its plain version at the shard's shape, each
+   shape timed), both timed warm in turns; the first 1,024 tokens of
+   the north-star and config-4 over ``Mesh([cuda:0, cpu])`` (one shard
+   a chunk on the CPU's plain path; launches once a chunk, verdicts
+   equal); then the sharded steps (``parallel.mesh``'s limb step with
+   the key gather, the limb step, the RNS step) on the north-star's
+   RS256 signatures and RSA-2048 keys, ok vectors and totals against
+   each signature's verdict.
 
-Each phase's seconds and the whole run's are logged ("phase …" and
-"chip_smoke: … s in all"). The line before the last is the per-kernel
+Every cell's fixtures (keys, signed tokens, the unique tokens on the
+pure-integer oracle) are built in worker processes (spawned, one a
+core less one) while the card runs the kernel phases (1, kernels at
+the wide moduli, and the ladder), which time the card alone; the run
+waits for all of them before the north-star ("phase fixtures"), so no
+phase that times the host runs beside them. Each phase's seconds and
+the whole run's are logged ("phase …" and "chip_smoke: … s in all").
+The line before the last is the per-kernel
 JSON record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -1131,6 +1163,92 @@ def oracle_check(jwks, uniq, tampered):
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+# Each cell's fixtures: (builder, seed offset, unique tokens held on the
+# oracle, None for all). Signing is pure Python (minutes in all), so
+# main() builds them in worker processes while the card runs the kernel
+# phases, and waits for them all before the first phase that times the
+# host (wait_fixtures); each path takes its own with cell_fixtures().
+FIXTURE_JOBS = {
+    "north-star": ("build_batch", 0, None),
+    "config-3": ("build_config3", 5, 256),
+    "config-4": ("build_config4", 4, None),
+    "pq-mldsa": ("build_mldsa", 3, None),
+    "ps-sha512": ("build_ps512", 6, None),
+    "pq-slhdsa": ("build_slhdsa", 7, None),
+    "config-2": ("build_config2", 8, None),
+    "rsa-limb": ("build_rsalimb", 9, None),
+    "big-jwks": ("build_bigjwks", 11, None),
+}
+_FIXTURES = {}
+# the w12 phase's 12-bit window tables, built by the fixture jobs of
+# their cells: (kid prefix, curve) a key set
+W12_SETS = {"north-star": (("es-", "P-256"),),
+            "config-3": (("es-", "P-256"), ("es384-", "P-384"))}
+_W12_TABLES = {}
+
+
+def fixture_job(name, w12: bool = False):
+    """One cell's fixtures, their unique tokens held on the pure-integer
+    oracle (the first 256 on config-3: a P-384 verify takes ~0.1 s) and
+    a sample of the tampered ones rejected, and (``w12``) the 12-bit
+    window tables of the cell's ``W12_SETS`` key sets, G included:
+    (fixtures, log lines, {kid prefix: (host table, seconds)}). Runs in
+    a worker process (or inline)."""
+    global log
+    from cap_tpu_torch.gpu import ec_rns
+
+    lines, saved = [], log
+    log = lambda *a: lines.append(" ".join(str(x) for x in a))  # noqa: E731
+    tables = {}
+    try:
+        builder, off, n_oracle = FIXTURE_JOBS[name]
+        out = globals()[builder](random.Random(SEED + off))
+        jwks, uniq, tampered = out[:3]
+        oracle_check(jwks, uniq[:n_oracle], tampered)
+        for prefix, crv in W12_SETS.get(name, ()) if w12 else ():
+            t0 = time.perf_counter()
+            pubs = [j.key for j in jwks if j.kid and j.kid.startswith(prefix)]
+            tab = ec_rns.ECRNSKeyTable(crv, pubs, w_bits=12).tab
+            tables[prefix] = (tab, time.perf_counter() - t0)
+    finally:
+        log = saved
+    return out, lines, tables
+
+
+def start_fixtures(pool):
+    """Submit every cell's fixture job to ``pool``, the 12-bit tables
+    with them."""
+    for name in FIXTURE_JOBS:
+        _FIXTURES[name] = pool.submit(fixture_job, name, True)
+
+
+def wait_fixtures():
+    """Wait for every fixture job, so that no phase after this one runs
+    beside the workers' signing: the phases before it (kernels, wide
+    kernels, ladder) time the card alone, by CUDA events and the
+    profiler."""
+    from concurrent.futures import wait
+
+    t0 = time.perf_counter()
+    wait(list(_FIXTURES.values()))
+    log(f"fixtures: every cell's fixture job done, {len(_FIXTURES)} "
+        f"jobs in worker processes during the kernel phases; waited "
+        f"{time.perf_counter() - t0:.1f} s for the last")
+
+
+def cell_fixtures(name):
+    """A cell's fixtures from its job (built inline where none was
+    started), the job's log lines printed here and its 12-bit tables
+    kept for the w12 phase."""
+    fut = _FIXTURES.pop(name, None)
+    out, lines, tables = (fut.result() if fut is not None
+                          else fixture_job(name))
+    for line in lines:
+        log(line)
+    _W12_TABLES[name] = tables
+    return out
+
+
 def check_verdicts(results, expected):
     bad = []
     for i, (got, exp) in enumerate(zip(results, expected)):
@@ -1455,9 +1573,8 @@ def es256_want(n_es: int, ctr):
 
 def main_path(records):
     """The north-star path; returns its fixtures for the validator path."""
-    rng = random.Random(SEED)
-    jwks, uniq, tampered, tokens, expected, signers = build_batch(rng)
-    oracle_check(jwks, uniq, tampered)
+    jwks, uniq, tampered, tokens, expected, signers = cell_fixtures(
+        "north-star")
     drive_path(records, "north-star", jwks, tokens, expected,
                [("ES256", "es-", 32768, ES_LAUNCHES)],
                ("RS256", "ES256"))
@@ -1845,9 +1962,7 @@ def build_config4(rng):
 
 
 def config4_path(records):
-    rng = random.Random(SEED + 4)
-    jwks, uniq, tampered, tokens, expected = build_config4(rng)
-    oracle_check(jwks, uniq, tampered)
+    jwks, uniq, tampered, tokens, expected = cell_fixtures("config-4")
     drive_path(records, "config-4", jwks, tokens, expected,
                [("EdDSA", "ed-", 32768, {"edw": 32, "redc": 3})],
                ("PS256", "EdDSA"), warm=WARM_SLOW)
@@ -1906,17 +2021,13 @@ def config3_path(records):
     """The config-3 cell: one ES256 and one ES384 chunk, one ladder
     launch each. Then the whole-ladder inputs of one batch,
     replayed."""
-    rng = random.Random(SEED + 5)
-    jwks, uniq, tampered, tokens, expected = build_config3(rng)
-    # the first 256 unique tokens, 128 under each curve: the pure-Python
-    # P-384 verify takes ~0.1 s a token, and every verdict of the batch
-    # is checked against its expected value anyway
-    oracle_check(jwks, uniq[:256], tampered)
+    jwks, uniq, tampered, tokens, expected = cell_fixtures("config-3")
     run = drive_path(records, "config-3", jwks, tokens, expected,
                      [("ES256", "es-", 32768, ES_LAUNCHES),
                       ("ES384", "es384-", 32768, ES_LAUNCHES)],
                      ("ES256", "ES384"))
     ladder_path_shapes(records, run["ks"], tokens, 2)
+    return dict(jwks=jwks, tokens=tokens, expected=expected)
 
 
 def ladder_path_shapes(records, ks, tokens, n_calls: int):
@@ -2016,9 +2127,7 @@ def build_mldsa(rng):
 
 
 def mldsa_path(records):
-    rng = random.Random(SEED + 3)
-    jwks, uniq, tampered, tokens, expected = build_mldsa(rng)
-    oracle_check(jwks, uniq, tampered)
+    jwks, uniq, tampered, tokens, expected = cell_fixtures("pq-mldsa")
     per_chunk = {"keccak": 14, "ntt": 2, "intt": 1}
     run = drive_path(records, "pq-mldsa", jwks, tokens, expected,
                      [("ML-DSA-44", "mldsa44-", 1024, per_chunk),
@@ -2062,47 +2171,209 @@ def redc_swapped(hook):
             fn.__defaults__ = d
 
 
-REPLAY_LANES = 65536          # lanes a batched plain-REDC replay
+REPLAY_LANES = 65536          # lanes (states, rows) a batched replay
+HELD_KERNELS = ("ladder", "redc", "edw", "keccak", "ntt", "intt")
 
 
 @contextlib.contextmanager
-def redc_held(path: str):
-    """Every REDC launch of the block held against ``redc_ref`` on the
-    same inputs: each launch's inputs and outputs kept, then replayed
-    through the plain version when the block ends, the launches of one
-    lane count side by side in batches of up to ``REPLAY_LANES`` lanes
-    (a REDC lane depends on its own column alone): bit-equal, or
-    (``max_err``) equal by value mod p on both residue planes. Yields
-    {lanes: [(ctx, xA, xB, tA, tB), ...]}, the launches by lane count."""
+def kernels_held(path: str, names=HELD_KERNELS):
+    """Every card launch of the kernels ``names`` while the block runs,
+    held against its plain version on the same inputs. The ladder and
+    edw right after each call: X, Y, Z (and T) equal by value mod p on
+    both residue planes, the ladder's inf and deg as
+    :func:`ladder_compare` has them. REDC, Keccak, NTT and inverse NTT,
+    whose lanes (states, rows) depend on themselves alone: each call's
+    inputs and outputs kept and replayed through the plain version with
+    the other calls of its shape side by side, in batches of up to
+    ``REPLAY_LANES`` lanes, REDC bit-equal or equal by value mod p on
+    both planes, the others every word equal. A call on a CPU shard
+    (the plain version itself) is not held. Yields {(kernel, shape):
+    [calls, the first call's inputs]}, which :func:`held_times` times
+    (the REDC defaults of ec_rns and ed25519_rns swapped as
+    :func:`redc_swapped` does)."""
     import torch
 
-    from cap_tpu_torch.gpu import cuda_redc
+    from cap_tpu_torch.gpu import (
+        cuda_edw,
+        cuda_keccak,
+        cuda_ladder,
+        cuda_ntt,
+        cuda_redc,
+        keccak,
+        ntt,
+    )
 
-    shapes = {}
-    real = cuda_redc.redc
+    attrs = {"ladder": (cuda_ladder, "ladder"),
+             "edw": (cuda_edw, "edw_window"),
+             "keccak": (cuda_keccak, "f1600"), "ntt": (cuda_ntt, "ntt"),
+             "intt": (cuda_ntt, "intt")}
+    real = {k: getattr(*attrs[k]) for k in attrs}
+    real["redc"] = cuda_redc.redc
+    plain = {"keccak": keccak.f1600_plain, "ntt": ntt.ntt_plain,
+             "intt": ntt.intt_plain}
+    unit = {"keccak": (25, 2), "ntt": (256,), "intt": (256,)}
+    held, queued = {}, {}
 
-    def hook(ctx, xA, xB):
-        out = real(ctx, xA, xB)
-        shapes.setdefault(int(xA.shape[1]), []).append(
-            (ctx, xA.clone(), xB.clone(), out[0].clone(), out[1].clone()))
-        return out
+    def planes(pair):
+        return [t.cpu().numpy() for t in pair]
 
-    with redc_swapped(hook):
-        yield shapes
-    for lanes, rows in shapes.items():
-        ctx = rows[0][0]
-        assert all(r[0] is ctx for r in rows), (path, lanes)
-        per = max(1, REPLAY_LANES // lanes)
-        for lo in range(0, len(rows), per):
-            xA, xB, tA, tB = (torch.cat([r[i] for r in rows[lo:lo + per]],
-                                        dim=1) for i in range(1, 5))
+    def note(name, shape, first):
+        h = held.setdefault((name, shape), [0, None])
+        h[0] += 1
+        if h[1] is None:
+            h[1] = first()
+
+    def flush(key):
+        name, ctx, _, rows = queued.pop(key)
+        if name == "redc":
+            xA, xB, tA, tB = (torch.cat([r[i] for r in rows], dim=1)
+                              for i in range(4))
             rA, rB = cuda_redc.redc_ref(ctx, xA, xB)
             if torch.equal(tA, rA) and torch.equal(tB, rB):
-                continue
-            err, nd, split = max_err(
-                ctx, [t.cpu().numpy() for t in (tA, tB)],
-                [t.cpu().numpy() for t in (rA, rB)])
+                return
+            err, nd, split = max_err(ctx, planes((tA, tB)),
+                                     planes((rA, rB)))
             assert err == 0 and split == 0, f"redc at {path}: {err}, {nd}"
+            return
+        x, out = (torch.cat([r[i] for r in rows]) for i in range(2))
+        err, nd = word_diff(out.reshape(len(out), -1),
+                            plain[name](x).reshape(len(out), -1))
+        assert err == 0 and nd == 0, f"{name} at {path}: {nd} differ"
+
+    def later(name, ctx, lanes, row):
+        key = (name, id(ctx), lanes if name == "redc" else 0)
+        q = queued.setdefault(key, [name, ctx, 0, []])
+        q[2] += lanes
+        q[3].append(row)
+        if q[2] >= REPLAY_LANES:
+            flush(key)
+
+    def ladder(ctx, tab, d_all, base, stride):
+        out = real["ladder"](ctx, tab, d_all, base, stride)
+        if d_all.is_cuda:
+            ladder_compare(ctx, out, cuda_ladder.ladder_ref(
+                ctx, tab, d_all, base, stride), f"ladder at {path}")
+            note("ladder", (*d_all.shape, int(tab.shape[0])),
+                 lambda: (ctx, tab, d_all.clone(), base.clone(), stride))
+        return out
+
+    def edw(ctx, X, Y, Z, T, tab, rows):
+        out = real["edw"](ctx, X, Y, Z, T, tab, rows)
+        if rows.is_cuda:
+            for kk, pp in zip(out, cuda_edw.edw_window_ref(
+                    ctx, X, Y, Z, T, tab, rows)):
+                err, nd, split = max_err(ctx, planes(kk), planes(pp))
+                assert err == 0 and split == 0, \
+                    f"edw at {path}: {err}, {nd}"
+            note("edw", (int(rows.numel()), int(tab.shape[0])),
+                 lambda: (ctx, *[tuple(t.clone() for t in v)
+                                 for v in (X, Y, Z, T)], tab, rows.clone()))
+        return out
+
+    def redc(ctx, xA, xB):
+        out = real["redc"](ctx, xA, xB)
+        if xA.is_cuda:
+            row = (xA.clone(), xB.clone(), out[0].clone(), out[1].clone())
+            note("redc", (int(xA.shape[1]),), lambda: (ctx, row[0], row[1]))
+            later("redc", ctx, int(xA.shape[1]), row)
+        return out
+
+    def rowwise(name):
+        def call(x):
+            out = real[name](x)
+            if x.is_cuda:
+                note(name, tuple(x.shape), x.clone)
+                later(name, None, x.numel() // (50 if name == "keccak"
+                                                else 256),
+                      (x.reshape((-1,) + unit[name]).clone(),
+                       out.reshape((-1,) + unit[name]).clone()))
+            return out
+        return call
+
+    hooks = {"ladder": ladder, "edw": edw, "keccak": rowwise("keccak"),
+             "ntt": rowwise("ntt"), "intt": rowwise("intt")}
+    try:
+        for k in names:
+            if k in attrs:
+                setattr(*attrs[k], hooks[k])
+        with (redc_swapped(redc) if "redc" in names
+              else contextlib.nullcontext()):
+            yield held
+    finally:
+        for k in names:
+            if k in attrs:
+                setattr(*attrs[k], real[k])
+    for key in list(queued):
+        flush(key)
+
+
+def held_times(records, path: str, held, launches) -> str:
+    """Each shape :func:`kernels_held` saw: its calls (which must sum to
+    the path's ``launches`` of each kernel), the kernel and its plain
+    version timed on the first call's inputs (CUDA events around 3
+    calls and 1: at the small shapes a call's host work outlasts its
+    kernel, so these are call times, marked "events"), beside the
+    bound; added to the kernel's ``path_shapes``. Returns the log's
+    summary."""
+    from cap_tpu_torch.gpu import (
+        cuda_edw,
+        cuda_keccak,
+        cuda_ladder,
+        cuda_ntt,
+        cuda_redc,
+        keccak,
+        ntt,
+    )
+
+    calls = {}
+    for (name, _), (n, _) in held.items():
+        calls[name] = calls.get(name, 0) + n
+    for name, n in calls.items():
+        assert n == launches[name], (path, name, n, launches)
+    fns = {"ladder": (cuda_ladder.ladder, cuda_ladder.ladder_ref),
+           "edw": (cuda_edw.edw_window, cuda_edw.edw_window_ref),
+           "redc": (cuda_redc.redc, cuda_redc.redc_ref),
+           "keccak": (cuda_keccak.f1600, keccak.f1600_plain),
+           "ntt": (cuda_ntt.ntt, ntt.ntt_plain),
+           "intt": (cuda_ntt.intt, ntt.intt_plain)}
+    parts = []
+    for (name, shape), (n, args) in sorted(held.items(), key=str):
+        kern, ref = fns[name]
+        args = args if isinstance(args, tuple) else (args,)
+        ms_k = cuda_ms(lambda: kern(*args), 3)
+        ms_p = cuda_ms(lambda: ref(*args), 1)
+        row = dict(path=path, calls=n, max_abs_err=0, ms=ms_k,
+                   by="events", plain_ms=ms_p)
+        if name == "ladder":
+            w, m, rows = shape
+            b_ms, b_by = ladder_bound(args[0], m, w)
+            row.update(shape=[w, m], table_rows=rows,
+                       w_bits=args[0].w_bits)
+            what = f"{w}x{m} over {rows} rows"
+        elif name in ("redc", "edw"):
+            c = args[0]
+            ia, ib = c.A.count, c.B.count
+            lanes = shape[0]
+            if name == "redc":
+                b_ms, b_by, _ = rns_bound(lanes * (2 * ia + 2 * ib) * 4,
+                                          redc_work(ia, ib), lanes)
+            else:
+                nbytes = lanes * (8 * (ia + ib) * 4 + 3 * max(ia, ib) * 4
+                                  + 4)
+                b_ms, b_by, _ = rns_bound(nbytes, edw_work(ia, ib), lanes)
+                row["table_rows"] = shape[1]
+            row["lanes"] = lanes
+            what = f"{lanes} lanes"
+        else:
+            units = args[0].numel() // (50 if name == "keccak" else 256)
+            b_ms, b_by = mldsa_bound(name, units)
+            row["shape"] = list(shape)
+            what = f"{list(shape)}"
+        row.update(bound_ms=b_ms, bound_by=b_by)
+        records[name].setdefault("path_shapes", []).append(row)
+        parts.append(f"{name} {what} x {n} ({ms_k:.4f} ms, plain "
+                     f"{ms_p:.4f} ms, bound {b_ms:.5f} ms)")
+    return "; ".join(parts)
 
 
 @contextlib.contextmanager
@@ -2116,8 +2387,9 @@ def engine_calls():
     hooks = [(rsa, "modexp_65537"), (rsa, "verify_em_equals_device"),
              (rsa, "modexp_em_device"), (ec, "_ecdsa_core"),
              (ec, "_ecdsa_affine_tail"), (ec, "_py_verify_one"),
-             (ec_rns, "_ecdsa_rns_core"), (ec_rns, "affine_ladder"),
-             (ed25519, "_ed25519_core"), (ed25519_rns, "_ed25519_rns_core"),
+             (ec_rns, "_ecdsa_rns_core_steps"), (ec_rns, "affine_ladder"),
+             (ed25519, "_ed25519_core"),
+             (ed25519_rns, "_ed25519_rns_core_steps"),
              (mldsa, "verify_mldsa_core_pending"), (mldsa, "_fused_core")]
     saved = []
     for mod, name in hooks:
@@ -2134,6 +2406,10 @@ def engine_calls():
     finally:
         for mod, name, real in saved:
             setattr(mod, name, real)
+
+
+MODE_CURVE = {"ES256": "P-256", "ES384": "P-384"}
+MODE_HASH = {"ES384": "sha384"}
 
 
 def mode_inputs(jwks, tokens, expected, fams):
@@ -2168,13 +2444,14 @@ def mode_inputs(jwks, tokens, expected, fams):
             b["msgs"].append(p.signing_input)
             b["rows"].append(row[p.kid])
             b["want"].append(isinstance(exp, str))
-        b["digests"] = [hashlib.sha256(m).digest() for m in b["msgs"]]
+        b["digests"] = [hashlib.new(MODE_HASH.get(alg, "sha256"),
+                                    m).digest() for m in b["msgs"]]
         b["rows"] = np.asarray(b["rows"], np.int64)
         pubs = [j.key for j in keys]
         if alg in ("RS256", "PS256"):
             b["table"] = rsa.RSAKeyTable([(k.n, k.e) for k in pubs])
-        elif alg == "ES256":
-            b["table"] = ec.ECKeyTable("P-256", pubs)
+        elif alg in MODE_CURVE:
+            b["table"] = ec.ECKeyTable(MODE_CURVE[alg], pubs)
         elif alg == "EdDSA":
             b["table"] = ed25519.Ed25519KeyTable(pubs)
         else:
@@ -2197,7 +2474,7 @@ def mode_verify(alg: str, b: dict, mode: dict):
     if alg == "PS256":
         return rsa.verify_pss_batch(t, b["sigs"], b["digests"], "sha256",
                                     b["rows"], **mode)
-    if alg == "ES256":
+    if alg in MODE_CURVE:
         return ec.verify_ecdsa_batch(t, b["sigs"], b["digests"], b["rows"],
                                      **mode)
     if alg == "EdDSA":
@@ -2227,29 +2504,8 @@ def mode_run(inputs, modes):
     return got, time.perf_counter() - t0
 
 
-def redc_path_shapes(records, path: str, shapes):
-    """Each lane count the path handed the REDC kernel, its launches,
-    and the kernel and its plain version timed on the first of those
-    inputs (CUDA events, one call each), beside the bound."""
-    from cap_tpu_torch.gpu import cuda_redc
-
-    out = []
-    for lanes, rows in sorted(shapes.items()):
-        ctx, xA, xB = rows[0][:3]
-        ms_k = cuda_ms(lambda: cuda_redc.redc(ctx, xA, xB), 1)
-        ms_p = cuda_ms(lambda: cuda_redc.redc_ref(ctx, xA, xB), 1)
-        ia, ib = ctx.A.count, ctx.B.count
-        b_ms, b_by, _ = rns_bound(lanes * (2 * ia + 2 * ib) * 4,
-                                  redc_work(ia, ib), lanes)
-        out.append(dict(path=path, lanes=lanes, calls=len(rows),
-                        max_abs_err=0, ms=ms_k, by="events", plain_ms=ms_p,
-                        bound_ms=b_ms, bound_by=b_by))
-    records["redc"].setdefault("path_shapes", []).extend(out)
-    return out
-
-
 def mode_pass(records, name, inputs, modes, want, engines, base_s, card,
-              hold_redc=False):
+              hold=()):
     """One engine-mode pass over the families of ``modes`` {alg: mode}:
     the mode's window tables built first, then one counted run (every
     launch counter zeroed just before it and read just after it, every
@@ -2257,25 +2513,26 @@ def mode_pass(records, name, inputs, modes, want, engines, base_s, card,
     verdict the signature's, the engines in ``engines`` called, the
     counts added to ``records`` under ``name``), timed as the pass's
     warm run beside the default entries' time on the same inputs
-    (``base_s``). With ``hold_redc`` every REDC launch of the counted
-    run is held against its plain version, and one more run, unhooked,
-    is timed."""
+    (``base_s``). With ``hold`` (kernel names) every launch of those
+    kernels in the counted run is held against its plain version
+    (:func:`kernels_held`, each shape timed by :func:`held_times`), and
+    one more run, unhooked, is timed."""
     from cap_tpu_torch.gpu import mldsa
 
     for alg, mode in modes.items():
         t = inputs[alg]["table"]
-        if alg == "ES256" and mode.get("rns") is False:
+        if alg in MODE_CURVE and mode.get("rns") is False:
             t.limb_tables()
-        elif alg == "ES256":
-            t.rns().device_tab(t.device)
+        elif alg in MODE_CURVE:
+            t.rns(mode.get("w_bits", 8)).device_tab(t.device)
         elif alg == "EdDSA" and mode.get("rns") is False:
             t.tna()
     mldsa.host_shake_calls = 0
     # the REDC defaults are swapped before engine_calls wraps the
     # functions that bind them
     with counted_launches(records, name, want) as launches, (
-            redc_held(name) if hold_redc else contextlib.nullcontext({})) \
-            as shapes, engine_calls() as calls:
+            kernels_held(name, hold) if hold else contextlib.nullcontext(
+                {})) as held, engine_calls() as calls:
         got, warm_s = mode_run(inputs, modes)
         for alg in modes:
             bad = [i for i, (g, w) in enumerate(zip(got[alg],
@@ -2285,15 +2542,11 @@ def mode_pass(records, name, inputs, modes, want, engines, base_s, card,
     shakes = mldsa.host_shake_calls
     for e in engines:
         assert calls.get(e, 0) > 0, (name, e, calls)
-    if hold_redc:
-        assert sum(map(len, shapes.values())) == launches["redc"]
-        rows = redc_path_shapes(records, name, shapes)
-        log(f"engine modes {name}: every one of the {launches['redc']} "
-            f"redc launches equal to the plain version on its inputs; by "
-            f"lanes: " + ", ".join(
-                f"{r['lanes']} x {r['calls']} ({r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms)"
-                for r in rows))
+    if hold:
+        log(f"engine modes {name}: every launch of "
+            + ", ".join(f"{launches[k]} {k}" for k in hold)
+            + " equal to the plain version on its inputs; by shape: "
+            + held_times(records, name, held, launches))
         # the held run is not timed: one more, unhooked
         again, warm_s = mode_run(inputs, modes)
         assert again == got, name
@@ -2357,7 +2610,7 @@ def engine_modes_path(records, north, config4, pq):
     n_es = len(ns["ES256"]["sigs"])
     mode_pass(records, "modes-b affine", ns, {"ES256": dict(ladder="affine")},
               {"redc": ec_rns.affine_redc_launches("P-256", pad_pow2(n_es))},
-              ("affine_ladder",), base["es"], card, hold_redc=True)
+              ("affine_ladder",), base["es"], card, hold=("redc",))
     mode_pass(records, "modes-c rns=off affine", ns,
               {"ES256": dict(ladder="affine", rns=False)}, {},
               ("_ecdsa_core", "_ecdsa_affine_tail"), base["es"], card)
@@ -2519,9 +2772,7 @@ def ps512_path(records):
     and the PSS check are PyTorch, as in the JAX package)."""
     from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
 
-    rng = random.Random(SEED + 6)
-    jwks, uniq, tampered, tokens, expected = build_ps512(rng)
-    oracle_check(jwks, uniq, tampered)
+    jwks, uniq, tampered, tokens, expected = cell_fixtures("ps-sha512")
     sha512_phase(GPUBatchKeySet(jwks), tokens)
     drive_path(records, "ps-sha512", jwks, tokens, expected,
                [("PS384", "ps-", 16384, {}), ("PS512", "ps-", 8192, {})],
@@ -2592,14 +2843,13 @@ def slhdsa_path(records):
 
     for pset, n in SLH_LAUNCHES.items():
         assert slhdsa.chunk_launches(slhdsa.PARAMS[pset]) == n, pset
-    rng = random.Random(SEED + 7)
-    jwks, uniq, tampered, tokens, expected = build_slhdsa(rng)
-    oracle_check(jwks, uniq, tampered)
+    jwks, uniq, tampered, tokens, expected = cell_fixtures("pq-slhdsa")
     run = drive_path(records, "pq-slhdsa", jwks, tokens, expected,
                      [(pset, f"slh128{pset[-1]}-", 1024, {"keccak": n})
                       for pset, n in SLH_LAUNCHES.items()],
                      (SLH_F, SLH_S), warm=WARM_SLOW)
     path_shape_phase(records, run["ks"], tokens, "pq-slhdsa", ("keccak",))
+    return dict(jwks=jwks, tokens=tokens, expected=expected)
 
 
 N_C2_TOKENS = N_TOKENS        # config-2: not cut
@@ -2659,9 +2909,7 @@ def build_config2(rng):
 def config2_path(records):
     """The config-2 cell: two RSA classes (2048 and 4096 bits) on the RNS
     engine under three hashes; no kernel of the port launches."""
-    rng = random.Random(SEED + 8)
-    jwks, uniq, tampered, tokens, expected = build_config2(rng)
-    oracle_check(jwks, uniq, tampered)
+    jwks, uniq, tampered, tokens, expected = cell_fixtures("config-2")
     drive_path(records, "config-2", jwks, tokens, expected, [],
                ("RS256", "RS384", "RS512"))
 
@@ -2761,9 +3009,7 @@ def rsalimb_path(records):
     3072-bit one; no kernel) beside an ES256 chunk (1 ladder + 11
     redc); then one limb chunk at each width timed and its peak memory
     read."""
-    rng = random.Random(SEED + 9)
-    jwks, uniq, tampered, tokens, expected = build_rsalimb(rng)
-    oracle_check(jwks, uniq, tampered)
+    jwks, uniq, tampered, tokens, expected = cell_fixtures("rsa-limb")
     run = drive_path(records, "rsa-limb", jwks, tokens, expected,
                      [("ES256", "es-", 32768, ES_LAUNCHES)],
                      ("RS256", "PS256", "ES256"), warm=WARM_SLOW)
@@ -2943,9 +3189,7 @@ def bigjwks_path(records):
     versions."""
     import torch
 
-    rng = random.Random(SEED + 11)
-    jwks, uniq, tampered, tokens, expected = build_bigjwks(rng)
-    oracle_check(jwks, uniq, tampered)
+    jwks, uniq, tampered, tokens, expected = cell_fixtures("big-jwks")
     run = drive_path(records, "big-jwks", jwks, tokens, expected,
                      [("ES256", "bes-", 32768, ES_LAUNCHES),
                       ("EdDSA", "bed-", 32768, {"edw": 32, "redc": 3})],
@@ -5048,6 +5292,310 @@ def frontdoor_path(records, fleet):
         f"{figs['seconds']:.1f} s; card: {card_line()}")
 
 
+# ---------------------------------------------------------------------------
+# The 12-bit-window ladder and the mesh
+# ---------------------------------------------------------------------------
+
+N_W12_TOKENS = 8192           # the w12 phase's slices of the ES cells
+W12_POOL = 1 << 16            # random values a kernel-check table draws on
+W12_WINDOWS = {"P-256": 22, "P-384": 32, "P-521": 44}
+
+
+def w12_kernels(records):
+    """The whole-ladder kernel at 12-bit windows (22, 32 and 44 on P-256,
+    P-384 and P-521): 65,536 lanes over a table of G and 8 key slots
+    (4,095 rows a slot and window, drawn from a pool of random values),
+    held against its plain version on every lane with planted same-x
+    degeneracies (the plain run timed by CUDA events), and timed against
+    its bound in turns with itself at 8-bit windows on inputs made the
+    same way (8, 12, 12, 8: each width's mean of its two). Records them
+    under the ladder's ``w12_shapes``."""
+    import numpy as np
+    import torch
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu import cuda_ladder, ec_rns
+
+    rng = np.random.default_rng(SEED + 12)
+    n = KERNEL_LANES
+    T = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    shapes = []
+    for crv, w12 in W12_WINDOWS.items():
+        args, cs = {}, {}
+        for w in (8, 12):
+            c = cs[w] = ec_rns.ctx_for(crv, w)
+            tab, d, base, stride, true_deg = tt.ladder_inputs(
+                c, c.n_windows, n, 8, rng, pool=W12_POOL)
+            args[w] = (T(tab), T(d), T(base), stride)
+        c = cs[12]
+        assert c.n_windows == w12
+        out_k = cuda_ladder.ladder(c, *args[12])
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out_p = cuda_ladder.ladder_ref(c, *args[12])
+        t1.record()
+        torch.cuda.synchronize()
+        ms_p = t0.elapsed_time(t1)
+        err, ndiff, deg_only = ladder_compare(c, out_k, out_p,
+                                              f"ladder {crv} w12")
+        assert out_k[4].cpu().numpy()[true_deg].all(), \
+            f"ladder {crv} w12: deg missed"
+        del out_k, out_p
+        ms = {8: [], 12: []}
+        for w in (8, 12, 12, 8):
+            ms[w].append(cuda_ms(
+                lambda: cuda_ladder.ladder(cs[w], *args[w]), 3))
+        ms8, ms12 = (sum(ms[w]) / 2 for w in (8, 12))
+        b_ms, b_by = ladder_bound(c, n, w12)
+        b8, _ = ladder_bound(cs[8], n, cs[8].n_windows)
+        rows = args[12][0].shape[0]
+        nbytes = args[12][0].numel() * 4
+        log(f"kernel ladder {crv} w12: {n} lanes, {w12} windows over "
+            f"{rows} rows ({nbytes / 1e6:.1f} MB), {ndiff} lane planes not "
+            f"bit-equal, max value err {err}, inf equal, "
+            f"{int(true_deg.sum())} true degeneracies flagged, {deg_only} "
+            f"probe flags differ; kernel {ms12:.4f} ms "
+            f"({', '.join(f'{t:.4f}' for t in ms[12])}), 8-bit "
+            f"({cs[8].n_windows} windows) {ms8:.4f} ms "
+            f"({', '.join(f'{t:.4f}' for t in ms[8])}) in turns: 12/8 "
+            f"{ms12 / ms8:.3f}; plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; 8-bit {b8:.4f})")
+        shapes.append(dict(curve=crv, lanes=n, w_bits=12, windows=w12,
+                           max_abs_err=err, ms=ms12, by="events",
+                           plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+                           ms_w8=ms8, table_rows=int(rows),
+                           table_bytes=int(nbytes)))
+        del args
+    rec = records["ladder"]
+    rec["w12_shapes"] = shapes
+    rec["max_abs_err"] = max([rec["max_abs_err"]]
+                             + [sh["max_abs_err"] for sh in shapes])
+
+
+def w12_path(records, north, config3):
+    """The 12-bit windows (``w_bits=12`` of ``ec``'s entry points): the
+    kernel at 22, 32 and 44 windows (:func:`w12_kernels`); each key
+    set's 12-bit window table (host seconds, G's table included, as its
+    cell's fixture job built it in a worker process; bytes, seconds to
+    the card); then the ES signatures of the first 8,192 tokens of the
+    north-star (ES256) and config-3 (ES256, ES384) batches: the default
+    8-bit entries timed (verdicts the signatures'), then one counted run
+    at ``w_bits=12`` (1 ladder + 11 redc a call, every verdict the
+    signature's, every ladder and redc launch held against its plain
+    version), and one more timed beside them."""
+    import torch
+
+    from cap_tpu_torch.gpu import ec_rns
+
+    card = card_line()
+    w12_kernels(records)
+    n = N_W12_TOKENS
+    ns = mode_inputs(north["jwks"], north["tokens"][:n],
+                     north["expected"][:n], [("ES256", "es-")])
+    c3 = mode_inputs(config3["jwks"], config3["tokens"][:n],
+                     config3["expected"][:n],
+                     [("ES256", "es-"), ("ES384", "es384-")])
+    tables = []
+    for label, cell, prefix, b in (
+            ("north-star ES256", "north-star", "es-", ns["ES256"]),
+            ("config-3 ES256", "config-3", "es-", c3["ES256"]),
+            ("config-3 ES384", "config-3", "es384-", c3["ES384"])):
+        t = b["table"]
+        built = _W12_TABLES.get(cell, {}).get(prefix)
+        where = "its cell's fixture job"
+        if built is None:
+            t0 = time.perf_counter()
+            built, where = (t.rns(12).tab, time.perf_counter() - t0), "here"
+        tab, host_s = built
+        rt = t._rns[12] = ec_rns.ECRNSKeyTable(t.curve.name, t.keys,
+                                               tab=tab, w_bits=12)
+        t0 = time.perf_counter()
+        rt.device_tab(t.device)
+        torch.cuda.synchronize()
+        copy_s = time.perf_counter() - t0
+        tables.append(dict(cell=label, keys=rt.nk, rows=int(rt.tab.shape[0]),
+                           bytes=int(rt.tab.nbytes), host_s=host_s,
+                           copy_s=copy_s))
+        log(f"w12 table {label}: G + {rt.nk} keys, {rt.tab.shape[0]} rows, "
+            f"{rt.tab.nbytes / 1e6:.1f} MB (8-bit: "
+            f"{t.rns().tab.nbytes / 1e6:.1f} MB), host build {host_s:.1f} "
+            f"s ({where}), to the card {copy_s:.2f} s")
+    records["ladder"]["w12_tables"] = tables
+    w12 = dict(w_bits=12)
+    runs = {}
+    for name, inputs, algs_ in (("w12 north-star", ns, ("ES256",)),
+                                ("w12 config-3", c3, ("ES256", "ES384"))):
+        base = default_s(inputs, algs_)
+        runs[name] = mode_pass(
+            records, name, inputs, dict.fromkeys(algs_, w12),
+            {k: v * len(algs_) for k, v in ES_LAUNCHES.items()},
+            ("_ecdsa_rns_core_steps",), base, card,
+            hold=("ladder", "redc"))
+        runs[name]["base_s"] = base
+    records["ladder"]["w12_runs"] = {
+        k: dict(warm_s=v["warm_s"], base_s=v["base_s"])
+        for k, v in runs.items()}
+
+
+N_MESH_TOKENS = 8192          # the mesh phase's slices of the cells
+N_MESH_PQ_TOKENS = 2048
+
+
+def mesh_pass(records, name, mesh, fx, n, families, warm=True):
+    """One cell's first ``n`` tokens through ``GPUBatchKeySet(jwks,
+    mesh=mesh)`` beside ``GPUBatchKeySet(jwks)``: one meshed run with
+    every launch counter zeroed just before it and read just after it
+    (each chunk's launches once a card shard) and every launch held
+    against its plain version at the shard's shape (:func:`kernels_held`,
+    each shape timed by :func:`held_times`), every verdict as expected;
+    then the unmeshed keyset, warmed on the first 256 tokens (its window
+    tables built), over all of them: its verdicts the meshed ones (class
+    and message). With ``warm`` that unmeshed run is timed, and one
+    more meshed run beside it. Returns their seconds."""
+    import torch
+
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+
+    jwks, tokens = fx["jwks"], fx["tokens"][:n]
+    expected = fx["expected"][:n]
+    plain = GPUBatchKeySet(jwks)
+    meshed = GPUBatchKeySet(jwks, mesh=mesh)
+    per_shard, n_chunks, fams = family_launches(jwks, tokens, families)
+    cards = sum(d.type == "cuda" for d in mesh.devices)
+    want = {k: v * cards for k, v in per_shard.items()}
+    with counted_launches(records, name, want) as launches, \
+            kernels_held(name, tuple(per_shard)) as held:
+        got = meshed.verify_batch(tokens)
+        torch.cuda.synchronize()
+    shapes = held_times(records, name, held, launches)
+    check_verdicts(got, expected)
+    plain.verify_batch(tokens[:256])
+    best = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain.verify_batch(tokens)
+    torch.cuda.synchronize()
+    best["plain"] = time.perf_counter() - t0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert type(g) is type(r) and (g == r if isinstance(r, dict)
+                                       else str(g) == str(r)), (name, i)
+    if warm:
+        t0 = time.perf_counter()
+        meshed.verify_batch(tokens)
+        torch.cuda.synchronize()
+        best["mesh"] = time.perf_counter() - t0
+    else:
+        best.pop("plain")
+    speed = (f"; warm {best['mesh']:.3f} s meshed, {best['plain']:.3f} s "
+             f"unmeshed: {len(tokens) / best['mesh']:.0f} against "
+             f"{len(tokens) / best['plain']:.0f} verifies/s") if warm else ""
+    log(f"{name}: {len(tokens)} tokens ({', '.join(fams)}; {n_chunks} "
+        f"chunk(s), each over the shards {[str(d) for d in mesh.devices]})"
+        f", verdicts equal to the unmeshed keyset's; launches {launches}, "
+        f"each equal to the plain version at its shard's shape: {shapes}"
+        f"{speed}")
+    return dict(best, n=len(tokens), launches=launches)
+
+
+def mesh_steps(mesh, north, n):
+    """The three sharded steps over the RS256 signatures of the
+    north-star's first ``n`` tokens on its RSA-2048 keys (the limb
+    step with the key gather on each shard, the limb step on gathered
+    operands, the RNS step), against each signature's verdict, their
+    totals the sum of the shards' counts."""
+    import numpy as np
+    import torch
+
+    from cap_tpu_torch.gpu import rsa
+    from cap_tpu_torch.parallel import mesh as pm
+
+    b = mode_inputs(north["jwks"], north["tokens"][:n], north["expected"][:n],
+                    [("RS256", "rs-")])["RS256"]
+    t = b["table"]
+    keep = [i for i, sg in enumerate(b["sigs"])
+            if len(sg) == t.sizes_bytes[b["rows"][i]]]
+    keep = keep[:len(keep) - len(keep) % len(mesh)]
+    m = len(keep)
+    sig = np.zeros((m, 2 * t.k), np.uint8)
+    for j, i in enumerate(keep):
+        sig[j, :len(b["sigs"][i])] = np.frombuffer(b["sigs"][i], np.uint8)
+    rec = rsa.rs_packed_records(
+        t, sig, np.asarray([len(b["sigs"][i]) for i in keep]),
+        np.stack([np.frombuffer(b["digests"][i], np.uint8) for i in keep]),
+        "sha256", b["rows"][keep])
+    s_l, dig, _, idx = rsa._rs_packed_unpack(
+        torch.from_numpy(rec).to(t.device), t.k, 32)
+    exp = rsa._expected_em_device(dig, t.sizes_dev[idx], t.k, "sha256")
+    want = np.asarray(b["want"])[keep]
+    keys = [k[idx].T for k in t.rtab.device_tables(t.device)]
+    steps = {
+        "sharded_verify_step": lambda: pm.sharded_verify_step(mesh)(
+            t.n_tab, t.np_tab, t.r2_tab, idx, s_l, exp),
+        "sharded_rs256_verify": lambda: pm.sharded_rs256_verify(mesh)(
+            s_l, t.n_tab[idx].T, t.np_tab[idx].T, t.r2_tab[idx].T, exp),
+        "sharded_rns_verify_step": lambda: pm.sharded_rns_verify_step(
+            mesh, t.ctx)(s_l, exp, *keys)}
+    out = {}
+    for name, fn in steps.items():
+        t0 = time.perf_counter()
+        ok, total = fn()
+        got = ok.cpu().numpy()
+        secs = time.perf_counter() - t0
+        assert np.array_equal(got, want), (name, int((got != want).sum()))
+        assert int(total) == int(want.sum()), (name, int(total))
+        out[name] = secs
+    log(f"mesh steps: {m} RS256 signatures over {len(mesh)} shards, "
+        f"{int(want.sum())} valid: " + ", ".join(
+            f"{k} ok and total equal ({v:.3f} s)" for k, v in out.items()))
+    return out
+
+
+N_MIXED_TOKENS = 1024         # the card-and-CPU mesh's slices
+
+
+def mesh_path(records, north, config4, pq, slh):
+    """The mesh on one card: ``Mesh([cuda:0, cuda:0])``, two shards a
+    chunk on one device (a real multi-card mesh needs a four-card cell).
+    The first 8,192 tokens of the north-star and config-4, the first
+    2,048 of pq-mldsa and pq-slhdsa's 512 through the meshed keyset
+    beside the unmeshed one (:func:`mesh_pass`); the first 1,024 of the
+    north-star and config-4 over ``Mesh([cuda:0, cpu])``, one shard a
+    chunk on the CPU's plain path (so a tensor left on the wrong device
+    fails); then the sharded steps on the north-star's RSA-2048 keys
+    (:func:`mesh_steps`)."""
+    from cap_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(["cuda:0", "cuda:0"])
+    mixed = Mesh(["cuda:0", "cpu"])
+    pq_chunk = {"keccak": 14, "ntt": 2, "intt": 1}
+    es = ("ES256", "es-", 32768, ES_LAUNCHES)
+    ed = ("EdDSA", "ed-", 32768, {"edw": 32, "redc": 3})
+    cells = [
+        ("mesh north-star", mesh, north, N_MESH_TOKENS, [es], True),
+        ("mesh config-4", mesh, config4, N_MESH_TOKENS, [ed], True),
+        ("mesh pq-mldsa", mesh, pq, N_MESH_PQ_TOKENS,
+         [("ML-DSA-44", "mldsa44-", 1024, pq_chunk),
+          ("ML-DSA-65", "mldsa65-", 1024, pq_chunk)], True),
+        ("mesh pq-slhdsa", mesh, slh, N_SLH_TOKENS,
+         [(pset, f"slh128{pset[-1]}-", 1024, {"keccak": k})
+          for pset, k in SLH_LAUNCHES.items()], True),
+        ("mesh card+cpu north-star", mixed, north, N_MIXED_TOKENS, [es],
+         False),
+        ("mesh card+cpu config-4", mixed, config4, N_MIXED_TOKENS, [ed],
+         False),
+    ]
+    runs = {name: mesh_pass(records, name, m, fx, n, fams, warm)
+            for name, m, fx, n, fams, warm in cells}
+    steps = mesh_steps(mesh, north, N_MESH_TOKENS)
+    records.setdefault("mesh", {}).update(
+        shards=len(mesh), devices=[str(d) for d in mesh.devices],
+        cells={k: dict(n=v["n"], mesh_s=v.get("mesh"),
+                       plain_s=v.get("plain"), launches=v["launches"])
+               for k, v in runs.items()},
+        steps_s=steps)
+
+
 def device_profile():
     """A torch.profiler context over CUPTI that records the card's work
     only (kernels, copies, fills), no host operator."""
@@ -5257,6 +5805,28 @@ def main() -> int:
 
     records = {}
     t_run = time.perf_counter()
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(
+        max_workers=max(1, min(len(FIXTURE_JOBS), (os.cpu_count() or 2) - 1)),
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        start_fixtures(pool)
+        run_phases(records)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all "
+        f"({time.perf_counter() - t_run:.1f} s after the build)")
+    print_records(records, ptxas)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run_phases(records):
+    """Every phase in order, each timed ("phase …: s")."""
 
     def timed(name, fn, *a):
         t0 = time.perf_counter()
@@ -5267,14 +5837,15 @@ def main() -> int:
     timed("kernels", kernel_phase, records)
     timed("kernels at 34+33 and 45+45", wide_phase, records)
     timed("ladder", ladder_phase, records)
+    timed("fixtures", wait_fixtures)
     north = timed("north-star", main_path, records)
     timed("validator", validator_path, records, north)
-    timed("config-3", config3_path, records)
+    config3 = timed("config-3", config3_path, records)
     config4 = timed("config-4", config4_path, records)
     pq = timed("pq-mldsa", mldsa_path, records)
     timed("engine modes", engine_modes_path, records, north, config4, pq)
     timed("ps-sha512", ps512_path, records)
-    timed("pq-slhdsa", slhdsa_path, records)
+    slh = timed("pq-slhdsa", slhdsa_path, records)
     timed("config-2", config2_path, records)
     timed("rsa-limb", rsalimb_path, records)
     timed("big-jwks", bigjwks_path, records)
@@ -5283,9 +5854,12 @@ def main() -> int:
     fleet = timed("fleet", fleet_path, records, north)
     with fleet["stack"]:
         timed("frontdoor", frontdoor_path, records, fleet)
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all "
-        f"({time.perf_counter() - t_run:.1f} s after the build)")
+    timed("w12", w12_path, records, north, config3)
+    timed("mesh", mesh_path, records, north, config4, pq, slh)
 
+
+def print_records(records, ptxas):
+    """The per-kernel JSON line."""
     kernels = [
         dict(name="redc", route="cuda",
              source="cap_tpu_torch/gpu/csrc/redc.cu",
@@ -5325,10 +5899,6 @@ def main() -> int:
              ptxas={k: v for k, v in ptxas.items() if k == "intt"}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 """Time the CUDA kernels of one checkout on one NVIDIA card.
 
     python3 ladder_bench.py [--root DIR] [--lanes N] [--build-only]
-                            [--sass]
+                            [--sass] [--w-bits 8|12]
 
 Imports ``cap_tpu_torch`` from DIR (default: this script's checkout)
 and builds its redc, madd, edw, keccak and ntt kernels, and its
@@ -23,7 +23,11 @@ chunk):
 - one ``cuda_madd.madd`` launch on each of those curves (random state
   and table values < p, random has and inf masks);
 - that curve's ladder over a window table of G and 8 key slots
-  (random values < p, random 8-bit digits, half the lanes on G's slot):
+  (random values < p, random w-bit digits, half the lanes on G's slot;
+  ``--w-bits 12``: 12-bit windows, 22 / 32 / 44 of 4,095 rows a slot on
+  P-256 / P-384 / P-521, the table's values drawn from a pool of 65,536
+  random values, which keeps its host build short; a checkout's
+  ``ec_rns.ctx_for`` must take the width):
   one madd a window, each after an ``index_select`` gather of the
   window's rows (the per-window path of ``ec_rns``), and, where the
   checkout has it, the whole-ladder kernel on the same inputs, with the
@@ -72,6 +76,9 @@ from chip_smoke import kernel_ms, ptxas_kernels, residues_of_bytes
 SEED = 20261017
 CURVES = ("P-256", "P-384", "P-521")
 N_KEYS = 8
+
+
+W_POOL = 1 << 16        # random values a 12-bit table draws on
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -317,6 +324,7 @@ def main() -> int:
     ap.add_argument("--lanes", type=int, default=65536)
     ap.add_argument("--build-only", action="store_true")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--w-bits", type=int, default=8, choices=(8, 12))
     args = ap.parse_args()
     import torch
 
@@ -367,7 +375,7 @@ def main() -> int:
     n = args.lanes
     out = dict(root=root, card=card, lanes=n, build_s=build_s,
                ptxas=ptxas, sass=sass, redc={}, madd={}, ladder={},
-               digests={}, by={})
+               digests={}, by={}, w_bits=args.w_bits)
     for crv in CURVES:
         c = ec_rns.ctx_for(crv)
         if (c.A.count, c.B.count) not in cuda_redc.KERNEL_SHAPES:
@@ -399,13 +407,20 @@ def main() -> int:
                                                  y2p)))
         print(f"madd {crv}: {n} lanes, {ms:.4f} ms, outputs sha256 "
               f"{dig['madd'][:16]}", flush=True)
-        # the ladder both ways
+        # the ladder both ways, at the width asked for
+        if args.w_bits != 8:
+            c = ec_rns.ctx_for(crv, args.w_bits)
         w = c.n_windows
         per = (1 << c.w_bits) - 1
         stride = (N_KEYS + 1) * per
         rows = w * stride
-        _, _, tx = residues(ec_rns, c, rng, rows)
-        _, _, ty = residues(ec_rns, c, rng, rows)
+        if args.w_bits == 8:
+            _, _, tx = residues(ec_rns, c, rng, rows)
+            _, _, ty = residues(ec_rns, c, rng, rows)
+        else:
+            _, _, pool = residues(ec_rns, c, rng, W_POOL)
+            tx, ty = (pool[:, rng.integers(0, W_POOL, rows)]
+                      for _ in range(2))
         tab = np.ascontiguousarray(np.concatenate([tx.T, ty.T], axis=1))
         d = rng.integers(0, per + 1, (w, n)).astype(np.int32)
         base = np.zeros(n, np.int32)
@@ -413,7 +428,8 @@ def main() -> int:
         tab_t, d, base = T(np.ascontiguousarray(tab.T)), T(d), T(base)
         rec = dict(windows=w, per_window_ms=cuda_ms(
             lambda: per_window(cuda_madd, c, tab_t, d, base, stride), 5))
-        line = (f"ladder {crv}: {w} windows, per-window path "
+        line = (f"ladder {crv}: {w} windows of {c.w_bits} bits over "
+                f"{rows} rows, per-window path "
                 f"{rec['per_window_ms']:.4f} ms")
         if cuda_ladder is not None:
             tab = T(tab)

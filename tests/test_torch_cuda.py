@@ -14,7 +14,12 @@ against the CPU (a 9,216-bit modulus against the host oracle), and
 over the card keyset against the CPU, ``KeyPlaneKeySet`` on the card
 against the CPU across a rotation, a ``WorkerPool`` of a card
 worker and a CPU worker behind ``FleetClient``, and a ``FrontDoor``
-over a card worker and a CPU worker behind both gates.
+over a card worker and a CPU worker behind both gates; the ladder
+kernel at 12-bit windows on three curves and ``verify_ecdsa_batch(...,
+w_bits=12)`` against the CPU; the keyset over a two-shard mesh on one
+card (``Mesh([cuda:0, cuda:0])``), over the card and the CPU
+(``Mesh([cuda:0, cpu])``) and over ``make_mesh(2)`` (two cards) against
+the unmeshed keyset, launches once a card shard.
 
 Marked ``cuda``: without a card each test skips. On the card's machine
 (no jax there, so without the suite's conftest):
@@ -1495,3 +1500,155 @@ def test_mldsa_two_phase_on_the_card_matches_the_cpu(dev):
     assert list(card) == list(cpu) and sum(card) == 8
     assert launched == dict(redc=0, madd=0, ladder=0, edw=0, keccak=0,
                             ntt=2, intt=1)
+
+
+@pytest.mark.parametrize("n", [1, 129, 4097, 33])
+@pytest.mark.parametrize("crv", ["P-256", "P-384", "P-521"])
+def test_ladder_kernel_at_12_bit_windows_matches_plain(dev, crv, n):
+    """The whole-ladder kernel over 4,095-row windows (22, 32 and 44
+    windows), a table of G and one key slot drawn from a pool of random
+    values: every output equal by value to the plain version, the true
+    degeneracies flagged."""
+    from cap_tpu_torch import testing as tt
+
+    c = ec_rns.ctx_for(crv, 12)
+    assert c.n_windows == {"P-256": 22, "P-384": 32, "P-521": 44}[crv]
+    rng = np.random.default_rng(1200 + n)
+    tab, d, base, stride, true_deg = tt.ladder_inputs(
+        c, c.n_windows, n, 1, rng, at_inf=4, plant_every=9, zero_share=0.1,
+        pool=4096)
+    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    args = (T(tab), T(d), T(base), stride)
+    before = cuda_ladder.launches
+    out_k = cuda_ladder.ladder(c, *args)
+    out_p = cuda_ladder.ladder_ref(c, *args)
+    torch.cuda.synchronize()
+    assert cuda_ladder.launches == before + 1
+    for kk, pp in zip(out_k[:3], out_p[:3]):
+        assert _same_values(c, kk, pp)
+    assert torch.equal(out_k[3], out_p[3])
+    assert out_k[4].cpu().numpy()[true_deg].all()
+
+
+@pytest.mark.parametrize("ladder", ["jacobian", "affine"])
+def test_ecdsa_at_12_bit_windows_on_the_card_matches_the_cpu(dev, ladder):
+    """``verify_ecdsa_batch(..., w_bits=12)`` on the card against the
+    same call on the CPU over the P-256 edge vectors, and against the
+    oracle; the Jacobian ladder 1 ladder + 11 redc launches, the affine
+    one the redc count of ``affine_redc_launches`` at 12 bits."""
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.gpu import ec as gpuec
+
+    key, names, sigs, digs = tt.ec_edge_vectors("P-256")
+    idx = np.zeros(len(sigs), np.int64)
+    table = gpuec.ECKeyTable("P-256", [key])
+    table.rns(12).device_tab(table.device)
+    before = _counts()
+    card = gpuec.verify_ecdsa_batch(table, sigs, digs, idx, ladder=ladder,
+                                    w_bits=12)
+    launched = _delta(before)
+    cpu = gpuec.verify_ecdsa_batch(
+        gpuec.ECKeyTable("P-256", [key], device="cpu"), sigs, digs, idx,
+        ladder=ladder, w_bits=12)
+    want = [gpuec._py_verify_one(table, 0, s, d) for s, d in zip(sigs, digs)]
+    assert [bool(v) for v in card] == [bool(v) for v in cpu] == want
+    expect = {k: 0 for k in launched}
+    if ladder == "jacobian":
+        expect.update(ladder=1, redc=11)
+    else:
+        expect["redc"] = ec_rns.affine_redc_launches("P-256", 128, 12)
+    assert launched == expect
+    assert sorted(table._rns) == [12]
+
+
+def _mesh_fixture():
+    """A mixed JWKS (RS256, ES256, PS256, EdDSA, ML-DSA-44 keys) and a
+    batch with a tampered token of each family and garbage."""
+    import random
+
+    from cap_tpu_torch import testing as tt
+    from cap_tpu_torch.jwt import algs
+    from cap_tpu_torch.jwt.jwk import JWK
+
+    jwks, tokens, _ = tt.headline_fixtures(32, seed=19)
+    c4, t4, _ = tt.config4_fixtures(16, seed=19)
+    ml, tm, _ = tt.mldsa_fixtures(8, seed=19)
+    rng = random.Random(19)
+    ed = tt.generate_ed25519_key(rng)
+    jwks = jwks + c4 + ml + [JWK(ed.public_key(), kid="ed-x")]
+    tokens = tokens + t4 + tm + [tt.sign_jwt(ed, algs.EdDSA,
+                                             tt.default_claims())]
+    bad = [t[:-4] + ("AAAA" if t[-4:] != "AAAA" else "BBBB")
+           for t in (tokens[0], tokens[8], t4[0], t4[8], tm[0])]
+    return jwks, tokens + bad + ["a.b"]
+
+
+def _norm(results):
+    return [repr(x) if isinstance(x, Exception) else x for x in results]
+
+
+def test_keyset_over_a_two_shard_mesh_on_one_card(dev):
+    """``GPUBatchKeySet(mesh=Mesh([cuda:0, cuda:0]))`` against the
+    unmeshed keyset on the card: equal verdicts; every chunk's launches
+    once a shard (ES 2 ladder + 22 redc, EdDSA 64 edw + 6 redc, ML-DSA
+    28 keccak + 4 ntt + 2 intt)."""
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.parallel.mesh import Mesh
+
+    jwks, batch = _mesh_fixture()
+    plain = GPUBatchKeySet(jwks)
+    want = plain.verify_batch(batch)
+    before = _counts()
+    plain.verify_batch(batch)
+    one = _delta(before)
+    meshed = GPUBatchKeySet(jwks, mesh=Mesh(["cuda:0", "cuda:0"]))
+    before = _counts()
+    got = meshed.verify_batch(batch)
+    two = _delta(before)
+    assert _norm(got) == _norm(want)
+    assert sum(isinstance(x, dict) for x in got) == len(batch) - 6
+    assert one == dict(redc=11 + 3, madd=0, ladder=1, edw=32, keccak=14,
+                       ntt=2, intt=1)
+    assert two == {k: 2 * v for k, v in one.items()}
+    assert _norm(meshed.verify_batch_raw(batch)) == _norm(
+        plain.verify_batch_raw(batch))
+
+
+def test_keyset_over_a_card_and_the_cpu(dev):
+    """``GPUBatchKeySet(mesh=Mesh([cuda:0, cpu]))``: one shard a chunk
+    on the card and one on the CPU's plain path, so a tensor left on
+    the wrong device fails here. Verdicts equal to the unmeshed
+    keyset's (dicts and raw); the card shard's launches counted once a
+    chunk, the CPU shard launching nothing."""
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.parallel.mesh import Mesh
+
+    jwks, batch = _mesh_fixture()
+    plain = GPUBatchKeySet(jwks)
+    want = plain.verify_batch(batch)
+    meshed = GPUBatchKeySet(jwks, mesh=Mesh(["cuda:0", "cpu"]))
+    assert meshed.device == torch.device("cuda:0")
+    before = _counts()
+    got = meshed.verify_batch(batch)
+    launched = _delta(before)
+    assert _norm(got) == _norm(want)
+    assert launched == dict(redc=11 + 3, madd=0, ladder=1, edw=32,
+                            keccak=14, ntt=2, intt=1)
+    assert _norm(meshed.verify_batch_raw(batch)) == _norm(
+        plain.verify_batch_raw(batch))
+
+
+def test_keyset_over_two_cards(dev):
+    """``make_mesh(2)``: the shards on two cards, verdicts equal to the
+    unmeshed keyset's (skips below two cards)."""
+    from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
+    from cap_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    jwks, batch = _mesh_fixture()
+    mesh = make_mesh(2)
+    meshed = GPUBatchKeySet(jwks, mesh=mesh)
+    assert meshed.device == torch.device("cuda:0")
+    assert _norm(meshed.verify_batch(batch)) == _norm(
+        GPUBatchKeySet(jwks).verify_batch(batch))

@@ -119,4 +119,4 @@ def test_limb_tables_are_lazy():
     """An ES table builds no limb rows until the limb engine asks."""
     key, *_ = tt.ec_edge_vectors("P-256")
     table = gpuec.ECKeyTable("P-256", [key], device="cpu")
-    assert table._limb is None and table._rns is None
+    assert table._limb is None and table._rns == {}

@@ -109,17 +109,31 @@ def test_utils_exports_equal_the_reference():
     ("fleet", set()),
     ("parallel", None)])
 def test_package_exports_equal_the_reference(pkg, left_out):
-    """The ported packages export the reference's names, less what is
-    still to port (the mesh half of ``parallel``)."""
+    """The ported packages export the reference's names. ``parallel``:
+    the reference's package names (it has no ``__all__``: the mesh
+    functions), then the placement names of its ``place`` module."""
     import importlib
+    import inspect
 
     t_mod = importlib.import_module(f"cap_tpu_torch.{pkg}")
-    if left_out is None:
-        assert t_mod.__all__ == ["PlacementError", "WorkerPlacement",
-                                 "assert_single_owner",
-                                 "single_owner_placement"]
-        return
     j_mod = importlib.import_module(f"cap_tpu.{pkg}")
+    if left_out is None:
+        j_place = importlib.import_module(f"cap_tpu.{pkg}.place")
+        mesh_names = sorted(n for n in dir(j_mod) if not n.startswith("_")
+                            and not inspect.ismodule(getattr(j_mod, n)))
+        assert mesh_names == ["make_mesh", "sharded_rs256_verify",
+                              "sharded_verify_step"]
+        place_names = ["PlacementError", "WorkerPlacement",
+                       "assert_single_owner", "single_owner_placement"]
+        assert t_mod.__all__ == mesh_names + place_names
+        for name in t_mod.__all__:
+            ref = getattr(j_mod, name, None) or getattr(j_place, name)
+            assert getattr(t_mod, name).__name__ == ref.__name__
+        t_place = importlib.import_module(f"cap_tpu_torch.{pkg}.place")
+        for name in ("batch_axis", "shard_batch", "replicated"):
+            assert callable(getattr(t_place, name))
+            assert callable(getattr(j_place, name))
+        return
     assert sorted(t_mod.__all__) == sorted(set(j_mod.__all__) - left_out)
     for name in t_mod.__all__:
         assert getattr(t_mod, name) is not None

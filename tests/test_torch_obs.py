@@ -27,6 +27,7 @@ import pytest
 from cap_tpu import errors as j_errors
 from cap_tpu import telemetry as j_tel
 from cap_tpu.obs import decision as j_dec
+from cap_tpu.obs import occupancy as j_occ
 from cap_tpu.obs import postmortem as j_pm
 from cap_tpu.obs import slo as j_slo
 from cap_tpu.serve import obs as j_obs
@@ -39,6 +40,7 @@ from cap_tpu_torch.jwt import jwk as t_jwk
 from cap_tpu_torch.jwt.gpu_keyset import GPUBatchKeySet
 from cap_tpu_torch.jwt.jose import b64url_encode
 from cap_tpu_torch.obs import decision as t_dec
+from cap_tpu_torch.obs import occupancy as t_occ
 from cap_tpu_torch.obs import postmortem as t_pm
 from cap_tpu_torch.obs import slo as t_slo
 from cap_tpu_torch.serve import client as t_client
@@ -410,6 +412,11 @@ def _get(addr, path):
 
 def test_obs_servers_equal_jax(monkeypatch):
     monkeypatch.setattr(time, "time", lambda: 1.7e9)
+    # each package's occupancy plane is process-wide and every scrape
+    # publishes it: start both empty, so that engine work of an earlier
+    # test in this process does not reach one side's /metrics only
+    for occ in (j_occ, t_occ):
+        monkeypatch.setattr(occ, "_acc", occ.OccAccumulator())
     rng = np.random.default_rng(5)
     extra = lambda: {"batcher.queued_tokens": 2.0}  # noqa: E731
     js = j_obs.ObsServer(extra=extra)
